@@ -1,0 +1,46 @@
+"""The PyTorch port imports without jax, and builds nothing at import."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MODULES = [
+    "videomamba_tpu_torch",
+    "videomamba_tpu_torch.checkpoint",
+    "videomamba_tpu_torch.runtime",
+    "videomamba_tpu_torch.streaming",
+    "videomamba_tpu_torch.models",
+    "videomamba_tpu_torch.models.block",
+    "videomamba_tpu_torch.models.initializers",
+    "videomamba_tpu_torch.models.mamba",
+    "videomamba_tpu_torch.models.presets",
+    "videomamba_tpu_torch.models.videomamba",
+    "videomamba_tpu_torch.ops",
+    "videomamba_tpu_torch.ops.causal_conv1d",
+    "videomamba_tpu_torch.ops.dispatch",
+    "videomamba_tpu_torch.ops.norm",
+    "videomamba_tpu_torch.ops.resample",
+    "videomamba_tpu_torch.ops.selective_scan",
+    "videomamba_tpu_torch.ops.kernels",
+    "videomamba_tpu_torch.ops.kernels._build",
+    "videomamba_tpu_torch.ops.kernels.fused_add_norm",
+    "videomamba_tpu_torch.ops.kernels.mixer_fused",
+    "videomamba_tpu_torch.ops.kernels.scan",
+]
+
+
+def test_port_imports_without_jax():
+    code = "\n".join(
+        ["import importlib, sys"]
+        + [f"importlib.import_module({m!r})" for m in MODULES]
+        + [
+            "assert 'jax' not in sys.modules, 'jax was imported'",
+            "assert not any(m == 'triton' or m.startswith('triton.') for m in sys.modules)",
+            "from videomamba_tpu_torch.ops.kernels import _build",
+            "assert _build.library.cache_info().currsize == 0, 'built at import'",
+        ]
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=300)

@@ -1,0 +1,47 @@
+// Selective scan (Mamba-1 S6 recurrence) for Hopper.
+//
+// Replaces the Pallas kernel videomamba_tpu/ops/pallas/scan.py
+// (scan_chunked_pallas -> _scan_kernel). The walk itself is in
+// scan_walk.cuh, shared with the fused mixer.
+//
+// What bounds it on the H100: the time walk is a serial chain of L steps per
+// channel, so at batch 1 the kernel is latency-bound (grid ceil(D/128) x B:
+// 12 blocks at VideoMamba-Base widths on a 132-SM card). Per step each
+// thread does N exps and 2N FMAs; the bytes moved (u, delta, z, y once, B/C
+// once per block) are far below the memory roofline. The design keeps the
+// state in registers and stages each time tile's loads together, so the
+// chain waits on arithmetic rather than on device memory.
+#include "scan_walk.cuh"
+
+extern "C" int vmt_selective_scan(
+    const float* u, long long ld_u, const float* delta, long long ld_delta,
+    const float* z, long long ld_z, const float* Bm, long long ld_B,
+    const float* Cm, long long ld_C, const float* A, const float* Dskip,
+    const float* delta_bias, const float* h0, float* y, long long ld_y,
+    float* h_last, int batch, int L, int D, int N, int softplus, int device,
+    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  vmt::ScanArgs a;
+  a.u = u;
+  a.ld_u = ld_u;
+  a.delta = delta;
+  a.ld_delta = ld_delta;
+  a.z = z;
+  a.ld_z = ld_z;
+  a.B = Bm;
+  a.ld_B = ld_B;
+  a.C = Cm;
+  a.ld_C = ld_C;
+  a.A = A;
+  a.Dskip = Dskip;
+  a.delta_bias = delta_bias;
+  a.h0 = h0;
+  a.y = y;
+  a.ld_y = ld_y;
+  a.h_last = h_last;
+  a.L = L;
+  a.D = D;
+  a.softplus = softplus;
+  return (int)vmt::launch_scan_walk(a, batch, N, (cudaStream_t)stream);
+}

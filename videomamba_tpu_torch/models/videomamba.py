@@ -1,0 +1,532 @@
+"""PretrainVideoMamba — the video backbone, PyTorch port (serving path).
+
+Port of videomamba_tpu/models/videomamba.py with the reference's parameter
+names, so a reference state_dict loads strictly:
+
+* Patch embedding is a reshape plus one matmul, exactly as in the JAX package
+  (videomamba.py:103-118). The reference's Conv3d has kernel == stride, so
+  this is the same function, and it keeps cuDNN's TF32 convolution off the
+  fp32 path. ``patch_embed.proj`` holds the Conv3d-layout weight only.
+* Positional embeddings are resolved per call: bicubic re-gridding when the
+  spatial grid differs from the trained one, and linear temporal
+  extrapolation past the trained horizon with the resample matrix built on
+  the host (NumPy) and sliced to the chunk, as in the JAX package.
+* Streaming state is threaded through the blocks; chunk 0 carries CLS,
+  continuation chunks (``temporal_pos_offset > 0`` with full state) do not.
+
+Masking and training (drop path, activation checkpointing) are not ported.
+
+Forward-return contract (streaming.py):
+  add_pool_norm=True:  (x_vis, x_pool) | (x_vis, x_pool, next_state)
+  add_pool_norm=False: x_vis | (x_vis, next_state)
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from videomamba_tpu_torch.models import initializers as init
+from videomamba_tpu_torch.models.block import Norm, create_block
+from videomamba_tpu_torch.models.mamba import skip_init
+from videomamba_tpu_torch.ops.norm import fused_add_norm, layer_norm
+from videomamba_tpu_torch.ops.resample import (
+    infer_spatial_grid,
+    linear_resample_matrix,
+    resample_bicubic_2d,
+)
+from videomamba_tpu_torch.streaming import STREAMING_CONTRACT_VERSION
+
+logger = logging.getLogger(__name__)
+
+Tensor = torch.Tensor
+LayerState = Union[Tensor, Tuple[Tensor, Tensor]]
+StateCollection = Union[List[LayerState], Tuple[LayerState, ...], Dict[int, LayerState]]
+
+
+def _to_2tuple(v) -> Tuple[int, int]:
+    if isinstance(v, (tuple, list)):
+        return int(v[0]), int(v[1])
+    return int(v), int(v)
+
+
+class PatchEmbed(nn.Module):
+    """3D tubelet patchifier: (B, C, T, H, W) -> (B, T', H'*W', E)."""
+
+    def __init__(
+        self,
+        img_size: Union[int, Tuple[int, int]] = 224,
+        patch_size: Union[int, Tuple[int, int]] = 16,
+        kernel_size: int = 1,
+        in_chans: int = 3,
+        embed_dim: int = 768,
+        device=None,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        self.img_size = _to_2tuple(img_size)
+        self.patch_size = _to_2tuple(patch_size)
+        self.num_patches = (self.img_size[1] // self.patch_size[1]) * (
+            self.img_size[0] // self.patch_size[0]
+        )
+        self.tubelet_size = int(kernel_size)
+        self.in_chans = int(in_chans)
+        self.embed_dim = int(embed_dim)
+        # Holds the reference-layout (E, C, kt, p, p) weight and (E,) bias;
+        # forward never runs the convolution.
+        kt, (p1, p2) = self.tubelet_size, self.patch_size
+        self.proj = skip_init(
+            nn.Conv3d, in_chans, embed_dim, (kt, p1, p2), stride=(kt, p1, p2),
+            device=device, dtype=dtype,
+        )
+
+    @property
+    def patch_dim(self) -> int:
+        return self.in_chans * self.tubelet_size * self.patch_size[0] * self.patch_size[1]
+
+    def forward(self, x: Tensor) -> Tensor:
+        """Each non-overlapping tubelet flattened in (c, kt, ph, pw) order —
+        the flattened Conv3d weight's order — then one dense projection."""
+        bsz, c, t, h, w = x.shape
+        kt = self.tubelet_size
+        p1, p2 = self.patch_size
+        gt, gh, gw = t // kt, h // p1, w // p2
+        x = x.reshape(bsz, c, gt, kt, gh, p1, gw, p2)
+        x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)  # (B, gt, gh, gw, c, kt, p1, p2)
+        x = x.reshape(bsz, gt, gh * gw, self.patch_dim)
+        kernel = self.proj.weight.reshape(self.embed_dim, self.patch_dim)
+        return x @ kernel.t() + self.proj.bias
+
+
+class PretrainVideoMamba(nn.Module):
+    """VideoMamba encoder with streaming state and pooling heads.
+
+    ``forward`` mirrors the reference signature; ``mask`` must be None
+    (masking is not ported). Parameters are drawn from ``generator``
+    (default: seed 0) with the reference's three init passes.
+    """
+
+    streaming_contract_version: str = STREAMING_CONTRACT_VERSION
+
+    def __init__(
+        self,
+        img_size: Union[int, Tuple[int, int]] = 224,
+        patch_size: int = 16,
+        depth: int = 24,
+        embed_dim: int = 192,
+        channels: int = 3,
+        drop_path_rate: float = 0.0,
+        ssm_cfg: Optional[Dict[str, object]] = None,
+        norm_epsilon: float = 1e-5,
+        initializer_cfg: Optional[Dict[str, object]] = None,
+        fused_add_norm: bool = True,
+        rms_norm: bool = True,
+        residual_in_fp32: bool = True,
+        bimamba: bool = True,
+        pool_type: str = "cls+avg",
+        kernel_size: int = 1,
+        num_frames: int = 8,
+        device=None,
+        dtype: Optional[torch.dtype] = None,
+        use_checkpoint: bool = False,
+        checkpoint_num: int = 0,
+        add_pool_norm: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if not bimamba:
+            raise NotImplementedError("Only bimamba=True is supported.")
+        if use_checkpoint and checkpoint_num > 0:
+            raise NotImplementedError("Activation checkpointing is training; not ported.")
+        del initializer_cfg
+        dtype = torch.float32 if dtype is None else dtype
+        g = torch.Generator().manual_seed(0) if generator is None else generator
+        self.residual_in_fp32 = residual_in_fp32
+        self.fused_add_norm = fused_add_norm
+        self.depth = depth
+        self.pool_type = pool_type
+        self.d_model = self.num_features = self.embed_dim = embed_dim
+        self.num_frames = num_frames
+        self.norm_epsilon = norm_epsilon
+        self.rms_norm = rms_norm
+        self.drop_path_rate = drop_path_rate
+        self.add_pool_norm = add_pool_norm
+
+        self.patch_embed = PatchEmbed(
+            img_size=img_size, patch_size=patch_size, kernel_size=kernel_size,
+            in_chans=channels, embed_dim=embed_dim, device=device, dtype=dtype,
+        )
+        dpr = [float(x) for x in np.linspace(0, drop_path_rate, depth)]
+        inter_dpr = [0.0] + dpr
+        self.layers = nn.ModuleList(
+            create_block(
+                embed_dim, ssm_cfg=ssm_cfg, norm_epsilon=norm_epsilon,
+                rms_norm=rms_norm, residual_in_fp32=residual_in_fp32,
+                fused_add_norm=fused_add_norm, layer_idx=i, bimamba=bimamba,
+                drop_path=inter_dpr[i], device=device, dtype=dtype, generator=g,
+            )
+            for i in range(depth)
+        )
+        tubelets = num_frames // self.patch_embed.tubelet_size
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim, device=device, dtype=dtype))
+        self.pos_embed = nn.Parameter(
+            torch.empty(1, self.patch_embed.num_patches + 1, embed_dim, device=device, dtype=dtype)
+        )
+        self.temporal_pos_embedding = nn.Parameter(
+            torch.zeros(1, tubelets, embed_dim, device=device, dtype=dtype)
+        )
+        self.norm = Norm(embed_dim, bias=not rms_norm, device=device)
+        if add_pool_norm:
+            self.pool_norm = Norm(embed_dim, bias=True, device=device)
+        self._init_weights(g)
+
+    @torch.no_grad()
+    def _init_weights(self, g: torch.Generator) -> None:
+        """The reference's init passes (videomamba_tpu/models/videomamba.py:
+        213-269): Conv3d default for the patch projection, trunc_normal(0.02)
+        on pos_embed and on every mixer Linear weight with dt_proj.bias
+        zeroed (segm_init), then out_proj kaiming-uniform / sqrt(depth)."""
+        pe = self.patch_embed
+        pe.proj.weight.copy_(
+            init.kaiming_uniform(pe.proj.weight.shape, pe.patch_dim, g)
+        )
+        pe.proj.bias.copy_(init.default_bias(pe.proj.bias.shape, pe.patch_dim, g))
+        self.pos_embed.copy_(init.trunc_normal(self.pos_embed.shape, g))
+        for block in self.layers:
+            mx = block.mixer
+            for lin in (mx.in_proj, mx.x_proj, mx.dt_proj):
+                lin.weight.copy_(init.trunc_normal(lin.weight.shape, g))
+            mx.dt_proj.bias.zero_()
+            mx.out_proj.weight.copy_(
+                init.kaiming_uniform(mx.out_proj.weight.shape, mx.d_inner, g)
+                / np.sqrt(self.depth)
+            )
+            for lin in (mx.in_proj, mx.out_proj):
+                if lin.bias is not None:
+                    lin.bias.zero_()
+
+    # -------------------------------------------------------- state handling
+
+    def _get_layer_state(
+        self, state: Optional[StateCollection], layer_idx: int
+    ) -> Optional[LayerState]:
+        if state is None:
+            return None
+        if isinstance(state, dict):
+            return state.get(layer_idx)
+        if isinstance(state, (list, tuple)):
+            return state[layer_idx]
+        raise TypeError("state must be a list, tuple, or dict indexed by layer id")
+
+    def allocate_state(
+        self, batch_size: int, dtype=None, device=None, as_dict: bool = False
+    ) -> StateCollection:
+        """Per-layer zero streaming state, on the model's device by default."""
+        states = [
+            layer.allocate_state(batch_size, dtype=dtype, device=device)
+            for layer in self.layers
+        ]
+        return dict(enumerate(states)) if as_dict else states
+
+    def init_ssm_state(
+        self, batch_size: int, dtype=None, device=None, as_dict: bool = False
+    ):
+        """SSM-only per-layer states (no conv context carried)."""
+        states = [
+            layer.allocate_state(batch_size, dtype=dtype, device=device)[1]
+            for layer in self.layers
+        ]
+        return dict(enumerate(states)) if as_dict else states
+
+    # ----------------------------------------------- host-side shape helpers
+
+    def _validate_temporal_length(self, frame_count: int) -> int:
+        tubelet = self.patch_embed.tubelet_size
+        if frame_count <= 0:
+            raise ValueError("Input must contain at least one frame.")
+        if frame_count % tubelet != 0:
+            raise ValueError(
+                f"Input frame count ({frame_count}) must be divisible by "
+                f"tubelet size ({tubelet})."
+            )
+        return frame_count // tubelet
+
+    def _spatial_token_grid(self, height: int, width: int) -> Tuple[int, int]:
+        patch_h, patch_w = self.patch_embed.patch_size
+        if height < patch_h or width < patch_w:
+            raise ValueError(
+                "Input spatial size must be at least one patch: "
+                f"got ({height}, {width}) with patch size ({patch_h}, {patch_w})."
+            )
+        return height // patch_h, width // patch_w
+
+    def _has_cls_token_for_forward(
+        self, ssm_state: Optional[StateCollection], temporal_pos_offset: int
+    ) -> bool:
+        """CLS only in the first chunk of a full-state streaming run."""
+        if ssm_state is None or temporal_pos_offset <= 0:
+            return True
+        layer_state = self._get_layer_state(ssm_state, 0)
+        is_full_state = isinstance(layer_state, (list, tuple)) and len(layer_state) == 2
+        return not is_full_state
+
+    # ------------------------------------------- positional-embedding access
+
+    def _get_spatial_pos_embedding(self, grid_h: int, grid_w: int, dtype) -> Tensor:
+        """Patch positional embeddings for a runtime grid; bicubic re-grid when
+        it differs from the trained grid."""
+        patch_pos = self.pos_embed[:, 1:]
+        base_h = self.patch_embed.img_size[0] // self.patch_embed.patch_size[0]
+        base_w = self.patch_embed.img_size[1] // self.patch_embed.patch_size[1]
+        if base_h * base_w != patch_pos.shape[1]:
+            base_h, base_w = infer_spatial_grid(patch_pos.shape[1], (base_h, base_w))
+        if (grid_h, grid_w) == (base_h, base_w):
+            return patch_pos.to(dtype)
+        pos = patch_pos.reshape(1, base_h, base_w, self.embed_dim)
+        pos = resample_bicubic_2d(pos, (grid_h, grid_w))
+        return pos.reshape(1, grid_h * grid_w, self.embed_dim).to(dtype)
+
+    def _get_temporal_pos_embedding(self, seqlen: int, offset: int, dtype) -> Tensor:
+        """Temporal pos-embed slice [offset, offset + seqlen), linearly
+        extrapolated past the trained horizon: the embedding is resampled to
+        length offset + seqlen and the chunk's rows are taken, so chunked and
+        full runs differ past the horizon, as in the reference."""
+        if offset < 0:
+            raise ValueError("temporal_pos_offset must be non-negative.")
+        pos_embed = self.temporal_pos_embedding
+        pos_len = pos_embed.shape[1]
+        end = offset + seqlen
+        if end <= pos_len:
+            return pos_embed[:, offset:end].to(dtype)
+        m = torch.from_numpy(linear_resample_matrix(pos_len, end)[offset:end])
+        pos = torch.einsum("ol,blc->boc", m.to(pos_embed.device), pos_embed.float())
+        return pos.to(dtype)
+
+    # ------------------------------------------------------------- encoder
+
+    def _encoder(
+        self,
+        x: Tensor,
+        spatial_pos: Tensor,
+        temporal_pos: Tensor,
+        state: Optional[List[Optional[LayerState]]],
+        has_cls: bool,
+    ) -> Tuple[Tensor, Optional[List[Optional[LayerState]]]]:
+        """Patchify -> pos-add -> (CLS) -> depth x Block -> final norm."""
+        compute_dtype = self.patch_embed.proj.weight.dtype
+        tokens = self.patch_embed(x.to(compute_dtype))  # (B, T', HW, E)
+        bsz = tokens.shape[0]
+        tokens = tokens + spatial_pos.to(compute_dtype)[:, None]
+        tokens = tokens + temporal_pos.to(compute_dtype)[:, :, None]
+        tokens = tokens.reshape(bsz, -1, self.embed_dim)
+        if has_cls:
+            cls_tok = (self.cls_token + self.pos_embed[:, :1]).to(compute_dtype)
+            tokens = torch.cat([cls_tok.expand(bsz, 1, self.embed_dim), tokens], dim=1)
+
+        hidden_states, residual = tokens, None
+        new_states = [None] * self.depth if state is not None else None
+        for idx, layer in enumerate(self.layers):
+            layer_state = self._get_layer_state(state, idx)
+            if isinstance(layer_state, (list, tuple)) and len(layer_state) == 2:
+                hidden_states, residual, new_states[idx] = layer(
+                    hidden_states, residual=residual, state=tuple(layer_state),
+                    return_state=True,
+                )
+            elif layer_state is not None:
+                hidden_states, residual, new_states[idx] = layer(
+                    hidden_states, residual=residual, ssm_state=layer_state,
+                    return_ssm_state=True,
+                )
+            else:
+                hidden_states, residual = layer(hidden_states, residual=residual)
+
+        hidden_states = fused_add_norm(
+            hidden_states, self.norm.weight, self.norm.bias, residual=residual,
+            prenorm=False, residual_in_fp32=self.residual_in_fp32,
+            eps=self.norm_epsilon, norm_type="rms" if self.rms_norm else "layer",
+            use_kernel=self.fused_add_norm,
+        )
+        return hidden_states, new_states
+
+    # ---------------------------------------------------------------- public
+
+    def forward_features(
+        self,
+        x: Tensor,
+        mask=None,
+        use_image: bool = False,
+        ssm_state: Optional[StateCollection] = None,
+        temporal_pos_offset: int = 0,
+    ):
+        """Encoder features; returns (x_vis, next_state) when state is passed,
+        in the container type that was passed (list, tuple or dict)."""
+        del use_image
+        if mask is not None:
+            raise NotImplementedError("Masking is not ported yet.")
+        if x.ndim != 5:
+            raise ValueError("x must have shape [B, C, T, H, W].")
+        t_tokens = self._validate_temporal_length(x.shape[2])
+        grid_h, grid_w = self._spatial_token_grid(x.shape[-2], x.shape[-1])
+        compute_dtype = self.patch_embed.proj.weight.dtype
+        spatial_pos = self._get_spatial_pos_embedding(grid_h, grid_w, compute_dtype)
+        temporal_pos = self._get_temporal_pos_embedding(
+            t_tokens, temporal_pos_offset, compute_dtype
+        )
+        has_cls = self._has_cls_token_for_forward(ssm_state, temporal_pos_offset)
+        state_list, container, any_full = self._canonicalize_state(ssm_state)
+
+        x_vis, new_states = self._encoder(
+            x, spatial_pos, temporal_pos, state_list, has_cls
+        )
+        if new_states is not None:
+            return x_vis, self._repack_state(
+                new_states, container, allow_missing=not any_full
+            )
+        return x_vis
+
+    def _canonicalize_state(self, ssm_state: Optional[StateCollection]):
+        """State collection -> (list form, container tag, any_full_state)."""
+        if ssm_state is None:
+            return None, None, False
+        if isinstance(ssm_state, dict):
+            items = [ssm_state.get(i) for i in range(self.depth)]
+            container = "dict"
+        elif isinstance(ssm_state, (list, tuple)):
+            items = list(ssm_state)
+            container = "tuple" if isinstance(ssm_state, tuple) else "list"
+        else:
+            raise TypeError("state must be a list, tuple, or dict indexed by layer id")
+        any_full = any(isinstance(s, (list, tuple)) and len(s) == 2 for s in items)
+        return items, container, any_full
+
+    def _repack_state(
+        self, states: List[Optional[LayerState]], container: str,
+        allow_missing: bool = False,
+    ) -> StateCollection:
+        """Rebuild the caller's container from per-layer advanced states.
+        Layers of an ssm-only collection with no state ran stateless and stay
+        absent; a full-state collection must cover every layer."""
+        if not allow_missing and any(s is None for s in states):
+            raise ValueError("Expected full state for all layers.")
+        if container == "dict":
+            return {i: s for i, s in enumerate(states) if s is not None}
+        if container == "tuple":
+            return tuple(states)
+        return list(states)
+
+    def forward(
+        self,
+        x: Tensor,
+        mask=None,
+        use_image: bool = False,
+        keep_temporal: bool = False,
+        ssm_state: Optional[StateCollection] = None,
+        temporal_pos_offset: int = 0,
+    ):
+        """Full forward with pooling head (reference videomamba.py:943-1067)."""
+        if x.ndim != 5:
+            raise ValueError("x must have shape [B, C, T, H, W].")
+        grid_h, grid_w = self._spatial_token_grid(x.shape[-2], x.shape[-1])
+        tokens_per_frame = grid_h * grid_w
+        temporal_tokens = self._validate_temporal_length(x.shape[2])
+        has_cls = self._has_cls_token_for_forward(ssm_state, temporal_pos_offset)
+
+        features = self.forward_features(
+            x, mask, use_image, ssm_state=ssm_state,
+            temporal_pos_offset=temporal_pos_offset,
+        )
+        if ssm_state is None:
+            x_vis, next_state = features, None
+        else:
+            x_vis, next_state = features
+
+        if not self.add_pool_norm:
+            return x_vis if ssm_state is None else (x_vis, next_state)
+
+        cls_token = x_vis[:, :1] if has_cls else None
+        patch_tokens = x_vis[:, 1:] if has_cls else x_vis
+        if self.pool_type in {"cls", "cls+avg", "cls_cat_avg"} and cls_token is None:
+            raise ValueError(
+                f"pool_type='{self.pool_type}' requires a CLS token, but "
+                "continuation streaming chunks (temporal_pos_offset > 0 with "
+                "full state) do not include CLS. Use pool_type='avg' for "
+                "chunked streaming."
+            )
+        x_pool = self._pool(
+            cls_token, patch_tokens, keep_temporal, temporal_tokens, tokens_per_frame
+        )
+        if ssm_state is None:
+            return patch_tokens, x_pool
+        return patch_tokens, x_pool, next_state
+
+    def _pool(
+        self,
+        cls_token: Optional[Tensor],
+        patch_tokens: Tensor,
+        keep_temporal: bool,
+        temporal_tokens: int,
+        tokens_per_frame: int,
+    ) -> Tensor:
+        """Pooling head with pool_norm (LayerNorm, eps 1e-5)."""
+        pn = self.pool_norm
+
+        def pool_norm(v: Tensor) -> Tensor:
+            return layer_norm(v, pn.weight, pn.bias, eps=1e-5)
+
+        if self.pool_type == "cls":
+            return pool_norm(cls_token)
+        if keep_temporal:
+            bsz, _, c = patch_tokens.shape
+            temporal_avg = patch_tokens.reshape(
+                bsz, temporal_tokens, tokens_per_frame, c
+            ).mean(dim=2)
+        else:
+            temporal_avg = patch_tokens.mean(dim=1, keepdim=True)
+        if self.pool_type == "cls+avg":
+            return pool_norm(cls_token + temporal_avg)
+        if self.pool_type == "cls_cat_avg":
+            return pool_norm(torch.cat([cls_token, temporal_avg], dim=1))
+        if self.pool_type == "avg":
+            return pool_norm(temporal_avg)
+        raise ValueError(f"Unsupported pool_type: {self.pool_type}")
+
+
+def build_videomamba(config, add_pool_norm: bool = True, device=None,
+                     dtype: Optional[torch.dtype] = None,
+                     generator: Optional[torch.Generator] = None) -> PretrainVideoMamba:
+    """Build the model from a config namespace (videomamba_tpu/models/
+    videomamba.py:906-947). ``config.vision_encoder.channels`` is required.
+    Loading ``vision_encoder.pretrained`` from a file is not ported yet and
+    raises; load weights with :func:`videomamba_tpu_torch.checkpoint.load_state_dict`."""
+    vision_cfg = config.vision_encoder
+    channels = vision_cfg.channels
+    if getattr(vision_cfg, "pretrained", None) is not None:
+        raise NotImplementedError("Loading pretrained checkpoint files is not ported yet.")
+    logger.info("No pretrained weights!!!")
+    return PretrainVideoMamba(
+        img_size=vision_cfg.img_size,
+        patch_size=vision_cfg.patch_size,
+        depth=vision_cfg.depth,
+        embed_dim=vision_cfg.embed_dim,
+        channels=channels,
+        drop_path_rate=vision_cfg.drop_path_rate,
+        ssm_cfg=vision_cfg.ssm_cfg,
+        norm_epsilon=vision_cfg.norm_epsilon,
+        fused_add_norm=vision_cfg.fused_add_norm,
+        rms_norm=vision_cfg.rms_norm,
+        residual_in_fp32=vision_cfg.residual_in_fp32,
+        bimamba=vision_cfg.bimamba,
+        pool_type=vision_cfg.pool_type,
+        kernel_size=vision_cfg.kernel_size,
+        num_frames=vision_cfg.num_frames,
+        use_checkpoint=vision_cfg.use_checkpoint,
+        checkpoint_num=vision_cfg.checkpoint_num,
+        add_pool_norm=add_pool_norm,
+        device=device,
+        dtype=dtype,
+        generator=generator,
+    )

@@ -1,0 +1,164 @@
+"""Build and bind the Hopper kernels under ``videomamba_tpu_torch/csrc``.
+
+All ``.cu`` sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface and loaded with :mod:`ctypes`. The library
+goes to ``build/videomamba_tpu_torch/`` at the repository root, under a file
+name that carries a hash of the sources and flags, so a stale build is never
+loaded. The build runs at the first launch in a process, never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "videomamba_tpu_torch"
+SOURCES = ("fused_add_norm.cu", "selective_scan.cu", "mixer_fused.cu")
+HEADERS = ("scan_walk.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+
+# C entry points: name -> argument types. Every pointer and the stream are
+# c_void_p, so ctypes never cuts a 64-bit address to an int.
+SIGNATURES = {
+    "vmt_fused_add_norm": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
+    "vmt_selective_scan": (
+        _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _LL,
+        _P, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    "vmt_mixer_fused": (
+        _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found: the videomamba_tpu_torch kernels are built from "
+        "source with the CUDA toolkit (put nvcc on PATH or set CUDA_HOME)."
+    )
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC_DIR / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the library if this exact source set has not been built."""
+    lib_path = BUILD_DIR / f"libvmt_kernels_{source_hash()}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               *(str(CSRC_DIR / s) for s in SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+            )
+        os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib_path
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The built library with every entry point's argtypes declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a C entry returned a CUDA error (a refused launch never runs)."""
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA error {err} at launch")
+
+
+def check_operands(kernel: str, device: torch.device, operands: dict,
+                   contiguous=()) -> None:
+    """Raise unless each operand (name -> (tensor or None, shape)) is an fp32
+    tensor of that shape on ``device``, and those named in ``contiguous`` are
+    contiguous. The kernels serve only and have no backward yet, so an
+    operand that autograd would record also raises, instead of the kernel
+    silently cutting the graph."""
+    for name, (t, shape) in operands.items():
+        if t is None:
+            continue
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError(
+                f"{kernel} kernel: {name} must be fp32 on {device} "
+                f"(got {t.dtype} on {t.device})"
+            )
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"{kernel} kernel: {name} has shape {tuple(t.shape)}, "
+                f"expected {tuple(shape)}"
+            )
+        if name in contiguous and not t.is_contiguous():
+            raise ValueError(f"{kernel} kernel: {name} must be contiguous")
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise RuntimeError(
+                f"{kernel} kernel has no backward yet; call it under "
+                "torch.no_grad() or torch.inference_mode()"
+            )
+
+
+def row_stride(t: torch.Tensor, name: str) -> int:
+    """Row stride of a (batch, L, F) operand laid out as rows of unit stride
+    with batch stride L * row stride. Views that split the last axis (x and
+    z of in_proj's output, B and C of x_proj's) qualify; others raise."""
+    b, l, f = t.shape
+    ld = t.stride(1) if l > 1 else (t.stride(0) if b > 1 else f)
+    if (f > 1 and t.stride(2) != 1) or (b > 1 and t.stride(0) != l * ld) or ld < f:
+        raise ValueError(
+            f"{name}: needs rows of unit element stride and batch stride "
+            f"L * row stride, got strides {t.stride()} for shape {tuple(t.shape)}"
+        )
+    return ld
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t) -> int | None:
+    """Device address of a tensor, or None (a NULL pointer) for None."""
+    return None if t is None else t.data_ptr()

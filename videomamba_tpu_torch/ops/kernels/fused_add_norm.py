@@ -1,0 +1,103 @@
+"""K2: fused residual add + RMS/LayerNorm, hand-written CUDA for Hopper.
+
+Replaces videomamba_tpu/ops/pallas/fused_add_norm.py (fused_add_norm_pallas,
+``_kernel``). The kernel is csrc/fused_add_norm.cu: one warp per row, the row
+kept in shared memory between its single read and its writes, statistics in
+fp32 with warp shuffles. It is bound by device memory (two rows read, two
+written, a few flops per element), which is why it reads and writes each
+element once. fp32 only: a tensor of another dtype on CUDA raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from videomamba_tpu_torch.ops import dispatch
+from videomamba_tpu_torch.ops.kernels import _build
+from videomamba_tpu_torch.ops.norm import layer_norm, rms_norm
+
+Tensor = torch.Tensor
+
+MAX_D = 3072  # 4 rows of D fp32 per block in 48 KB of shared memory
+
+
+def fused_add_norm_plain(
+    x: Tensor,
+    weight: Tensor,
+    bias: Optional[Tensor] = None,
+    residual: Optional[Tensor] = None,
+    prenorm: bool = False,
+    residual_in_fp32: bool = False,
+    eps: float = 1e-5,
+    norm_type: str = "rms",
+):
+    """Plain PyTorch version of the kernel (videomamba_tpu/ops/norm.py:170-187)."""
+    if residual is not None:
+        residual_out = x.float() + residual.float()
+    else:
+        residual_out = x.float()
+    if norm_type == "rms":
+        normed = rms_norm(residual_out, weight, eps=eps)
+    elif norm_type == "layer":
+        normed = layer_norm(residual_out, weight, bias, eps=eps)
+    else:
+        raise ValueError(f"Unknown norm_type: {norm_type!r}")
+    normed = normed.to(x.dtype)
+    if not prenorm:
+        return normed
+    if not residual_in_fp32:
+        residual_out = residual_out.to(x.dtype)
+    return normed, residual_out
+
+
+def fused_add_norm(
+    x: Tensor,
+    weight: Tensor,
+    bias: Optional[Tensor] = None,
+    residual: Optional[Tensor] = None,
+    prenorm: bool = False,
+    residual_in_fp32: bool = False,
+    eps: float = 1e-5,
+    norm_type: str = "rms",
+):
+    """Kernel wrapper: same contract as :func:`fused_add_norm_plain`.
+
+    x, residual: (..., D) fp32 contiguous on one CUDA device; weight and bias
+    (D,) fp32. Returns fresh tensors; never synchronises.
+    """
+    if dispatch.runs_plain(x):
+        return fused_add_norm_plain(
+            x, weight, bias, residual=residual, prenorm=prenorm,
+            residual_in_fp32=residual_in_fp32, eps=eps, norm_type=norm_type,
+        )
+    if norm_type not in ("rms", "layer"):
+        raise ValueError(f"Unknown norm_type: {norm_type!r}")
+    d = x.shape[-1]
+    if d > MAX_D:
+        raise ValueError(f"fused_add_norm kernel takes D <= {MAX_D}, got {d}")
+    bias = bias if norm_type == "layer" else None  # RMSNorm has no shift
+    _build.check_operands(
+        "fused_add_norm", x.device,
+        {"x": (x, x.shape), "residual": (residual, x.shape),
+         "weight": (weight, (d,)), "bias": (bias, (d,))},
+        contiguous=("x", "residual", "weight", "bias"),
+    )
+
+    out = torch.empty_like(x)
+    res_out = torch.empty_like(x) if prenorm else None
+    m = x.numel() // d if d else 0
+    if m:
+        err = _build.library().vmt_fused_add_norm(
+            _build.ptr(x), _build.ptr(residual), _build.ptr(weight),
+            _build.ptr(bias), _build.ptr(out),
+            _build.ptr(res_out), m, d, eps, int(norm_type == "rms"),
+            x.device.index, _build.stream_of(x),
+        )
+        _build.check(err, "fused_add_norm")
+        fused_add_norm.launches += 1
+    return (out, res_out) if prenorm else out
+
+
+fused_add_norm.launches = 0

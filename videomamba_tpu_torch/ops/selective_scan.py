@@ -1,0 +1,87 @@
+"""Selective scan (Mamba S6) in the (B, L, D) layout of videomamba_tpu.
+
+Port of videomamba_tpu/ops/selective_scan.py: ``selective_scan_ref`` is the
+sequential fp32 oracle (the plain version of K1), and
+``selective_scan_bld(method="kernel")`` routes through the hand-written K1
+kernel (ops/kernels/scan.py) — on a CPU tensor that is the same oracle.
+State is always (B, D, N) fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+
+from videomamba_tpu_torch.ops.kernels import scan as _scan
+
+Tensor = torch.Tensor
+
+
+def _run(fn, u, delta, A, B, C, D, z, delta_bias, delta_softplus,
+         initial_state, return_last_state):
+    if u.ndim != 3 or B.ndim != 3 or C.ndim != 3:
+        raise ValueError("u, B, C must be rank-3: (B, L, D) and (B, L, N).")
+    bsz, _, d = u.shape
+    h0 = (
+        torch.zeros((bsz, d, A.shape[1]), dtype=torch.float32, device=u.device)
+        if initial_state is None
+        else initial_state.float()
+    )
+    out, h_last = fn(u, delta, A, B, C, D, z, delta_bias, h0, delta_softplus)
+    out = out.to(u.dtype)
+    return (out, h_last) if return_last_state else out
+
+
+def selective_scan_ref(
+    u: Tensor,
+    delta: Tensor,
+    A: Tensor,
+    B: Tensor,
+    C: Tensor,
+    D: Optional[Tensor] = None,
+    z: Optional[Tensor] = None,
+    delta_bias: Optional[Tensor] = None,
+    delta_softplus: bool = False,
+    initial_state: Optional[Tensor] = None,
+    return_last_state: bool = False,
+) -> Union[Tensor, Tuple[Tensor, Tensor]]:
+    """Sequential oracle; same arguments as :func:`selective_scan_bld`."""
+    return _run(_scan.selective_scan_plain, u, delta, A, B, C, D, z,
+                delta_bias, delta_softplus, initial_state, return_last_state)
+
+
+def selective_scan_bld(
+    u: Tensor,
+    delta: Tensor,
+    A: Tensor,
+    B: Tensor,
+    C: Tensor,
+    D: Optional[Tensor] = None,
+    z: Optional[Tensor] = None,
+    delta_bias: Optional[Tensor] = None,
+    delta_softplus: bool = False,
+    initial_state: Optional[Tensor] = None,
+    return_last_state: bool = False,
+    method: str = "ref",
+) -> Union[Tensor, Tuple[Tensor, Tensor]]:
+    """Selective scan in (B, L, D) layout.
+
+    Args:
+        u, delta, z: (B, L, D); B, C: (B, L, N); A: (D, N) real; D,
+            delta_bias: (D,); initial_state: (B, D, N) or None (zeros).
+        delta_softplus: apply softplus to delta + delta_bias.
+        return_last_state: also return the final (B, D, N) fp32 state.
+        method: "ref" (plain oracle) or "kernel" (K1; plain on a CPU tensor).
+
+    Returns:
+        out (B, L, D) in u.dtype, or (out, last_state).
+    """
+    if method == "kernel":
+        fn = _scan.selective_scan
+    elif method == "ref":
+        fn = _scan.selective_scan_plain
+    else:
+        raise ValueError(f"Unknown selective_scan method: {method!r}")
+    return _run(fn, u, delta, A, B, C, D, z, delta_bias, delta_softplus,
+                initial_state, return_last_state)
