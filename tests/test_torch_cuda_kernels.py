@@ -6,19 +6,23 @@ run them without the JAX test harness (this file imports no jax):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
 Shapes here are deliberately ragged (L not a multiple of the time tile, D
-not a multiple of the channel block, strided views). fp32 throughout, TF32
-off, rel_err = max|a - b| / max|b| <= 1e-5 (sums reordered, no TF32).
+not a multiple of the channel block, strided views), plus the Base shapes
+chip_smoke.py checks. TF32 off, rel_err = max|a - b| / max|b|: <= 1e-5 at
+fp32 (sums reordered, no TF32), <= 1e-2 at bf16 (a reordered fp32 sum can
+flip a bf16 rounding by one ulp, 2^-8 of the largest element).
 """
 
 import pytest
 import torch
 
+from videomamba_tpu_torch.ops.kernels import block_fused as k4
 from videomamba_tpu_torch.ops.kernels import fused_add_norm as k2
 from videomamba_tpu_torch.ops.kernels import mixer_fused as k3
 from videomamba_tpu_torch.ops.kernels import scan as k1
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
+BF16_TOL = 1e-2
 
 
 @pytest.fixture
@@ -115,13 +119,96 @@ def test_wrappers_raise_on_what_they_do_not_take(dev):
     with pytest.raises(RuntimeError, match="no backward"):
         k3.mixer_fused(**dict(kw, D=kw["D"].clone().requires_grad_()))
     x = randn(4, 64, dev=dev)
-    with pytest.raises(ValueError, match="fp32"):
-        k2.fused_add_norm(x.bfloat16(), torch.ones(64, device=dev))
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        k2.fused_add_norm(x.half(), torch.ones(64, device=dev))
+    kw = _block_inputs(dev, torch.bfloat16)
+    with pytest.raises(ValueError, match="in_proj_w must be bf16"):
+        k4.block_fused(**dict(kw, in_proj_w=kw["in_proj_w"].float()))
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        k4.block_fused(**dict(kw, hidden=kw["hidden"].half()))
+    with pytest.raises(ValueError, match="h0 must be fp32"):
+        k4.block_fused(**dict(kw, h0=kw["h0"].bfloat16()))
+
+
+@pytest.mark.parametrize("norm_type,res_bf16", [("rms", False), ("layer", True)])
+def test_fused_add_norm_bf16_kernel_matches_plain(dev, norm_type, res_bf16):
+    """x bf16 (a K4 output) with an fp32 residual (residual_in_fp32), or
+    both bf16; at Base shapes."""
+    x = randn(1, 1569, 768, dev=dev, seed=1).bfloat16()
+    res = randn(1, 1569, 768, dev=dev, seed=2)
+    res = res.bfloat16() if res_bf16 else res
+    w = 1 + randn(768, dev=dev, scale=0.1, seed=3)
+    bias = randn(768, dev=dev, scale=0.1, seed=4) if norm_type == "layer" else None
+    for prenorm in (True, False):
+        kw = dict(residual=res, prenorm=prenorm, residual_in_fp32=not res_bf16,
+                  norm_type=norm_type)
+        out = k2.fused_add_norm(x, w, bias, **kw)
+        ref = k2.fused_add_norm_plain(x, w, bias, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(out if prenorm else [out], ref if prenorm else [ref]):
+            assert a.dtype == b.dtype and rel_err(a, b) <= BF16_TOL
+
+
+def _block_inputs(dev, dtype, b=2, L=37, e=200, di=256, n=16, r=12, w=4,
+                  residual_fp32=True):
+    g = torch.Generator().manual_seed(5)
+
+    def rn(*shape, scale=1.0, cast=True):
+        t = (scale * torch.randn(shape, generator=g)).to(dev)
+        return t.to(dtype) if cast else t
+
+    return dict(
+        hidden=rn(b, L, e), residual=rn(b, L, e, cast=not residual_fp32),
+        norm_w=1 + rn(e, scale=0.1, cast=False), norm_b=None,
+        in_proj_w=rn(2 * di, e, scale=e ** -0.5), out_proj_w=rn(e, di, scale=di ** -0.5),
+        conv_w=rn(di, w, scale=0.5), conv_b=rn(di, scale=0.1),
+        x_proj_w=rn(r + 2 * n, di, scale=di ** -0.5), dt_proj_w=rn(di, r, scale=r ** -0.5),
+        dt_bias=torch.linspace(-6.9, -2.3, di, device=dev),
+        A=-torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(di, n).contiguous(),
+        D=torch.ones(di, device=dev), h0=rn(b, di, n, scale=0.1, cast=False),
+        conv_state=rn(b, di, w, cast=False), residual_fp32=residual_fp32,
+    )
+
+
+BLOCK_CASES = {
+    # name: (dtype, geometry, tolerance)
+    "bf16_base": (torch.bfloat16, dict(b=1, L=1569, e=768, di=1536, r=48), BF16_TOL),
+    "fp32_small": (torch.float32, dict(b=1, L=1569, e=384, di=768, r=24), TOL),
+    "bf16_ragged": (torch.bfloat16, dict(), BF16_TOL),
+    "fp32_ragged": (torch.float32, dict(), TOL),
+    "bf16_bf16_residual": (torch.bfloat16, dict(L=5, residual_fp32=False), BF16_TOL),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BLOCK_CASES))
+def test_block_fused_kernel_matches_plain(dev, case):
+    dtype, geom, tol = BLOCK_CASES[case]
+    kw = _block_inputs(dev, dtype, **geom)
+    before = k4.block_fused.launches
+    with torch.inference_mode():
+        out = k4.block_fused(**kw)
+        torch.cuda.synchronize()
+        ref = k4.block_fused_plain(**kw)
+    assert k4.block_fused.launches == before + 1
+    for a, b in zip(out, ref):
+        assert a.dtype == b.dtype and rel_err(a, b) <= tol
+
+
+def test_block_fused_layer_norm_matches_plain(dev):
+    e = 200
+    kw = _block_inputs(dev, torch.bfloat16, e=e)
+    kw.update(norm_b=randn(e, dev=dev, scale=0.1, seed=9), norm_type="layer")
+    with torch.inference_mode():
+        out = k4.block_fused(**kw)
+        ref = k4.block_fused_plain(**kw)
+    for a, b in zip(out, ref):
+        assert rel_err(a, b) <= BF16_TOL
 
 
 def test_model_kernels_match_plain_path(dev):
-    """A small model (two streams) with kernels on against the same weights
-    on the plain path, full clip and two chunks, on the card."""
+    """A small fp32 model (two streams) with kernels on against the same
+    weights on the plain path, full clip and two chunks, on the card. At
+    these widths every Block takes the whole-block route (K4)."""
     from videomamba_tpu_torch.checkpoint import load_state_dict
     from videomamba_tpu_torch.models.videomamba import PretrainVideoMamba
     from videomamba_tpu_torch.runtime import StreamingSession
@@ -134,13 +221,60 @@ def test_model_kernels_match_plain_path(dev):
     load_state_dict(plain, fast.state_dict())
     clip = randn(2, 3, 4, 32, 32, dev=dev, seed=11)
     with torch.inference_mode():
-        before = (k2.fused_add_norm.launches, k3.mixer_fused.launches)
+        before = (k2.fused_add_norm.launches, k3.mixer_fused.launches,
+                  k4.block_fused.launches)
         vis, pool = fast(clip)
         assert (k2.fused_add_norm.launches - before[0],
-                k3.mixer_fused.launches - before[1]) == (4, 3)
+                k3.mixer_fused.launches - before[1],
+                k4.block_fused.launches - before[2]) == (1, 0, 3)
         p_vis, p_pool = plain(clip)
         assert rel_err(vis, p_vis) <= 1e-4 and rel_err(pool, p_pool) <= 1e-4
         session = StreamingSession(fast, batch_size=2)
         a, _ = session.process(clip[:, :, :2])
         b, _ = session.process(clip[:, :, 2:])
     assert rel_err(torch.cat([a, b], dim=1), vis) <= 1e-4
+
+
+def test_bf16_model_kernels_match_plain_blocks(dev):
+    """A small bf16 model on the whole-block route against the same Blocks'
+    plain versions on the captured input tokens, and two chunks against the
+    full clip; states stay fp32."""
+    from videomamba_tpu_torch.models.videomamba import PretrainVideoMamba
+    from videomamba_tpu_torch.runtime import StreamingSession
+    from videomamba_tpu_torch.utils.precision import cast_module_for_compute
+
+    model = PretrainVideoMamba(img_size=32, patch_size=8, depth=3, embed_dim=128,
+                               num_frames=4, pool_type="avg", device=dev,
+                               generator=torch.Generator().manual_seed(0)).eval()
+    cast_module_for_compute(model, torch.bfloat16)
+    clip = randn(2, 3, 4, 32, 32, dev=dev, seed=11)
+    seen = {}
+
+    def keep_tokens(module, args):
+        seen.setdefault("tokens", args[0])
+
+    hook = model.layers[0].register_forward_pre_hook(keep_tokens)
+    with torch.inference_mode():
+        before = (k2.fused_add_norm.launches, k4.block_fused.launches)
+        vis, _ = model(clip)
+        assert (k2.fused_add_norm.launches - before[0],
+                k4.block_fused.launches - before[1]) == (1, 3)
+        hook.remove()
+        hidden = seen["tokens"]
+        residual = torch.zeros_like(hidden, dtype=torch.float32)
+        for layer in model.layers:
+            mx = layer.mixer
+            hidden, residual, _ = k4.block_fused_plain(
+                hidden, residual,
+                h0=torch.zeros(2, mx.d_inner, mx.d_state, device=dev),
+                conv_state=torch.zeros(2, mx.d_inner, mx.d_conv, device=dev),
+                **layer.block_fused_weights())
+        feats = k2.fused_add_norm_plain(hidden, model.norm.weight, residual=residual,
+                                        residual_in_fp32=True)
+        assert vis.dtype == torch.bfloat16
+        assert rel_err(vis, feats[:, 1:]) <= 2 * BF16_TOL
+        session = StreamingSession(model, batch_size=2)
+        a, _ = session.process(clip[:, :, :2])
+        b, _ = session.process(clip[:, :, 2:])
+    assert all(c.dtype == s.dtype == torch.float32 for c, s in session.state)
+    assert rel_err(torch.cat([a, b], dim=1), vis) <= BF16_TOL

@@ -25,9 +25,12 @@ MODULES = [
     "videomamba_tpu_torch.ops.selective_scan",
     "videomamba_tpu_torch.ops.kernels",
     "videomamba_tpu_torch.ops.kernels._build",
+    "videomamba_tpu_torch.ops.kernels.block_fused",
     "videomamba_tpu_torch.ops.kernels.fused_add_norm",
     "videomamba_tpu_torch.ops.kernels.mixer_fused",
     "videomamba_tpu_torch.ops.kernels.scan",
+    "videomamba_tpu_torch.utils",
+    "videomamba_tpu_torch.utils.precision",
 ]
 
 

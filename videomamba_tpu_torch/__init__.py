@@ -2,10 +2,11 @@
 
 The JAX package ``videomamba_tpu`` is the reference this port is held
 against. This package imports torch and never jax. The slice ported so far
-is the fp32 serving path of the Mamba-1 VideoMamba: full-clip forward and
-chunked streaming with carried (conv_state, ssm_state), through three
-hand-written Hopper kernels (``ops/kernels``): the selective scan, the fused
-residual add + norm, and the fused mixer core.
+is the fp32 and bf16 serving path of the Mamba-1 VideoMamba: full-clip
+forward and chunked streaming with carried (conv_state, ssm_state), through
+four hand-written Hopper kernels (``ops/kernels``): the selective scan, the
+fused residual add + norm, the fused mixer core and the whole Block. bf16
+serving weights come from ``utils.precision.cast_module_for_compute``.
 """
 
 from videomamba_tpu_torch.models import (

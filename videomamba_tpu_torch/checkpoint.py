@@ -10,7 +10,9 @@ videomamba_tpu/checkpoint.py:224-277 (params_to_torch_state_dict):
   everything else                     -> unchanged
 
 It reads NumPy only and never imports jax. ``load_state_dict`` loads a
-state_dict strictly: a missing or unexpected key raises.
+state_dict strictly: a missing or unexpected key raises. A bf16 tree (from
+``cast_params_for_compute``) maps to fp32 tensors holding the same values,
+which load exactly into a model built at bf16.
 """
 
 from __future__ import annotations

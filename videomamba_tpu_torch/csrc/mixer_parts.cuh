@@ -1,0 +1,315 @@
+// Pieces shared by the fused mixer (mixer_fused.cu, K3) and the whole-block
+// kernel (block_fused.cu, K4): the causal depthwise conv + SiLU and the two
+// NT product tiles, C[m, n] = sum_k A[m, k] * W[n, k], where both operands
+// are contraction-contiguous, the layout of a torch Linear weight (out, in).
+//
+// - gemm_nt: fp32 FMA tile, for the fp32 ("highest") path.
+// - gemm_nt_bf16: bf16 tensor-core tile (mma.sync m16n8k16, fp32
+//   accumulate). A is read as fp32 or bf16 and rounded to bf16 while it is
+//   staged, which is where the TPU kernel casts each product's input to the
+//   weight dtype (block_fused.py:393, 410, 415, 467); C is written as fp32 or
+//   bf16. The products of bf16 values are exact in fp32, so the tile computes
+//   what preferred_element_type=f32 computes, up to the order of the sums.
+//
+// The fp32 tile is single-stage (load a K slice to shared memory, sync,
+// multiply). The bf16 tile double-buffers shared memory: each thread loads
+// the next K slice into registers (16-byte loads where the operands are
+// aligned) while the warps multiply the current one, so the loads' latency
+// is hidden behind the mma. A TMA / wgmma design is later work.
+#pragma once
+
+#include <stdint.h>
+
+#include "add_norm.cuh"
+
+namespace vmt {
+
+// conv_out[b, t, d] = silu(bias[d] + sum_k w[d, k] * ctx[b, t + k, d]) where
+// ctx is x preceded by the last W - 1 raw inputs held in conv_state. x and
+// the result are fp32; the taps and bias are fp32 or bf16 (TW).
+template <typename TW>
+__global__ void conv_silu_kernel(const float* __restrict__ x, long long ld_x,
+                                 const float* __restrict__ conv_state,
+                                 const TW* __restrict__ w,
+                                 const TW* __restrict__ bias,
+                                 float* __restrict__ out, int L, int D, int W) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)L * D) return;
+  const long long b = blockIdx.y;
+  const int d = (int)(i % D);
+  const long long t = i / D;
+  const float* xb = x + b * L * ld_x;
+  const float* st = conv_state + (b * D + d) * W;
+  float acc = 0.f;
+  for (int k = 0; k < W; ++k) {
+    const long long s = t + k - (W - 1);
+    const float v = s >= 0 ? xb[s * ld_x + d] : st[W + s];
+    acc += to_f32(w[(long long)d * W + k]) * v;
+  }
+  acc += to_f32(bias[d]);
+  out[(b * L + t) * D + d] = acc * (1.f / (1.f + expf(-acc)));
+}
+
+template <typename TW>
+cudaError_t conv_silu(const float* x, long long ld_x, const float* conv_state,
+                      const TW* w, const TW* bias, float* out, int batch, int L,
+                      int D, int W, cudaStream_t stream) {
+  const long long per_batch = (long long)L * D;
+  const dim3 grid((unsigned)((per_batch + 255) / 256), batch);
+  conv_silu_kernel<TW><<<grid, 256, 0, stream>>>(x, ld_x, conv_state, w, bias,
+                                                 out, L, D, W);
+  return cudaGetLastError();
+}
+
+constexpr int kTile = 64;   // output tile edge
+constexpr int kTileK = 16;  // contraction depth per shared-memory stage
+
+// fp32 tile: 256 threads, each 4 x 4 outputs of a 64 x 64 tile, fp32 FMA in
+// contraction order. static: each source that includes this has its own.
+static __global__ void __launch_bounds__(256)
+    gemm_nt_kernel(const float* __restrict__ A, long long lda,
+                   const float* __restrict__ Wt, long long ldw,
+                   float* __restrict__ C, long long ldc, int M, int N, int K) {
+  __shared__ float As[kTileK][kTile + 4];
+  __shared__ float Ws[kTileK][kTile + 4];
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const long long m0 = (long long)blockIdx.y * kTile;
+  const long long n0 = (long long)blockIdx.x * kTile;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += kTileK) {
+    for (int i = threadIdx.x; i < kTile * kTileK; i += 256) {
+      const int r = i / kTileK;
+      const int kk = i % kTileK;
+      const long long gk = k0 + kk;
+      const long long gm = m0 + r;
+      const long long gn = n0 + r;
+      As[kk][r] = (gm < M && gk < K) ? A[gm * lda + gk] : 0.f;
+      Ws[kk][r] = (gn < N && gk < K) ? Wt[gn * ldw + gk] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kTileK; ++kk) {
+      float av[4];
+      float wv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wv[j] = Ws[kk][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * wv[j];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long m = m0 + ty * 4 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long long n = n0 + tx * 4 + j;
+      if (n < N) C[m * ldc + n] = acc[i][j];
+    }
+  }
+}
+
+inline cudaError_t gemm_nt(const float* A, long long lda, const float* Wt,
+                           long long ldw, float* C, long long ldc, int M, int N,
+                           int K, cudaStream_t stream) {
+  const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+  gemm_nt_kernel<<<grid, 256, 0, stream>>>(A, lda, Wt, ldw, C, ldc, M, N, K);
+  return cudaGetLastError();
+}
+
+constexpr int kMmaBM = 64;   // block tile rows (M)
+constexpr int kMmaBN = 64;   // block tile columns (N)
+constexpr int kMmaBK = 32;   // contraction depth per shared-memory stage
+constexpr int kMmaPad = 8;   // row padding: fragment loads hit 32 banks
+constexpr int kMmaThreads = 128;  // 4 warps in 2 x 2, each a 32 x 32 tile
+constexpr int kChunk = 8;    // contraction elements a thread stages at once
+constexpr int kChunksPerThread = kMmaBM * kMmaBK / kChunk / kMmaThreads;  // 2
+
+__device__ __forceinline__ bf16 to_bf16(float v) { return __float2bfloat16_rn(v); }
+__device__ __forceinline__ bf16 to_bf16(bf16 v) { return v; }
+
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// Eight contraction-consecutive elements of row `row`, from column k, as
+// bf16 packed in a uint4. kVec: one or two 16-byte loads (the caller has
+// checked alignment and that K is a multiple of 8); else element by element
+// with the ragged edge zeroed.
+template <typename T, bool kVec>
+__device__ __forceinline__ uint4 load_chunk(const T* __restrict__ P, long long ld,
+                                            long long row, long long rows,
+                                            long long k, int K) {
+  uint4 out = make_uint4(0u, 0u, 0u, 0u);
+  if (row >= rows || k >= K) return out;
+  const T* p = P + row * ld + k;
+  if constexpr (kVec) {
+    if constexpr (sizeof(T) == 2) {
+      out = *reinterpret_cast<const uint4*>(p);
+    } else {
+      const float4 lo = *reinterpret_cast<const float4*>(p);
+      const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+      out = make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w),
+                       pack_bf16(hi.x, hi.y), pack_bf16(hi.z, hi.w));
+    }
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bf16 a = k + 2 * j < K ? to_bf16(p[2 * j]) : __float2bfloat16_rn(0.f);
+      const bf16 b = k + 2 * j + 1 < K ? to_bf16(p[2 * j + 1]) : __float2bfloat16_rn(0.f);
+      w[j] = pack_bf16(a, b);
+    }
+    out = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  return out;
+}
+
+// D = A * B + D for one 16 x 8 x 16 tile: A row-major 16 x 16, B given as
+// columns (k-contiguous), fp32 accumulators.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// bf16 tile: each block a 64 x 64 output tile; each warp 32 x 32 of it as
+// 2 x 4 mma tiles of 16 x 8. Fragment layouts are those of the PTX ISA for
+// m16n8k16 (.bf16): with g = lane / 4 and t = lane % 4, A's registers hold
+// rows g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9; B's hold column g,
+// rows 2t, 2t + 1 and 2t + 8, 2t + 9; C's rows g and g + 8, columns 2t, 2t + 1.
+// Each thread stages two 8-element chunks of A and two of W per K slice:
+// chunk c = threadIdx.x + 128 i covers row c / 4, columns 8 (c % 4) + [0, 8).
+template <typename TA, typename TC, bool kVec>
+__global__ void __launch_bounds__(kMmaThreads)
+    gemm_nt_bf16_kernel(const TA* __restrict__ A, long long lda,
+                        const bf16* __restrict__ Wt, long long ldw,
+                        TC* __restrict__ C, long long ldc, int M, int N, int K) {
+  __shared__ __align__(16) bf16 As[2][kMmaBM][kMmaBK + kMmaPad];
+  __shared__ __align__(16) bf16 Ws[2][kMmaBN][kMmaBK + kMmaPad];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wm = (warp / 2) * 32;
+  const int wn = (warp % 2) * 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const long long m0 = (long long)blockIdx.y * kMmaBM;
+  const long long n0 = (long long)blockIdx.x * kMmaBN;
+
+  uint4 ra[kChunksPerThread];
+  uint4 rw[kChunksPerThread];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < kChunksPerThread; ++i) {
+      const int c = threadIdx.x + i * kMmaThreads;
+      const int r = c / (kMmaBK / kChunk);
+      const long long k = k0 + (c % (kMmaBK / kChunk)) * kChunk;
+      ra[i] = load_chunk<TA, kVec>(A, lda, m0 + r, M, k, K);
+      rw[i] = load_chunk<bf16, kVec>(Wt, ldw, n0 + r, N, k, K);
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < kChunksPerThread; ++i) {
+      const int c = threadIdx.x + i * kMmaThreads;
+      const int r = c / (kMmaBK / kChunk);
+      const int kk = (c % (kMmaBK / kChunk)) * kChunk;
+      *reinterpret_cast<uint4*>(&As[buf][r][kk]) = ra[i];
+      *reinterpret_cast<uint4*>(&Ws[buf][r][kk]) = rw[i];
+    }
+  };
+
+  float acc[2][4][4] = {};
+  load(0);
+  store(0);
+  __syncthreads();
+  int buf = 0;
+  for (int k0 = 0; k0 < K; k0 += kMmaBK) {
+    const bool more = k0 + kMmaBK < K;
+    if (more) load(k0 + kMmaBK);  // in flight while this slice is multiplied
+#pragma unroll
+    for (int ks = 0; ks < kMmaBK; ks += 16) {
+      uint32_t a[2][4];
+      uint32_t b[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int r = wm + mi * 16 + g;
+        a[mi][0] = ld_pair(&As[buf][r][ks + 2 * t]);
+        a[mi][1] = ld_pair(&As[buf][r + 8][ks + 2 * t]);
+        a[mi][2] = ld_pair(&As[buf][r][ks + 2 * t + 8]);
+        a[mi][3] = ld_pair(&As[buf][r + 8][ks + 2 * t + 8]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int c = wn + ni * 8 + g;
+        b[ni][0] = ld_pair(&Ws[buf][c][ks + 2 * t]);
+        b[ni][1] = ld_pair(&Ws[buf][c][ks + 2 * t + 8]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_bf16_16816(acc[mi][ni], a[mi], b[ni]);
+    }
+    // The other buffer was last read before the previous barrier, so it can
+    // be written now; one barrier per slice orders both directions.
+    if (more) store(buf ^ 1);
+    __syncthreads();
+    buf ^= 1;
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const long long col = n0 + wn + ni * 8 + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long row = m0 + wm + mi * 16 + g + half * 8;
+        if (row >= M) continue;
+        if (col < N) C[row * ldc + col] = from_f32<TC>(acc[mi][ni][2 * half]);
+        if (col + 1 < N) C[row * ldc + col + 1] = from_f32<TC>(acc[mi][ni][2 * half + 1]);
+      }
+    }
+  }
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+// The 16-byte path needs 16-byte aligned bases and rows (lda, ldw multiples
+// of 8 elements) and K a multiple of 8; other shapes (dt_proj at some
+// widths) take the element-wise path.
+template <typename TA, typename TC>
+cudaError_t gemm_nt_bf16(const TA* A, long long lda, const bf16* Wt,
+                         long long ldw, TC* C, long long ldc, int M, int N,
+                         int K, cudaStream_t stream) {
+  const dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + kMmaBM - 1) / kMmaBM);
+  const bool vec = aligned16(A) && aligned16(Wt) && lda % 8 == 0 &&
+                   ldw % 8 == 0 && K % 8 == 0;
+  if (vec) {
+    gemm_nt_bf16_kernel<TA, TC, true><<<grid, kMmaThreads, 0, stream>>>(
+        A, lda, Wt, ldw, C, ldc, M, N, K);
+  } else {
+    gemm_nt_bf16_kernel<TA, TC, false><<<grid, kMmaThreads, 0, stream>>>(
+        A, lda, Wt, ldw, C, ldc, M, N, K);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace vmt

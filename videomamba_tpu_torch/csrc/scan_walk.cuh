@@ -5,6 +5,8 @@
 //   dt     = softplus(delta[t, d] + delta_bias[d])     (softplus optional)
 //   h[n]   = exp(dt * A[d, n]) * h[n] + dt * u[t, d] * B[t, n]
 //   y[t,d] = (sum_n C[t, n] * h[n] + Dskip[d] * u[t, d]) * silu(z[t, d])
+// z may be rounded to bf16 first (round_z), as the whole-block kernel's bf16
+// path stores the gate input (videomamba_tpu/ops/pallas/block_fused.py:427).
 //
 // One thread owns one channel and keeps its N states in registers for the
 // whole walk, so the state never touches device memory between steps. A
@@ -15,6 +17,7 @@
 // load latency per step.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -46,6 +49,7 @@ struct ScanArgs {
   int L;
   int D;
   int softplus;
+  int round_z = 0;  // round z to bf16 before the gate
 };
 
 // log(1 + exp(x)) in the overflow-safe form of jax.nn.softplus
@@ -56,7 +60,10 @@ __device__ __forceinline__ float softplus_f(float x) {
 
 // Walks batch row blockIdx.y, channels blockIdx.x * kScanThreads + [0, 128).
 // Must be called by all kScanThreads threads of the block (it synchronises).
-template <int N>
+// kRoundZ is a template argument, and z is rounded where it is used, not
+// where the tile is staged: a runtime test in the staging loop slowed the
+// fp32 walk by 29% at VideoMamba-Base (H100).
+template <int N, bool kRoundZ>
 __device__ __forceinline__ void scan_walk(const ScanArgs& a) {
   __shared__ float sU[kScanTile][kScanThreads];
   __shared__ float sDt[kScanTile][kScanThreads];
@@ -131,7 +138,8 @@ __device__ __forceinline__ void scan_walk(const ScanArgs& a) {
       }
       yv += uu * dskip;
       if (has_z) {
-        const float zz = sZ[k][tid];
+        float zz = sZ[k][tid];
+        if constexpr (kRoundZ) zz = __bfloat162float(__float2bfloat16_rn(zz));
         yv *= zz * (1.f / (1.f + expf(-zz)));
       }
       if (active) y_b[(t0 + k) * a.ld_y + d] = yv;
@@ -145,9 +153,18 @@ __device__ __forceinline__ void scan_walk(const ScanArgs& a) {
   }
 }
 
-template <int N>
+template <int N, bool kRoundZ>
 __global__ void __launch_bounds__(kScanThreads) scan_walk_kernel(ScanArgs a) {
-  scan_walk<N>(a);
+  scan_walk<N, kRoundZ>(a);
+}
+
+template <int N>
+void launch_walk_n(const ScanArgs& a, dim3 grid, cudaStream_t stream) {
+  if (a.round_z) {
+    scan_walk_kernel<N, true><<<grid, kScanThreads, 0, stream>>>(a);
+  } else {
+    scan_walk_kernel<N, false><<<grid, kScanThreads, 0, stream>>>(a);
+  }
 }
 
 // Launches the walk over grid (ceil(D / kScanThreads), batch) for the state
@@ -157,16 +174,16 @@ inline cudaError_t launch_scan_walk(const ScanArgs& a, int batch, int n,
   const dim3 grid((a.D + kScanThreads - 1) / kScanThreads, batch);
   switch (n) {
     case 8:
-      scan_walk_kernel<8><<<grid, kScanThreads, 0, stream>>>(a);
+      launch_walk_n<8>(a, grid, stream);
       break;
     case 16:
-      scan_walk_kernel<16><<<grid, kScanThreads, 0, stream>>>(a);
+      launch_walk_n<16>(a, grid, stream);
       break;
     case 32:
-      scan_walk_kernel<32><<<grid, kScanThreads, 0, stream>>>(a);
+      launch_walk_n<32>(a, grid, stream);
       break;
     case 64:
-      scan_walk_kernel<64><<<grid, kScanThreads, 0, stream>>>(a);
+      launch_walk_n<64>(a, grid, stream);
       break;
     default:
       return cudaErrorInvalidValue;

@@ -1,13 +1,20 @@
 """Prenorm residual Block: Add -> Norm -> Mixer (PyTorch port).
 
 Port of videomamba_tpu/models/block.py for inference: the block adds the
-incoming hidden states to the running residual, normalizes (K2 when
-``fused_add_norm``), runs the mixer, and returns the mixer output with the
-post-add residual. There is no whole-block branch: the JAX package's
-block-fused kernel (ops/pallas/block_fused.py) is not ported yet, and at fp32
-VideoMamba-Base the JAX package does not take it either. Stochastic depth is
-training and is not ported: a training-mode block with ``drop_path_rate > 0``
-raises.
+incoming hidden states to the running residual, normalizes, runs the mixer,
+and returns the mixer output with the post-add residual. Two routes, chosen
+as the JAX package chooses them (block.py:274-280, 318-342):
+
+* whole block (K4, ops/kernels/block_fused.py) in eval mode when the Block
+  and its mixer are on their fast paths with the reference's biases and the
+  JAX package's byte rule admits the widths: every published size at bf16,
+  and Tiny/Small/Middle at fp32;
+* otherwise add + norm (K2 when ``fused_add_norm``) then the mixer (K3, or K1
+  on its unfused branch): fp32 Base, or either flag off.
+
+Stochastic depth is training and is not ported: a training-mode block with
+``drop_path_rate > 0`` raises; the JAX package's training opt-in to the
+whole-block route (``VIDEOMAMBA_BLOCK_BWD``) is not ported either.
 """
 
 from __future__ import annotations
@@ -18,7 +25,9 @@ import torch
 from torch import nn
 
 from videomamba_tpu_torch.models.mamba import LayerState, Mamba
-from videomamba_tpu_torch.ops.norm import fused_add_norm
+from videomamba_tpu_torch.ops.causal_conv1d import conv_window
+from videomamba_tpu_torch.ops.kernels.block_fused import block_fused, block_fused_supported
+from videomamba_tpu_torch.ops.norm import fused_add_norm, layer_norm, rms_norm
 
 Tensor = torch.Tensor
 
@@ -82,6 +91,11 @@ class Block(nn.Module):
             raise NotImplementedError(
                 "drop_path (training) is not ported; call .eval() to serve."
             )
+        if not self.training and self._use_block_fused():
+            return self._call_block_fused(
+                hidden_states, residual, state, return_state, ssm_state,
+                return_ssm_state,
+            )
         normed, new_residual = fused_add_norm(
             hidden_states, self.norm.weight, self.norm.bias, residual=residual,
             prenorm=True, residual_in_fp32=self.residual_in_fp32,
@@ -98,6 +112,93 @@ class Block(nn.Module):
             hidden, new_state = mixer_out
             return hidden, new_residual, new_state
         return mixer_out, new_residual
+
+    def _use_block_fused(self) -> bool:
+        """The JAX package's whole-block gate (block.py:318-342): fused norm,
+        the mixer's fast path, no in_proj/out_proj bias, a conv bias, and the
+        byte rule of :func:`block_fused_supported` at 4 bytes a weight for
+        fp32 and 2 for bf16. The rule is the TPU kernel's VMEM budget, ported
+        to keep both packages on one route, not a limit of this card. (The
+        JAX gate's Mamba-2, sequence-parallel and scan-backend conditions
+        have no counterpart here: the port's fast path is its kernels.)"""
+        mx = self.mixer
+        if not (self.fused_add_norm and mx.use_fast_path):
+            return False
+        if (mx.in_proj.bias is not None or mx.out_proj.bias is not None
+                or mx.conv1d.bias is None):
+            return False
+        wbytes = 4 if mx.in_proj.weight.dtype == torch.float32 else 2
+        return block_fused_supported(
+            self.dim, mx.d_inner, mx.dt_rank, mx.d_state, weight_bytes_per_el=wbytes
+        )
+
+    def block_fused_weights(self) -> Dict[str, object]:
+        """The Block's weights and settings as K4 (and its plain version)
+        take them, after hidden, residual, h0 and conv_state."""
+        mx = self.mixer
+        return dict(
+            norm_w=self.norm.weight, norm_b=self.norm.bias,
+            in_proj_w=mx.in_proj.weight, out_proj_w=mx.out_proj.weight,
+            conv_w=mx.conv1d.weight.squeeze(1), conv_b=mx.conv1d.bias,
+            x_proj_w=mx.x_proj.weight, dt_proj_w=mx.dt_proj.weight,
+            dt_bias=mx.dt_proj.bias.float(), A=-torch.exp(mx.A_log.float()),
+            D=mx.D.float(), norm_type=self.norm_type, eps=self.norm_epsilon,
+            residual_fp32=self.residual_in_fp32,
+        )
+
+    def _call_block_fused(self, hidden_states, residual, state, return_state,
+                          ssm_state, return_ssm_state):
+        """The whole-block route (JAX block.py:344-404): missing residual,
+        conv window and SSM state start as zeros (fp32, hidden dtype, fp32);
+        new states take the incoming states' dtypes."""
+        mx = self.mixer
+        bsz = hidden_states.shape[0]
+        conv_state = None
+        if state is not None:
+            conv_state, ssm_state = state
+        h0 = (
+            ssm_state.float()
+            if ssm_state is not None
+            else hidden_states.new_zeros((bsz, mx.d_inner, mx.d_state), dtype=torch.float32)
+        )
+        cstate_in = (
+            conv_state
+            if conv_state is not None
+            else hidden_states.new_zeros((bsz, mx.d_inner, mx.d_conv))
+        )
+        res_in = (
+            residual
+            if residual is not None
+            else torch.zeros_like(hidden_states, dtype=torch.float32)
+        )
+        out, res_out, h_last = block_fused(
+            hidden_states, res_in, h0=h0, conv_state=cstate_in,
+            **self.block_fused_weights(),
+        )
+        if return_ssm_state:
+            return out, res_out, h_last.to(ssm_state.dtype)
+        if state is None or not return_state:
+            return out, res_out
+        new_conv = self._tail_conv_window(res_out, conv_state)
+        if conv_state is not None:
+            new_conv = new_conv.to(conv_state.dtype)
+        return out, res_out, (new_conv, h_last.to(ssm_state.dtype))
+
+    def _tail_conv_window(self, res_out: Tensor, conv_state: Optional[Tensor]) -> Tensor:
+        """New conv window (JAX block.py:406-427): K4 never writes the conv
+        input x, so it is recomputed for the last W positions from res_out
+        (norm, then the x half of in_proj with the kernel's rounding)."""
+        mx = self.mixer
+        w = mx.d_conv
+        tail = res_out[:, -w:].float()
+        if self.norm_type == "rms":
+            normed = rms_norm(tail, self.norm.weight, eps=self.norm_epsilon)
+        else:
+            normed = layer_norm(tail, self.norm.weight, self.norm.bias,
+                                eps=self.norm_epsilon)
+        win = mx.in_proj.weight[:mx.d_inner]
+        x_tail = normed.to(win.dtype).float() @ win.float().t()
+        return conv_window(x_tail, conv_state, w)
 
     def allocate_state(self, batch_size: int, dtype=None, device=None) -> LayerState:
         return self.mixer.allocate_state(batch_size, dtype=dtype, device=device)

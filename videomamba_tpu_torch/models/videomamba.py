@@ -90,7 +90,10 @@ class PatchEmbed(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         """Each non-overlapping tubelet flattened in (c, kt, ph, pw) order —
-        the flattened Conv3d weight's order — then one dense projection."""
+        the flattened Conv3d weight's order — then one dense projection,
+        accumulated in fp32 and rounded once to x's dtype, as the JAX
+        package's bf16 product is (a bf16 cuBLAS product may reduce in
+        bf16)."""
         bsz, c, t, h, w = x.shape
         kt = self.tubelet_size
         p1, p2 = self.patch_size
@@ -99,7 +102,7 @@ class PatchEmbed(nn.Module):
         x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)  # (B, gt, gh, gw, c, kt, p1, p2)
         x = x.reshape(bsz, gt, gh * gw, self.patch_dim)
         kernel = self.proj.weight.reshape(self.embed_dim, self.patch_dim)
-        return x @ kernel.t() + self.proj.bias
+        return (x.float() @ kernel.float().t()).to(x.dtype) + self.proj.bias
 
 
 class PretrainVideoMamba(nn.Module):

@@ -1,9 +1,10 @@
 """Build and bind the Hopper kernels under ``videomamba_tpu_torch/csrc``.
 
-All ``.cu`` sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface and loaded with :mod:`ctypes`. The library
-goes to ``build/videomamba_tpu_torch/`` at the repository root, under a file
-name that carries a hash of the sources and flags, so a stale build is never
+Each ``.cu`` source is compiled by its own ``nvcc`` for ``sm_90a``, all at
+once, and the objects are linked into one shared library with a plain C
+interface, loaded with :mod:`ctypes`. The library goes to
+``build/videomamba_tpu_torch/`` at the repository root, under a file name
+that carries a hash of the sources and flags, so a stale build is never
 loaded. The build runs at the first launch in a process, never at import.
 """
 
@@ -23,11 +24,12 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "videomamba_tpu_torch"
-SOURCES = ("fused_add_norm.cu", "selective_scan.cu", "mixer_fused.cu")
-HEADERS = ("scan_walk.cuh",)
+SOURCES = ("fused_add_norm.cu", "selective_scan.cu", "mixer_fused.cu",
+           "block_fused.cu")
+HEADERS = ("add_norm.cuh", "mixer_parts.cuh", "scan_walk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -38,7 +40,7 @@ _F = ctypes.c_float
 # C entry points: name -> argument types. Every pointer and the stream are
 # c_void_p, so ctypes never cuts a 64-bit address to an int.
 SIGNATURES = {
-    "vmt_fused_add_norm": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
+    "vmt_fused_add_norm": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
     "vmt_selective_scan": (
         _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _LL,
         _P, _I, _I, _I, _I, _I, _I, _P,
@@ -46,6 +48,11 @@ SIGNATURES = {
     "vmt_mixer_fused": (
         _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    "vmt_block_fused": (
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        _F, _I, _I, _P,
     ),
 }
 
@@ -78,21 +85,28 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(str(CSRC_DIR / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, Path(src).stem + ".o") for src in SOURCES]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / src), "-o", obj]
+                    for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in compiles]
+        errs = [proc.communicate()[1] for proc in procs]  # wait for every one
+        for cmd, proc, err in zip(compiles, procs, errs):
+            _raise_on_failure(cmd, proc.returncode, err)
+        lib_tmp = os.path.join(tmp, lib_path.name)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _raise_on_failure(link, proc.returncode, proc.stderr)
+        os.replace(lib_tmp, lib_path)  # atomic: a concurrent build sees all or nothing
     return lib_path
+
+
+def _raise_on_failure(cmd, returncode: int, stderr: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}): {' '.join(cmd)}\n{stderr}")
 
 
 @functools.lru_cache(maxsize=1)
@@ -112,19 +126,28 @@ def check(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA error {err} at launch")
 
 
+FP32 = (torch.float32,)
+FP32_OR_BF16 = (torch.float32, torch.bfloat16)
+_DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+
+
 def check_operands(kernel: str, device: torch.device, operands: dict,
-                   contiguous=()) -> None:
-    """Raise unless each operand (name -> (tensor or None, shape)) is an fp32
-    tensor of that shape on ``device``, and those named in ``contiguous`` are
-    contiguous. The kernels serve only and have no backward yet, so an
-    operand that autograd would record also raises, instead of the kernel
-    silently cutting the graph."""
+                   contiguous=(), dtypes=None) -> None:
+    """Raise unless each operand (name -> (tensor or None, shape)) is a
+    tensor of that shape on ``device`` with a dtype its kernel takes
+    (``dtypes``: name -> allowed dtypes; fp32 for a name not given), and
+    those named in ``contiguous`` are contiguous. The kernels serve only and
+    have no backward yet, so an operand that autograd would record also
+    raises, instead of the kernel silently cutting the graph."""
+    dtypes = dtypes or {}
     for name, (t, shape) in operands.items():
         if t is None:
             continue
-        if t.device != device or t.dtype != torch.float32:
+        allowed = dtypes.get(name, FP32)
+        if t.device != device or t.dtype not in allowed:
+            names = " or ".join(_DTYPE_NAMES.get(d, str(d)) for d in allowed)
             raise ValueError(
-                f"{kernel} kernel: {name} must be fp32 on {device} "
+                f"{kernel} kernel: {name} must be {names} on {device} "
                 f"(got {t.dtype} on {t.device})"
             )
         if tuple(t.shape) != tuple(shape):
@@ -157,6 +180,11 @@ def row_stride(t: torch.Tensor, name: str) -> int:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def is_bf16(t) -> int:
+    """The dtype flag of a C entry: 1 for bf16, 0 for fp32 (or no tensor)."""
+    return int(t is not None and t.dtype == torch.bfloat16)
 
 
 def ptr(t) -> int | None:

@@ -3,9 +3,13 @@
 Replaces videomamba_tpu/ops/pallas/fused_add_norm.py (fused_add_norm_pallas,
 ``_kernel``). The kernel is csrc/fused_add_norm.cu: one warp per row, the row
 kept in shared memory between its single read and its writes, statistics in
-fp32 with warp shuffles. It is bound by device memory (two rows read, two
+fp32 with warp shuffles (the row kernel is csrc/add_norm.cuh, which K4's
+first launch shares). It is bound by device memory (two rows read, two
 written, a few flops per element), which is why it reads and writes each
-element once. fp32 only: a tensor of another dtype on CUDA raises.
+element once. x (and so normed) is fp32 or bf16, and so is the residual, on
+its own: at bf16 the final norm gets a bf16 x and an fp32 residual. The
+returned residual is fp32 under ``residual_in_fp32``, else x's dtype, as in
+the JAX package. Any other dtype on CUDA raises.
 """
 
 from __future__ import annotations
@@ -64,8 +68,8 @@ def fused_add_norm(
 ):
     """Kernel wrapper: same contract as :func:`fused_add_norm_plain`.
 
-    x, residual: (..., D) fp32 contiguous on one CUDA device; weight and bias
-    (D,) fp32. Returns fresh tensors; never synchronises.
+    x, residual: (..., D) fp32 or bf16, contiguous, on one CUDA device;
+    weight and bias (D,) fp32. Returns fresh tensors; never synchronises.
     """
     if dispatch.runs_plain(x):
         return fused_add_norm_plain(
@@ -83,17 +87,19 @@ def fused_add_norm(
         {"x": (x, x.shape), "residual": (residual, x.shape),
          "weight": (weight, (d,)), "bias": (bias, (d,))},
         contiguous=("x", "residual", "weight", "bias"),
+        dtypes={"x": _build.FP32_OR_BF16, "residual": _build.FP32_OR_BF16},
     )
 
     out = torch.empty_like(x)
-    res_out = torch.empty_like(x) if prenorm else None
+    res_dtype = torch.float32 if residual_in_fp32 else x.dtype
+    res_out = torch.empty_like(x, dtype=res_dtype) if prenorm else None
     m = x.numel() // d if d else 0
     if m:
         err = _build.library().vmt_fused_add_norm(
-            _build.ptr(x), _build.ptr(residual), _build.ptr(weight),
-            _build.ptr(bias), _build.ptr(out),
-            _build.ptr(res_out), m, d, eps, int(norm_type == "rms"),
-            x.device.index, _build.stream_of(x),
+            _build.ptr(x), _build.is_bf16(x), _build.ptr(residual),
+            _build.is_bf16(residual), _build.ptr(weight), _build.ptr(bias),
+            _build.ptr(out), _build.ptr(res_out), _build.is_bf16(res_out), m, d,
+            eps, int(norm_type == "rms"), x.device.index, _build.stream_of(x),
         )
         _build.check(err, "fused_add_norm")
         fused_add_norm.launches += 1

@@ -23,6 +23,7 @@ class StreamingSession:
 
     CLS appears in chunk 0 only, so pooled outputs need ``pool_type='avg'``
     from chunk 1 on. Reset rows with :meth:`reset` when their streams end.
+    States are fp32 unless ``dtype`` says otherwise, at a bf16 model too.
     """
 
     def __init__(

@@ -1,0 +1,34 @@
+"""Serving precision: cast a model's weights to the compute dtype.
+
+Port of videomamba_tpu/utils/precision.py. Parameters that must stay fp32
+for numerical fidelity keep their dtype: ``A_log``, ``D``, ``dt_proj.bias``,
+every norm's weight and bias, and ``pool_norm``; everything else (products'
+weights, embeddings, conv taps and biases) is cast. The selective scan and
+the norms compute in fp32 whatever the storage dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+_KEEP_FP32_SUFFIXES = ("A_log", "D", "dt_proj.bias")
+_KEEP_FP32_SEGMENTS = (".norm.", "pool_norm")
+
+
+def keep_fp32(name: str) -> bool:
+    """Whether the parameter ``name`` (a ``named_parameters`` key) stays fp32."""
+    if any(name.endswith(sfx) for sfx in _KEEP_FP32_SUFFIXES):
+        return True
+    padded = "." + name + "."
+    return any(seg in padded for seg in _KEEP_FP32_SEGMENTS)
+
+
+@torch.no_grad()
+def cast_module_for_compute(module: nn.Module, dtype=torch.bfloat16) -> nn.Module:
+    """Cast ``module``'s fp32 parameters to ``dtype`` in place, except those
+    :func:`keep_fp32` names, and return the module."""
+    for name, param in module.named_parameters():
+        if param.dtype == torch.float32 and not keep_fp32(name):
+            param.data = param.data.to(dtype)
+    return module
