@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving path once on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -31,16 +31,51 @@ failure, so the script exits nonzero:
 7. bf16 stream: StreamingSession over two 4-frame chunks; stitched patch
    tokens against the bf16 full clip, rel_err <= 1e-2; states stay fp32.
 
-The launch counters are zeroed just before phases 2-4 (the fp32 main path)
-and read just after, and again around phases 6-7 (the bf16 main path).
-TF32 is off for matmuls and cuDNN throughout. Times are CUDA-event times per
-launch (kernels) or host time around a synchronised call (forward, chunk),
-medians over repeats, on the card named in the output. The last stdout line
-is the contract JSON; the line before it lists the kernels.
+8. backward kernels at Base shapes (B=1, L=1569, nonzero h0, conv_state
+   and h_last cotangent): K1's and K3's checkpoints (fp32, 1e-5) and K1 with
+   bf16 operands (1e-2); K3 at bf16 (1e-2); K5 (selective-scan backward,
+   with and without D, z and delta_bias), K6 (mixer backward, all 11
+   gradients) and K8 (add-norm backward) against
+   their plain versions, fp32 within 2e-5 (K8 1e-5) and bf16 within 2e-2
+   (K8 bf16 x with an fp32 residual, 1e-2); K5, K6 and K8 run twice on the
+   same inputs and must be bit-identical; each timed beside its plain
+   version.
+9. fp32 train step, Base depth 24, B=2, clip (2,3,8,224,224) and a noise
+   target (a zero target leaves only cancellation noise below the final
+   RMSNorm to compare), one step of ``make_train_step``'s default loss
+   (AdamW): loss within 1e-5 and every gradient within 1e-4 of the plain
+   path on the card (24 layers of reordered fp32 sums); launches K2 25,
+   K3 24, K6 24, K5 0, K8 0, K4 0.
+   The same step under VIDEOMAMBA_MIXER_BWD=composite and
+   VIDEOMAMBA_NORM_BWD=pallas: K5 24, K8 25 launches, gradients within 1e-4
+   of the default route. checkpoint_num=24 with drop_path_rate=0.1 and a
+   fixed generator: the gradients of the unchecked model within 1e-6.
+10. bf16 mixed-precision train step, the bench.py recipe (AdamW lr 1e-4,
+    weight decay 0.05, compute_dtype bf16): one step at B=2 on phase 9's
+    batch against the same model with every kernel wrapper swapped for its
+    plain version (the kernels' rounding points, no kernel): loss within 1e-2,
+    every gradient within 5e-2 max rel (mean rel printed); max and mean rel
+    against phase 9's fp32 gradients printed. Then steps at B=4 on the
+    recipe's zero target: finite loss each step, fp32 masters.
+11. times: fp32 and bf16 train step at B=4 (host ms, medians of 5 steps
+    after 2 warm ones) and the peak device memory of each.
+
+The launch counters are zeroed just before each main path and read just
+after: phases 2-4 (fp32 serving), 6-7 (bf16 serving), 9 (fp32 training)
+and 10 (bf16 training). TF32 is off for matmuls and cuDNN throughout. Times
+are CUDA-event times per launch (kernels) or host time around a
+synchronised call (forward, chunk, step), on the card named in the output.
+Each kernel's bound is computed from the inputs it was timed on: the larger
+of the bytes it must move over 3.35 TB/s and its operations over the peak
+rate of their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32). No
+single PyTorch call computes any kernel's function, so ``library_ms`` is
+null. The last stdout line is the contract JSON; the line before it lists
+the kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -54,13 +89,16 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from videomamba_tpu_torch.checkpoint import load_state_dict  # noqa: E402
+from videomamba_tpu_torch.models import mamba as mamba_mod  # noqa: E402
 from videomamba_tpu_torch.models.mamba import Mamba  # noqa: E402
 from videomamba_tpu_torch.models.presets import videomamba_base  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import _build  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import block_fused as k4  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import fused_add_norm as k2  # noqa: E402
+from videomamba_tpu_torch.ops.kernels import mixer_bwd as k6  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import mixer_fused as k3  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import scan as k1  # noqa: E402
+from videomamba_tpu_torch.parallel.train_step import make_train_step  # noqa: E402
 from videomamba_tpu_torch.runtime import StreamingSession  # noqa: E402
 from videomamba_tpu_torch.utils.precision import cast_module_for_compute  # noqa: E402
 
@@ -70,10 +108,19 @@ KERNEL_TOL = 1e-5
 MODEL_TOL = 1e-4
 BF16_TOL = 1e-2      # one bf16 ulp is 2^-8 of the largest element
 BF16_MODEL_TOL = 2e-2  # such flips carried through 24 layers
+GRAD_TOL = 2e-5      # the JAX package's gradient bar (tests/test_mixer_bwd.py:76)
+BF16_GRAD_TOL = 2e-2  # its bf16 gradient bar (tests/test_block_bwd.py:115)
+STEP_GRAD_TOL = 1e-4  # 24 layers of reordered fp32 sums, twice
+BF16_STEP_TOL = 5e-2  # bf16 flips carried through 24 layers, forward and back
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
 WRAPPERS = {"selective_scan": k1.selective_scan,
             "fused_add_norm": k2.fused_add_norm,
             "mixer_fused": k3.mixer_fused,
-            "block_fused": k4.block_fused}
+            "block_fused": k4.block_fused,
+            "selective_scan_bwd": k1.selective_scan_bwd,
+            "mixer_bwd": k6.mixer_bwd,
+            "fused_add_norm_bwd": k2.fused_add_norm_bwd}
 SOURCES = {
     "selective_scan": ("videomamba_tpu_torch/csrc/selective_scan.cu",
                        "videomamba_tpu/ops/pallas/scan.py:181"),
@@ -83,6 +130,12 @@ SOURCES = {
                     "videomamba_tpu/ops/pallas/mixer_fused.py:324"),
     "block_fused": ("videomamba_tpu_torch/csrc/block_fused.cu",
                     "videomamba_tpu/ops/pallas/block_fused.py:494"),
+    "selective_scan_bwd": ("videomamba_tpu_torch/csrc/selective_scan_bwd.cu",
+                           "videomamba_tpu/ops/pallas/scan.py:523"),
+    "mixer_bwd": ("videomamba_tpu_torch/csrc/mixer_bwd.cu",
+                  "videomamba_tpu/ops/pallas/mixer_bwd.py:364"),
+    "fused_add_norm_bwd": ("videomamba_tpu_torch/csrc/fused_add_norm_bwd.cu",
+                           "videomamba_tpu/ops/pallas/fused_add_norm.py:185"),
 }
 
 
@@ -158,29 +211,79 @@ def kernel_inputs(cfg, device, seed=0):
     return {"selective_scan": scan, "fused_add_norm": norm, "mixer_fused": mixer}
 
 
-def time_against_plain(name, fn, plain, kw, tol, iters=20, plain_iters=3):
+def nbytes(*ts) -> int:
+    """Bytes of the tensors given (a view counts its own elements)."""
+    return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
+
+
+def bound(nbytes_moved: int, flops: dict) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    mem_ms = nbytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = sum(f / PEAK_FLOPS[kind] for kind, f in flops.items()) * 1e3
+    return {"bound_ms": max(mem_ms, ops_ms),
+            "bound_by": "bytes" if mem_ms >= ops_ms else "operations"}
+
+
+def scan_flops(b, L, d, n, per_step=6):
+    return {"fp32": per_step * b * L * n * d}
+
+
+def mixer_flops(b, L, di, n, r, w, wdtype, backward=False):
+    """Conv, x_proj and dt_proj (each three times in the backward: the
+    recompute, the cotangent product, the weight gradient) and the walk."""
+    p = r + 2 * n
+    times = 3 if backward else 1
+    products = times * 2 * b * L * (di * p + r * di)
+    kind = "bf16" if wdtype == torch.bfloat16 else "fp32"
+    fp32 = times * 2 * w * b * L * di + scan_flops(b, L, di, n, 26 if backward else 6)["fp32"]
+    return {"fp32": fp32 + (products if kind == "fp32" else 0),
+            **({"bf16": products} if kind == "bf16" else {})}
+
+
+def time_against_plain(name, fn, plain, kw, tol, flops, iters=20, plain_iters=3,
+                       repeat_identical=False):
     """One kernel call against its plain version on the same inputs (every
     output, dtype and values), then both timed; returns the kernels-line
-    entries max_abs_err, ms and plain_ms."""
+    entries max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms.
+    With ``repeat_identical`` a second call must give bit-identical outputs."""
     out = fn(**kw)
     torch.cuda.synchronize()
+    if repeat_identical:
+        again = fn(**kw)
+        torch.cuda.synchronize()
+        check(all(a is None and b is None or torch.equal(a, b) for a, b in zip(out, again)),
+              f"{name}: two runs on the same inputs differ")
+        print(f"kernel {name}: two runs bit-identical")
     ref = plain(**kw)
     errs = []
     for i, (o, p) in enumerate(zip(out, ref)):
+        check((o is None) == (p is None), f"{name}[{i}]: None where plain is not")
+        if o is None:
+            continue
         check(o.dtype == p.dtype, f"{name}[{i}]: dtype {o.dtype} != plain {p.dtype}")
         errs.append(check_close(f"kernel {name}[{i}]", o, p, tol))
     ms = event_ms(lambda: fn(**kw), iters)
     plain_ms = event_ms(lambda: plain(**kw), plain_iters, warmup=1)
-    print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
+    result = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+              **bound(nbytes(*kw.values(), *out), flops), "library_ms": None}
+    print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {result['bound_ms']:.4f} ms ({result['bound_by']})")
+    return result
 
 
 def phase_kernels(cfg, device):
     """K1-K3 (fp32) each against its plain version on the same inputs, and timed."""
+    b, L, e, di = cfg["batch"], cfg["seqlen"], cfg["embed"], cfg["d_inner"]
+    n, r, w = cfg["d_state"], cfg["dt_rank"], cfg["width"]
     plains = {"selective_scan": k1.selective_scan_plain,
               "fused_add_norm": k2.fused_add_norm_plain,
               "mixer_fused": k3.mixer_fused_plain}
-    return {name: time_against_plain(name, WRAPPERS[name], plains[name], kw, KERNEL_TOL)
+    flops = {"selective_scan": scan_flops(b, L, di, n),
+             "fused_add_norm": {"fp32": 8 * b * L * e},
+             "mixer_fused": mixer_flops(b, L, di, n, r, w, torch.float32)}
+    return {name: time_against_plain(name, WRAPPERS[name], plains[name], kw, KERNEL_TOL,
+                                     flops[name])
             for name, kw in kernel_inputs(cfg, device).items()}
 
 
@@ -208,14 +311,25 @@ def block_inputs(cfg, device, dtype, seed=3):
 
 def phase_bf16_kernels(device):
     """K4 at bf16 (Base) and fp32 (Small), K2 at bf16, against plain."""
+    def block_flops(cfg, dtype):
+        b, L, e, di = cfg["batch"], cfg["seqlen"], cfg["embed"], cfg["d_inner"]
+        n, r, w = cfg["d_state"], cfg["dt_rank"], cfg["width"]
+        mixer = mixer_flops(b, L, di, n, r, w, dtype)
+        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        mixer[kind] = mixer.get(kind, 0) + 2 * b * L * (e * 2 * di + di * e)
+        return mixer
+
     result = time_against_plain(
         "block_fused bf16 Base", k4.block_fused, k4.block_fused_plain,
-        block_inputs(BASE, device, torch.bfloat16), BF16_TOL)
+        block_inputs(BASE, device, torch.bfloat16), BF16_TOL,
+        block_flops(BASE, torch.bfloat16))
     time_against_plain("block_fused fp32 Small", k4.block_fused, k4.block_fused_plain,
-                       block_inputs(SMALL, device, torch.float32), KERNEL_TOL)
+                       block_inputs(SMALL, device, torch.float32), KERNEL_TOL,
+                       block_flops(SMALL, torch.float32))
     norm = kernel_inputs(BASE, device)["fused_add_norm"]
     time_against_plain("fused_add_norm bf16 x, fp32 residual", k2.fused_add_norm,
-                       k2.fused_add_norm_plain, dict(norm, x=norm["x"].bfloat16()), BF16_TOL)
+                       k2.fused_add_norm_plain, dict(norm, x=norm["x"].bfloat16()), BF16_TOL,
+                       {"fp32": 8 * norm["x"].numel()})
     return result
 
 
@@ -304,8 +418,8 @@ def phase_bf16_forward(model, clip, fp32_vis, depth):
     used = delta(launches(), before)
     hook.remove()
     print(f"bf16 forward launches: {used}")
-    check(used == {"selective_scan": 0, "fused_add_norm": 1, "mixer_fused": 0,
-                   "block_fused": depth},
+    want = {"selective_scan": 0, "fused_add_norm": 1, "mixer_fused": 0, "block_fused": depth}
+    check(all(used[k] == v for k, v in want.items()),
           f"bf16 forward: expected K4={depth}, K2=1, K1=K3=0 launches, got {used}")
     check(x_vis.dtype == torch.bfloat16 and x_vis.shape == fp32_vis.shape,
           f"bf16 x_vis {x_vis.dtype} {tuple(x_vis.shape)}")
@@ -330,6 +444,254 @@ def phase_unfused(cfg, device):
     torch.cuda.synchronize()
     check(launches()["selective_scan"] > before, "unfused: K1 was not launched")
     check_close("unfused mixer vs plain", y, plain(x), KERNEL_TOL)
+
+
+def phase_bwd_kernels(device):
+    """Checkpoints of K1 and K3, K1 and K3 at bf16, and K5, K6, K8 against
+    their plain versions at Base shapes; returns the kernels-line entries of
+    K5, K6 and K8 (fp32)."""
+    b, L, e, di = BASE["batch"], BASE["seqlen"], BASE["embed"], BASE["d_inner"]
+    n, r, w = BASE["d_state"], BASE["dt_rank"], BASE["width"]
+    g = torch.Generator().manual_seed(11)
+    inputs = kernel_inputs(BASE, device, seed=5)
+    results = {}
+    bf16 = torch.bfloat16
+    for dtype, tol, gtol in ((torch.float32, KERNEL_TOL, GRAD_TOL), (bf16, BF16_TOL, BF16_GRAD_TOL)):
+        label = "fp32" if dtype == torch.float32 else "bf16"
+        sk = {k: (v.to(dtype) if k in ("u", "delta", "z", "B", "C") else v)
+              for k, v in inputs["selective_scan"].items()}
+        y, h, ckpt = k1.selective_scan(**sk, checkpoints=True)
+        torch.cuda.synchronize()
+        want = k1.selective_scan_plain(**sk, checkpoints=True)
+        for name, got, ref in zip(("y", "h_last", "checkpoints"), (y, h, ckpt), want):
+            check_close(f"K1 {label} {name}", got, ref, tol if name == "y" else KERNEL_TOL)
+        kw = dict(sk, ckpt=ckpt, g_out=randn((b, L, di), g, device).to(dtype),
+                  g_hlast=randn((b, di, n), g, device, 0.3))
+        del kw["h0"]
+        res = time_against_plain(f"selective_scan_bwd {label}", k1.selective_scan_bwd,
+                                 k1.selective_scan_bwd_plain, kw, gtol,
+                                 scan_flops(b, L, di, n, 26), plain_iters=1, repeat_identical=True)
+        if dtype == torch.float32:
+            results["selective_scan_bwd"] = res
+        # The route without D, z and delta_bias: softplus off, so delta is the
+        # (positive) step itself; checkpoints from the matching forward.
+        bare = dict(sk, D=None, z=None, delta_bias=None, softplus_delta=False,
+                    delta=k1.softplus(sk["delta"].float() + sk["delta_bias"]).to(dtype))
+        _, _, bare_ckpt = k1.selective_scan(**bare, checkpoints=True)
+        bare = dict(bare, ckpt=bare_ckpt, g_out=kw["g_out"], g_hlast=None)
+        del bare["h0"]
+        time_against_plain(f"selective_scan_bwd {label} without D, z, delta_bias",
+                           k1.selective_scan_bwd, k1.selective_scan_bwd_plain, bare, gtol,
+                           scan_flops(b, L, di, n, 26), plain_iters=1, repeat_identical=True)
+
+        mk = inputs["mixer_fused"]
+        if dtype == bf16:
+            mk = {k: (v.to(bf16) if k in ("x", "z", "conv_w", "conv_b", "x_proj_w", "dt_proj_w",
+                                          "conv_state") else v) for k, v in mk.items()}
+        y, h, ckpt = k3.mixer_fused(**mk, checkpoints=True)
+        torch.cuda.synchronize()
+        want = k3.mixer_fused_plain(**mk, checkpoints=True)
+        for name, got, ref in zip(("y", "h_last", "checkpoints"), (y, h, ckpt), want):
+            check_close(f"K3 {label} {name}", got, ref, tol if name == "y" else
+                        (KERNEL_TOL if dtype == torch.float32 else BF16_TOL))
+        kw = dict(mk, ckpt=ckpt, g_y=randn((b, L, di), g, device).to(dtype),
+                  g_hlast=randn((b, di, n), g, device, 0.3))
+        del kw["h0"]
+        res = time_against_plain(f"mixer_bwd {label}", k6.mixer_bwd, k6.mixer_bwd_plain, kw, gtol,
+                                 mixer_flops(b, L, di, n, r, w, dtype, backward=True),
+                                 plain_iters=1, repeat_identical=True)
+        if dtype == torch.float32:
+            results["mixer_bwd"] = res
+
+    nk = inputs["fused_add_norm"]
+    kw = dict(x=nk["x"], weight=nk["weight"], residual=nk["residual"],
+              g_out=randn((b, L, e), g, device), g_resout=randn((b, L, e), g, device),
+              prenorm=True, norm_type="rms")
+    results["fused_add_norm_bwd"] = time_against_plain(
+        "fused_add_norm_bwd fp32 rms prenorm", k2.fused_add_norm_bwd,
+        k2.fused_add_norm_bwd_plain, kw, KERNEL_TOL, {"fp32": 12 * b * L * e},
+        repeat_identical=True)
+    time_against_plain(
+        "fused_add_norm_bwd bf16 x, fp32 residual", k2.fused_add_norm_bwd,
+        k2.fused_add_norm_bwd_plain, dict(kw, x=kw["x"].bfloat16(), g_out=kw["g_out"].bfloat16()),
+        BF16_TOL, {"fp32": 12 * b * L * e}, repeat_identical=True)
+    return results
+
+
+def train_batch(batch, device, seed=2, zero_target=True):
+    """A seeded clip and a target for the patch tokens: zero, as in the bench
+    recipe, or seeded noise. With a zero target the loss is the mean square of
+    RMS-normed tokens, about 1 whatever the weights, so every gradient below
+    the final norm is cancellation noise; comparisons use a noise target."""
+    g = torch.Generator().manual_seed(seed)
+    video = torch.randn((batch, 3, 8, 224, 224), generator=g)
+    shape = (batch, 8 * 196, 768)
+    target = torch.zeros(shape) if zero_target else torch.randn(shape, generator=g)
+    return {"video": video.to(device), "target": target.to(device)}
+
+
+def grads_of(model):
+    """Gradients by name of the parameters the loss reached (the pool norm's
+    are not: the default loss reads the patch tokens)."""
+    return {name: p.grad.detach().clone() for name, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def compare_grads(label, got, want, tol):
+    """Every parameter's gradient within ``tol`` (rel_err); prints the worst
+    and the mean relative error over parameters."""
+    errs = {}
+    check(set(got) == set(want), f"{label}: gradients of {set(got) ^ set(want)} on one side only")
+    for name, ref in want.items():
+        check(bool(torch.isfinite(got[name]).all()), f"{label}: non-finite gradient of {name}")
+        errs[name] = rel_err(got[name], ref)
+    worst = max(errs, key=errs.get)
+    mean = statistics.mean(
+        float((got[k].double() - want[k].double()).abs().mean()
+              / want[k].double().abs().mean().clamp_min(1e-30)) for k in want)
+    print(f"{label}: gradients max rel_err {errs[worst]:.3e} ({worst}), "
+          f"mean rel {mean:.3e} (tol {tol:g})")
+    check(errs[worst] <= tol, f"{label}: {worst} rel_err {errs[worst]:.3e} > {tol:g}")
+
+
+def base_model(device, sd=None, **overrides):
+    model = videomamba_base(pool_type="avg", device=device,
+                            generator=torch.Generator().manual_seed(0), **overrides)
+    if sd is not None:
+        load_state_dict(model, sd)
+    return model
+
+
+def adamw(model):
+    """The bench recipe's optimizer (bench.py:243): AdamW, lr 1e-4, wd 0.05."""
+    return torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=0.05)
+
+
+def expect_launches(label, used, **want):
+    print(f"{label} launches: {used}")
+    for name, count in want.items():
+        check(used[name] == count, f"{label}: {name} launched {used[name]} times, expected {count}")
+
+
+def phase_train_fp32(device, batch, depth):
+    """One fp32 step: kernels against the plain path, the opt-in backward
+    routes against the default, remat against no remat."""
+    fast = base_model(device)
+    sd0 = {k: v.detach().clone() for k, v in fast.state_dict().items()}
+    step = make_train_step(fast, adamw(fast))
+    before = launches()
+    metrics = step(batch, torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    expect_launches("fp32 train step", delta(launches(), before),
+                    fused_add_norm=depth + 1, mixer_fused=depth, mixer_bwd=depth,
+                    selective_scan_bwd=0, fused_add_norm_bwd=0, block_fused=0)
+    grads = grads_of(fast)
+    loss = metrics["loss"]
+    check(bool(torch.isfinite(loss)), "fp32 train step: non-finite loss")
+
+    plain = base_model(device, sd0, fused_add_norm=False, ssm_cfg={"use_fast_path": False})
+    plain_metrics = make_train_step(plain, adamw(plain))(batch)
+    torch.cuda.synchronize()
+    check_close("fp32 train step loss vs plain", loss.reshape(1),
+                plain_metrics["loss"].reshape(1), 1e-5)
+    compare_grads("fp32 train step vs plain", grads, grads_of(plain), STEP_GRAD_TOL)
+    del plain, plain_metrics
+    torch.cuda.empty_cache()
+
+    load_state_dict(fast, sd0)
+    os.environ["VIDEOMAMBA_MIXER_BWD"] = "composite"
+    os.environ["VIDEOMAMBA_NORM_BWD"] = "pallas"
+    try:
+        before = launches()
+        step(batch)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["VIDEOMAMBA_MIXER_BWD"], os.environ["VIDEOMAMBA_NORM_BWD"]
+    expect_launches("fp32 train step, composite + norm kernel", delta(launches(), before),
+                    selective_scan_bwd=depth, fused_add_norm_bwd=depth + 1, mixer_bwd=0,
+                    mixer_fused=depth)
+    compare_grads("composite + K8 routes vs default", grads_of(fast), grads, STEP_GRAD_TOL)
+    del fast, step
+    torch.cuda.empty_cache()
+
+    remat_grads = []
+    for use_checkpoint in (True, False):
+        model = base_model(device, sd0, drop_path_rate=0.1, use_checkpoint=use_checkpoint,
+                           checkpoint_num=depth)
+        make_train_step(model, adamw(model))(
+            batch, torch.Generator().manual_seed(7))
+        remat_grads.append(grads_of(model))
+        del model
+    compare_grads("checkpoint_num=24, drop_path 0.1 vs no remat", *remat_grads, 1e-6)
+    torch.cuda.empty_cache()
+    return sd0, grads
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Every kernel the training route calls, swapped for its plain version
+    (same rounding points, no kernel): the reference of the bf16 step."""
+    swaps = [(mamba_mod, "mixer_fused", k3.mixer_fused_plain),
+             (mamba_mod, "mixer_bwd", k6.mixer_bwd_plain),
+             (k2, "fused_add_norm", k2.fused_add_norm_plain),
+             (k2, "fused_add_norm_bwd", k2.fused_add_norm_bwd_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def timed_steps(step, batch, label, warm=2, timed=5):
+    """``warm + timed`` steps, each loss finite; the median host ms of the
+    timed ones and the peak device memory."""
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(warm + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        if i >= warm:
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(metrics["loss"])), f"{label}: non-finite loss at step {i}")
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label}: {ms:.3f} ms a step (median of {timed}, steps {times}), "
+          f"peak memory {peak:.2f} GiB, last loss {float(metrics['loss']):.6f}")
+    return ms, peak
+
+
+def phase_train_bf16(device, sd0, fp32_grads, batch, depth):
+    """The bench recipe at B=2 against the same model on plain versions."""
+    model = base_model(device, sd0)
+    step = make_train_step(model, adamw(model), compute_dtype=torch.bfloat16)
+    before = launches()
+    metrics = step(batch, torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    expect_launches("bf16 train step", delta(launches(), before),
+                    fused_add_norm=depth + 1, mixer_fused=depth, mixer_bwd=depth,
+                    block_fused=0)
+    check(all(p.dtype == torch.float32 for p in model.parameters()), "bf16 step: masters not fp32")
+    grads = grads_of(model)
+    load_state_dict(model, sd0)
+    with plain_versions():
+        before = launches()
+        plain_metrics = step(batch, torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        check(launches() == before, "bf16 plain-version step launched a kernel")
+    check_close("bf16 train step loss vs plain versions", metrics["loss"].reshape(1),
+                plain_metrics["loss"].reshape(1), BF16_TOL)
+    compare_grads("bf16 train step vs plain versions", grads, grads_of(model), BF16_STEP_TOL)
+    worst = max(rel_err(grads[k], fp32_grads[k]) for k in fp32_grads)
+    mean = statistics.mean(float((grads[k].double() - fp32_grads[k].double()).abs().mean()
+                                 / fp32_grads[k].double().abs().mean().clamp_min(1e-30))
+                           for k in fp32_grads)
+    print(f"bf16 vs fp32 train-step gradients: max rel {worst:.3e}, mean rel {mean:.3e}")
+    return model
 
 
 def card_line() -> str:
@@ -382,7 +744,6 @@ def main() -> int:
         print(f"bf16 main path launches: {bf16_counts}")
         for name in ("fused_add_norm", "block_fused"):
             check(bf16_counts[name] > 0, f"{name} was not launched on the bf16 main path")
-        counts = {name: fp32_counts[name] + bf16_counts[name] for name in WRAPPERS}
 
         for label, model, plain_model in (("fp32", fast, plain), ("bf16", bf16, None)):
             fwd_ms = host_ms(lambda: model(clip), repeats=5)
@@ -397,6 +758,42 @@ def main() -> int:
             print(f"{label} full-clip forward (1,3,8,224,224): {fwd_ms:.3f} ms{plain_note}")
             print(f"{label} streaming chunk (4 frames): first {statistics.median(chunk0):.3f} ms, "
                   f"continuation {statistics.median(chunk1):.3f} ms")
+
+        kernels.update(phase_bwd_kernels(device))
+    del fast, plain, bf16
+    torch.cuda.empty_cache()
+
+    batch2 = train_batch(2, device, zero_target=False)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    sd0, fp32_grads = phase_train_fp32(device, batch2, depth)
+    train32_counts = launches()
+    print(f"fp32 training main path launches: {train32_counts}")
+    for name in ("fused_add_norm", "mixer_fused", "mixer_bwd", "selective_scan_bwd",
+                 "fused_add_norm_bwd"):
+        check(train32_counts[name] > 0, f"{name} was not launched on the fp32 training path")
+
+    for w in WRAPPERS.values():
+        w.launches = 0
+    model = phase_train_bf16(device, sd0, fp32_grads, batch2, depth)
+    batch4 = train_batch(4, device)
+    step = make_train_step(model, adamw(model), compute_dtype=torch.bfloat16)
+    bf16_ms, bf16_peak = timed_steps(step, batch4, "bf16 train step (4,3,8,224,224)")
+    check(all(p.dtype == torch.float32 for p in model.parameters()), "bf16 steps: masters not fp32")
+    train16_counts = launches()
+    print(f"bf16 training main path launches: {train16_counts}")
+    for name in ("fused_add_norm", "mixer_fused", "mixer_bwd"):
+        check(train16_counts[name] > 0, f"{name} was not launched on the bf16 training path")
+    del model, step
+    torch.cuda.empty_cache()
+
+    model = base_model(device, sd0)
+    step = make_train_step(model, adamw(model))
+    fp32_ms, fp32_peak = timed_steps(step, batch4, "fp32 train step (4,3,8,224,224)")
+    print(f"train step B=4: fp32 {fp32_ms:.3f} ms ({fp32_peak:.2f} GiB peak), "
+          f"bf16 {bf16_ms:.3f} ms ({bf16_peak:.2f} GiB peak)")
+    counts = {name: fp32_counts[name] + bf16_counts[name] + train32_counts[name]
+              + train16_counts[name] for name in WRAPPERS}
 
     rows = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -1,0 +1,125 @@
+"""Device-time breakdown of the PyTorch port's train step on one CUDA card.
+
+    python3 scripts/profile_torch_train.py [--batch 4] [--dtype fp32|bf16|both]
+
+Builds VideoMamba-Base (depth 24, random weights from a seeded generator),
+takes two warm steps of ``make_train_step`` (AdamW lr 1e-4, weight decay
+0.05, zero target: the bench.py recipe; bf16 is ``compute_dtype``), then
+profiles one step with ``torch.profiler`` and prints, for each dtype, the
+step's host wall time, the device time summed by kernel group and the top
+kernels by name. The device's idle share is the wall time not covered by
+kernel time (one stream: kernels do not overlap). Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from videomamba_tpu_torch.models.presets import videomamba_base  # noqa: E402
+from videomamba_tpu_torch.parallel.train_step import make_train_step  # noqa: E402
+
+# Kernel-name fragments -> group, first match wins.
+GROUPS = (
+    ("scan_bwd_kernel", "reverse walk (K6 / K5)"),
+    ("scan_walk_kernel", "forward walk (K3)"),
+    ("gemm_nt", "K3/K6 recompute product tiles"),
+    ("gemm_nn", "K6 cotangent product tiles"),
+    ("gemm_tn", "K6 weight-gradient tiles"),
+    ("conv_", "K3/K6 conv kernels"),
+    ("reduce_bc_kernel", "K5/K6 ordered reductions"),
+    ("reduce_batch_kernel", "K5/K6 ordered reductions"),
+    ("sum_slices", "K5/K6 ordered reductions"),
+    ("add_norm", "add + norm (K2, K8)"),
+    ("gemm", "cuBLAS products (in_proj, out_proj, patch embed)"),
+    ("xmma", "cuBLAS products (in_proj, out_proj, patch embed)"),
+    ("cutlass", "cuBLAS products (in_proj, out_proj, patch embed)"),
+    ("nvjet", "cuBLAS products (in_proj, out_proj, patch embed)"),
+    ("multi_tensor", "optimizer (AdamW)"),
+    ("reduce_kernel", "torch reductions"),
+)
+
+
+def group_of(name: str) -> str:
+    for frag, group in GROUPS:
+        if frag in name:
+            return group
+    return "other torch kernels (elementwise, casts, copies)"
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    return out.splitlines()[0] if out else "unknown"
+
+
+def profile_step(dtype: torch.dtype, batch: int, device) -> None:
+    model = videomamba_base(pool_type="avg", device=device,
+                            generator=torch.Generator().manual_seed(0))
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=0.05)
+    step = make_train_step(model, opt,
+                           compute_dtype=None if dtype == torch.float32 else dtype)
+    g = torch.Generator().manual_seed(2)
+    data = {"video": torch.randn((batch, 3, 8, 224, 224), generator=g).to(device),
+            "target": torch.zeros((batch, 8 * 196, 768), device=device)}
+    for _ in range(2):
+        step(data)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(data)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = defaultdict(float)  # device kernels only, not the ops launching them
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
+            by_name[evt.name] += evt.time_range.elapsed_us() / 1e3
+    total = sum(by_name.values())
+    by_group = defaultdict(float)
+    for name, ms in by_name.items():
+        by_group[group_of(name)] += ms
+    label = "fp32" if dtype == torch.float32 else "bf16"
+    print(f"\n{label} train step, B={batch}: wall {wall_ms:.3f} ms, kernel time "
+          f"{total:.3f} ms, device idle {wall_ms - total:.3f} ms "
+          f"({100 * (wall_ms - total) / wall_ms:.1f} %)")
+    for group, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"  {ms:9.3f} ms  {100 * ms / total:5.1f} %  {group}")
+    print("  top kernels:")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {ms:9.3f} ms  {name[:110]}")
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--batch", type=int, default=4)
+    parser.add_argument("--dtype", choices=("fp32", "bf16", "both"), default="both")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_train: no CUDA card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card_line())
+    device = torch.device("cuda")
+    dtypes = {"fp32": [torch.float32], "bf16": [torch.bfloat16],
+              "both": [torch.float32, torch.bfloat16]}[args.dtype]
+    for dtype in dtypes:
+        profile_step(dtype, args.batch, device)
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

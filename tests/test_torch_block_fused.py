@@ -124,7 +124,7 @@ def test_block_route_follows_jax(embed_dim, dtype):
     """Tiny/Small/Middle/Base widths: K4 everywhere except fp32 Base."""
     jblock = j_create_block(embed_dim)
     jparams = jblock.init(jax.random.PRNGKey(0), dtype=JDTYPE[dtype])
-    tblock = t_create_block(embed_dim, dtype=TDTYPE[dtype]).eval()
+    tblock = t_create_block(embed_dim, dtype=TDTYPE[dtype], device="cpu").eval()
     want = jblock._use_block_fused(jparams)
     assert tblock._use_block_fused() == want
     assert want == (dtype == "bf16" or embed_dim != 768)
@@ -143,7 +143,7 @@ def tiny_pair(dtype):
     cast_params_for_compute and the port's from cast_module_for_compute."""
     if dtype not in _MODELS:
         jm = JModel(**GEOM, rng=0)
-        tm = TModel(**GEOM).eval()
+        tm = TModel(**GEOM, device="cpu").eval()
         load_state_dict(tm, params_from_jax(jax.tree.map(np.asarray, jm.params), tm))
         if dtype == "bf16":
             jm = JModel(**GEOM, params=cast_params_for_compute(jm.params, jnp.bfloat16),
@@ -227,7 +227,7 @@ def _jax_names(tree):
 
 def test_cast_module_keeps_the_leaves_jax_keeps_fp32():
     jm = JModel(**GEOM, rng=0)
-    tm = cast_module_for_compute(TModel(**GEOM), torch.bfloat16)
+    tm = cast_module_for_compute(TModel(**GEOM, device="cpu"), torch.bfloat16)
     jnames = _jax_names(cast_params_for_compute(jm.params, jnp.bfloat16))
     tnames = dict(tm.named_parameters())
     assert set(jnames) == set(tnames)
@@ -242,7 +242,7 @@ def test_params_from_jax_loads_a_bf16_tree_into_a_bf16_model():
     """A bf16 JAX tree loads into a model built at bf16 exactly as the fp32
     weights cast for serving do."""
     jm, tm = tiny_pair("bf16")
-    built = TModel(**GEOM, dtype=torch.bfloat16).eval()
+    built = TModel(**GEOM, dtype=torch.bfloat16, device="cpu").eval()
     load_state_dict(built, params_from_jax(jax.tree.map(np.asarray, jm.params), built))
     want = tm.state_dict()
     for k, v in built.state_dict().items():

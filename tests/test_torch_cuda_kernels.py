@@ -17,6 +17,7 @@ import torch
 
 from videomamba_tpu_torch.ops.kernels import block_fused as k4
 from videomamba_tpu_torch.ops.kernels import fused_add_norm as k2
+from videomamba_tpu_torch.ops.kernels import mixer_bwd as k6
 from videomamba_tpu_torch.ops.kernels import mixer_fused as k3
 from videomamba_tpu_torch.ops.kernels import scan as k1
 
@@ -110,7 +111,9 @@ def test_mixer_fused_kernel_matches_plain(dev, L):
 
 def test_wrappers_raise_on_what_they_do_not_take(dev):
     kw = _mixer_inputs(dev)
-    with pytest.raises(ValueError, match="fp32"):
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        k3.mixer_fused(**dict(kw, x=kw["x"].half()))
+    with pytest.raises(ValueError, match="z must be bf16"):
         k3.mixer_fused(**dict(kw, x=kw["x"].bfloat16()))
     with pytest.raises(ValueError, match="contiguous"):
         k3.mixer_fused(**dict(kw, h0=kw["h0"].transpose(0, 1).contiguous().transpose(0, 1)))
@@ -278,3 +281,111 @@ def test_bf16_model_kernels_match_plain_blocks(dev):
         b, _ = session.process(clip[:, :, 2:])
     assert all(c.dtype == s.dtype == torch.float32 for c, s in session.state)
     assert rel_err(torch.cat([a, b], dim=1), vis) <= BF16_TOL
+
+
+GRAD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _same(a, b):
+    return all(x is None and y is None or torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("full", [True, False])
+def test_scan_bwd_kernel_matches_plain(dev, dtype, full):
+    """K1's checkpoints and K5 at a ragged shape (L 37, D 200), strided B/C,
+    twice bit-identical."""
+    b, L, d, n = 2, 37, 200, 16
+    u = randn(b, L, d, dev=dev, seed=1).to(dtype)
+    delta = randn(b, L, d, dev=dev, scale=0.5, seed=2).to(dtype)
+    A = -torch.exp(randn(d, n, dev=dev, scale=0.3, seed=3))
+    xdbl = randn(b, L, 5 + 2 * n, dev=dev, seed=4).to(dtype)
+    Bm, Cm = xdbl[..., 5:5 + n], xdbl[..., 5 + n:]
+    D = randn(d, dev=dev, seed=5) if full else None
+    z = randn(b, L, d, dev=dev, seed=6).to(dtype) if full else None
+    bias = randn(d, dev=dev, scale=0.5, seed=7) if full else None
+    h0 = randn(b, d, n, dev=dev, scale=0.2, seed=8)
+    y, h, ckpt = k1.selective_scan(u, delta, A, Bm, Cm, D, z, bias, h0, True, checkpoints=True)
+    _, _, pckpt = k1.selective_scan_plain(u, delta, A, Bm, Cm, D, z, bias, h0, True,
+                                          checkpoints=True)
+    assert rel_err(ckpt, pckpt) <= TOL
+    g, ghl = randn(b, L, d, dev=dev, seed=9).to(dtype), randn(b, d, n, dev=dev, seed=10)
+    args = (u, delta, A, Bm, Cm, D, z, bias, ckpt, g, ghl)
+    before = k1.selective_scan_bwd.launches
+    got = k1.selective_scan_bwd(*args)
+    again = k1.selective_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert k1.selective_scan_bwd.launches == before + 2 and _same(got, again)
+    for a, w in zip(got, k1.selective_scan_bwd_plain(*args)):
+        assert (a is None) == (w is None)
+        if a is not None:
+            assert a.dtype == w.dtype and rel_err(a, w) <= GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [1, 37, 300])
+def test_mixer_bwd_kernel_matches_plain(dev, dtype, L):
+    kw = _mixer_inputs(dev, L=L)
+    if dtype == torch.bfloat16:
+        kw = {k: v.to(dtype) if k in ("x", "z", "conv_w", "conv_b", "x_proj_w", "dt_proj_w")
+              else v for k, v in kw.items()}
+    y, h, ckpt = k3.mixer_fused(**kw, checkpoints=True)
+    py, ph, pckpt = k3.mixer_fused_plain(**kw, checkpoints=True)
+    assert rel_err(y, py) <= (TOL if dtype == torch.float32 else BF16_TOL)
+    args = {k: v for k, v in kw.items() if k != "h0"}
+    g = randn(*y.shape, dev=dev, seed=12).to(dtype)
+    ghl = randn(*h.shape, dev=dev, scale=0.3, seed=13)
+    before = k6.mixer_bwd.launches
+    got = k6.mixer_bwd(**args, ckpt=ckpt, g_y=g, g_hlast=ghl)
+    again = k6.mixer_bwd(**args, ckpt=ckpt, g_y=g, g_hlast=ghl)
+    torch.cuda.synchronize()
+    assert k6.mixer_bwd.launches == before + 2 and _same(got, again)
+    for a, w in zip(got, k6.mixer_bwd_plain(**args, ckpt=ckpt, g_y=g, g_hlast=ghl)):
+        assert a.dtype == w.dtype and rel_err(a, w) <= GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("d", [200, 768])
+@pytest.mark.parametrize("norm_type", ["rms", "layer"])
+@pytest.mark.parametrize("x_dtype,res_dtype,prenorm", [
+    (torch.float32, torch.float32, True), (torch.float32, torch.float32, False),
+    (torch.bfloat16, torch.float32, True), (torch.bfloat16, torch.bfloat16, True)])
+def test_add_norm_bwd_kernel_matches_plain(dev, d, norm_type, x_dtype, res_dtype, prenorm):
+    x = randn(3, 41, d, dev=dev, seed=1).to(x_dtype)
+    res = randn(3, 41, d, dev=dev, seed=2).to(res_dtype)
+    w = 1 + randn(d, dev=dev, scale=0.1, seed=3)
+    g = randn(3, 41, d, dev=dev, seed=4).to(x_dtype)
+    gr = randn(3, 41, d, dev=dev, seed=5).to(res_dtype) if prenorm else None
+    kw = dict(prenorm=prenorm, norm_type=norm_type)
+    got = k2.fused_add_norm_bwd(x, w, res, g, gr, **kw)
+    again = k2.fused_add_norm_bwd(x, w, res, g, gr, **kw)
+    torch.cuda.synchronize()
+    assert _same(got, again)
+    tol = TOL if x_dtype == torch.float32 else BF16_TOL
+    for a, b in zip(got, k2.fused_add_norm_bwd_plain(x, w, res, g, gr, **kw)):
+        assert a.dtype == b.dtype and rel_err(a, b) <= tol
+
+
+def test_small_model_trains_on_the_kernels(dev):
+    """A small fp32 model's train step on the kernels (K2 + K3 forward, K6
+    backward) against the same weights on the plain path."""
+    from videomamba_tpu_torch.checkpoint import load_state_dict
+    from videomamba_tpu_torch.models.videomamba import PretrainVideoMamba
+    from videomamba_tpu_torch.parallel.train_step import make_train_step
+
+    geom = dict(img_size=32, patch_size=8, depth=3, embed_dim=128, num_frames=4,
+                pool_type="avg", device=dev)
+    fast = PretrainVideoMamba(**geom, generator=torch.Generator().manual_seed(0))
+    plain = PretrainVideoMamba(**geom, fused_add_norm=False, ssm_cfg={"use_fast_path": False})
+    load_state_dict(plain, fast.state_dict())
+    batch = {"video": randn(2, 3, 4, 32, 32, dev=dev, seed=11),
+             "target": randn(2, 64, 128, dev=dev, seed=12)}
+    before = (k3.mixer_fused.launches, k6.mixer_bwd.launches, k2.fused_add_norm.launches)
+    metrics = {}
+    for name, model in (("fast", fast), ("plain", plain)):
+        metrics[name] = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0))(batch)
+    assert (k3.mixer_fused.launches - before[0], k6.mixer_bwd.launches - before[1],
+            k2.fused_add_norm.launches - before[2]) == (3, 3, 4)
+    assert rel_err(metrics["fast"]["loss"], metrics["plain"]["loss"]) <= 1e-5
+    for (name, p), q in zip(fast.named_parameters(), plain.parameters()):
+        if p.grad is not None:
+            assert rel_err(p.grad, q.grad) <= 1e-4, name

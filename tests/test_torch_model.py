@@ -66,7 +66,7 @@ def model_pair(name):
         kw = dict(GEOM, pool_type=pool_type, rms_norm=rms, ssm_cfg=ssm_cfg)
         jm = JModel(**kw, rng=0)
         jm.params = _perturb(jm.params, seed=1)
-        tm = TModel(**kw).eval()
+        tm = TModel(**kw, device="cpu").eval()
         load_state_dict(tm, params_from_jax(jax.tree.map(np.asarray, jm.params), tm))
         _PAIRS[name] = (jm, tm)
     return _PAIRS[name]
@@ -229,7 +229,7 @@ def test_mixer_branches_match_jax_and_stream(conv_bias):
     layer-level bar."""
     jmix = JMamba(d_model=64, conv_bias=conv_bias, use_fast_path=True)
     params = jax.tree.map(np.asarray, jmix.init(jax.random.PRNGKey(0)))
-    tmix = TMamba(64, conv_bias=conv_bias)
+    tmix = TMamba(64, conv_bias=conv_bias, device="cpu")
     tmix.load_state_dict(_mixer_state_dict(params), strict=True)
     assert tmix._use_fused_mixer() == conv_bias
     x = np.random.default_rng(6).standard_normal((2, 21, 64)).astype(np.float32)

@@ -27,10 +27,15 @@ MODULES = [
     "videomamba_tpu_torch.ops.kernels._build",
     "videomamba_tpu_torch.ops.kernels.block_fused",
     "videomamba_tpu_torch.ops.kernels.fused_add_norm",
+    "videomamba_tpu_torch.ops.kernels.mixer_bwd",
     "videomamba_tpu_torch.ops.kernels.mixer_fused",
     "videomamba_tpu_torch.ops.kernels.scan",
+    "videomamba_tpu_torch.parallel",
+    "videomamba_tpu_torch.parallel.train_step",
     "videomamba_tpu_torch.utils",
+    "videomamba_tpu_torch.utils.optimizer",
     "videomamba_tpu_torch.utils.precision",
+    "videomamba_tpu_torch.utils.scheduler",
 ]
 
 

@@ -124,12 +124,43 @@ def test_dispatch_routes_by_device():
         dispatch.runs_plain(torch.zeros(1, device="meta"))
 
 
+def test_resolve_device_defaults_to_the_card(monkeypatch):
+    """device=None means the card; without one it raises, never the CPU."""
+    from videomamba_tpu_torch.models.presets import videomamba_tiny
+    from videomamba_tpu_torch.runtime import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        videomamba_tiny(depth=1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
+
+
+def test_backward_switches_read_the_jax_environment(monkeypatch):
+    for var in ("VIDEOMAMBA_MIXER_BWD", "VIDEOMAMBA_NORM_BWD", "VIDEOMAMBA_BLOCK_BWD"):
+        monkeypatch.delenv(var, raising=False)
+    assert dispatch.mixer_bwd_backend() == "fused"
+    assert not dispatch.norm_bwd_kernel() and not dispatch.block_bwd_training_opt_in()
+    monkeypatch.setenv("VIDEOMAMBA_MIXER_BWD", "composite")
+    monkeypatch.setenv("VIDEOMAMBA_NORM_BWD", "pallas")
+    monkeypatch.setenv("VIDEOMAMBA_BLOCK_BWD", "fused")
+    assert dispatch.mixer_bwd_backend() == "composite"
+    assert dispatch.norm_bwd_kernel() and dispatch.block_bwd_training_opt_in()
+    monkeypatch.setenv("VIDEOMAMBA_MIXER_BWD", "bogus")
+    monkeypatch.setenv("VIDEOMAMBA_BLOCK_BWD", "composite")
+    assert dispatch.mixer_bwd_backend() == "fused"
+    assert not dispatch.block_bwd_training_opt_in()
+
+
 def test_kill_switch_selects_plain_path(monkeypatch):
     from videomamba_tpu_torch.models.mamba import Mamba
 
-    assert Mamba(16).use_fast_path and Mamba(16)._use_fused_mixer()
-    assert not Mamba(16, use_fast_path=False)._use_fused_mixer()
-    assert not Mamba(16, conv_bias=False)._use_fused_mixer()
+    assert Mamba(16, device="cpu").use_fast_path and Mamba(16, device="cpu")._use_fused_mixer()
+    assert not Mamba(16, use_fast_path=False, device="cpu")._use_fused_mixer()
+    assert not Mamba(16, conv_bias=False, device="cpu")._use_fused_mixer()
     monkeypatch.setenv("VIDEOMAMBA_DISABLE_FUSED", "1")
-    assert not Mamba(16).use_fast_path
-    assert not Mamba(16)._use_fused_mixer()
+    assert not Mamba(16, device="cpu").use_fast_path
+    assert not Mamba(16, device="cpu")._use_fused_mixer()

@@ -1,12 +1,17 @@
 """videomamba_tpu_torch — the PyTorch / CUDA (Hopper) port of videomamba_tpu.
 
 The JAX package ``videomamba_tpu`` is the reference this port is held
-against. This package imports torch and never jax. The slice ported so far
-is the fp32 and bf16 serving path of the Mamba-1 VideoMamba: full-clip
-forward and chunked streaming with carried (conv_state, ssm_state), through
-four hand-written Hopper kernels (``ops/kernels``): the selective scan, the
-fused residual add + norm, the fused mixer core and the whole Block. bf16
-serving weights come from ``utils.precision.cast_module_for_compute``.
+against. This package imports torch and never jax. Ported so far: the fp32
+and bf16 serving path of the Mamba-1 VideoMamba (full-clip forward and
+chunked streaming with carried (conv_state, ssm_state)) and its training
+path (``parallel.train_step``, ``utils.optimizer``, ``utils.scheduler``;
+fp32 or bf16 compute over fp32 masters; stochastic depth and activation
+checkpointing), through seven hand-written Hopper kernels (``ops/kernels``):
+the selective scan and its backward, the fused residual add + norm and its
+backward, the fused mixer core and its backward, and the whole Block (no
+backward yet). bf16 serving weights come from
+``utils.precision.cast_module_for_compute``. Entry points build on the CUDA
+card unless given ``device="cpu"`` (``runtime.resolve_device``).
 """
 
 from videomamba_tpu_torch.models import (

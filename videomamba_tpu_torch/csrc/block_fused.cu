@@ -62,7 +62,7 @@ cudaError_t products_and_walk(const void* normed, const void* in_w,
   }
   if (err != cudaSuccess) return err;
 
-  err = vmt::conv_silu<T>(xz, 2 * Di, conv_state, (const T*)conv_w,
+  err = vmt::conv_silu<float, T>(xz, 2 * Di, conv_state, (const T*)conv_w,
                           (const T*)conv_b, conv_out, batch, L, Di, W, s);
   if (err != cudaSuccess) return err;
 

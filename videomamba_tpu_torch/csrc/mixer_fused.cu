@@ -17,39 +17,53 @@
 // products, walk. conv_out, x_dbl and delta make one round trip through
 // device memory each (about 20 MB at VideoMamba-Base, batch 1).
 //
+// Precision follows the TPU kernel's two routes (mixer_fused.py:121-127):
+// with fp32 weights ("highest") everything is fp32 and the products are FMA
+// tiles; with bf16 weights conv_out is rounded to bf16 before x_proj and
+// x_dbl's dt columns before dt_proj, on the bf16 mma.sync tiles (fp32
+// accumulate). x and z (fp32 or bf16) are widened on load; conv_out, x_dbl,
+// delta and the walk are fp32; y is stored in x's dtype. With ckpt the walk
+// stores its 16-step segment-start states for the backward (mixer_bwd.cu).
+//
 // What bounds it on the H100: the walk, which is latency-bound at batch 1
-// (see selective_scan.cu). The products are small (0.2 GFLOP each at Base)
-// and run as plain fp32 FMA tiles; the conv is one memory pass. The conv and
-// the tiles are in mixer_parts.cuh, shared with the whole-block kernel.
+// (see selective_scan.cu). The products are small (0.2 GFLOP each at Base);
+// the conv is one memory pass. The conv and the tiles are in
+// mixer_parts.cuh, shared with the whole-block kernel and the backward.
 #include "mixer_parts.cuh"
 #include "scan_walk.cuh"
 
-// x, z: (batch, L, Di) rows of stride ld_x / ld_z; conv_state (batch, Di, W),
-// conv_w (Di, W), conv_b (Di,), x_proj_w (R + 2N, Di), dt_proj_w (Di, R),
-// dt_bias, Dskip (Di,), A (Di, N), h0 / h_last (batch, Di, N), y (batch, L,
-// Di): all fp32 and contiguous. conv_out and delta (batch * L * Di) and x_dbl
-// (batch * L * (R + 2N)) are fp32 scratch the caller allocates.
-extern "C" int vmt_mixer_fused(
-    const float* x, long long ld_x, const float* z, long long ld_z,
-    const float* conv_state, const float* conv_w, const float* conv_b,
-    const float* x_proj_w, const float* dt_proj_w, const float* dt_bias,
-    const float* A, const float* Dskip, const float* h0, float* y,
-    float* h_last, float* conv_out, float* x_dbl, float* delta, int batch,
-    int L, int Di, int W, int R, int N, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const long long rows = (long long)batch * L;
+namespace {
+
+template <typename TX, typename TW>
+cudaError_t mixer_fused_t(const void* x, long long ld_x, const void* z,
+                          long long ld_z, const float* conv_state,
+                          const void* conv_w, const void* conv_b,
+                          const void* x_proj_w, const void* dt_proj_w,
+                          const float* dt_bias, const float* A,
+                          const float* Dskip, const float* h0, void* y,
+                          float* h_last, float* ckpt, float* conv_out,
+                          float* x_dbl, float* delta, int batch, int L, int Di,
+                          int W, int R, int N, cudaStream_t s) {
+  const int rows = batch * L;
   const int P = R + 2 * N;
-
-  err = vmt::conv_silu<float>(x, ld_x, conv_state, conv_w, conv_b, conv_out,
-                              batch, L, Di, W, s);
-  if (err != cudaSuccess) return (int)err;
-
-  err = vmt::gemm_nt(conv_out, Di, x_proj_w, Di, x_dbl, P, (int)rows, P, Di, s);
-  if (err != cudaSuccess) return (int)err;
-  err = vmt::gemm_nt(x_dbl, P, dt_proj_w, R, delta, Di, (int)rows, Di, R, s);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err = vmt::conv_silu<TX, TW>((const TX*)x, ld_x, conv_state,
+                                           (const TW*)conv_w, (const TW*)conv_b,
+                                           conv_out, batch, L, Di, W, s);
+  if (err != cudaSuccess) return err;
+  if constexpr (sizeof(TW) == 2) {
+    err = vmt::gemm_nt_bf16<float, float>(conv_out, Di, (const TW*)x_proj_w, Di,
+                                          x_dbl, P, rows, P, Di, s);
+    if (err != cudaSuccess) return err;
+    err = vmt::gemm_nt_bf16<float, float>(x_dbl, P, (const TW*)dt_proj_w, R,
+                                          delta, Di, rows, Di, R, s);
+  } else {
+    err = vmt::gemm_nt(conv_out, Di, (const float*)x_proj_w, Di, x_dbl, P,
+                       rows, P, Di, s);
+    if (err != cudaSuccess) return err;
+    err = vmt::gemm_nt(x_dbl, P, (const float*)dt_proj_w, R, delta, Di, rows,
+                       Di, R, s);
+  }
+  if (err != cudaSuccess) return err;
 
   vmt::ScanArgs a;
   a.u = conv_out;
@@ -69,8 +83,45 @@ extern "C" int vmt_mixer_fused(
   a.y = y;
   a.ld_y = Di;
   a.h_last = h_last;
+  a.ckpt = ckpt;
   a.L = L;
   a.D = Di;
   a.softplus = 1;
-  return (int)vmt::launch_scan_walk(a, batch, N, s);
+  return vmt::launch_scan_walk_t<float, TX, TX>(a, batch, N, s);
+}
+
+}  // namespace
+
+// x, z: (batch, L, Di) rows of stride ld_x / ld_z, fp32 or bf16 (x_bf16);
+// y (batch, L, Di) contiguous in x's dtype. conv_w (Di, W), conv_b (Di,),
+// x_proj_w (R + 2N, Di), dt_proj_w (Di, R) in the weight dtype (w_bf16);
+// conv_state (batch, Di, W), dt_bias, Dskip (Di,), A (Di, N), h0 / h_last
+// (batch, Di, N), ckpt (batch, ceil(L / 16), Di, N) or null: fp32. conv_out
+// and delta (batch * L * Di) and x_dbl (batch * L * (R + 2N)) are fp32
+// scratch the caller allocates.
+extern "C" int vmt_mixer_fused(
+    const void* x, long long ld_x, const void* z, long long ld_z,
+    const float* conv_state, const void* conv_w, const void* conv_b,
+    const void* x_proj_w, const void* dt_proj_w, const float* dt_bias,
+    const float* A, const float* Dskip, const float* h0, void* y,
+    float* h_last, float* ckpt, float* conv_out, float* x_dbl, float* delta,
+    int x_bf16, int w_bf16, int batch, int L, int Di, int W, int R, int N,
+    int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  using bf = vmt::bf16;
+#define VMT_MIXER_ARGS                                                        \
+  x, ld_x, z, ld_z, conv_state, conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias, \
+      A, Dskip, h0, y, h_last, ckpt, conv_out, x_dbl, delta, batch, L, Di, W, \
+      R, N, s
+  if (x_bf16) {
+    err = w_bf16 ? mixer_fused_t<bf, bf>(VMT_MIXER_ARGS)
+                 : mixer_fused_t<bf, float>(VMT_MIXER_ARGS);
+  } else {
+    err = w_bf16 ? mixer_fused_t<float, bf>(VMT_MIXER_ARGS)
+                 : mixer_fused_t<float, float>(VMT_MIXER_ARGS);
+  }
+#undef VMT_MIXER_ARGS
+  return (int)err;
 }

@@ -25,39 +25,44 @@
 namespace vmt {
 
 // conv_out[b, t, d] = silu(bias[d] + sum_k w[d, k] * ctx[b, t + k, d]) where
-// ctx is x preceded by the last W - 1 raw inputs held in conv_state. x and
-// the result are fp32; the taps and bias are fp32 or bf16 (TW).
-template <typename TW>
-__global__ void conv_silu_kernel(const float* __restrict__ x, long long ld_x,
+// ctx is x preceded by the last W - 1 raw inputs held in conv_state (fp32).
+// x is fp32 or bf16 (TX), the taps and bias fp32 or bf16 (TW); the sum and
+// the result are fp32. out_pre, when not null, also gets the sum before the
+// SiLU (the backward needs silu').
+template <typename TX, typename TW>
+__global__ void conv_silu_kernel(const TX* __restrict__ x, long long ld_x,
                                  const float* __restrict__ conv_state,
                                  const TW* __restrict__ w,
                                  const TW* __restrict__ bias,
-                                 float* __restrict__ out, int L, int D, int W) {
+                                 float* __restrict__ out,
+                                 float* __restrict__ out_pre, int L, int D,
+                                 int W) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)L * D) return;
   const long long b = blockIdx.y;
   const int d = (int)(i % D);
   const long long t = i / D;
-  const float* xb = x + b * L * ld_x;
+  const TX* xb = x + b * L * ld_x;
   const float* st = conv_state + (b * D + d) * W;
   float acc = 0.f;
   for (int k = 0; k < W; ++k) {
     const long long s = t + k - (W - 1);
-    const float v = s >= 0 ? xb[s * ld_x + d] : st[W + s];
+    const float v = s >= 0 ? to_f32(xb[s * ld_x + d]) : st[W + s];
     acc += to_f32(w[(long long)d * W + k]) * v;
   }
   acc += to_f32(bias[d]);
+  if (out_pre) out_pre[(b * L + t) * D + d] = acc;
   out[(b * L + t) * D + d] = acc * (1.f / (1.f + expf(-acc)));
 }
 
-template <typename TW>
-cudaError_t conv_silu(const float* x, long long ld_x, const float* conv_state,
+template <typename TX, typename TW>
+cudaError_t conv_silu(const TX* x, long long ld_x, const float* conv_state,
                       const TW* w, const TW* bias, float* out, int batch, int L,
-                      int D, int W, cudaStream_t stream) {
+                      int D, int W, cudaStream_t stream, float* out_pre = nullptr) {
   const long long per_batch = (long long)L * D;
   const dim3 grid((unsigned)((per_batch + 255) / 256), batch);
-  conv_silu_kernel<TW><<<grid, 256, 0, stream>>>(x, ld_x, conv_state, w, bias,
-                                                 out, L, D, W);
+  conv_silu_kernel<TX, TW><<<grid, 256, 0, stream>>>(x, ld_x, conv_state, w, bias,
+                                                     out, out_pre, L, D, W);
   return cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 // Selective-scan time walk shared by the selective-scan kernel
-// (selective_scan.cu) and the last stage of the fused mixer (mixer_fused.cu).
+// (selective_scan.cu), the last stage of the fused mixer (mixer_fused.cu) and
+// the whole-block kernel (block_fused.cu).
 //
 // Recurrence per (batch b, channel d, state n), all in fp32:
 //   dt     = softplus(delta[t, d] + delta_bias[d])     (softplus optional)
@@ -7,6 +8,13 @@
 //   y[t,d] = (sum_n C[t, n] * h[n] + Dskip[d] * u[t, d]) * silu(z[t, d])
 // z may be rounded to bf16 first (round_z), as the whole-block kernel's bf16
 // path stores the gate input (videomamba_tpu/ops/pallas/block_fused.py:427).
+//
+// Operand types are template arguments: TU for u, delta, B and C (fp32 or
+// bf16, widened on load), TZ for z and TY for y. With kCkpt the walk also
+// stores the state at the start of every kScanTile-step segment, in fp32, as
+// ckpt[b][t / kScanTile][d][n]: the residual the reverse walk
+// (scan_walk_bwd.cuh) rebuilds each segment from. The store sits at the tile
+// boundary, outside the step loop, and is compile-time, like kRoundZ.
 //
 // One thread owns one channel and keeps its N states in registers for the
 // whole walk, so the state never touches device memory between steps. A
@@ -23,29 +31,42 @@
 
 namespace vmt {
 
+using bf16 = __nv_bfloat16;  // also declared (identically) in add_norm.cuh
+
 constexpr int kScanThreads = 128;  // channels per block
-constexpr int kScanTile = 16;      // time steps staged per tile
+constexpr int kScanTile = 16;      // time steps staged per tile = checkpoint segment
+
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 // Every (B, L, F) operand is a set of rows with unit element stride: row t of
-// batch b starts at ptr + (b * L + t) * ld.
+// batch b starts at ptr + (b * L + t) * ld. Element types are fixed by the
+// launcher's template arguments.
 struct ScanArgs {
-  const float* u;
+  const void* u;
   long long ld_u;
-  const float* delta;
+  const void* delta;
   long long ld_delta;
-  const float* z;  // may be null: no gate
+  const void* z;  // may be null: no gate
   long long ld_z;
-  const float* B;
+  const void* B;
   long long ld_B;
-  const float* C;
+  const void* C;
   long long ld_C;
   const float* A;           // (D, N)
   const float* Dskip;       // (D,), may be null
   const float* delta_bias;  // (D,), may be null
   const float* h0;          // (batch, D, N)
-  float* y;
+  void* y;
   long long ld_y;
   float* h_last;  // (batch, D, N)
+  float* ckpt = nullptr;  // (batch, ceil(L / kScanTile), D, N) or null
   int L;
   int D;
   int softplus;
@@ -63,7 +84,7 @@ __device__ __forceinline__ float softplus_f(float x) {
 // kRoundZ is a template argument, and z is rounded where it is used, not
 // where the tile is staged: a runtime test in the staging loop slowed the
 // fp32 walk by 29% at VideoMamba-Base (H100).
-template <int N, bool kRoundZ>
+template <int N, typename TU, typename TZ, typename TY, bool kRoundZ, bool kCkpt>
 __device__ __forceinline__ void scan_walk(const ScanArgs& a) {
   __shared__ float sU[kScanTile][kScanThreads];
   __shared__ float sDt[kScanTile][kScanThreads];
@@ -77,6 +98,7 @@ __device__ __forceinline__ void scan_walk(const ScanArgs& a) {
   const long long b = blockIdx.y;
   const long long L = a.L;
   const bool has_z = a.z != nullptr;
+  const long long nseg = (L + kScanTile - 1) / kScanTile;
 
   float h[N];
   float A[N];
@@ -99,29 +121,36 @@ __device__ __forceinline__ void scan_walk(const ScanArgs& a) {
     }
   }
 
-  const float* u_b = a.u + b * L * a.ld_u;
-  const float* dt_b = a.delta + b * L * a.ld_delta;
-  const float* z_b = has_z ? a.z + b * L * a.ld_z : nullptr;
-  const float* B_b = a.B + b * L * a.ld_B;
-  const float* C_b = a.C + b * L * a.ld_C;
-  float* y_b = a.y + b * L * a.ld_y;
+  const TU* u_b = (const TU*)a.u + b * L * a.ld_u;
+  const TU* dt_b = (const TU*)a.delta + b * L * a.ld_delta;
+  const TZ* z_b = has_z ? (const TZ*)a.z + b * L * a.ld_z : nullptr;
+  const TU* B_b = (const TU*)a.B + b * L * a.ld_B;
+  const TU* C_b = (const TU*)a.C + b * L * a.ld_C;
+  TY* y_b = (TY*)a.y + b * L * a.ld_y;
 
   for (long long t0 = 0; t0 < L; t0 += kScanTile) {
     const int steps = (int)min((long long)kScanTile, L - t0);
+    if constexpr (kCkpt) {
+      if (active) {
+        float* ck = a.ckpt + ((b * nseg + t0 / kScanTile) * a.D + d) * N;
+#pragma unroll
+        for (int n = 0; n < N; ++n) ck[n] = h[n];
+      }
+    }
     __syncthreads();  // the previous tile has been consumed
     if (active) {
       for (int k = 0; k < steps; ++k) {
         const long long t = t0 + k;
-        sU[k][tid] = u_b[t * a.ld_u + d];
-        sDt[k][tid] = dt_b[t * a.ld_delta + d];
-        if (has_z) sZ[k][tid] = z_b[t * a.ld_z + d];
+        sU[k][tid] = load_f32(u_b + t * a.ld_u + d);
+        sDt[k][tid] = load_f32(dt_b + t * a.ld_delta + d);
+        if (has_z) sZ[k][tid] = load_f32(z_b + t * a.ld_z + d);
       }
     }
     for (int i = tid; i < steps * N; i += kScanThreads) {
       const int k = i / N;
       const int n = i - k * N;
-      sB[k][n] = B_b[(t0 + k) * a.ld_B + n];
-      sC[k][n] = C_b[(t0 + k) * a.ld_C + n];
+      sB[k][n] = load_f32(B_b + (t0 + k) * a.ld_B + n);
+      sC[k][n] = load_f32(C_b + (t0 + k) * a.ld_C + n);
     }
     __syncthreads();
 
@@ -142,7 +171,7 @@ __device__ __forceinline__ void scan_walk(const ScanArgs& a) {
         if constexpr (kRoundZ) zz = __bfloat162float(__float2bfloat16_rn(zz));
         yv *= zz * (1.f / (1.f + expf(-zz)));
       }
-      if (active) y_b[(t0 + k) * a.ld_y + d] = yv;
+      if (active) store_as(y_b + (t0 + k) * a.ld_y + d, yv);
     }
   }
 
@@ -153,42 +182,52 @@ __device__ __forceinline__ void scan_walk(const ScanArgs& a) {
   }
 }
 
-template <int N, bool kRoundZ>
+template <int N, typename TU, typename TZ, typename TY, bool kRoundZ, bool kCkpt>
 __global__ void __launch_bounds__(kScanThreads) scan_walk_kernel(ScanArgs a) {
-  scan_walk<N, kRoundZ>(a);
+  scan_walk<N, TU, TZ, TY, kRoundZ, kCkpt>(a);
 }
 
-template <int N>
+template <int N, typename TU, typename TZ, typename TY>
 void launch_walk_n(const ScanArgs& a, dim3 grid, cudaStream_t stream) {
-  if (a.round_z) {
-    scan_walk_kernel<N, true><<<grid, kScanThreads, 0, stream>>>(a);
+  if (a.ckpt) {
+    scan_walk_kernel<N, TU, TZ, TY, false, true><<<grid, kScanThreads, 0, stream>>>(a);
+  } else if (a.round_z) {
+    scan_walk_kernel<N, TU, TZ, TY, true, false><<<grid, kScanThreads, 0, stream>>>(a);
   } else {
-    scan_walk_kernel<N, false><<<grid, kScanThreads, 0, stream>>>(a);
+    scan_walk_kernel<N, TU, TZ, TY, false, false><<<grid, kScanThreads, 0, stream>>>(a);
   }
 }
 
 // Launches the walk over grid (ceil(D / kScanThreads), batch) for the state
-// sizes the library is built for (N in {8, 16, 32, 64}).
-inline cudaError_t launch_scan_walk(const ScanArgs& a, int batch, int n,
-                                    cudaStream_t stream) {
+// sizes the library is built for (N in {8, 16, 32, 64}). round_z applies to
+// the serving walk only (no checkpoints).
+template <typename TU, typename TZ, typename TY>
+cudaError_t launch_scan_walk_t(const ScanArgs& a, int batch, int n,
+                               cudaStream_t stream) {
+  if (a.ckpt && a.round_z) return cudaErrorInvalidValue;
   const dim3 grid((a.D + kScanThreads - 1) / kScanThreads, batch);
   switch (n) {
     case 8:
-      launch_walk_n<8>(a, grid, stream);
+      launch_walk_n<8, TU, TZ, TY>(a, grid, stream);
       break;
     case 16:
-      launch_walk_n<16>(a, grid, stream);
+      launch_walk_n<16, TU, TZ, TY>(a, grid, stream);
       break;
     case 32:
-      launch_walk_n<32>(a, grid, stream);
+      launch_walk_n<32, TU, TZ, TY>(a, grid, stream);
       break;
     case 64:
-      launch_walk_n<64>(a, grid, stream);
+      launch_walk_n<64, TU, TZ, TY>(a, grid, stream);
       break;
     default:
       return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+inline cudaError_t launch_scan_walk(const ScanArgs& a, int batch, int n,
+                                    cudaStream_t stream) {
+  return launch_scan_walk_t<float, float, float>(a, batch, n, stream);
 }
 
 }  // namespace vmt

@@ -1,20 +1,26 @@
 """Prenorm residual Block: Add -> Norm -> Mixer (PyTorch port).
 
-Port of videomamba_tpu/models/block.py for inference: the block adds the
-incoming hidden states to the running residual, normalizes, runs the mixer,
-and returns the mixer output with the post-add residual. Two routes, chosen
-as the JAX package chooses them (block.py:274-280, 318-342):
+Port of videomamba_tpu/models/block.py: the block adds the incoming hidden
+states (after stochastic depth in training) to the running residual,
+normalizes, runs the mixer, and returns the mixer output with the post-add
+residual. Two routes, chosen as the JAX package chooses them
+(block.py:274-280, 318-342):
 
 * whole block (K4, ops/kernels/block_fused.py) in eval mode when the Block
   and its mixer are on their fast paths with the reference's biases and the
   JAX package's byte rule admits the widths: every published size at bf16,
   and Tiny/Small/Middle at fp32;
 * otherwise add + norm (K2 when ``fused_add_norm``) then the mixer (K3, or K1
-  on its unfused branch): fp32 Base, or either flag off.
+  on its unfused branch): fp32 Base, either flag off, and every training
+  call (the JAX package's ``deterministic=False``), whose backward is K6 (or
+  K5) and autograd of the norm (or K8).
 
-Stochastic depth is training and is not ported: a training-mode block with
-``drop_path_rate > 0`` raises; the JAX package's training opt-in to the
-whole-block route (``VIDEOMAMBA_BLOCK_BWD``) is not ported either.
+The JAX package's opt-in to the whole-block route for training
+(``VIDEOMAMBA_BLOCK_BWD=fused``) needs K7, the whole-block backward, which
+is not ported yet: a training call under it raises. Stochastic depth takes
+its mask from the caller (:func:`drop_path_mask`), drawn before the block
+runs, so a block recomputed under activation checkpointing sees the same
+mask.
 """
 
 from __future__ import annotations
@@ -25,11 +31,28 @@ import torch
 from torch import nn
 
 from videomamba_tpu_torch.models.mamba import LayerState, Mamba
+from videomamba_tpu_torch.ops import dispatch
 from videomamba_tpu_torch.ops.causal_conv1d import conv_window
 from videomamba_tpu_torch.ops.kernels.block_fused import block_fused, block_fused_supported
 from videomamba_tpu_torch.ops.norm import fused_add_norm, layer_norm, rms_norm
+from videomamba_tpu_torch.runtime import resolve_device
 
 Tensor = torch.Tensor
+
+
+def drop_path_mask(batch: int, rate: float, generator: Optional[torch.Generator] = None,
+                   device=None) -> Tensor:
+    """A (batch, 1, 1) stochastic-depth mask: 1 where a sample is kept
+    (probability 1 - rate), else 0, drawn on the CPU from ``generator`` (the
+    default generator when None) and moved to ``device``."""
+    keep = torch.full((batch, 1, 1), 1.0 - rate)
+    return torch.bernoulli(keep, generator=generator).to(device)
+
+
+def drop_path(x: Tensor, mask: Tensor, rate: float) -> Tensor:
+    """Stochastic depth with timm semantics (scale_by_keep), as the JAX
+    package's drop_path (block.py:208-216): x * mask / (1 - rate)."""
+    return x * (mask.to(x.dtype) / (1.0 - rate))
 
 
 class Norm(nn.Module):
@@ -37,6 +60,7 @@ class Norm(nn.Module):
 
     def __init__(self, dim: int, bias: bool, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.weight = nn.Parameter(torch.ones(dim, device=device))
         if bias:
             self.bias = nn.Parameter(torch.zeros(dim, device=device))
@@ -80,22 +104,35 @@ class Block(nn.Module):
         return_state: bool = False,
         ssm_state: Optional[Tensor] = None,
         return_ssm_state: bool = False,
+        drop_path_mask: Optional[Tensor] = None,
     ):
         """Returns (hidden, residual), or (hidden, residual, new_state) with
-        ``return_state`` / ``return_ssm_state``."""
+        ``return_state`` / ``return_ssm_state``. In training with
+        ``drop_path_rate > 0`` and a residual, ``drop_path_mask`` (from
+        :func:`drop_path_mask`) drops whole samples of the incoming hidden
+        states; the first block, which has no residual, is never dropped."""
         if state is not None and ssm_state is not None:
             raise ValueError("Pass either state or ssm_state, not both.")
         if return_ssm_state and ssm_state is None:
             raise ValueError("return_ssm_state requires ssm_state.")
-        if self.training and self.drop_path_rate > 0.0:
-            raise NotImplementedError(
-                "drop_path (training) is not ported; call .eval() to serve."
-            )
-        if not self.training and self._use_block_fused():
-            return self._call_block_fused(
-                hidden_states, residual, state, return_state, ssm_state,
-                return_ssm_state,
-            )
+        if self._use_block_fused():
+            if not self.training:
+                return self._call_block_fused(
+                    hidden_states, residual, state, return_state, ssm_state,
+                    return_ssm_state,
+                )
+            if dispatch.block_bwd_training_opt_in():
+                raise NotImplementedError(
+                    "VIDEOMAMBA_BLOCK_BWD=fused routes training through the "
+                    "whole-block kernel, whose backward (K7, block_bwd_pallas) "
+                    "is not ported yet; unset it to train on the mixer route."
+                )
+        if self.training and self.drop_path_rate > 0.0 and residual is not None:
+            if drop_path_mask is None:
+                raise ValueError(
+                    "drop_path with rate > 0 in training mode needs a drop_path_mask."
+                )
+            hidden_states = drop_path(hidden_states, drop_path_mask, self.drop_path_rate)
         normed, new_residual = fused_add_norm(
             hidden_states, self.norm.weight, self.norm.bias, residual=residual,
             prenorm=True, residual_in_fp32=self.residual_in_fp32,

@@ -12,6 +12,14 @@ Per token sequence x (B, L, d_model):
        or conv -> x_proj -> dt_proj -> K1 scan            (unfused branch)
     out = y @ W_out^T                                    torch.matmul
 
+Training: when autograd records the fused branch it runs as
+:class:`MixerFusedFn` (the JAX package's ``_fused_mixer``, mamba.py:68-215):
+K3 with checkpoints forward; K6 backward, or under
+``VIDEOMAMBA_MIXER_BWD=composite`` a plain recompute of the conv and the
+products chained to K5. The unfused branch runs K1 / K5 through
+``ops.selective_scan.SelectiveScanFn``. in_proj and out_proj stay
+``torch.matmul`` under autograd, as the JAX package leaves them to XLA.
+
 Streaming contract 1.0.0: ``conv_state (B, d_inner, d_conv)`` holds the last
 d_conv raw conv inputs, ``ssm_state (B, d_inner, d_state)`` the recurrence;
 ``state=(conv_state, ssm_state), return_state=True`` returns the advanced
@@ -31,8 +39,11 @@ from torch.nn.utils import skip_init as _skip_init
 from videomamba_tpu_torch.models import initializers as init
 from videomamba_tpu_torch.ops import dispatch
 from videomamba_tpu_torch.ops.causal_conv1d import causal_conv1d, conv_window
+from videomamba_tpu_torch.ops.kernels.mixer_bwd import mixer_bwd
 from videomamba_tpu_torch.ops.kernels.mixer_fused import mixer_fused
+from videomamba_tpu_torch.ops.kernels.scan import selective_scan_bwd
 from videomamba_tpu_torch.ops.selective_scan import selective_scan_bld
+from videomamba_tpu_torch.runtime import resolve_device
 
 Tensor = torch.Tensor
 LayerState = Tuple[Tensor, Tensor]
@@ -40,10 +51,61 @@ LayerState = Tuple[Tensor, Tensor]
 
 def skip_init(module_cls, *args, device=None, **kwargs) -> nn.Module:
     """Build a module without running its default init (the caller fills the
-    parameters from its generator), on ``device`` or the default device."""
-    if device is None:
-        device = torch.empty(0).device
-    return _skip_init(module_cls, *args, device=device, **kwargs)
+    parameters from its generator), on ``device`` (default: the card, see
+    :func:`videomamba_tpu_torch.runtime.resolve_device`)."""
+    return _skip_init(module_cls, *args, device=resolve_device(device), **kwargs)
+
+
+def _composite_bwd(x, z, conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias, A, D,
+                   conv_state, ckpt, g_y, g_hlast):
+    """The JAX package's composite mixer backward (mamba.py:160-212): the
+    conv recomputed under autograd, the products recomputed in torch with
+    the same roundings, K5 for the scan, torch for the rest."""
+    r = dt_proj_w.shape[1]
+    n = A.shape[1]
+    leaves = [t.detach().requires_grad_() for t in (x, conv_w, conv_b, conv_state)]
+    with torch.enable_grad():
+        conv_out = causal_conv1d(leaves[0], leaves[1].t(), leaves[2],
+                                 activation="silu", initial_state=leaves[3])
+    cy = conv_out.detach()
+    mm_in = cy.to(x_proj_w.dtype)
+    xdbl = (mm_in @ x_proj_w.t()).float()
+    delta_raw = (xdbl[..., :r].to(dt_proj_w.dtype) @ dt_proj_w.t()).float()
+    du, ddelta, dA, dB, dC, dD, dz, dbias, dh0 = selective_scan_bwd(
+        cy, delta_raw, A, xdbl[..., r:r + n], xdbl[..., r + n:], D, z, dt_bias,
+        ckpt, g_y, g_hlast, True,
+    )
+    ddelta = ddelta.float()
+    dxdbl = torch.cat([ddelta @ dt_proj_w.float(), dB.float(), dC.float()], dim=-1)
+    dwdt = torch.einsum("blr,bld->dr", xdbl[..., :r], ddelta).to(dt_proj_w.dtype)
+    dwx = torch.einsum("bld,blp->pd", mm_in.float(), dxdbl).to(x_proj_w.dtype)
+    dconv_out = (du.float() + dxdbl @ x_proj_w.float()).to(conv_out.dtype)
+    dx, dcw, dcb, dcst = torch.autograd.grad(conv_out, leaves, dconv_out)
+    return (dx.to(x.dtype), dz, dcw.to(conv_w.dtype), dcb.to(conv_b.dtype), dwx, dwdt,
+            dbias, dA, dD, dh0, dcst.to(conv_state.dtype))
+
+
+class MixerFusedFn(torch.autograd.Function):
+    """K3 forward with segment checkpoints; K6 (or composite) backward."""
+
+    @staticmethod
+    def forward(ctx, x, z, conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias, A, D,
+                h0, conv_state):
+        y, h_last, ckpt = mixer_fused(x, z, conv_w, conv_b, x_proj_w, dt_proj_w,
+                                      dt_bias, A, D, h0, conv_state, checkpoints=True)
+        ctx.save_for_backward(x, z, conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias,
+                              A, D, h0, conv_state, ckpt)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, g_y, g_hlast):
+        (x, z, conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias, A, D, h0,
+         conv_state, ckpt) = ctx.saved_tensors
+        fn = mixer_bwd if dispatch.mixer_bwd_backend() == "fused" else _composite_bwd
+        grads = fn(x, z, conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias, A, D,
+                   conv_state, ckpt, g_y, g_hlast)
+        *head, dh0, dcst = grads
+        return (*head, dh0.to(h0.dtype), dcst)
 
 
 def _linear(in_f: int, out_f: int, weight: Tensor, bias: Optional[Tensor],
@@ -90,6 +152,7 @@ class Mamba(nn.Module):
     ):
         super().__init__()
         del bimamba
+        device = resolve_device(device)
         dtype = torch.float32 if dtype is None else dtype
         g = torch.Generator().manual_seed(0) if generator is None else generator
         self.d_model = d_model
@@ -180,11 +243,13 @@ class Mamba(nn.Module):
                 if conv_state is not None
                 else x.new_zeros((bsz, self.d_inner, self.d_conv))
             )
-            y, new_ssm_state = mixer_fused(
-                x, z, self.conv1d.weight.squeeze(1), self.conv1d.bias,
-                self.x_proj.weight, self.dt_proj.weight,
-                self.dt_proj.bias.float(), A, self.D.float(), h0, cstate_in,
-            )
+            args = (x, z, self.conv1d.weight.squeeze(1), self.conv1d.bias,
+                    self.x_proj.weight, self.dt_proj.weight,
+                    self.dt_proj.bias.float(), A, self.D.float(), h0, cstate_in)
+            if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+                y, new_ssm_state = MixerFusedFn.apply(*args)
+            else:
+                y, new_ssm_state = mixer_fused(*args)
             if return_state:
                 new_conv_state = conv_window(x, conv_state, self.d_conv)
         else:

@@ -1,4 +1,4 @@
-"""PretrainVideoMamba — the video backbone, PyTorch port (serving path).
+"""PretrainVideoMamba — the video backbone, PyTorch port.
 
 Port of videomamba_tpu/models/videomamba.py with the reference's parameter
 names, so a reference state_dict loads strictly:
@@ -14,7 +14,15 @@ names, so a reference state_dict loads strictly:
 * Streaming state is threaded through the blocks; chunk 0 carries CLS,
   continuation chunks (``temporal_pos_offset > 0`` with full state) do not.
 
-Masking and training (drop path, activation checkpointing) are not ported.
+* Training (``model.train()``) runs every Block on the mixer route with
+  per-layer stochastic-depth rates ``[0] + linspace(0, drop_path_rate,
+  depth)`` and a final drop path before the last norm (JAX
+  videomamba.py:185, 585-588). Masks are drawn from ``generator`` before
+  the blocks run; ``use_checkpoint`` wraps the first ``checkpoint_num``
+  blocks in ``torch.utils.checkpoint`` (non-reentrant), which recomputes
+  them in the backward with the same masks.
+
+Masking is not ported.
 
 Forward-return contract (streaming.py):
   add_pool_norm=True:  (x_vis, x_pool) | (x_vis, x_pool, next_state)
@@ -31,7 +39,14 @@ import torch
 from torch import nn
 
 from videomamba_tpu_torch.models import initializers as init
-from videomamba_tpu_torch.models.block import Norm, create_block
+from torch.utils.checkpoint import checkpoint as _checkpoint
+
+from videomamba_tpu_torch.models.block import (
+    Norm,
+    create_block,
+    drop_path,
+    drop_path_mask,
+)
 from videomamba_tpu_torch.models.mamba import skip_init
 from videomamba_tpu_torch.ops.norm import fused_add_norm, layer_norm
 from videomamba_tpu_torch.ops.resample import (
@@ -39,6 +54,7 @@ from videomamba_tpu_torch.ops.resample import (
     linear_resample_matrix,
     resample_bicubic_2d,
 )
+from videomamba_tpu_torch.runtime import resolve_device
 from videomamba_tpu_torch.streaming import STREAMING_CONTRACT_VERSION
 
 logger = logging.getLogger(__name__)
@@ -52,6 +68,21 @@ def _to_2tuple(v) -> Tuple[int, int]:
     if isinstance(v, (tuple, list)):
         return int(v[0]), int(v[1])
     return int(v), int(v)
+
+
+def _checkpointed_block(layer: nn.Module, hidden: Tensor, residual, mask):
+    """``layer`` under non-reentrant activation checkpointing, its parameters
+    passed as explicit inputs: the recompute then sees the tensors this
+    forward saw, also under ``torch.func.functional_call`` (the cast
+    parameters of mixed-precision training), whose swap is undone before the
+    backward recomputes."""
+    names, values = zip(*layer.named_parameters())
+
+    def run(h, r, m, *params):
+        return torch.func.functional_call(
+            layer, dict(zip(names, params)), (h,), {"residual": r, "drop_path_mask": m})
+
+    return _checkpoint(run, hidden, residual, mask, *values, use_reentrant=False)
 
 
 class PatchEmbed(nn.Module):
@@ -110,7 +141,8 @@ class PretrainVideoMamba(nn.Module):
 
     ``forward`` mirrors the reference signature; ``mask`` must be None
     (masking is not ported). Parameters are drawn from ``generator``
-    (default: seed 0) with the reference's three init passes.
+    (default: seed 0) with the reference's three init passes, on ``device``
+    (default: the card, :func:`videomamba_tpu_torch.runtime.resolve_device`).
     """
 
     streaming_contract_version: str = STREAMING_CONTRACT_VERSION
@@ -143,9 +175,8 @@ class PretrainVideoMamba(nn.Module):
         super().__init__()
         if not bimamba:
             raise NotImplementedError("Only bimamba=True is supported.")
-        if use_checkpoint and checkpoint_num > 0:
-            raise NotImplementedError("Activation checkpointing is training; not ported.")
         del initializer_cfg
+        device = resolve_device(device)
         dtype = torch.float32 if dtype is None else dtype
         g = torch.Generator().manual_seed(0) if generator is None else generator
         self.residual_in_fp32 = residual_in_fp32
@@ -158,6 +189,8 @@ class PretrainVideoMamba(nn.Module):
         self.rms_norm = rms_norm
         self.drop_path_rate = drop_path_rate
         self.add_pool_norm = add_pool_norm
+        self.use_checkpoint = use_checkpoint
+        self.checkpoint_num = checkpoint_num
 
         self.patch_embed = PatchEmbed(
             img_size=img_size, patch_size=patch_size, kernel_size=kernel_size,
@@ -186,6 +219,19 @@ class PretrainVideoMamba(nn.Module):
         if add_pool_norm:
             self.pool_norm = Norm(embed_dim, bias=True, device=device)
         self._init_weights(g)
+
+    def no_weight_decay(self):
+        """Parameter names kept out of weight decay (JAX videomamba.py:347)."""
+        return {"pos_embed", "cls_token", "temporal_pos_embedding"}
+
+    def _drop_path_masks(self, batch: int, generator, device) -> List[Optional[Tensor]]:
+        """Per-layer masks, then the final norm's; None where no drop path
+        runs (eval, a zero rate). Drawn in layer order from ``generator``."""
+        if not self.training or self.drop_path_rate <= 0.0:
+            return [None] * (self.depth + 1)
+        rates = [layer.drop_path_rate for layer in self.layers] + [self.drop_path_rate]
+        return [drop_path_mask(batch, r, generator, device) if r > 0.0 else None
+                for r in rates]
 
     @torch.no_grad()
     def _init_weights(self, g: torch.Generator) -> None:
@@ -318,6 +364,7 @@ class PretrainVideoMamba(nn.Module):
         temporal_pos: Tensor,
         state: Optional[List[Optional[LayerState]]],
         has_cls: bool,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[Tensor, Optional[List[Optional[LayerState]]]]:
         """Patchify -> pos-add -> (CLS) -> depth x Block -> final norm."""
         compute_dtype = self.patch_embed.proj.weight.dtype
@@ -331,22 +378,32 @@ class PretrainVideoMamba(nn.Module):
             tokens = torch.cat([cls_tok.expand(bsz, 1, self.embed_dim), tokens], dim=1)
 
         hidden_states, residual = tokens, None
+        masks = self._drop_path_masks(bsz, generator, tokens.device)
         new_states = [None] * self.depth if state is not None else None
         for idx, layer in enumerate(self.layers):
             layer_state = self._get_layer_state(state, idx)
+            mask = masks[idx]
             if isinstance(layer_state, (list, tuple)) and len(layer_state) == 2:
                 hidden_states, residual, new_states[idx] = layer(
                     hidden_states, residual=residual, state=tuple(layer_state),
-                    return_state=True,
+                    return_state=True, drop_path_mask=mask,
                 )
             elif layer_state is not None:
                 hidden_states, residual, new_states[idx] = layer(
                     hidden_states, residual=residual, ssm_state=layer_state,
-                    return_ssm_state=True,
+                    return_ssm_state=True, drop_path_mask=mask,
                 )
+            elif (self.use_checkpoint and idx < self.checkpoint_num
+                  and torch.is_grad_enabled()):
+                hidden_states, residual = _checkpointed_block(
+                    layer, hidden_states, residual, mask)
             else:
-                hidden_states, residual = layer(hidden_states, residual=residual)
+                hidden_states, residual = layer(
+                    hidden_states, residual=residual, drop_path_mask=mask
+                )
 
+        if masks[-1] is not None:
+            hidden_states = drop_path(hidden_states, masks[-1], self.drop_path_rate)
         hidden_states = fused_add_norm(
             hidden_states, self.norm.weight, self.norm.bias, residual=residual,
             prenorm=False, residual_in_fp32=self.residual_in_fp32,
@@ -364,9 +421,11 @@ class PretrainVideoMamba(nn.Module):
         use_image: bool = False,
         ssm_state: Optional[StateCollection] = None,
         temporal_pos_offset: int = 0,
+        generator: Optional[torch.Generator] = None,
     ):
         """Encoder features; returns (x_vis, next_state) when state is passed,
-        in the container type that was passed (list, tuple or dict)."""
+        in the container type that was passed (list, tuple or dict).
+        ``generator`` draws the stochastic-depth masks in training."""
         del use_image
         if mask is not None:
             raise NotImplementedError("Masking is not ported yet.")
@@ -383,7 +442,7 @@ class PretrainVideoMamba(nn.Module):
         state_list, container, any_full = self._canonicalize_state(ssm_state)
 
         x_vis, new_states = self._encoder(
-            x, spatial_pos, temporal_pos, state_list, has_cls
+            x, spatial_pos, temporal_pos, state_list, has_cls, generator
         )
         if new_states is not None:
             return x_vis, self._repack_state(
@@ -429,8 +488,10 @@ class PretrainVideoMamba(nn.Module):
         keep_temporal: bool = False,
         ssm_state: Optional[StateCollection] = None,
         temporal_pos_offset: int = 0,
+        generator: Optional[torch.Generator] = None,
     ):
-        """Full forward with pooling head (reference videomamba.py:943-1067)."""
+        """Full forward with pooling head (reference videomamba.py:943-1067).
+        ``generator`` draws the stochastic-depth masks in training."""
         if x.ndim != 5:
             raise ValueError("x must have shape [B, C, T, H, W].")
         grid_h, grid_w = self._spatial_token_grid(x.shape[-2], x.shape[-1])
@@ -440,7 +501,7 @@ class PretrainVideoMamba(nn.Module):
 
         features = self.forward_features(
             x, mask, use_image, ssm_state=ssm_state,
-            temporal_pos_offset=temporal_pos_offset,
+            temporal_pos_offset=temporal_pos_offset, generator=generator,
         )
         if ssm_state is None:
             x_vis, next_state = features, None

@@ -6,6 +6,11 @@ the kernels are tested against. There is no fallback: a wrapper given a CUDA
 tensor launches its kernel or raises. ``use_fast_path=False`` on a mixer, or
 ``VIDEOMAMBA_DISABLE_FUSED`` in the environment, selects the plain path
 explicitly on any device (videomamba_tpu/models/mamba.py:50-54, 264-266).
+
+The backward routes are the JAX package's own switches, read at call time
+from the same environment variables, so one environment drives both
+packages: ``VIDEOMAMBA_MIXER_BWD`` (mamba.py:107-113), ``VIDEOMAMBA_NORM_BWD``
+(norm.py:59-61) and ``VIDEOMAMBA_BLOCK_BWD`` (block.py:111-116).
 """
 
 from __future__ import annotations
@@ -34,3 +39,22 @@ def runs_plain(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return False
     raise ValueError(f"no kernel route for device {t.device}")
+
+
+def mixer_bwd_backend() -> str:
+    """"fused" (K6, the default) or "composite" (a plain recompute of the
+    conv and the products chained to K5), from VIDEOMAMBA_MIXER_BWD."""
+    forced = os.getenv("VIDEOMAMBA_MIXER_BWD", "").strip().lower()
+    return forced if forced in {"fused", "composite"} else "fused"
+
+
+def norm_bwd_kernel() -> bool:
+    """True when VIDEOMAMBA_NORM_BWD=pallas asks for the add-norm backward
+    kernel (K8); otherwise the backward is autograd of the plain composition."""
+    return os.getenv("VIDEOMAMBA_NORM_BWD", "").strip().lower() == "pallas"
+
+
+def block_bwd_training_opt_in() -> bool:
+    """True when VIDEOMAMBA_BLOCK_BWD=fused asks training to take the
+    whole-block route, whose backward is K7 (block_bwd_pallas)."""
+    return os.getenv("VIDEOMAMBA_BLOCK_BWD", "").strip().lower() == "fused"

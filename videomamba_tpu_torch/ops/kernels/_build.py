@@ -25,8 +25,9 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "videomamba_tpu_torch"
 SOURCES = ("fused_add_norm.cu", "selective_scan.cu", "mixer_fused.cu",
-           "block_fused.cu")
-HEADERS = ("add_norm.cuh", "mixer_parts.cuh", "scan_walk.cuh")
+           "block_fused.cu", "selective_scan_bwd.cu", "mixer_bwd.cu",
+           "fused_add_norm_bwd.cu")
+HEADERS = ("add_norm.cuh", "mixer_parts.cuh", "scan_walk.cuh", "scan_walk_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -43,17 +44,30 @@ SIGNATURES = {
     "vmt_fused_add_norm": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
     "vmt_selective_scan": (
         _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _LL,
-        _P, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "vmt_mixer_fused": (
-        _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _P, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _LL, _P, _LL, *(_P,) * 15, *(_I,) * 9, _P,
     ),
     "vmt_block_fused": (
         _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
         _F, _I, _I, _P,
     ),
+    "vmt_selective_scan_bwd": (
+        *(_P, _LL) * 6, *(_P,) * 18, *(_I,) * 7, _P,
+    ),
+    "vmt_mixer_bwd": (
+        _P, _LL, _P, _LL, *(_P,) * 23, *(_I,) * 9, _P,
+    ),
+    "vmt_fused_add_norm_bwd": (
+        _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _P,
+    ),
+}
+# Entry points that return a size instead of a CUDA error code.
+SIZE_QUERIES = {
+    "vmt_mixer_bwd_scratch_floats": ((_I,) * 6, _LL),
+    "vmt_fused_add_norm_bwd_blocks": ((_LL,), _I),
 }
 
 
@@ -117,6 +131,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, (argtypes, restype) in SIZE_QUERIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     return lib
 
 
@@ -136,9 +154,12 @@ def check_operands(kernel: str, device: torch.device, operands: dict,
     """Raise unless each operand (name -> (tensor or None, shape)) is a
     tensor of that shape on ``device`` with a dtype its kernel takes
     (``dtypes``: name -> allowed dtypes; fp32 for a name not given), and
-    those named in ``contiguous`` are contiguous. The kernels serve only and
-    have no backward yet, so an operand that autograd would record also
-    raises, instead of the kernel silently cutting the graph."""
+    those named in ``contiguous`` are contiguous. A kernel call is not
+    recorded by autograd: the training route calls the kernels inside
+    ``torch.autograd.Function`` forwards and backwards, where grad mode is
+    off. So an operand that autograd would record (a direct call under grad
+    mode, such as K4's, which has no backward yet) raises instead of the
+    kernel silently cutting the graph."""
     dtypes = dtypes or {}
     for name, (t, shape) in operands.items():
         if t is None:
@@ -162,6 +183,12 @@ def check_operands(kernel: str, device: torch.device, operands: dict,
                 f"{kernel} kernel has no backward yet; call it under "
                 "torch.no_grad() or torch.inference_mode()"
             )
+
+
+def one_dtype(t: torch.Tensor) -> tuple:
+    """Allowed dtypes for operands that must share ``t``'s: its own when it
+    is fp32 or bf16 (else both, so the error names what is taken)."""
+    return (t.dtype,) if t.dtype in FP32_OR_BF16 else FP32_OR_BF16
 
 
 def row_stride(t: torch.Tensor, name: str) -> int:

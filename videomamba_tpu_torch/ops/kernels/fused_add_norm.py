@@ -1,4 +1,4 @@
-"""K2: fused residual add + RMS/LayerNorm, hand-written CUDA for Hopper.
+"""K2: fused residual add + RMS/LayerNorm and K8: its backward, CUDA for Hopper.
 
 Replaces videomamba_tpu/ops/pallas/fused_add_norm.py (fused_add_norm_pallas,
 ``_kernel``). The kernel is csrc/fused_add_norm.cu: one warp per row, the row
@@ -10,6 +10,12 @@ element once. x (and so normed) is fp32 or bf16, and so is the residual, on
 its own: at bf16 the final norm gets a bf16 x and an fp32 residual. The
 returned residual is fp32 under ``residual_in_fp32``, else x's dtype, as in
 the JAX package. Any other dtype on CUDA raises.
+
+K8 replaces fused_add_norm.py (fused_add_norm_bwd_pallas, ``_bwd_kernel``):
+dx, dresidual, dweight and dbias in one pass, csrc/fused_add_norm_bwd.cu.
+It shares K2's row layout (one warp per row, the row in shared memory) and
+is bound by device memory the same way; dweight and dbias go to one partial
+row per block and a second launch sums them in a fixed order (no atomics).
 """
 
 from __future__ import annotations
@@ -107,3 +113,104 @@ def fused_add_norm(
 
 
 fused_add_norm.launches = 0
+
+
+def fused_add_norm_bwd_plain(
+    x: Tensor,
+    weight: Tensor,
+    residual: Optional[Tensor],
+    g_out: Tensor,
+    g_resout: Optional[Tensor],
+    prenorm: bool = False,
+    eps: float = 1e-5,
+    norm_type: str = "rms",
+):
+    """Plain PyTorch version of K8 (fused_add_norm.py:134-177), fp32.
+
+    Returns (dx in x's dtype, dweight (D,) fp32, dbias (D,) fp32 — the raw
+    row sum of g_out, dropped by the caller without a bias — and dresidual
+    in the residual's dtype, None without a residual)."""
+    d = x.shape[-1]
+    x32 = x.float().reshape(-1, d)
+    r = x32 + residual.float().reshape(-1, d) if residual is not None else x32
+    g = g_out.float().reshape(-1, d)
+    if norm_type == "rms":
+        inv = torch.rsqrt(r.square().mean(-1, keepdim=True) + eps)
+        cen = r
+    elif norm_type == "layer":
+        cen = r - r.mean(-1, keepdim=True)
+        inv = torch.rsqrt(cen.square().mean(-1, keepdim=True) + eps)
+    else:
+        raise ValueError(f"Unknown norm_type: {norm_type!r}")
+    dweight = (g * (cen * inv)).sum(0)
+    dbias = g.sum(0)
+    dn = g * weight.float()
+    dot = (dn * cen).sum(-1, keepdim=True)
+    dr = dn * inv - cen * inv ** 3 * (dot / d)
+    if norm_type == "layer":
+        dr = dr - dr.mean(-1, keepdim=True)
+    if prenorm and g_resout is not None:
+        dr = dr + g_resout.float().reshape(-1, d)
+    dr = dr.reshape(x.shape)
+    dres = dr.to(residual.dtype) if residual is not None else None
+    return dr.to(x.dtype), dweight, dbias, dres
+
+
+def fused_add_norm_bwd(
+    x: Tensor,
+    weight: Tensor,
+    residual: Optional[Tensor],
+    g_out: Tensor,
+    g_resout: Optional[Tensor],
+    prenorm: bool = False,
+    eps: float = 1e-5,
+    norm_type: str = "rms",
+):
+    """Kernel wrapper with the contract of :func:`fused_add_norm_bwd_plain`.
+
+    On CUDA: x (fp32 or bf16) with g_out in its dtype, the residual and
+    g_resout each fp32 or bf16, weight (D,) fp32."""
+    if dispatch.runs_plain(x):
+        return fused_add_norm_bwd_plain(x, weight, residual, g_out, g_resout,
+                                        prenorm=prenorm, eps=eps, norm_type=norm_type)
+    if norm_type not in ("rms", "layer"):
+        raise ValueError(f"Unknown norm_type: {norm_type!r}")
+    d = x.shape[-1]
+    if d > MAX_D:
+        raise ValueError(f"fused_add_norm_bwd kernel takes D <= {MAX_D}, got {d}")
+    g = g_out.to(x.dtype).contiguous()
+    g_r = g_resout.contiguous() if (prenorm and g_resout is not None) else None
+    _build.check_operands(
+        "fused_add_norm_bwd", x.device,
+        {"x": (x, x.shape), "residual": (residual, x.shape), "g_out": (g, x.shape),
+         "g_resout": (g_r, x.shape), "weight": (weight, (d,))},
+        contiguous=("x", "residual", "g_out", "g_resout", "weight"),
+        dtypes={"x": _build.FP32_OR_BF16, "residual": _build.FP32_OR_BF16,
+                "g_out": _build.FP32_OR_BF16, "g_resout": _build.FP32_OR_BF16},
+    )
+    dev = x.device
+    dx = torch.empty_like(x)
+    dres = torch.empty_like(residual) if residual is not None else None
+    dweight = torch.empty((d,), dtype=torch.float32, device=dev)
+    dbias = torch.empty_like(dweight)
+    m = x.numel() // d if d else 0
+    if m == 0:
+        dweight.zero_()
+        dbias.zero_()
+        return dx, dweight, dbias, dres
+    lib = _build.library()
+    part = torch.empty((lib.vmt_fused_add_norm_bwd_blocks(m), 2, d),
+                       dtype=torch.float32, device=dev)
+    err = lib.vmt_fused_add_norm_bwd(
+        _build.ptr(x), _build.is_bf16(x), _build.ptr(residual), _build.is_bf16(residual),
+        _build.ptr(weight), _build.ptr(g), _build.ptr(g_r), _build.is_bf16(g_r),
+        _build.ptr(dx), _build.ptr(dres), _build.ptr(dweight), _build.ptr(dbias),
+        _build.ptr(part), m, d, eps, int(norm_type == "rms"), dev.index,
+        _build.stream_of(x),
+    )
+    _build.check(err, "fused_add_norm_bwd")
+    fused_add_norm_bwd.launches += 1
+    return dx, dweight, dbias, dres
+
+
+fused_add_norm_bwd.launches = 0

@@ -4,7 +4,10 @@ Port of videomamba_tpu/ops/selective_scan.py: ``selective_scan_ref`` is the
 sequential fp32 oracle (the plain version of K1), and
 ``selective_scan_bld(method="kernel")`` routes through the hand-written K1
 kernel (ops/kernels/scan.py) — on a CPU tensor that is the same oracle.
-State is always (B, D, N) fp32.
+State is always (B, D, N) fp32. When autograd records a kernel call it runs
+as :class:`SelectiveScanFn`, the counterpart of the JAX package's
+``_pallas_fused_scan`` (selective_scan.py:371-407): K1 with checkpoints
+forward, K5 backward.
 """
 
 from __future__ import annotations
@@ -16,6 +19,37 @@ import torch
 from videomamba_tpu_torch.ops.kernels import scan as _scan
 
 Tensor = torch.Tensor
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """K1 forward with segment checkpoints; K5 backward."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D, z, delta_bias, h0, softplus_delta):
+        y, h_last, ckpt = _scan.selective_scan(
+            u, delta, A, B, C, D, z, delta_bias, h0, softplus_delta, checkpoints=True
+        )
+        ctx.save_for_backward(u, delta, A, B, C, D, z, delta_bias, h0, ckpt)
+        ctx.softplus_delta = softplus_delta
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, g_out, g_hlast):
+        u, delta, A, B, C, D, z, delta_bias, h0, ckpt = ctx.saved_tensors
+        du, ddelta, dA, dB, dC, dD, dz, dbias, dh0 = _scan.selective_scan_bwd(
+            u, delta, A, B, C, D, z, delta_bias, ckpt, g_out, g_hlast,
+            ctx.softplus_delta,
+        )
+        return du, ddelta, dA, dB, dC, dD, dz, dbias, dh0.to(h0.dtype), None
+
+
+def _kernel_fn(*args):
+    """K1, through SelectiveScanFn when autograd records the call."""
+    if torch.is_grad_enabled() and any(
+        isinstance(t, Tensor) and t.requires_grad for t in args
+    ):
+        return SelectiveScanFn.apply(*args)
+    return _scan.selective_scan(*args)
 
 
 def _run(fn, u, delta, A, B, C, D, z, delta_bias, delta_softplus,
@@ -78,7 +112,7 @@ def selective_scan_bld(
         out (B, L, D) in u.dtype, or (out, last_state).
     """
     if method == "kernel":
-        fn = _scan.selective_scan
+        fn = _kernel_fn
     elif method == "ref":
         fn = _scan.selective_scan_plain
     else:

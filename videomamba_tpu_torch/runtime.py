@@ -3,7 +3,8 @@
 Port of ``StreamingSession`` from videomamba_tpu/runtime.py: per-layer
 (conv_state, ssm_state) and the temporal offset are carried across chunk
 calls; each batch row is an independent video stream. The decode session is
-not ported yet.
+not ported yet. :func:`resolve_device` is the port's one rule for a device
+that the caller did not name.
 """
 
 from __future__ import annotations
@@ -11,6 +12,20 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device to build on: ``device`` when given, else the CUDA card.
+
+    The port runs on the card unless the caller asks for the CPU; without a
+    card, ``device=None`` raises instead of building on the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card is available; pass device=\"cpu\" to build on the CPU"
+        )
+    return torch.device("cuda")
 
 
 class StreamingSession:
