@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving and training paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving, training and decode paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -39,7 +39,7 @@ failure, so the script exits nonzero:
    their plain versions, fp32 within 2e-5 (K8 1e-5) and bf16 within 2e-2
    (K8 bf16 x with an fp32 residual, 1e-2); K5, K6 and K8 run twice on the
    same inputs and must be bit-identical; each timed beside its plain
-   version.
+   version; K8's and K2's device time per call under torch.profiler.
 9. fp32 train step, Base depth 24, B=2, clip (2,3,8,224,224) and a noise
    target (a zero target leaves only cancellation noise below the final
    RMSNorm to compare), one step of ``make_train_step``'s default loss
@@ -59,18 +59,50 @@ failure, so the script exits nonzero:
     recipe's zero target: finite loss each step, fp32 masters.
 11. times: fp32 and bf16 train step at B=4 (host ms, medians of 5 steps
     after 2 warm ones) and the peak device memory of each.
+12. K4's checkpoints (fp32 1e-5, bf16 1e-2) and K7 (whole-Block backward)
+    against their plain versions with nonzero h0, conv_state and every
+    cotangent: Base
+    bf16 (2e-2) and fp32 (2e-5), Small fp32 (2e-5); K7 twice bit-identical;
+    K10 (causal conv) at (1, 1569, 1536) and (4, 1569, 1536), W = 4, fp32
+    (1e-5) and bf16 (1e-2); each timed beside its plain version.
+13. eval-mode backward: the bf16 Base model in eval(), a loss on x_vis and
+    x_pool against noise targets: every parameter gets a gradient, K4 24
+    and K7 24 launches, gradients within 5e-2 of the same model on plain
+    versions; under VIDEOMAMBA_BLOCK_BWD=composite (which, as in the JAX
+    package, selects the backward of differentiated whole-block calls;
+    training under it stays on the mixer route) K1 24 and K5 24 in the
+    recompute, K7 0, within 5e-2 of the K7 gradients.
+14. the opt-in whole-block training route (VIDEOMAMBA_BLOCK_BWD=fused): the
+    bf16 recipe step at B=2, K4 24, K7 24, K3 0, K6 0 launches, loss within
+    1e-2 and gradients within 5e-2 of the same model on plain versions;
+    then its B=4 step time and peak memory beside phase 11's mixer route.
+15. decode at Base, fp32 and bf16: StreamingSession prefill of 4 frames,
+    DecodeSession.load_streaming_state, the 5th frame's 196 tokens through
+    K9 (+ K2, the final norm; 196 launches of each) against the 5-frame
+    full forward's last 196 tokens (fp32 1e-4, bf16 2e-2); K9 against its
+    plain version from the same states over 8 steps (fp32 1e-5, bf16
+    1e-2), and at B=80 (ten of its 8-row passes) over 3 steps; K9's time
+    per token at B=1, 8 and 80 (CUDA events over 100 back-to-back tokens),
+    the session step's host time, and the device's kernel time and idle
+    share under torch.profiler.
+16. K10's route, ``causal_conv1d(use_kernel=True)`` at (4, 1569, 1536),
+    forward and backward against the plain composition (1e-5).
 
 The launch counters are zeroed just before each main path and read just
-after: phases 2-4 (fp32 serving), 6-7 (bf16 serving), 9 (fp32 training)
-and 10 (bf16 training). TF32 is off for matmuls and cuDNN throughout. Times
-are CUDA-event times per launch (kernels) or host time around a
-synchronised call (forward, chunk, step), on the card named in the output.
-Each kernel's bound is computed from the inputs it was timed on: the larger
-of the bytes it must move over 3.35 TB/s and its operations over the peak
-rate of their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32). No
-single PyTorch call computes any kernel's function, so ``library_ms`` is
-null. The last stdout line is the contract JSON; the line before it lists
-the kernels.
+after: phases 2-4 (fp32 serving), 6-7 (bf16 serving), 9 (fp32 training),
+10 (bf16 training), 13 (eval backward), 14 (whole-block training), 15
+(decode, per dtype) and 16 (the conv route); the kernels line sums them.
+TF32 is off for matmuls and cuDNN throughout. Times are CUDA-event times per
+launch (kernels) or host time around a synchronised call (forward, chunk,
+step, token), on the card named in the output. Each kernel's bound is
+computed from the inputs it was timed on: the larger of the bytes it must
+move over 3.35 TB/s and its operations over the peak rate of their type
+(989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32). No single PyTorch call
+computes any kernel's function (K10's carries its window and applies
+SiLU), so ``library_ms`` is null. The kernels line reports K7 at bf16 Base,
+K9 at fp32 B=1 (one launch is one token through the stack: 4 x depth CUDA
+launches) and K10 at fp32 B=1. The last stdout line is the contract JSON;
+the line before it lists the kernels.
 """
 
 from __future__ import annotations
@@ -89,20 +121,26 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from videomamba_tpu_torch.checkpoint import load_state_dict  # noqa: E402
+from videomamba_tpu_torch.models import block as block_mod  # noqa: E402
 from videomamba_tpu_torch.models import mamba as mamba_mod  # noqa: E402
 from videomamba_tpu_torch.models.mamba import Mamba  # noqa: E402
 from videomamba_tpu_torch.models.presets import videomamba_base  # noqa: E402
+from videomamba_tpu_torch.ops.causal_conv1d import causal_conv1d  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import _build  # noqa: E402
+from videomamba_tpu_torch.ops.kernels import block_bwd as k7  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import block_fused as k4  # noqa: E402
+from videomamba_tpu_torch.ops.kernels import causal_conv as k10  # noqa: E402
+from videomamba_tpu_torch.ops.kernels import decode_step as k9  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import fused_add_norm as k2  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import mixer_bwd as k6  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import mixer_fused as k3  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import scan as k1  # noqa: E402
 from videomamba_tpu_torch.parallel.train_step import make_train_step  # noqa: E402
-from videomamba_tpu_torch.runtime import StreamingSession  # noqa: E402
+from videomamba_tpu_torch.runtime import DecodeSession, StreamingSession  # noqa: E402
 from videomamba_tpu_torch.utils.precision import cast_module_for_compute  # noqa: E402
 
 BASE = dict(batch=1, seqlen=1569, embed=768, d_inner=1536, d_state=16, dt_rank=48, width=4)
+IMG = 224  # clip height and width: 14 x 14 patches of 16, 196 tokens a frame
 SMALL = dict(BASE, embed=384, d_inner=768, dt_rank=24)
 KERNEL_TOL = 1e-5
 MODEL_TOL = 1e-4
@@ -120,7 +158,10 @@ WRAPPERS = {"selective_scan": k1.selective_scan,
             "block_fused": k4.block_fused,
             "selective_scan_bwd": k1.selective_scan_bwd,
             "mixer_bwd": k6.mixer_bwd,
-            "fused_add_norm_bwd": k2.fused_add_norm_bwd}
+            "fused_add_norm_bwd": k2.fused_add_norm_bwd,
+            "block_bwd": k7.block_bwd,
+            "decode_stack": k9.decode_stack,
+            "causal_conv": k10.causal_conv}
 SOURCES = {
     "selective_scan": ("videomamba_tpu_torch/csrc/selective_scan.cu",
                        "videomamba_tpu/ops/pallas/scan.py:181"),
@@ -136,6 +177,12 @@ SOURCES = {
                   "videomamba_tpu/ops/pallas/mixer_bwd.py:364"),
     "fused_add_norm_bwd": ("videomamba_tpu_torch/csrc/fused_add_norm_bwd.cu",
                            "videomamba_tpu/ops/pallas/fused_add_norm.py:185"),
+    "block_bwd": ("videomamba_tpu_torch/csrc/block_bwd.cu",
+                  "videomamba_tpu/ops/pallas/block_bwd.py:443"),
+    "decode_stack": ("videomamba_tpu_torch/csrc/decode_step.cu",
+                     "videomamba_tpu/ops/pallas/decode_step.py:193"),
+    "causal_conv": ("videomamba_tpu_torch/csrc/causal_conv.cu",
+                    "videomamba_tpu/ops/pallas/causal_conv.py:68"),
 }
 
 
@@ -309,16 +356,23 @@ def block_inputs(cfg, device, dtype, seed=3):
     )
 
 
+def block_flops(cfg, dtype, backward=False):
+    """K4's operations, or with ``backward`` K7's: the mixer's (three times
+    over in the backward) and in_proj / out_proj (the backward recomputes
+    in_proj and runs four more products of the same sizes: g_y, dnormed,
+    dWout, dWin), plus the norm."""
+    b, L, e, di = cfg["batch"], cfg["seqlen"], cfg["embed"], cfg["d_inner"]
+    n, r, w = cfg["d_state"], cfg["dt_rank"], cfg["width"]
+    mixer = mixer_flops(b, L, di, n, r, w, dtype, backward=backward)
+    kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+    per_product = 2 * b * L * e * di
+    mixer[kind] = mixer.get(kind, 0) + per_product * (8 if backward else 3)
+    mixer["fp32"] += (20 if backward else 8) * b * L * e
+    return mixer
+
+
 def phase_bf16_kernels(device):
     """K4 at bf16 (Base) and fp32 (Small), K2 at bf16, against plain."""
-    def block_flops(cfg, dtype):
-        b, L, e, di = cfg["batch"], cfg["seqlen"], cfg["embed"], cfg["d_inner"]
-        n, r, w = cfg["d_state"], cfg["dt_rank"], cfg["width"]
-        mixer = mixer_flops(b, L, di, n, r, w, dtype)
-        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
-        mixer[kind] = mixer.get(kind, 0) + 2 * b * L * (e * 2 * di + di * e)
-        return mixer
-
     result = time_against_plain(
         "block_fused bf16 Base", k4.block_fused, k4.block_fused_plain,
         block_inputs(BASE, device, torch.bfloat16), BF16_TOL,
@@ -345,6 +399,11 @@ def build_models(device, **overrides):
 
 def launches():
     return {name: w.launches for name, w in WRAPPERS.items()}
+
+
+def zero_launches():
+    for w in WRAPPERS.values():
+        w.launches = 0
 
 
 def delta(after, before):
@@ -511,6 +570,13 @@ def phase_bwd_kernels(device):
         "fused_add_norm_bwd fp32 rms prenorm", k2.fused_add_norm_bwd,
         k2.fused_add_norm_bwd_plain, kw, KERNEL_TOL, {"fp32": 12 * b * L * e},
         repeat_identical=True)
+    for name, fn in (("fused_add_norm_bwd", k2.fused_add_norm_bwd),
+                     ("fused_add_norm", k2.fused_add_norm)):
+        args = kw if fn is k2.fused_add_norm_bwd else inputs["fused_add_norm"]
+        wall, dev = device_ms(lambda: fn(**args), iters=50)
+        dev_txt = "not measured" if dev is None else f"{dev:.4f} ms"
+        print(f"kernel {name} fp32: device {dev_txt} a call (profiler), "
+              f"host {wall:.4f} ms a call")
     time_against_plain(
         "fused_add_norm_bwd bf16 x, fp32 residual", k2.fused_add_norm_bwd,
         k2.fused_add_norm_bwd_plain, dict(kw, x=kw["x"].bfloat16(), g_out=kw["g_out"].bfloat16()),
@@ -524,8 +590,8 @@ def train_batch(batch, device, seed=2, zero_target=True):
     RMS-normed tokens, about 1 whatever the weights, so every gradient below
     the final norm is cancellation noise; comparisons use a noise target."""
     g = torch.Generator().manual_seed(seed)
-    video = torch.randn((batch, 3, 8, 224, 224), generator=g)
-    shape = (batch, 8 * 196, 768)
+    video = torch.randn((batch, 3, 8, IMG, IMG), generator=g)
+    shape = (batch, 8 * (IMG // 16) ** 2, BASE["embed"])
     target = torch.zeros(shape) if zero_target else torch.randn(shape, generator=g)
     return {"video": video.to(device), "target": target.to(device)}
 
@@ -633,6 +699,8 @@ def plain_versions():
     (same rounding points, no kernel): the reference of the bf16 step."""
     swaps = [(mamba_mod, "mixer_fused", k3.mixer_fused_plain),
              (mamba_mod, "mixer_bwd", k6.mixer_bwd_plain),
+             (block_mod, "block_fused", k4.block_fused_plain),
+             (block_mod, "block_bwd", k7.block_bwd_plain),
              (k2, "fused_add_norm", k2.fused_add_norm_plain),
              (k2, "fused_add_norm_bwd", k2.fused_add_norm_bwd_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -693,6 +761,314 @@ def phase_train_bf16(device, sd0, fp32_grads, batch, depth):
     print(f"bf16 vs fp32 train-step gradients: max rel {worst:.3e}, mean rel {mean:.3e}")
     return model
 
+def device_ms(fn, iters: int, label: str = "", top: int = 0):
+    """(host wall ms, device kernel ms) per call of ``fn`` over ``iters``
+    calls under torch.profiler; the kernel time is the sum of the device
+    kernels' own intervals (one stream: they do not overlap). None for the
+    device time when the profiler saw no device kernel. With ``top``, prints
+    the ``top`` kernels by device time per call."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {label}: {us / 1e3 / iters:.4f} ms a call in {name[:90]}")
+    kernel_us = sum(by_name.values())
+    return wall, (kernel_us / 1e3 / iters if kernel_us > 0 else None)
+
+
+def block_bwd_inputs(cfg, device, dtype, seed=7):
+    """K7 operands at the shapes a Block gives it: K4's checkpoints of a
+    forward with nonzero h0 and conv_state, and every cotangent nonzero."""
+    kw = block_inputs(cfg, device, dtype, seed)
+    *_, ckpt = k4.block_fused(**kw, checkpoints=True)
+    g = torch.Generator().manual_seed(seed + 1)
+    b, L, e = kw["hidden"].shape
+    names = ("norm_w", "norm_b", "in_proj_w", "out_proj_w", "conv_w", "conv_b", "x_proj_w",
+             "dt_proj_w", "dt_bias", "A", "D", "conv_state")
+    return dict(res_out=kw["hidden"].float() + kw["residual"].float(),
+                **{k: kw[k] for k in names}, ckpt=ckpt,
+                g_out=randn((b, L, e), g, device).to(dtype),
+                g_res=randn((b, L, e), g, device, 0.3),
+                g_hlast=randn(tuple(kw["h0"].shape), g, device, 0.3))
+
+
+def phase_block_bwd_kernels(device):
+    """K4's checkpoints and K7 against their plain versions: Base bf16 and
+    fp32, Small fp32 (the fp32 whole-block geometry); each twice
+    bit-identical. Returns the kernels-line entry of Base bf16."""
+    result = None
+    for cfg, label, dtype, tol in ((BASE, "bf16 Base", torch.bfloat16, BF16_GRAD_TOL),
+                                   (BASE, "fp32 Base", torch.float32, GRAD_TOL),
+                                   (SMALL, "fp32 Small", torch.float32, GRAD_TOL)):
+        kw = block_inputs(cfg, device, dtype, seed=7)
+        *_, ckpt = k4.block_fused(**kw, checkpoints=True)
+        *_, pckpt = k4.block_fused_plain(**kw, checkpoints=True)
+        check_close(f"K4 {label} checkpoints", ckpt, pckpt,
+                    KERNEL_TOL if dtype == torch.float32 else BF16_TOL)
+        res = time_against_plain(f"block_bwd {label}", k7.block_bwd, k7.block_bwd_plain,
+                                 block_bwd_inputs(cfg, device, dtype), tol,
+                                 block_flops(cfg, dtype, backward=True), iters=10,
+                                 plain_iters=1, repeat_identical=True)
+        result = result or res
+    return result
+
+
+def phase_conv_kernels(device):
+    """K10 against its plain version at the Base conv shapes, (1, 1569,
+    1536) and (4, 1569, 1536), W = 4, fp32 and bf16. Returns the
+    kernels-line entry of fp32 B=1."""
+    result = None
+    for bsz in (1, 4):
+        for dtype, tol in ((torch.float32, KERNEL_TOL), (torch.bfloat16, BF16_TOL)):
+            g = torch.Generator().manual_seed(13 + bsz)
+            di, L, w = BASE["d_inner"], BASE["seqlen"], BASE["width"]
+            kw = dict(x=randn((bsz, L, di), g, device).to(dtype),
+                      weight=randn((w, di), g, device, 0.5),
+                      bias=randn((di,), g, device, 0.1),
+                      conv_state=randn((bsz, di, w), g, device).to(dtype))
+            label = "fp32" if dtype == torch.float32 else "bf16"
+            res = time_against_plain(
+                f"causal_conv {label} B={bsz}", lambda **a: (k10.causal_conv(**a),),
+                lambda **a: (k10.causal_conv_plain(**a),), kw, tol,
+                {"fp32": (2 * w + 5) * bsz * L * di}, iters=50)
+            _, dev = device_ms(lambda: k10.causal_conv(**kw), iters=50,
+                               label=f"causal_conv {label} B={bsz}", top=4)
+            print(f"kernel causal_conv {label} B={bsz}: device "
+                  f"{'not measured' if dev is None else f'{dev:.4f} ms'} a call (profiler)")
+            result = result or res
+    return result
+
+
+def phase_conv_path(device):
+    """K10's route, ``causal_conv1d(use_kernel=True)`` (the JAX package's
+    ``use_pallas=True``), forward and backward at (4, 1569, 1536): y and
+    the new window against the plain composition, gradients (autograd of
+    the plain composition behind the kernel) within 1e-5."""
+    g = torch.Generator().manual_seed(17)
+    di, L, w = BASE["d_inner"], BASE["seqlen"], BASE["width"]
+    leaves = [randn((4, L, di), g, device), randn((w, di), g, device, 0.5),
+              randn((di,), g, device, 0.1)]
+    state = randn((4, di, w), g, device)
+    outs = []
+    for use_kernel in (True, False):
+        args = [t.detach().clone().requires_grad_() for t in leaves]
+        before = launches()
+        y, window = causal_conv1d(*args, initial_state=state, return_final_state=True,
+                                  use_kernel=use_kernel)
+        y.square().mean().backward()
+        torch.cuda.synchronize()
+        outs.append((y.detach(), window, [a.grad for a in args]))
+        if use_kernel:
+            used = delta(launches(), before)
+            expect_launches("conv path", used, causal_conv=1)
+    check_close("conv path y vs plain composition", outs[0][0], outs[1][0], KERNEL_TOL)
+    check(torch.equal(outs[0][1], outs[1][1]), "conv path: new window differs")
+    for name, a, b in zip(("dx", "dweight", "dbias"), outs[0][2], outs[1][2]):
+        check_close(f"conv path {name} vs plain composition", a, b, KERNEL_TOL)
+    return used
+
+
+def phase_eval_backward(device, sd0, clip, depth):
+    """The bf16 Base model in eval mode with a loss on x_vis and x_pool
+    (noise targets): every parameter gets a gradient, through K4 forward
+    and K7 backward, within 5e-2 of the same model on plain versions; then
+    the same backward under VIDEOMAMBA_BLOCK_BWD=composite (K1 and K5 in
+    the recompute, no K7) against the K7 gradients. Returns the launches of
+    both runs."""
+    model = cast_module_for_compute(base_model(device, sd0), torch.bfloat16).eval()
+    clip = clip.clone()  # made under inference_mode, which autograd cannot save
+    g = torch.Generator().manual_seed(9)
+    target = randn((1, clip.shape[2] * model.patch_embed.num_patches, model.embed_dim),
+                   g, device)
+    # Noise targets for both outputs: the mean square of the pool norm's
+    # output alone is constant (a LayerNorm with unit weight and zero bias),
+    # so its gradient would be rounding noise.
+    pool_target = randn((1, 1, model.embed_dim), g, device)
+
+    def backward():
+        model.zero_grad(set_to_none=True)
+        x_vis, x_pool = model(clip)
+        loss = ((x_vis.float() - target).square().mean()
+                + (x_pool.float() - pool_target).square().mean())
+        loss.backward()
+        torch.cuda.synchronize()
+        return grads_of(model)
+
+    before = launches()
+    grads = backward()
+    used = delta(launches(), before)
+    expect_launches("bf16 eval backward", used, block_fused=depth, block_bwd=depth,
+                    fused_add_norm=1, mixer_fused=0, mixer_bwd=0, selective_scan_bwd=0)
+    missing = [name for name, p in model.named_parameters() if p.grad is None]
+    check(not missing, f"bf16 eval backward: no gradient for {missing}")
+    print(f"bf16 eval backward: all {len(grads)} parameters have gradients")
+    with plain_versions():
+        before = launches()
+        want = backward()
+        check(launches() == before, "bf16 eval plain-version backward launched a kernel")
+    compare_grads("bf16 eval backward vs plain versions", grads, want, BF16_STEP_TOL)
+    os.environ["VIDEOMAMBA_BLOCK_BWD"] = "composite"
+    try:
+        before = launches()
+        composite = backward()
+        used_c = delta(launches(), before)
+    finally:
+        del os.environ["VIDEOMAMBA_BLOCK_BWD"]
+    expect_launches("bf16 eval backward, composite", used_c, block_fused=depth,
+                    block_bwd=0, selective_scan=depth, selective_scan_bwd=depth)
+    compare_grads("composite block backward vs K7", composite, grads, BF16_STEP_TOL)
+    return {k: used[k] + used_c[k] for k in used}
+
+
+def phase_train_block_route(device, sd0, batch2, batch4, depth):
+    """The bench recipe (bf16 over fp32 masters) at B=2 under
+    VIDEOMAMBA_BLOCK_BWD=fused: every Block on the whole-block route (K4
+    with checkpoints, K7), against the same model on plain versions; then
+    steps at B=4, timed. Returns (launches of the B=2 step, ms, peak GiB)."""
+    os.environ["VIDEOMAMBA_BLOCK_BWD"] = "fused"
+    try:
+        model = base_model(device, sd0)
+        step = make_train_step(model, adamw(model), compute_dtype=torch.bfloat16)
+        before = launches()
+        metrics = step(batch2, torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        used = delta(launches(), before)
+        expect_launches("bf16 train step, whole-block route", used, block_fused=depth,
+                        block_bwd=depth, mixer_fused=0, mixer_bwd=0, fused_add_norm=1)
+        grads = grads_of(model)
+        load_state_dict(model, sd0)
+        with plain_versions():
+            before = launches()
+            plain_metrics = step(batch2, torch.Generator().manual_seed(1))
+            torch.cuda.synchronize()
+            check(launches() == before, "whole-block plain-version step launched a kernel")
+        check_close("whole-block train step loss vs plain versions",
+                    metrics["loss"].reshape(1), plain_metrics["loss"].reshape(1), BF16_TOL)
+        compare_grads("whole-block train step vs plain versions", grads, grads_of(model),
+                      BF16_STEP_TOL)
+        del plain_metrics
+        step = make_train_step(model, adamw(model), compute_dtype=torch.bfloat16)
+        ms, peak = timed_steps(step, batch4, "bf16 train step, whole-block route (4,3,8,224,224)")
+    finally:
+        del os.environ["VIDEOMAMBA_BLOCK_BWD"]
+    del model, step
+    torch.cuda.empty_cache()
+    return used, ms, peak
+
+
+def frame_tokens(model, frames, offset):
+    """The encoder's input tokens of ``frames`` (no CLS) at temporal
+    position ``offset``: patch embedding plus positional embeddings, as
+    PretrainVideoMamba._encoder forms them."""
+    dtype = model.patch_embed.proj.weight.dtype
+    tok = model.patch_embed(frames.to(dtype))
+    gh, gw = model._spatial_token_grid(frames.shape[-2], frames.shape[-1])
+    tok = tok + model._get_spatial_pos_embedding(gh, gw, dtype)[:, None]
+    tok = tok + model._get_temporal_pos_embedding(tok.shape[1], offset, dtype)[:, :, None]
+    return tok.reshape(tok.shape[0], -1, model.embed_dim)
+
+
+def phase_decode(model, label, clip5, tol, kernel_tol, depth):
+    """Prefill 4 frames with StreamingSession, adopt its state in a
+    DecodeSession, decode the 5th frame's 196 tokens through K9 (+ K2 for
+    the final norm) and hold them against the 5-frame full forward's last
+    196 tokens; then K9 against its plain version over 8 steps from the
+    same states (and over 3 at B=80), and the time per token at B=1, 8 and
+    80. Returns (launches
+    of the decode, the kernels-line entry at B=1)."""
+    tpf = model.patch_embed.num_patches
+    full_vis, _ = model(clip5)
+    stream = StreamingSession(model, batch_size=1)
+    stream.process(clip5[:, :, :4])
+    session = DecodeSession(model, batch_size=1)
+    check(session.use_kernel, f"{label} decode: the session did not take K9")
+    session.load_streaming_state(stream.state)
+    tokens = frame_tokens(model, clip5[:, :, 4:], offset=4)
+    before = launches()
+    feats = [session.step(tokens[:, i]) for i in range(tokens.shape[1])]
+    torch.cuda.synchronize()
+    used = delta(launches(), before)
+    expect_launches(f"{label} decode", used, decode_stack=tpf, fused_add_norm=tpf,
+                    block_fused=0, mixer_fused=0)
+    check_close(f"{label} decode (K9) vs full 5-frame forward, last frame",
+                torch.stack(feats, dim=1), full_vis[:, -tpf:], tol)
+
+    kc, ks = session.conv_states.clone(), session.ssm_states.clone()
+    pc, ps = kc.clone(), ks.clone()
+    kw = dict(session.stacked, norm_type=session.norm_type, eps=session.eps)
+    errs = []
+    for i in range(8):
+        tok = tokens[:, i % tokens.shape[1]]
+        hk, rk, kc, ks = k9.decode_stack(tok, **kw, conv_states=kc, ssm_states=ks)
+        hp, rp, pc, ps = k9.decode_stack_plain(tok, **kw, conv_states=pc, ssm_states=ps)
+        torch.cuda.synchronize()
+        for name, a, b in (("hidden", hk, hp), ("residual", rk, rp), ("conv_states", kc, pc),
+                           ("ssm_states", ks, ps)):
+            errs.append(check_close(f"kernel decode_stack {label} step {i} {name}", a, b,
+                                    kernel_tol))
+
+    entry = None
+    for bsz in (1, 8, 80):
+        sess = DecodeSession(model, batch_size=bsz)
+        check(sess.use_kernel, f"{label} decode B={bsz}: the session did not take K9")
+        tok = randn((bsz, model.embed_dim), torch.Generator().manual_seed(bsz),
+                    model.norm.weight.device)
+        kwb = dict(sess.stacked, norm_type=sess.norm_type, eps=sess.eps,
+                   conv_states=sess.conv_states, ssm_states=sess.ssm_states)
+        if bsz > 8:  # ten of K9's 8-row passes: three tokens against the plain version
+            kc, ks = sess.conv_states.clone(), sess.ssm_states.clone()
+            pc, ps = kc.clone(), ks.clone()
+            for i in range(3):
+                step_kw = dict(kwb, conv_states=kc, ssm_states=ks)
+                hk, rk, kc, ks = k9.decode_stack(tok * (i + 1), **step_kw)
+                hp, rp, pc, ps = k9.decode_stack_plain(
+                    tok * (i + 1), **dict(kwb, conv_states=pc, ssm_states=ps))
+                torch.cuda.synchronize()
+                for name, a, b in (("hidden", hk, hp), ("residual", rk, rp),
+                                   ("conv_states", kc, pc), ("ssm_states", ks, ps)):
+                    check_close(f"kernel decode_stack {label} B={bsz} step {i} {name}", a, b,
+                                kernel_tol)
+        ms = event_ms(lambda: k9.decode_stack(tok, **kwb), iters=100, warmup=5)
+        plain_ms = event_ms(lambda: k9.decode_stack_plain(tok, **kwb), iters=5, warmup=1)
+        step_ms = host_ms(lambda: sess.step(tok), repeats=50)
+        wall, dev = device_ms(lambda: sess.step(tok), iters=50,
+                              label=f"decode {label} B={bsz}", top=6)
+        moved = nbytes(tok, *(t for t in sess.stacked.values()), sess.conv_states,
+                       sess.ssm_states) + nbytes(sess.conv_states, sess.ssm_states) \
+            + 2 * 4 * bsz * model.embed_dim
+        w_el = sum(sess.stacked[k].numel()
+                   for k in ("in_proj_w", "out_proj_w", "x_proj_w", "dt_proj_w"))
+        kind = "bf16" if sess.stacked["in_proj_w"].dtype == torch.bfloat16 else "fp32"
+        mx = model.layers[0].mixer
+        ops = {kind: 2 * bsz * w_el}
+        ops["fp32"] = ops.get("fp32", 0) + 6 * bsz * depth * mx.d_inner * (mx.d_state
+                                                                           + mx.d_conv)
+        b = bound(moved, ops)
+        idle = "not measured" if dev is None else f"{100 * (wall - dev) / wall:.1f} %"
+        dev_txt = "not measured" if dev is None else f"{dev:.4f} ms"
+        print(f"decode {label} B={bsz}: K9 {ms:.4f} ms a token (event), plain "
+              f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+              f"{moved / 1e6:.1f} MB); session step {step_ms:.4f} ms host, profiled "
+              f"{wall:.4f} ms wall, device kernels {dev_txt}, idle {idle}; "
+              f"{k9.LAUNCHES_PER_LAYER * depth + 1} launches a token")
+        if bsz == 1:
+            entry = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, **b,
+                     "library_ms": None}
+        del sess
+    return used, entry
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -720,11 +1096,10 @@ def main() -> int:
         kernels = phase_kernels(BASE, device)
 
         fast, plain = build_models(device)
-        clip = torch.randn((1, 3, 8, 224, 224), generator=torch.Generator().manual_seed(2)).to(device)
+        clip = torch.randn((1, 3, 8, IMG, IMG), generator=torch.Generator().manual_seed(2)).to(device)
         depth = fast.depth
 
-        for w in WRAPPERS.values():
-            w.launches = 0
+        zero_launches()
         full_vis = phase_forward(fast, plain, clip, depth)
         phase_stream(fast, clip, full_vis, chunk_frames=4)
         phase_unfused(BASE, device)
@@ -736,8 +1111,7 @@ def main() -> int:
         kernels["block_fused"] = phase_bf16_kernels(device)
 
         bf16 = cast_module_for_compute(copy.deepcopy(fast), torch.bfloat16)
-        for w in WRAPPERS.values():
-            w.launches = 0
+        zero_launches()
         bf16_vis = phase_bf16_forward(bf16, clip, full_vis, depth)
         phase_stream(bf16, clip, bf16_vis, chunk_frames=4, tol=BF16_TOL)
         bf16_counts = launches()
@@ -764,8 +1138,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     batch2 = train_batch(2, device, zero_target=False)
-    for w in WRAPPERS.values():
-        w.launches = 0
+    zero_launches()
     sd0, fp32_grads = phase_train_fp32(device, batch2, depth)
     train32_counts = launches()
     print(f"fp32 training main path launches: {train32_counts}")
@@ -773,8 +1146,7 @@ def main() -> int:
                  "fused_add_norm_bwd"):
         check(train32_counts[name] > 0, f"{name} was not launched on the fp32 training path")
 
-    for w in WRAPPERS.values():
-        w.launches = 0
+    zero_launches()
     model = phase_train_bf16(device, sd0, fp32_grads, batch2, depth)
     batch4 = train_batch(4, device)
     step = make_train_step(model, adamw(model), compute_dtype=torch.bfloat16)
@@ -792,8 +1164,52 @@ def main() -> int:
     fp32_ms, fp32_peak = timed_steps(step, batch4, "fp32 train step (4,3,8,224,224)")
     print(f"train step B=4: fp32 {fp32_ms:.3f} ms ({fp32_peak:.2f} GiB peak), "
           f"bf16 {bf16_ms:.3f} ms ({bf16_peak:.2f} GiB peak)")
-    counts = {name: fp32_counts[name] + bf16_counts[name] + train32_counts[name]
-              + train16_counts[name] for name in WRAPPERS}
+    del model, step
+    torch.cuda.empty_cache()
+
+    with torch.inference_mode():
+        kernels["block_bwd"] = phase_block_bwd_kernels(device)
+        kernels["causal_conv"] = phase_conv_kernels(device)
+    torch.cuda.empty_cache()
+
+    zero_launches()
+    eval_counts = phase_eval_backward(device, sd0, clip, depth)
+    for name in ("block_fused", "block_bwd", "selective_scan", "selective_scan_bwd"):
+        check(eval_counts[name] > 0, f"{name} was not launched on the eval backward path")
+    torch.cuda.empty_cache()
+
+    zero_launches()
+    block_route_counts, blk_ms, blk_peak = phase_train_block_route(device, sd0, batch2, batch4,
+                                                                   depth)
+    for name in ("block_fused", "block_bwd"):
+        check(block_route_counts[name] > 0,
+              f"{name} was not launched on the whole-block training path")
+    print(f"bf16 train step B=4: mixer route {bf16_ms:.3f} ms ({bf16_peak:.2f} GiB peak), "
+          f"whole-block route {blk_ms:.3f} ms ({blk_peak:.2f} GiB peak)")
+
+    clip5 = torch.randn((1, 3, 5, IMG, IMG),
+                        generator=torch.Generator().manual_seed(21)).to(device)
+    decode_counts = {name: 0 for name in WRAPPERS}
+    with torch.inference_mode():
+        fast = base_model(device, sd0).eval()
+        for label, model, tol, ktol in (("fp32", fast, MODEL_TOL, KERNEL_TOL),
+                                        ("bf16", None, BF16_MODEL_TOL, BF16_TOL)):
+            if model is None:
+                model = cast_module_for_compute(fast, torch.bfloat16)
+            zero_launches()
+            used, entry = phase_decode(model, label, clip5, tol, ktol, depth)
+            decode_counts = {k: decode_counts[k] + used[k] for k in used}
+            kernels.setdefault("decode_stack", entry)
+        del fast, model
+    check(decode_counts["decode_stack"] > 0, "decode_stack was not launched on the decode path")
+    torch.cuda.empty_cache()
+
+    zero_launches()
+    conv_counts = phase_conv_path(device)
+
+    paths = (fp32_counts, bf16_counts, train32_counts, train16_counts, eval_counts,
+             block_route_counts, decode_counts, conv_counts)
+    counts = {name: sum(c[name] for c in paths) for name in WRAPPERS}
 
     rows = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

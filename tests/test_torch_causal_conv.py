@@ -1,0 +1,99 @@
+"""K10 (causal depthwise conv + bias + SiLU) vs videomamba_tpu on the CPU.
+
+``causal_conv1d(use_kernel=True)`` is the port's K10 route, the JAX
+package's ``use_pallas=True``; on CPU tensors the wrapper runs its plain
+version, and the JAX package runs its Pallas kernel in interpret mode
+(VIDEOMAMBA_PALLAS_INTERPRET=1, as tests/test_pallas_conv.py does). Same
+numpy inputs, rel_err = max|a - b| / max|b| <= 1e-5 for outputs and
+gradients; the new conv window is sliced from the raw input, bit-equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from videomamba_tpu.ops.causal_conv1d import causal_conv1d as j_conv
+from videomamba_tpu.ops.pallas.causal_conv import causal_conv1d_pallas
+from videomamba_tpu_torch.ops.causal_conv1d import causal_conv1d as t_conv
+from videomamba_tpu_torch.ops.kernels import causal_conv as k10
+
+TOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode(monkeypatch):
+    monkeypatch.setenv("VIDEOMAMBA_PALLAS_INTERPRET", "1")
+
+
+def rel_err(a, b) -> float:
+    a = a.detach().double().numpy() if isinstance(a, torch.Tensor) else np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-8))
+
+
+def inputs(seed, b=2, L=24, d=128, w=4):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return (rng.standard_normal((b, L, d)).astype(f), rng.standard_normal((w, d)).astype(f),
+            rng.standard_normal(d).astype(f), (0.3 * rng.standard_normal((b, d, w))).astype(f))
+
+
+@pytest.mark.parametrize("L", [24, 19])
+@pytest.mark.parametrize("with_state", [True, False])
+def test_kernel_route_matches_pallas(with_state, L):
+    x, w, b, st = inputs(0, L=L)
+    st = st if with_state else None
+    jy, js = j_conv(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                    initial_state=None if st is None else jnp.asarray(st),
+                    return_final_state=True, use_pallas=True)
+    before = k10.causal_conv.launches
+    ty, ts = t_conv(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+                    initial_state=None if st is None else torch.from_numpy(st),
+                    return_final_state=True, use_kernel=True)
+    assert k10.causal_conv.launches == before  # the plain version on the CPU
+    assert rel_err(ty, jy) <= TOL
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+def test_plain_matches_pallas_across_time_blocks():
+    """The TPU kernel at block_l 16 carries its left context over four time
+    blocks; the plain version has no blocks."""
+    x, w, b, st = inputs(2, L=64)
+    jy = causal_conv1d_pallas(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                              jnp.asarray(st), block_l=16)
+    ty = k10.causal_conv_plain(*(torch.from_numpy(a) for a in (x, w, b, st)))
+    assert rel_err(ty, jy) <= TOL
+    jy = causal_conv1d_pallas(jnp.asarray(x), jnp.asarray(w), None, jnp.asarray(st),
+                              activation=None)
+    ty = k10.causal_conv(torch.from_numpy(x), torch.from_numpy(w), None,
+                         torch.from_numpy(st), activation=None)
+    assert rel_err(ty, jy) <= TOL
+
+
+def test_gradients_match_jax():
+    """Through CausalConvFn (autograd of the plain composition) against the
+    JAX package's ``_pallas_conv`` vjp, which is the same."""
+    x, w, b, st = inputs(4, L=16)
+
+    def jloss(x_, w_, b_):
+        y = j_conv(x_, w_, b_, initial_state=jnp.asarray(st), use_pallas=True)
+        return jnp.sum(y * y)
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    tx, tw, tb = (torch.from_numpy(a).requires_grad_() for a in (x, w, b))
+    y = t_conv(tx, tw, tb, initial_state=torch.from_numpy(st), use_kernel=True)
+    assert "CausalConvFn" in type(y.grad_fn).__name__
+    y.square().sum().backward()
+    for got, want in zip((tx.grad, tw.grad, tb.grad), jg):
+        assert rel_err(got, want) <= TOL
+
+
+def test_width_outside_the_gate_takes_the_plain_composition():
+    x, w, b, st = inputs(5, w=5)
+    assert not k10.causal_conv_supported(5) and k10.causal_conv_supported(4)
+    args = [torch.from_numpy(a) for a in (x, w, b)]
+    y = t_conv(*args, initial_state=torch.from_numpy(st), use_kernel=True)
+    assert torch.equal(y, t_conv(*args, initial_state=torch.from_numpy(st)))

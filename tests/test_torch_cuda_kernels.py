@@ -389,3 +389,175 @@ def test_small_model_trains_on_the_kernels(dev):
     for (name, p), q in zip(fast.named_parameters(), plain.parameters()):
         if p.grad is not None:
             assert rel_err(p.grad, q.grad) <= 1e-4, name
+
+
+BLOCK_BWD_CASES = {
+    # name: (dtype, geometry, norm_type)
+    "fp32_ragged_rms": (torch.float32, dict(), "rms"),
+    "fp32_ragged_layer": (torch.float32, dict(L=300), "layer"),
+    "bf16_ragged_rms": (torch.bfloat16, dict(L=300), "rms"),
+    "bf16_bf16_residual": (torch.bfloat16, dict(L=5, residual_fp32=False), "rms"),
+    "fp32_one_step": (torch.float32, dict(L=1), "layer"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BLOCK_BWD_CASES))
+def test_block_bwd_kernel_matches_plain(dev, case):
+    """K4's checkpoints and K7 against their plain versions, with nonzero h0,
+    conv_state and every cotangent; K7 twice bit-identical."""
+    from videomamba_tpu_torch.ops.kernels import block_bwd as k7
+
+    dtype, geom, norm_type = BLOCK_BWD_CASES[case]
+    kw = _block_inputs(dev, dtype, **geom)
+    e = kw["hidden"].shape[-1]
+    if norm_type == "layer":
+        kw.update(norm_b=randn(e, dev=dev, scale=0.1, seed=9), norm_type="layer")
+    with torch.inference_mode():
+        *_, ckpt = k4.block_fused(**kw, checkpoints=True)
+        *_, pckpt = k4.block_fused_plain(**kw, checkpoints=True)
+        # bf16: the products' sums in another order move delta, and so the
+        # states, by more than fp32's bar (K3's bf16 checkpoints: the same).
+        assert rel_err(ckpt, pckpt) <= (TOL if dtype == torch.float32 else BF16_TOL)
+        res_out = kw["hidden"].float() + kw["residual"].float()
+        args = dict(res_out=res_out, norm_w=kw["norm_w"], norm_b=kw["norm_b"],
+                    in_proj_w=kw["in_proj_w"], out_proj_w=kw["out_proj_w"],
+                    conv_w=kw["conv_w"], conv_b=kw["conv_b"], x_proj_w=kw["x_proj_w"],
+                    dt_proj_w=kw["dt_proj_w"], dt_bias=kw["dt_bias"], A=kw["A"], D=kw["D"],
+                    conv_state=kw["conv_state"], ckpt=ckpt,
+                    g_out=randn(*kw["hidden"].shape, dev=dev, seed=12).to(dtype),
+                    g_res=randn(*res_out.shape, dev=dev, scale=0.3, seed=13).to(
+                        kw["residual"].dtype),
+                    g_hlast=randn(*kw["h0"].shape, dev=dev, scale=0.3, seed=14),
+                    norm_type=norm_type)
+        before = k7.block_bwd.launches
+        got = k7.block_bwd(**args)
+        again = k7.block_bwd(**args)
+        torch.cuda.synchronize()
+        assert k7.block_bwd.launches == before + 2 and _same(got, again)
+        for i, (a, b) in enumerate(zip(got, k7.block_bwd_plain(**args))):
+            assert a.dtype == b.dtype and rel_err(a, b) <= GRAD_TOL[dtype], i
+
+
+@pytest.mark.parametrize("backend", ["fused", "composite"])
+def test_eval_model_backward_runs_k7(dev, monkeypatch, backend):
+    """A small fp32 model in eval mode (every Block on the whole-block
+    route): a loss on x_vis reaches every parameter through K4 and K7 (or
+    the composite recompute with K1 / K5), within 1e-4 of the same weights
+    on the plain path."""
+    from videomamba_tpu_torch.checkpoint import load_state_dict
+    from videomamba_tpu_torch.models.videomamba import PretrainVideoMamba
+    from videomamba_tpu_torch.ops.kernels import block_bwd as k7
+
+    monkeypatch.setenv("VIDEOMAMBA_BLOCK_BWD", backend)
+    geom = dict(img_size=32, patch_size=8, depth=3, embed_dim=128, num_frames=4,
+                pool_type="avg", add_pool_norm=False, device=dev)
+    fast = PretrainVideoMamba(**geom, generator=torch.Generator().manual_seed(0)).eval()
+    plain = PretrainVideoMamba(**geom, fused_add_norm=False,
+                               ssm_cfg={"use_fast_path": False}).eval()
+    load_state_dict(plain, fast.state_dict())
+    clip = randn(2, 3, 4, 32, 32, dev=dev, seed=11)
+    target = randn(2, 65, 128, dev=dev, seed=12)  # CLS leads x_vis without a pool norm
+    before = (k4.block_fused.launches, k7.block_bwd.launches, k1.selective_scan_bwd.launches)
+    for model in (fast, plain):
+        (model(clip) - target).square().mean().backward()
+    torch.cuda.synchronize()
+    used = (k4.block_fused.launches - before[0], k7.block_bwd.launches - before[1],
+            k1.selective_scan_bwd.launches - before[2])
+    assert used == ((3, 3, 0) if backend == "fused" else (3, 0, 3))
+    for (name, p), q in zip(fast.named_parameters(), plain.parameters()):
+        assert p.grad is not None, name
+        assert rel_err(p.grad, q.grad) <= 1e-4, name
+
+
+def _decode_inputs(dev, wdt, sdt, depth=2, b=3, e=200, di=400, n=16, r=13, w=4, norm="rms"):
+    g = torch.Generator().manual_seed(7)
+
+    def rn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g)).to(dev)
+
+    return dict(
+        token=rn(b, e), norm_w=1 + rn(depth, e, scale=0.1),
+        norm_b=rn(depth, e, scale=0.1) if norm == "layer" else None,
+        in_proj_w=rn(depth, 2 * di, e, scale=e ** -0.5).to(wdt),
+        out_proj_w=rn(depth, e, di, scale=di ** -0.5).to(wdt),
+        conv_w=rn(depth, di, w, scale=0.5).to(wdt), conv_b=rn(depth, di, scale=0.1),
+        x_proj_w=rn(depth, r + 2 * n, di, scale=di ** -0.5).to(wdt),
+        dt_proj_w=rn(depth, di, r, scale=r ** -0.5).to(wdt),
+        dt_bias=torch.linspace(-4.0, -1.0, di, device=dev).expand(depth, di).contiguous(),
+        A=-torch.exp(rn(depth, di, n, scale=0.3)), D=rn(depth, di),
+        conv_states=rn(depth, b, di, w).to(sdt), ssm_states=rn(depth, b, di, n, scale=0.3).to(sdt),
+        norm_type=norm,
+    )
+
+
+@pytest.mark.parametrize("wdt,sdt,b,norm", [
+    (torch.float32, torch.float32, 3, "rms"), (torch.float32, torch.float32, 9, "layer"),
+    (torch.bfloat16, torch.float32, 1, "rms"), (torch.bfloat16, torch.bfloat16, 3, "layer")])
+def test_decode_stack_kernel_matches_plain(dev, wdt, sdt, b, norm):
+    """Three tokens through K9 and its plain version from the same states:
+    features and both state stacks (9 rows: two passes over the weights)."""
+    from videomamba_tpu_torch.ops.kernels import decode_step as k9
+
+    kw = _decode_inputs(dev, wdt, sdt, b=b, norm=norm)
+    states = (kw.pop("conv_states"), kw.pop("ssm_states"))
+    kc, ks = (s.clone() for s in states)
+    pc, ps = states
+    tol = TOL if wdt == torch.float32 and sdt == torch.float32 else BF16_TOL
+    before = k9.decode_stack.launches
+    for step in range(3):
+        tok = randn(b, kw["token"].shape[1], dev=dev, seed=20 + step)
+        args = {k: v for k, v in kw.items() if k != "token"}
+        hk, rk, kc, ks = k9.decode_stack(tok, **args, conv_states=kc, ssm_states=ks)
+        hp, rp, pc, ps = k9.decode_stack_plain(tok, **args, conv_states=pc, ssm_states=ps)
+        torch.cuda.synchronize()
+        for a, ref in ((hk, hp), (rk, rp), (kc, pc), (ks, ps)):
+            assert a.dtype == ref.dtype and rel_err(a, ref) <= tol, step
+    assert k9.decode_stack.launches == before + 3
+
+
+@pytest.mark.parametrize("e,b,depth", [(128, 2, 3), (768, 80, 2)])
+def test_decode_session_kernel_matches_step_route(dev, e, b, depth):
+    """DecodeSession on K9 (+ K2 for the final norm) against the per-layer
+    Mamba.step route on the card, after a streaming prefill; at Base width
+    a batch of 80 streams (ten of K9's 8-row passes) stays on K9 by
+    default."""
+    from videomamba_tpu_torch.models.videomamba import PretrainVideoMamba
+    from videomamba_tpu_torch.ops.kernels import decode_step as k9
+    from videomamba_tpu_torch.runtime import DecodeSession
+
+    model = PretrainVideoMamba(img_size=32, patch_size=8, depth=depth, embed_dim=e,
+                               num_frames=4, pool_type="avg", device=dev,
+                               generator=torch.Generator().manual_seed(0)).eval()
+    clip = randn(b, 3, 4, 32, 32, dev=dev, seed=11)
+    with torch.inference_mode():
+        _, _, state = model(clip[:, :, :2], ssm_state=model.allocate_state(b))
+    sessions = [DecodeSession(model, batch_size=b, use_kernel=flag) for flag in (None, False)]
+    assert sessions[0].use_kernel
+    for s in sessions:
+        s.load_streaming_state(state)
+    before = k9.decode_stack.launches
+    for step in range(4):
+        tok = randn(b, e, dev=dev, seed=30 + step)
+        got, want = (s.step(tok) for s in sessions)
+        assert rel_err(got, want) <= 1e-4, step
+    assert k9.decode_stack.launches == before + 4
+    assert rel_err(sessions[0].ssm_states, sessions[1].ssm_states) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w,L", [(4, 130), (3, 37), (2, 1)])
+def test_causal_conv_kernel_matches_plain(dev, dtype, w, L):
+    from videomamba_tpu_torch.ops.kernels import causal_conv as k10
+
+    x = randn(2, L, 400, dev=dev, seed=1).to(dtype)[..., :200]  # strided: the wrapper copies
+    weight = randn(w, 200, dev=dev, scale=0.5, seed=2)
+    bias = randn(200, dev=dev, scale=0.1, seed=3)
+    state = randn(2, 200, w, dev=dev, seed=4).to(dtype)
+    tol = TOL if dtype == torch.float32 else BF16_TOL
+    before = k10.causal_conv.launches
+    for act, b in (("silu", bias), (None, None)):
+        y = k10.causal_conv(x, weight, b, state, act)
+        ref = k10.causal_conv_plain(x, weight, b, state, act)
+        torch.cuda.synchronize()
+        assert y.dtype == ref.dtype == dtype and rel_err(y, ref) <= tol
+    assert k10.causal_conv.launches == before + 2

@@ -25,7 +25,10 @@ MODULES = [
     "videomamba_tpu_torch.ops.selective_scan",
     "videomamba_tpu_torch.ops.kernels",
     "videomamba_tpu_torch.ops.kernels._build",
+    "videomamba_tpu_torch.ops.kernels.block_bwd",
     "videomamba_tpu_torch.ops.kernels.block_fused",
+    "videomamba_tpu_torch.ops.kernels.causal_conv",
+    "videomamba_tpu_torch.ops.kernels.decode_step",
     "videomamba_tpu_torch.ops.kernels.fused_add_norm",
     "videomamba_tpu_torch.ops.kernels.mixer_bwd",
     "videomamba_tpu_torch.ops.kernels.mixer_fused",

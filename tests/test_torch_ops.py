@@ -143,16 +143,18 @@ def test_backward_switches_read_the_jax_environment(monkeypatch):
     for var in ("VIDEOMAMBA_MIXER_BWD", "VIDEOMAMBA_NORM_BWD", "VIDEOMAMBA_BLOCK_BWD"):
         monkeypatch.delenv(var, raising=False)
     assert dispatch.mixer_bwd_backend() == "fused"
-    assert not dispatch.norm_bwd_kernel() and not dispatch.block_bwd_training_opt_in()
+    assert not dispatch.norm_bwd_kernel() and dispatch.block_bwd_mode() is None
+    assert dispatch.block_bwd_backend() == "fused"
     monkeypatch.setenv("VIDEOMAMBA_MIXER_BWD", "composite")
     monkeypatch.setenv("VIDEOMAMBA_NORM_BWD", "pallas")
     monkeypatch.setenv("VIDEOMAMBA_BLOCK_BWD", "fused")
     assert dispatch.mixer_bwd_backend() == "composite"
-    assert dispatch.norm_bwd_kernel() and dispatch.block_bwd_training_opt_in()
+    assert dispatch.norm_bwd_kernel() and dispatch.block_bwd_mode() == "fused"
     monkeypatch.setenv("VIDEOMAMBA_MIXER_BWD", "bogus")
     monkeypatch.setenv("VIDEOMAMBA_BLOCK_BWD", "composite")
     assert dispatch.mixer_bwd_backend() == "fused"
-    assert not dispatch.block_bwd_training_opt_in()
+    assert dispatch.block_bwd_mode() == "composite"
+    assert dispatch.block_bwd_backend() == "composite"
 
 
 def test_kill_switch_selects_plain_path(monkeypatch):

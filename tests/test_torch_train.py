@@ -238,11 +238,41 @@ def test_drop_path_semantics():
 
 
 def test_whole_block_training_opt_in_names_k7(monkeypatch):
-    block = create_block(64, device="cpu").train()
-    assert block._use_block_fused()
+    """VIDEOMAMBA_BLOCK_BWD=fused routes training through the whole Block:
+    K4 with checkpoints forward and K7 backward in both packages (JAX in
+    interpret mode); the fp32 step's loss and every gradient match the JAX
+    package's within its fp32 bars. Unset, training stays on the mixer
+    route."""
+    from videomamba_tpu_torch.models import block as block_mod
+
+    monkeypatch.setenv("VIDEOMAMBA_PALLAS_INTERPRET", "1")
     monkeypatch.setenv("VIDEOMAMBA_BLOCK_BWD", "fused")
-    with pytest.raises(NotImplementedError, match="K7"):
-        block(torch.randn(1, 5, 64))
+    calls = []
+    apply = block_mod.BlockFusedFn.apply
+    monkeypatch.setattr(block_mod.BlockFusedFn, "apply",
+                        lambda *a: calls.append(1) or apply(*a))
+    jm, tm = pair()
+    b = batch(seed=3)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda p: j_loss_fn(jm, p, jb, jax.random.PRNGKey(0)), has_aux=True)(jm.params)
+    m1, grads, _ = port_step(tm, b)
+    assert len(calls) == 2 * GEOM["depth"]  # two steps on the whole-block route
+    assert abs(float(m1["loss"]) - float(jloss)) <= 1e-5 * abs(float(jloss))
+    for name, g in torch_tree(jm, jgrads).items():
+        assert rel_err(grads[name], g) <= 2e-5, name
     monkeypatch.delenv("VIDEOMAMBA_BLOCK_BWD")
+    block = create_block(64, device="cpu").train()
     out, _ = block(torch.randn(1, 5, 64))
-    assert out.grad_fn is not None
+    assert len(calls) == 2 * GEOM["depth"] and out.grad_fn is not None
+
+
+def test_remat_on_the_whole_block_route(monkeypatch):
+    """checkpoint_num remat with stochastic depth on the opt-in whole-block
+    route: the recomputed K4 forward sees the same masks, so the gradients
+    equal the unchecked model's."""
+    monkeypatch.setenv("VIDEOMAMBA_BLOCK_BWD", "fused")
+    plain = _grads_with_drop_path(False)
+    remat = _grads_with_drop_path(True)
+    for name, g in plain.items():
+        assert rel_err(remat[name], g) <= 1e-6, name

@@ -2,19 +2,22 @@
 
 The JAX package ``videomamba_tpu`` is the reference this port is held
 against. This package imports torch and never jax. Ported so far: the fp32
-and bf16 serving path of the Mamba-1 VideoMamba (full-clip forward and
-chunked streaming with carried (conv_state, ssm_state)) and its training
-path (``parallel.train_step``, ``utils.optimizer``, ``utils.scheduler``;
-fp32 or bf16 compute over fp32 masters; stochastic depth and activation
-checkpointing), through seven hand-written Hopper kernels (``ops/kernels``):
-the selective scan and its backward, the fused residual add + norm and its
-backward, the fused mixer core and its backward, and the whole Block (no
-backward yet). bf16 serving weights come from
+and bf16 serving path of the Mamba-1 VideoMamba (full-clip forward, chunked
+streaming with carried (conv_state, ssm_state), and token decode through
+``DecodeSession`` or the mixers' ``InferenceCache``) and its training path
+(``parallel.train_step``, ``utils.optimizer``, ``utils.scheduler``; fp32 or
+bf16 compute over fp32 masters; stochastic depth and activation
+checkpointing; the whole-block route with its backward), through ten
+hand-written Hopper kernels (``ops/kernels``): the selective scan and its
+backward, the fused residual add + norm and its backward, the fused mixer
+core and its backward, the whole Block and its backward, the causal conv,
+and the whole-stack decode step. bf16 serving weights come from
 ``utils.precision.cast_module_for_compute``. Entry points build on the CUDA
 card unless given ``device="cpu"`` (``runtime.resolve_device``).
 """
 
 from videomamba_tpu_torch.models import (
+    InferenceCache,
     Mamba,
     PretrainVideoMamba,
     build_videomamba,
@@ -23,7 +26,9 @@ from videomamba_tpu_torch.models import (
     videomamba_small,
     videomamba_tiny,
 )
-from videomamba_tpu_torch.runtime import StreamingSession
+from videomamba_tpu_torch.ops.causal_conv1d import causal_conv1d_update
+from videomamba_tpu_torch.ops.selective_scan import selective_state_update
+from videomamba_tpu_torch.runtime import DecodeSession, StreamingSession
 from videomamba_tpu_torch.streaming import (
     STREAMING_CONTRACT_VERSION,
     StateShape,
@@ -34,6 +39,8 @@ from videomamba_tpu_torch.streaming import (
 )
 
 __all__ = [
+    "DecodeSession",
+    "InferenceCache",
     "Mamba",
     "PretrainVideoMamba",
     "STREAMING_CONTRACT_VERSION",
@@ -41,8 +48,10 @@ __all__ = [
     "StreamingSession",
     "allocate_state",
     "build_videomamba",
+    "causal_conv1d_update",
     "expected_state_shapes",
     "forward_return_semantics",
+    "selective_state_update",
     "validate_state",
     "videomamba_base",
     "videomamba_middle",

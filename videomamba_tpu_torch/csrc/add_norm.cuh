@@ -1,12 +1,14 @@
 // Residual add + RMSNorm / LayerNorm row kernel, shared by K2
-// (fused_add_norm.cu) and the first launch of K4 (block_fused.cu), plus the
-// fp32 <-> bf16 conversions the kernels use.
+// (fused_add_norm.cu), the first launch of K4 (block_fused.cu) and K7's norm
+// recompute (block_bwd.cu), plus the fp32 <-> bf16 conversions the kernels
+// use.
 //
 //   res    = x + residual            (res = x when there is no residual)
 //   normed = norm(res) * weight (+ bias), statistics in fp32
 //
-// x and normed share one dtype (fp32 or bf16); the residual and res_out each
-// are fp32 or bf16 on their own, so a bf16 model can carry an fp32 residual
+// x and normed share one dtype (fp32 or bf16) unless a caller names normed's
+// own (TO: K7 norms an fp32 res_out into bf16); the residual and res_out
+// each are fp32 or bf16 on their own, so a bf16 model can carry an fp32 residual
 // stream (residual_in_fp32). The sum and the statistics are fp32 and the
 // normalised row is rounded once, to normed's dtype, as in
 // videomamba_tpu/ops/pallas/fused_add_norm.py (_kernel).
@@ -47,11 +49,11 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename TX, typename TR, typename TRO>
+template <typename TX, typename TR, typename TRO, typename TO = TX>
 __global__ void __launch_bounds__(kNormWarps * 32) add_norm_kernel(
     const TX* __restrict__ x, const TR* __restrict__ residual,
     const float* __restrict__ weight, const float* __restrict__ bias,
-    TX* __restrict__ out, TRO* __restrict__ res_out, int M, int D, float eps,
+    TO* __restrict__ out, TRO* __restrict__ res_out, int M, int D, float eps,
     int is_rms) {
   extern __shared__ float srow[];
   const int warp = threadIdx.x / 32;
@@ -85,13 +87,13 @@ __global__ void __launch_bounds__(kNormWarps * 32) add_norm_kernel(
   }
   const float inv = 1.f / sqrtf(var + eps);
 
-  TX* o = out + row * D;
+  TO* o = out + row * D;
   TRO* ro = res_out ? res_out + row * D : nullptr;
   for (int i = lane; i < D; i += 32) {
     const float v = r[i];
     float nv = (v - mean) * inv * weight[i];
     if (bias) nv += bias[i];
-    o[i] = from_f32<TX>(nv);
+    o[i] = from_f32<TO>(nv);
     if (ro) ro[i] = from_f32<TRO>(v);
   }
 }

@@ -13,6 +13,10 @@
 //             z is rounded to bf16 on the bf16 path
 //   out     = bf16(y) @ W_out^T, rounded to hidden's dtype
 // On the fp32 path ("highest") nothing is rounded before a product.
+// With ckpt (the training forward, JAX block_fused.py:102, 196-198) the walk
+// also stores the state at each 16-step tile boundary, the residual K7
+// (block_bwd.cu) rebuilds from: a compile-time flag of the walk, so serving
+// pays nothing for it.
 //
 // Why several launches: the TPU kernel keeps all five weight matrices in
 // VMEM (about 9 MB at VideoMamba-Base bf16) and streams time blocks past
@@ -117,7 +121,8 @@ cudaError_t products_and_walk(const void* normed, const void* in_w,
 // the weight dtype; dt_bias, Dskip (Di,), A (Di, N), h0 / h_last
 // (batch, Di, N), conv_state (batch, Di, W): fp32. All contiguous. Scratch:
 // normed (batch * L * E, weight dtype), xz (batch * L * 2Di), conv_out, delta
-// and y (batch * L * Di), x_dbl (batch * L * (R + 2N)), all fp32.
+// and y (batch * L * Di), x_dbl (batch * L * (R + 2N)), all fp32. ckpt:
+// (batch, ceil(L / 16), Di, N) fp32, or null for serving.
 extern "C" int vmt_block_fused(
     const void* hidden, const void* residual, int res_bf16,
     const float* norm_w, const float* norm_b, const void* in_w,
@@ -125,8 +130,8 @@ extern "C" int vmt_block_fused(
     const void* x_proj_w, const void* dt_proj_w, const float* dt_bias,
     const float* A, const float* Dskip, const float* h0,
     const float* conv_state, void* out, void* res_out, int res_out_bf16,
-    float* h_last, void* normed, float* xz, float* conv_out, float* x_dbl,
-    float* delta, float* y, int is_bf16, int batch, int L, int E, int Di,
+    float* h_last, float* ckpt, void* normed, float* xz, float* conv_out,
+    float* x_dbl, float* delta, float* y, int is_bf16, int batch, int L, int E, int Di,
     int W, int R, int N, float eps, int is_rms, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -155,6 +160,7 @@ extern "C" int vmt_block_fused(
   walk.delta_bias = dt_bias;
   walk.h0 = h0;
   walk.h_last = h_last;
+  walk.ckpt = ckpt;
   err = is_bf16
             ? products_and_walk<true>(normed, in_w, conv_w, conv_b, x_proj_w,
                                       dt_proj_w, out_w, conv_state, walk, xz,

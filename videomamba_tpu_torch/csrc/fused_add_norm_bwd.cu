@@ -10,132 +10,17 @@
 //   layer: dc = dn inv - cen inv^3 sum(dn cen) / D;  dr = dc - mean(dc)
 //   prenorm: dr += g_res;  dx = dr (x's dtype), dresidual = dr (its dtype)
 //
-// Layout: one warp per row, as in the forward (add_norm.cuh); a block of
-// kNormWarps warps walks rows with a grid stride. Each warp keeps its row
-// (r, then g, then dc) and its own dweight / dbias sums in shared memory, so
-// x, the residual and g are read once and dx, dresidual written once. The
-// warps' sums are added in a fixed order into one partial row per block, and
-// a second launch sums the blocks' partials in order: no floating-point
-// atomics, so repeated runs are bit-identical.
+// The row pass (one warp per row, the row and its cotangent in shared
+// memory, per-block dweight / dbias partials summed in order by a second
+// launch: no floating-point atomics) is add_norm_bwd.cuh, which K7 shares.
 //
 // What bounds it on the H100: device memory (three rows read, two written,
 // a few flops per element), which is why every element crosses it once.
-#include "add_norm.cuh"
+#include "add_norm_bwd.cuh"
 
 namespace {
 
 using vmt::bf16;
-using vmt::kNormWarps;
-
-constexpr int kMaxBlocks = 4 * 132;
-
-__host__ __device__ inline int bwd_blocks(long long M) {
-  const long long want = (M + kNormWarps - 1) / kNormWarps;
-  return (int)(want < kMaxBlocks ? (want > 0 ? want : 1) : kMaxBlocks);
-}
-
-template <typename TX, typename TR, typename TG>
-__global__ void __launch_bounds__(kNormWarps * 32) add_norm_bwd_kernel(
-    const TX* __restrict__ x, const TR* __restrict__ residual,
-    const float* __restrict__ weight, const TX* __restrict__ g_n,
-    const TG* __restrict__ g_r, TX* __restrict__ dx, TR* __restrict__ dres,
-    float* __restrict__ part, long long M, int D, float eps, int is_rms) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* r = smem + (long long)warp * 4 * D;
-  float* g = r + D;
-  float* accw = g + D;
-  float* accb = accw + D;
-  for (int i = lane; i < D; i += 32) {
-    accw[i] = 0.f;
-    accb[i] = 0.f;
-  }
-  const float inv_d = 1.f / (float)D;
-  for (long long row = (long long)blockIdx.x * kNormWarps + warp; row < M;
-       row += (long long)gridDim.x * kNormWarps) {
-    const TX* xr = x + row * D;
-    const TR* rr = residual ? residual + row * D : nullptr;
-    float s = 0.f;
-    for (int i = lane; i < D; i += 32) {
-      const float v = rr ? vmt::to_f32(xr[i]) + vmt::to_f32(rr[i]) : vmt::to_f32(xr[i]);
-      r[i] = v;
-      s += is_rms ? v * v : v;
-    }
-    s = vmt::warp_sum(s);
-    float inv;
-    if (is_rms) {
-      inv = 1.f / sqrtf(s * inv_d + eps);
-    } else {
-      const float mean = s * inv_d;
-      float s2 = 0.f;
-      for (int i = lane; i < D; i += 32) {
-        const float c = r[i] - mean;
-        r[i] = c;  // r now holds cen
-        s2 += c * c;
-      }
-      inv = 1.f / sqrtf(vmt::warp_sum(s2) * inv_d + eps);
-    }
-    const TX* gr = g_n + row * D;
-    float dot = 0.f;
-    for (int i = lane; i < D; i += 32) {
-      const float gv = vmt::to_f32(gr[i]);
-      const float v = r[i];
-      accw[i] += gv * (v * inv);
-      accb[i] += gv;
-      const float dn = gv * weight[i];
-      g[i] = dn;
-      dot += dn * v;
-    }
-    dot = vmt::warp_sum(dot);
-    const float coef = inv * inv * inv * dot * inv_d;
-    float mean_dc = 0.f;
-    if (!is_rms) {
-      float sdc = 0.f;
-      for (int i = lane; i < D; i += 32) {
-        const float dc = g[i] * inv - r[i] * coef;
-        g[i] = dc;
-        sdc += dc;
-      }
-      mean_dc = vmt::warp_sum(sdc) * inv_d;
-    }
-    const TG* grr = g_r ? g_r + row * D : nullptr;
-    TX* dxr = dx + row * D;
-    TR* drr = dres ? dres + row * D : nullptr;
-    for (int i = lane; i < D; i += 32) {
-      float dr = is_rms ? g[i] * inv - r[i] * coef : g[i] - mean_dc;
-      if (grr) dr += vmt::to_f32(grr[i]);
-      dxr[i] = vmt::from_f32<TX>(dr);
-      if (drr) drr[i] = vmt::from_f32<TR>(dr);
-    }
-  }
-  __syncthreads();
-  // Warps' sums in a fixed order: part[block][0][:] dweight, [1][:] dbias.
-  float* pw = part + (long long)blockIdx.x * 2 * D;
-  for (int i = threadIdx.x; i < D; i += kNormWarps * 32) {
-    float sw = 0.f, sb = 0.f;
-    for (int w = 0; w < kNormWarps; ++w) {
-      sw += smem[(long long)w * 4 * D + 2 * D + i];
-      sb += smem[(long long)w * 4 * D + 3 * D + i];
-    }
-    pw[i] = sw;
-    pw[D + i] = sb;
-  }
-}
-
-__global__ void add_norm_bwd_sum_kernel(const float* __restrict__ part, int blocks,
-                                        int D, float* __restrict__ dw,
-                                        float* __restrict__ db) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= 2 * D) return;
-  float acc = 0.f;
-  for (int b = 0; b < blocks; ++b) acc += part[(long long)b * 2 * D + e];
-  if (e < D) {
-    dw[e] = acc;
-  } else {
-    db[e - D] = acc;
-  }
-}
 
 struct NormBwdIO {
   const void* x;
@@ -145,6 +30,8 @@ struct NormBwdIO {
   const void* g_r;
   void* dx;
   void* dres;
+  float* dweight;
+  float* dbias;
   float* part;
   long long M;
   int D;
@@ -154,16 +41,10 @@ struct NormBwdIO {
 
 template <typename TX, typename TR, typename TG>
 cudaError_t add_norm_bwd_t(const NormBwdIO& io, cudaStream_t s) {
-  const size_t smem = (size_t)kNormWarps * 4 * io.D * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(add_norm_bwd_kernel<TX, TR, TG>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  add_norm_bwd_kernel<TX, TR, TG><<<bwd_blocks(io.M), kNormWarps * 32, smem, s>>>(
+  return vmt::launch_add_norm_bwd<TX, TR, TG>(
       (const TX*)io.x, (const TR*)io.residual, io.weight, (const TX*)io.g_n,
-      (const TG*)io.g_r, (TX*)io.dx, (TR*)io.dres, io.part, io.M, io.D, io.eps,
-      io.is_rms);
-  return cudaGetLastError();
+      (const TG*)io.g_r, (TX*)io.dx, (TR*)io.dres, io.dweight, io.dbias, io.part,
+      io.M, io.D, io.eps, io.is_rms, s);
 }
 
 template <typename TX, typename TR>
@@ -182,7 +63,7 @@ cudaError_t add_norm_bwd_x(const NormBwdIO& io, int res_bf16, int gr_bf16,
 }  // namespace
 
 // Rows of partial sums (2 x D fp32 each) the caller allocates for M rows.
-extern "C" int vmt_fused_add_norm_bwd_blocks(long long M) { return bwd_blocks(M); }
+extern "C" int vmt_fused_add_norm_bwd_blocks(long long M) { return vmt::norm_bwd_blocks(M); }
 
 // x, g_n, dx: (M, D) in x's dtype (x_bf16); residual and dres (may be null)
 // in the residual's dtype (res_bf16); g_r (the returned residual's
@@ -200,11 +81,8 @@ extern "C" int vmt_fused_add_norm_bwd(const void* x, int x_bf16,
   if (err != cudaSuccess) return (int)err;
   if (M == 0) return cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
-  NormBwdIO io{x, residual, weight, g_n, g_r, dx, dres, part, M, D, eps, is_rms};
-  err = x_bf16 ? add_norm_bwd_x<bf16>(io, res_bf16, gr_bf16, s)
-               : add_norm_bwd_x<float>(io, res_bf16, gr_bf16, s);
-  if (err != cudaSuccess) return (int)err;
-  add_norm_bwd_sum_kernel<<<(2 * D + 255) / 256, 256, 0, s>>>(part, bwd_blocks(M), D,
-                                                              dweight, dbias);
-  return (int)cudaGetLastError();
+  NormBwdIO io{x, residual, weight, g_n, g_r, dx, dres, dweight, dbias, part,
+               M, D, eps, is_rms};
+  return (int)(x_bf16 ? add_norm_bwd_x<bf16>(io, res_bf16, gr_bf16, s)
+                      : add_norm_bwd_x<float>(io, res_bf16, gr_bf16, s));
 }

@@ -13,7 +13,8 @@
 // bf16, widened on load), TZ for z and TY for y. With kCkpt the walk also
 // stores the state at the start of every kScanTile-step segment, in fp32, as
 // ckpt[b][t / kScanTile][d][n]: the residual the reverse walk
-// (scan_walk_bwd.cuh) rebuilds each segment from. The store sits at the tile
+// (scan_walk_bwd.cuh) rebuilds each segment from (K1, K3 and K4's training
+// forward, whose backward is K7). The store sits at the tile
 // boundary, outside the step loop, and is compile-time, like kRoundZ.
 //
 // One thread owns one channel and keeps its N states in registers for the
@@ -187,37 +188,47 @@ __global__ void __launch_bounds__(kScanThreads) scan_walk_kernel(ScanArgs a) {
   scan_walk<N, TU, TZ, TY, kRoundZ, kCkpt>(a);
 }
 
-template <int N, typename TU, typename TZ, typename TY>
+// kRoundZOk: whether the caller may round z (K4 only), so K1 and K3 compile
+// no rounding variants.
+template <int N, typename TU, typename TZ, typename TY, bool kRoundZOk>
 void launch_walk_n(const ScanArgs& a, dim3 grid, cudaStream_t stream) {
+  if constexpr (kRoundZOk) {
+    if (a.round_z) {
+      if (a.ckpt) {
+        scan_walk_kernel<N, TU, TZ, TY, true, true><<<grid, kScanThreads, 0, stream>>>(a);
+      } else {
+        scan_walk_kernel<N, TU, TZ, TY, true, false><<<grid, kScanThreads, 0, stream>>>(a);
+      }
+      return;
+    }
+  }
   if (a.ckpt) {
     scan_walk_kernel<N, TU, TZ, TY, false, true><<<grid, kScanThreads, 0, stream>>>(a);
-  } else if (a.round_z) {
-    scan_walk_kernel<N, TU, TZ, TY, true, false><<<grid, kScanThreads, 0, stream>>>(a);
   } else {
     scan_walk_kernel<N, TU, TZ, TY, false, false><<<grid, kScanThreads, 0, stream>>>(a);
   }
 }
 
 // Launches the walk over grid (ceil(D / kScanThreads), batch) for the state
-// sizes the library is built for (N in {8, 16, 32, 64}). round_z applies to
-// the serving walk only (no checkpoints).
-template <typename TU, typename TZ, typename TY>
+// sizes the library is built for (N in {8, 16, 32, 64}). round_z (K4's bf16
+// gate) only where kRoundZOk; checkpoints with or without it.
+template <typename TU, typename TZ, typename TY, bool kRoundZOk = false>
 cudaError_t launch_scan_walk_t(const ScanArgs& a, int batch, int n,
                                cudaStream_t stream) {
-  if (a.ckpt && a.round_z) return cudaErrorInvalidValue;
+  if (a.round_z && !kRoundZOk) return cudaErrorInvalidValue;
   const dim3 grid((a.D + kScanThreads - 1) / kScanThreads, batch);
   switch (n) {
     case 8:
-      launch_walk_n<8, TU, TZ, TY>(a, grid, stream);
+      launch_walk_n<8, TU, TZ, TY, kRoundZOk>(a, grid, stream);
       break;
     case 16:
-      launch_walk_n<16, TU, TZ, TY>(a, grid, stream);
+      launch_walk_n<16, TU, TZ, TY, kRoundZOk>(a, grid, stream);
       break;
     case 32:
-      launch_walk_n<32, TU, TZ, TY>(a, grid, stream);
+      launch_walk_n<32, TU, TZ, TY, kRoundZOk>(a, grid, stream);
       break;
     case 64:
-      launch_walk_n<64, TU, TZ, TY>(a, grid, stream);
+      launch_walk_n<64, TU, TZ, TY, kRoundZOk>(a, grid, stream);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -225,9 +236,10 @@ cudaError_t launch_scan_walk_t(const ScanArgs& a, int batch, int n,
   return cudaGetLastError();
 }
 
+// K4's walk: fp32 operands, z rounded to bf16 on its bf16 path.
 inline cudaError_t launch_scan_walk(const ScanArgs& a, int batch, int n,
                                     cudaStream_t stream) {
-  return launch_scan_walk_t<float, float, float>(a, batch, n, stream);
+  return launch_scan_walk_t<float, float, float, true>(a, batch, n, stream);
 }
 
 }  // namespace vmt

@@ -1,7 +1,7 @@
-"""Models of the PyTorch port (Mamba-1 VideoMamba, serving path)."""
+"""Models of the PyTorch port (Mamba-1 VideoMamba)."""
 
 from videomamba_tpu_torch.models.block import Block, create_block
-from videomamba_tpu_torch.models.mamba import Mamba
+from videomamba_tpu_torch.models.mamba import InferenceCache, Mamba
 from videomamba_tpu_torch.models.presets import (
     videomamba_base,
     videomamba_middle,
@@ -16,6 +16,7 @@ from videomamba_tpu_torch.models.videomamba import (
 
 __all__ = [
     "Block",
+    "InferenceCache",
     "Mamba",
     "PatchEmbed",
     "PretrainVideoMamba",

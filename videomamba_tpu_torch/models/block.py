@@ -9,18 +9,23 @@ residual. Two routes, chosen as the JAX package chooses them
 * whole block (K4, ops/kernels/block_fused.py) in eval mode when the Block
   and its mixer are on their fast paths with the reference's biases and the
   JAX package's byte rule admits the widths: every published size at bf16,
-  and Tiny/Small/Middle at fp32;
+  and Tiny/Small/Middle at fp32; in training only under
+  ``VIDEOMAMBA_BLOCK_BWD=fused`` (the JAX package's opt-in). When autograd
+  records the call it runs as :class:`BlockFusedFn` (the JAX package's
+  ``_block_fused``, block.py:82-205): K4 with checkpoints forward, K7
+  (ops/kernels/block_bwd.py) backward, or under
+  ``VIDEOMAMBA_BLOCK_BWD=composite`` autograd of a plain recompute whose
+  scan is K1 / K5;
 * otherwise add + norm (K2 when ``fused_add_norm``) then the mixer (K3, or K1
-  on its unfused branch): fp32 Base, either flag off, and every training
+  on its unfused branch): fp32 Base, either flag off, every default training
   call (the JAX package's ``deterministic=False``), whose backward is K6 (or
-  K5) and autograd of the norm (or K8).
+  K5) and autograd of the norm (or K8), and every decode-cache call
+  (``inference_params``).
 
-The JAX package's opt-in to the whole-block route for training
-(``VIDEOMAMBA_BLOCK_BWD=fused``) needs K7, the whole-block backward, which
-is not ported yet: a training call under it raises. Stochastic depth takes
-its mask from the caller (:func:`drop_path_mask`), drawn before the block
-runs, so a block recomputed under activation checkpointing sees the same
-mask.
+Stochastic depth takes its mask from the caller (:func:`drop_path_mask`),
+drawn before the block runs, so a block recomputed under activation
+checkpointing sees the same mask; it applies to ``hidden`` before either
+route.
 """
 
 from __future__ import annotations
@@ -30,11 +35,14 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from videomamba_tpu_torch.models.mamba import LayerState, Mamba
+from videomamba_tpu_torch.models.mamba import InferenceCache, LayerState, Mamba
 from videomamba_tpu_torch.ops import dispatch
-from videomamba_tpu_torch.ops.causal_conv1d import conv_window
+from videomamba_tpu_torch.ops.causal_conv1d import causal_conv1d, conv_window
+from videomamba_tpu_torch.ops.kernels.block_bwd import block_bwd
 from videomamba_tpu_torch.ops.kernels.block_fused import block_fused, block_fused_supported
+from videomamba_tpu_torch.ops.kernels.mixer_fused import project
 from videomamba_tpu_torch.ops.norm import fused_add_norm, layer_norm, rms_norm
+from videomamba_tpu_torch.ops.selective_scan import selective_scan_bld
 from videomamba_tpu_torch.runtime import resolve_device
 
 Tensor = torch.Tensor
@@ -53,6 +61,84 @@ def drop_path(x: Tensor, mask: Tensor, rate: float) -> Tensor:
     """Stochastic depth with timm semantics (scale_by_keep), as the JAX
     package's drop_path (block.py:208-216): x * mask / (1 - rate)."""
     return x * (mask.to(x.dtype) / (1.0 - rate))
+
+
+def _block_recompute(hidden, residual, norm_w, norm_b, in_proj_w, out_proj_w, conv_w,
+                     conv_b, x_proj_w, dt_proj_w, dt_bias, A, D, h0, conv_state,
+                     norm_type, eps, residual_fp32):
+    """The whole Block in plain torch with K4's rounding points (JAX
+    block.py:33-79), its scan through K1 / K5 (``SelectiveScanFn``): the
+    composite backward differentiates this. Each product's input is rounded
+    to the weight dtype (a no-op at fp32) and summed in fp32, the JAX
+    recompute's ``jnp.dot(..., preferred_element_type=float32)``; z stays
+    fp32 here, as in the JAX recompute."""
+    res_out = hidden.float() + residual.float()
+    normed = (rms_norm(res_out, norm_w, eps=eps) if norm_type == "rms"
+              else layer_norm(res_out, norm_w, norm_b, eps=eps))
+    xz = project(normed, in_proj_w)
+    di = in_proj_w.shape[0] // 2
+    x, z = xz[..., :di], xz[..., di:]
+    conv_out = causal_conv1d(x, conv_w.t(), conv_b, activation="silu",
+                             initial_state=conv_state)
+    r, n = dt_proj_w.shape[1], A.shape[1]
+    xdbl = project(conv_out, x_proj_w)
+    delta_raw = project(xdbl[..., :r], dt_proj_w)
+    y, h_last = selective_scan_bld(
+        conv_out, delta_raw, A, xdbl[..., r:r + n], xdbl[..., r + n:], D=D, z=z,
+        delta_bias=dt_bias, delta_softplus=True, initial_state=h0,
+        return_last_state=True, method="kernel",
+    )
+    out = project(y, out_proj_w)
+    res_dtype = torch.float32 if residual_fp32 else hidden.dtype
+    return out.to(hidden.dtype), res_out.to(res_dtype), h_last
+
+
+class BlockFusedFn(torch.autograd.Function):
+    """K4 forward with segment checkpoints; K7 (or composite) backward.
+
+    The backward linearises at ``res_out = f32(hidden) + f32(residual)``,
+    recomputed in fp32 whatever ``residual_fp32`` says (JAX block.py:
+    154-159), and fans its cotangent out to hidden and residual."""
+
+    @staticmethod
+    def forward(ctx, hidden, residual, norm_w, norm_b, in_proj_w, out_proj_w, conv_w,
+                conv_b, x_proj_w, dt_proj_w, dt_bias, A, D, h0, conv_state, norm_type,
+                eps, residual_fp32):
+        out, res_out, h_last, ckpt = block_fused(
+            hidden, residual, norm_w, norm_b, in_proj_w, out_proj_w, conv_w, conv_b,
+            x_proj_w, dt_proj_w, dt_bias, A, D, h0, conv_state, norm_type=norm_type,
+            eps=eps, residual_fp32=residual_fp32, checkpoints=True,
+        )
+        ctx.save_for_backward(hidden, residual, norm_w, norm_b, in_proj_w, out_proj_w,
+                              conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias, A, D, h0,
+                              conv_state, ckpt)
+        ctx.cfg = (norm_type, eps, residual_fp32)
+        return out, res_out, h_last
+
+    @staticmethod
+    def backward(ctx, g_out, g_res, g_hlast):
+        *args, ckpt = ctx.saved_tensors
+        (hidden, residual, norm_w, norm_b, in_proj_w, out_proj_w, conv_w, conv_b,
+         x_proj_w, dt_proj_w, dt_bias, A, D, h0, conv_state) = args
+        norm_type, eps, residual_fp32 = ctx.cfg
+        none3 = (None, None, None)
+        if dispatch.block_bwd_backend() == "fused":
+            res_out = hidden.float() + residual.float()
+            (dres, dnorm_w, dnorm_b, *weights, dh0, dconv_state) = block_bwd(
+                res_out, norm_w, norm_b, in_proj_w, out_proj_w, conv_w, conv_b,
+                x_proj_w, dt_proj_w, dt_bias, A, D, conv_state, ckpt, g_out, g_res,
+                g_hlast, norm_type=norm_type, eps=eps,
+            )
+            return (dres.to(hidden.dtype), dres.to(residual.dtype), dnorm_w,
+                    dnorm_b if norm_b is not None else None, *weights,
+                    dh0.to(h0.dtype), dconv_state) + none3
+        live = [a.detach().requires_grad_() if a is not None else None for a in args]
+        with torch.enable_grad():
+            outs = _block_recompute(*live, norm_type, eps, residual_fp32)
+        present = [a for a in live if a is not None]
+        grads = iter(torch.autograd.grad(outs, present, (g_out, g_res, g_hlast),
+                                         allow_unused=True))
+        return tuple(next(grads) if a is not None else None for a in live) + none3
 
 
 class Norm(nn.Module):
@@ -105,34 +191,31 @@ class Block(nn.Module):
         ssm_state: Optional[Tensor] = None,
         return_ssm_state: bool = False,
         drop_path_mask: Optional[Tensor] = None,
+        inference_params: Optional[InferenceCache] = None,
     ):
         """Returns (hidden, residual), or (hidden, residual, new_state) with
         ``return_state`` / ``return_ssm_state``. In training with
         ``drop_path_rate > 0`` and a residual, ``drop_path_mask`` (from
         :func:`drop_path_mask`) drops whole samples of the incoming hidden
-        states; the first block, which has no residual, is never dropped."""
+        states; the first block, which has no residual, is never dropped.
+        ``inference_params`` (the decode cache) goes to the mixer, which
+        updates it in place; it bypasses the whole-block route."""
         if state is not None and ssm_state is not None:
             raise ValueError("Pass either state or ssm_state, not both.")
         if return_ssm_state and ssm_state is None:
             raise ValueError("return_ssm_state requires ssm_state.")
-        if self._use_block_fused():
-            if not self.training:
-                return self._call_block_fused(
-                    hidden_states, residual, state, return_state, ssm_state,
-                    return_ssm_state,
-                )
-            if dispatch.block_bwd_training_opt_in():
-                raise NotImplementedError(
-                    "VIDEOMAMBA_BLOCK_BWD=fused routes training through the "
-                    "whole-block kernel, whose backward (K7, block_bwd_pallas) "
-                    "is not ported yet; unset it to train on the mixer route."
-                )
         if self.training and self.drop_path_rate > 0.0 and residual is not None:
             if drop_path_mask is None:
                 raise ValueError(
                     "drop_path with rate > 0 in training mode needs a drop_path_mask."
                 )
             hidden_states = drop_path(hidden_states, drop_path_mask, self.drop_path_rate)
+        if inference_params is None and self._use_block_fused() and (
+                not self.training or dispatch.block_bwd_mode() == "fused"):
+            return self._call_block_fused(
+                hidden_states, residual, state, return_state, ssm_state,
+                return_ssm_state,
+            )
         normed, new_residual = fused_add_norm(
             hidden_states, self.norm.weight, self.norm.bias, residual=residual,
             prenorm=True, residual_in_fp32=self.residual_in_fp32,
@@ -143,7 +226,8 @@ class Block(nn.Module):
             mixer_out = self.mixer(normed, state=state, return_state=return_state)
         else:
             mixer_out = self.mixer(
-                normed, ssm_state=ssm_state, return_ssm_state=return_ssm_state
+                normed, ssm_state=ssm_state, return_ssm_state=return_ssm_state,
+                inference_params=inference_params,
             )
         if (return_state and state is not None) or return_ssm_state:
             hidden, new_state = mixer_out
@@ -187,7 +271,10 @@ class Block(nn.Module):
                           ssm_state, return_ssm_state):
         """The whole-block route (JAX block.py:344-404): missing residual,
         conv window and SSM state start as zeros (fp32, hidden dtype, fp32);
-        new states take the incoming states' dtypes."""
+        new states take the incoming states' dtypes. Through
+        :class:`BlockFusedFn` when autograd records the call (any input or
+        weight requires grad), else the bare K4 call, as the mixer guards
+        K3."""
         mx = self.mixer
         bsz = hidden_states.shape[0]
         conv_state = None
@@ -208,10 +295,16 @@ class Block(nn.Module):
             if residual is not None
             else torch.zeros_like(hidden_states, dtype=torch.float32)
         )
-        out, res_out, h_last = block_fused(
-            hidden_states, res_in, h0=h0, conv_state=cstate_in,
-            **self.block_fused_weights(),
-        )
+        w = self.block_fused_weights()
+        args = (hidden_states, res_in, w["norm_w"], w["norm_b"], w["in_proj_w"],
+                w["out_proj_w"], w["conv_w"], w["conv_b"], w["x_proj_w"], w["dt_proj_w"],
+                w["dt_bias"], w["A"], w["D"], h0, cstate_in)
+        cfg = (w["norm_type"], w["eps"], w["residual_fp32"])
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+            out, res_out, h_last = BlockFusedFn.apply(*args, *cfg)
+        else:
+            out, res_out, h_last = block_fused(
+                *args, norm_type=cfg[0], eps=cfg[1], residual_fp32=cfg[2])
         if return_ssm_state:
             return out, res_out, h_last.to(ssm_state.dtype)
         if state is None or not return_state:
@@ -239,6 +332,11 @@ class Block(nn.Module):
 
     def allocate_state(self, batch_size: int, dtype=None, device=None) -> LayerState:
         return self.mixer.allocate_state(batch_size, dtype=dtype, device=device)
+
+    def allocate_inference_cache(self, batch_size: int, max_seqlen: int = 1, dtype=None,
+                                 device=None) -> LayerState:
+        return self.mixer.allocate_inference_cache(batch_size, max_seqlen, dtype=dtype,
+                                                   device=device)
 
 
 def create_block(

@@ -25,12 +25,22 @@ d_conv raw conv inputs, ``ssm_state (B, d_inner, d_state)`` the recurrence;
 ``state=(conv_state, ssm_state), return_state=True`` returns the advanced
 pair, so chunked execution reproduces full-sequence execution. New states
 keep the incoming states' dtypes.
+
+Decode cache (JAX mamba.py:218-232, 408-440, 574-665): with
+``inference_params`` (an :class:`InferenceCache`) the mixer allocates its
+layer's (conv_state, ssm_state) in the cache on first use (again when the
+batch size changes); a prefill (``seqlen_offset == 0``) runs the sequence
+with a zero conv window from the cached SSM state, and later calls decode
+one token through :meth:`Mamba.step` (``causal_conv1d_update`` and
+``selective_state_update``, plain torch). Either way the cache dict is
+updated in place.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -38,11 +48,18 @@ from torch.nn.utils import skip_init as _skip_init
 
 from videomamba_tpu_torch.models import initializers as init
 from videomamba_tpu_torch.ops import dispatch
-from videomamba_tpu_torch.ops.causal_conv1d import causal_conv1d, conv_window
+from videomamba_tpu_torch.ops.causal_conv1d import (
+    causal_conv1d,
+    causal_conv1d_update,
+    conv_window,
+)
 from videomamba_tpu_torch.ops.kernels.mixer_bwd import mixer_bwd
 from videomamba_tpu_torch.ops.kernels.mixer_fused import mixer_fused
 from videomamba_tpu_torch.ops.kernels.scan import selective_scan_bwd
-from videomamba_tpu_torch.ops.selective_scan import selective_scan_bld
+from videomamba_tpu_torch.ops.selective_scan import (
+    selective_scan_bld,
+    selective_state_update,
+)
 from videomamba_tpu_torch.runtime import resolve_device
 
 Tensor = torch.Tensor
@@ -106,6 +123,18 @@ class MixerFusedFn(torch.autograd.Function):
                    conv_state, ckpt, g_y, g_hlast)
         *head, dh0, dcst = grads
         return (*head, dh0.to(h0.dtype), dcst)
+
+
+@dataclasses.dataclass
+class InferenceCache:
+    """Decode-time cache (JAX mamba.py:218-232): per-layer (conv_state,
+    ssm_state) keyed by ``layer_idx``. ``seqlen_offset`` 0 means the next
+    call is a prefill; above 0, each call decodes one token. The mixers
+    replace their entries in ``key_value_memory_dict`` in place, so the
+    caller threads one cache object through its calls."""
+
+    seqlen_offset: int = 0
+    key_value_memory_dict: Dict[int, LayerState] = dataclasses.field(default_factory=dict)
 
 
 def _linear(in_f: int, out_f: int, weight: Tensor, bias: Optional[Tensor],
@@ -206,6 +235,7 @@ class Mamba(nn.Module):
         return_state: bool = False,
         ssm_state: Optional[Tensor] = None,
         return_ssm_state: bool = False,
+        inference_params: Optional[InferenceCache] = None,
     ):
         """Apply the mixer to (B, L, d_model).
 
@@ -213,12 +243,22 @@ class Mamba(nn.Module):
         (conv_state, ssm_state); with ``ssm_state`` and ``return_ssm_state``
         (the reference's bare-SSM-state path) also the advanced ssm state.
         Without incoming state, conv_state takes the input dtype and
-        ssm_state is fp32.
+        ssm_state is fp32. With ``inference_params`` (the decode cache) it
+        returns out only and leaves the advanced state in the cache.
         """
         if state is not None and ssm_state is not None:
             raise ValueError("Pass either state or ssm_state, not both.")
         if return_ssm_state and ssm_state is None:
             raise ValueError("return_ssm_state requires ssm_state.")
+        if inference_params is not None:
+            if state is not None:
+                raise ValueError("state is not supported with inference_params.")
+            if return_ssm_state:
+                raise ValueError(
+                    "return_ssm_state is not supported with inference_params; "
+                    "the decode cache already carries the advanced state."
+                )
+            return self._forward_cached(hidden_states, ssm_state, inference_params)
         conv_state = None
         if state is not None:
             conv_state, ssm_state = state
@@ -285,6 +325,49 @@ class Mamba(nn.Module):
             new_conv_state = new_conv_state.to(conv_state.dtype)
         return out, (new_conv_state, new_ssm_state)
 
+    def _forward_cached(self, hidden_states: Tensor, ssm_state: Optional[Tensor],
+                        inference_params: InferenceCache) -> Tensor:
+        """The decode-cache route (JAX mamba.py:408-440): prefill convs with
+        a zero window from the cached (or given) SSM state, later tokens go
+        through :meth:`step`; both overwrite this layer's cache entry."""
+        conv_state, cache_ssm = self._get_states_from_cache(
+            inference_params, hidden_states.shape[0])
+        if ssm_state is None:
+            ssm_state = cache_ssm
+        if inference_params.seqlen_offset > 0:
+            out, new_conv, new_ssm = self.step(hidden_states, conv_state, ssm_state)
+        else:
+            out, (new_conv, new_ssm) = self(
+                hidden_states, state=(torch.zeros_like(conv_state), ssm_state),
+                return_state=True)
+        inference_params.key_value_memory_dict[self.layer_idx] = (new_conv, new_ssm)
+        return out
+
+    def step(self, hidden_states: Tensor, conv_state: Tensor,
+             ssm_state: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+        """One decode token (JAX mamba.py:574-616): hidden_states (B, 1,
+        d_model). Returns (out (B, 1, d_model), new_conv_state,
+        new_ssm_state), the states in their incoming dtypes."""
+        if hidden_states.shape[1] != 1:
+            raise ValueError("step() decodes exactly one token at a time.")
+        xz = hidden_states[:, 0] @ self.in_proj.weight.t()
+        if self.in_proj.bias is not None:
+            xz = xz + self.in_proj.bias
+        x, z = xz.chunk(2, dim=-1)
+        x, new_conv_state = causal_conv1d_update(
+            x, conv_state, self.conv1d.weight.squeeze(1).t(), self.conv1d.bias)
+        x_db = x @ self.x_proj.weight.t()
+        r, n = self.dt_rank, self.d_state
+        dt = x_db[..., :r] @ self.dt_proj.weight.t()
+        y, new_ssm_state = selective_state_update(
+            ssm_state, x, dt, -torch.exp(self.A_log.float()), x_db[..., r:r + n],
+            x_db[..., r + n:], D=self.D, z=z, dt_bias=self.dt_proj.bias, dt_softplus=True,
+        )
+        out = y @ self.out_proj.weight.t()
+        if self.out_proj.bias is not None:
+            out = out + self.out_proj.bias
+        return out[:, None], new_conv_state, new_ssm_state
+
     def _use_fused_mixer(self) -> bool:
         """The fused core (K3) needs the fast path and a conv bias, as in
         videomamba_tpu/models/mamba.py:552-560."""
@@ -303,3 +386,23 @@ class Mamba(nn.Module):
             (batch_size, self.d_inner, self.d_state), dtype=dtype, device=device
         )
         return conv_state, ssm_state
+
+    def allocate_inference_cache(self, batch_size: int, max_seqlen: int = 1,
+                                 dtype: Optional[torch.dtype] = None,
+                                 device=None) -> LayerState:
+        """Decode-cache allocation: the shapes of :meth:`allocate_state`
+        (JAX mamba.py:633-639)."""
+        del max_seqlen
+        return self.allocate_state(batch_size, dtype=dtype, device=device)
+
+    def _get_states_from_cache(self, inference_params: InferenceCache,
+                               batch_size: int) -> LayerState:
+        """This layer's cached states, allocated on first use and again when
+        the batch size changes (JAX mamba.py:641-665)."""
+        if self.layer_idx is None:
+            raise ValueError("inference_params requires a layer_idx.")
+        cache = inference_params.key_value_memory_dict
+        entry = cache.get(self.layer_idx)
+        if entry is None or entry[0].shape[0] != batch_size or entry[1].shape[0] != batch_size:
+            cache[self.layer_idx] = self.allocate_state(batch_size)
+        return cache[self.layer_idx]

@@ -281,6 +281,17 @@ class PretrainVideoMamba(nn.Module):
         ]
         return dict(enumerate(states)) if as_dict else states
 
+    def allocate_inference_cache(self, batch_size: int, max_seqlen: int = 1, dtype=None,
+                                 device=None, **kwargs) -> Dict[int, LayerState]:
+        """Per-layer zero decode-cache states keyed by layer index (JAX
+        videomamba.py:317-322), for an ``InferenceCache``."""
+        del kwargs
+        return {
+            i: layer.allocate_inference_cache(batch_size, max_seqlen, dtype=dtype,
+                                              device=device)
+            for i, layer in enumerate(self.layers)
+        }
+
     def init_ssm_state(
         self, batch_size: int, dtype=None, device=None, as_dict: bool = False
     ):

@@ -54,7 +54,19 @@ def norm_bwd_kernel() -> bool:
     return os.getenv("VIDEOMAMBA_NORM_BWD", "").strip().lower() == "pallas"
 
 
-def block_bwd_training_opt_in() -> bool:
-    """True when VIDEOMAMBA_BLOCK_BWD=fused asks training to take the
-    whole-block route, whose backward is K7 (block_bwd_pallas)."""
-    return os.getenv("VIDEOMAMBA_BLOCK_BWD", "").strip().lower() == "fused"
+def block_bwd_mode() -> str | None:
+    """VIDEOMAMBA_BLOCK_BWD read once (JAX block.py:100-116): None when unset
+    or unknown, else "fused" or "composite". It decides two things:
+
+    - the backward of a differentiated whole-block call: K7, unless the mode
+      is "composite" (autograd of a plain recompute whose scan is K1 / K5);
+    - whether a training Block takes the whole-block route: only when the
+      mode is "fused"; otherwise training takes the mixer route."""
+    forced = os.getenv("VIDEOMAMBA_BLOCK_BWD", "").strip().lower()
+    return forced if forced in {"fused", "composite"} else None
+
+
+def block_bwd_backend() -> str:
+    """"fused" (K7, the default) or "composite": :func:`block_bwd_mode` with
+    an unset variable meaning K7."""
+    return block_bwd_mode() or "fused"

@@ -26,8 +26,10 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "videomamba_tpu_torch"
 SOURCES = ("fused_add_norm.cu", "selective_scan.cu", "mixer_fused.cu",
            "block_fused.cu", "selective_scan_bwd.cu", "mixer_bwd.cu",
-           "fused_add_norm_bwd.cu")
-HEADERS = ("add_norm.cuh", "mixer_parts.cuh", "scan_walk.cuh", "scan_walk_bwd.cuh")
+           "fused_add_norm_bwd.cu", "block_bwd.cu", "causal_conv.cu",
+           "decode_step.cu")
+HEADERS = ("add_norm.cuh", "add_norm_bwd.cuh", "mixer_bwd.cuh", "mixer_parts.cuh",
+           "scan_walk.cuh", "scan_walk_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -51,7 +53,7 @@ SIGNATURES = {
     ),
     "vmt_block_fused": (
         _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
         _F, _I, _I, _P,
     ),
     "vmt_selective_scan_bwd": (
@@ -63,11 +65,15 @@ SIGNATURES = {
     "vmt_fused_add_norm_bwd": (
         _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _P,
     ),
+    "vmt_block_bwd": (*(_P,) * 16, _I, *(_P,) * 16, *(_I,) * 8, _F, _I, _I, _P),
+    "vmt_causal_conv": (*(_P,) * 5, *(_I,) * 7, _P),
+    "vmt_decode_stack": (*(_P,) * 17, *(_I,) * 9, _F, _I, _I, _P),
 }
 # Entry points that return a size instead of a CUDA error code.
 SIZE_QUERIES = {
     "vmt_mixer_bwd_scratch_floats": ((_I,) * 6, _LL),
     "vmt_fused_add_norm_bwd_blocks": ((_LL,), _I),
+    "vmt_block_bwd_scratch_floats": ((_I,) * 7, _LL),
 }
 
 
@@ -158,8 +164,7 @@ def check_operands(kernel: str, device: torch.device, operands: dict,
     recorded by autograd: the training route calls the kernels inside
     ``torch.autograd.Function`` forwards and backwards, where grad mode is
     off. So an operand that autograd would record (a direct call under grad
-    mode, such as K4's, which has no backward yet) raises instead of the
-    kernel silently cutting the graph."""
+    mode) raises instead of the kernel silently cutting the graph."""
     dtypes = dtypes or {}
     for name, (t, shape) in operands.items():
         if t is None:
@@ -180,8 +185,9 @@ def check_operands(kernel: str, device: torch.device, operands: dict,
             raise ValueError(f"{kernel} kernel: {name} must be contiguous")
         if torch.is_grad_enabled() and t.requires_grad:
             raise RuntimeError(
-                f"{kernel} kernel has no backward yet; call it under "
-                "torch.no_grad() or torch.inference_mode()"
+                f"{kernel} kernel: a direct call has no backward; call it "
+                "through its autograd Function, or under torch.no_grad() "
+                "or torch.inference_mode()"
             )
 
 

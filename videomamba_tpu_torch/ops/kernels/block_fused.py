@@ -20,6 +20,13 @@ fp32; x, z, the conv, B, C and the walk in fp32, except that z is rounded to
 bf16 for the gate on the bf16 path; ``out`` in the hidden dtype. fp32 weights
 are the TPU's ``highest`` route, where nothing is rounded.
 
+``checkpoints=True`` is the training forward (JAX block_fused.py:102,
+196-198): it also returns the walk's state at every 16-step tile boundary,
+fp32, (B, ceil(L / 16), Di, N), the residual K7 (ops/kernels/block_bwd.py)
+rebuilds the recurrence from; the walk stores it behind a compile-time flag,
+so serving pays nothing. These are the port's own checkpoints (K1's and
+K3's), not the TPU kernel's 8-step ``hckpt``.
+
 Weights are taken in the module's own torch layout: in_proj_w (2Di, E),
 out_proj_w (E, Di), conv_w (Di, W), x_proj_w (R + 2N, Di) with rows
 [dt | B | C], dt_proj_w (Di, R). The TPU-only 128-lane weight packing and
@@ -36,7 +43,11 @@ from videomamba_tpu_torch.ops import dispatch
 from videomamba_tpu_torch.ops.causal_conv1d import causal_conv1d
 from videomamba_tpu_torch.ops.kernels import _build
 from videomamba_tpu_torch.ops.kernels.fused_add_norm import MAX_D
-from videomamba_tpu_torch.ops.kernels.scan import STATE_SIZES, selective_scan_plain
+from videomamba_tpu_torch.ops.kernels.scan import (
+    STATE_SIZES,
+    num_segments,
+    selective_scan_plain,
+)
 from videomamba_tpu_torch.ops.norm import layer_norm, rms_norm
 
 Tensor = torch.Tensor
@@ -102,14 +113,16 @@ def block_fused_plain(
     norm_type: str = "rms",
     eps: float = 1e-5,
     residual_fp32: bool = True,
-) -> Tuple[Tensor, Tensor, Tensor]:
+    checkpoints: bool = False,
+) -> Tuple[Tensor, ...]:
     """Plain PyTorch version with the kernel's rounding points.
 
     hidden, residual: (B, L, E); h0 (B, Di, N); conv_state (B, Di, W) raw
     inputs. Returns (out (B, L, E) in hidden.dtype, res_out (B, L, E) fp32
-    with ``residual_fp32`` else hidden.dtype, h_last (B, Di, N) fp32). Every
-    product is fp32 over rounded operands, so with TF32 off it is a precise
-    reference on the card as well.
+    with ``residual_fp32`` else hidden.dtype, h_last (B, Di, N) fp32), and
+    with ``checkpoints`` also the segment-start states (B, ceil(L / 16), Di,
+    N) fp32. Every product is fp32 over rounded operands, so with TF32 off it
+    is a precise reference on the card as well.
     """
     if norm_type not in ("rms", "layer"):
         raise ValueError(f"Unknown norm_type: {norm_type!r}")
@@ -130,13 +143,13 @@ def block_fused_plain(
     delta = _product(x_dbl[..., :r].to(wdt), dt_proj_w)
     if wdt != torch.float32 and hidden.dtype != torch.float32:
         z = z.to(torch.bfloat16)  # the gate input's bf16 scratch
-    y, h_last = selective_scan_plain(
+    y, h_last, *ckpt = selective_scan_plain(
         cy, delta, A, x_dbl[..., r:r + n], x_dbl[..., r + n:], D, z, dt_bias,
-        h0, softplus_delta=True,
+        h0, softplus_delta=True, checkpoints=checkpoints,
     )
     out = _product(y.to(wdt), out_proj_w).to(hidden.dtype)
     res_dtype = torch.float32 if residual_fp32 else hidden.dtype
-    return out, res_out.to(res_dtype), h_last
+    return (out, res_out.to(res_dtype), h_last, *ckpt)
 
 
 def block_fused(
@@ -158,7 +171,8 @@ def block_fused(
     norm_type: str = "rms",
     eps: float = 1e-5,
     residual_fp32: bool = True,
-) -> Tuple[Tensor, Tensor, Tensor]:
+    checkpoints: bool = False,
+) -> Tuple[Tensor, ...]:
     """Kernel wrapper with the contract of :func:`block_fused_plain`.
 
     On CUDA: hidden and the five weight tensors share one dtype, fp32 or
@@ -170,6 +184,7 @@ def block_fused(
             hidden, residual, norm_w, norm_b, in_proj_w, out_proj_w, conv_w,
             conv_b, x_proj_w, dt_proj_w, dt_bias, A, D, h0, conv_state,
             norm_type=norm_type, eps=eps, residual_fp32=residual_fp32,
+            checkpoints=checkpoints,
         )
     if norm_type not in ("rms", "layer"):
         raise ValueError(f"Unknown norm_type: {norm_type!r}")
@@ -204,9 +219,12 @@ def block_fused(
     res_out = torch.empty_like(
         hidden, dtype=torch.float32 if residual_fp32 else hidden.dtype)
     h_last = torch.empty((bsz, di, n), dtype=torch.float32, device=dev)
+    ckpt = (torch.empty((bsz, num_segments(seqlen), di, n), dtype=torch.float32,
+                        device=dev) if checkpoints else None)
+    outs = (out, res_out, h_last) + ((ckpt,) if checkpoints else ())
     if bsz == 0 or seqlen == 0:
         h_last.copy_(h0)
-        return out, res_out, h_last
+        return outs
     rows = bsz * seqlen
     f32 = dict(dtype=torch.float32, device=dev)
     normed = torch.empty((rows, e), dtype=wdt, device=dev)
@@ -223,14 +241,14 @@ def block_fused(
         _build.ptr(x_proj_w), _build.ptr(dt_proj_w), _build.ptr(dt_bias),
         _build.ptr(A), _build.ptr(D), _build.ptr(h0), _build.ptr(cstate),
         _build.ptr(out), _build.ptr(res_out), _build.is_bf16(res_out),
-        _build.ptr(h_last), _build.ptr(normed), _build.ptr(xz),
+        _build.ptr(h_last), _build.ptr(ckpt), _build.ptr(normed), _build.ptr(xz),
         _build.ptr(conv_out), _build.ptr(x_dbl), _build.ptr(delta), _build.ptr(y),
         _build.is_bf16(hidden), bsz, seqlen, e, di, width, r, n, eps,
         int(norm_type == "rms"), dev.index, _build.stream_of(hidden),
     )
     _build.check(err, "block_fused")
     block_fused.launches += 1
-    return out, res_out, h_last
+    return outs
 
 
 block_fused.launches = 0

@@ -7,7 +7,8 @@ kernel (ops/kernels/scan.py) — on a CPU tensor that is the same oracle.
 State is always (B, D, N) fp32. When autograd records a kernel call it runs
 as :class:`SelectiveScanFn`, the counterpart of the JAX package's
 ``_pallas_fused_scan`` (selective_scan.py:371-407): K1 with checkpoints
-forward, K5 backward.
+forward, K5 backward. :func:`selective_state_update` is the single-token
+step of the decode path (selective_scan.py:579-626).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from videomamba_tpu_torch.ops.kernels import scan as _scan
 
@@ -119,3 +121,39 @@ def selective_scan_bld(
         raise ValueError(f"Unknown selective_scan method: {method!r}")
     return _run(fn, u, delta, A, B, C, D, z, delta_bias, delta_softplus,
                 initial_state, return_last_state)
+
+
+def selective_state_update(
+    state: Tensor,
+    x: Tensor,
+    dt: Tensor,
+    A: Tensor,
+    B: Tensor,
+    C: Tensor,
+    D: Optional[Tensor] = None,
+    z: Optional[Tensor] = None,
+    dt_bias: Optional[Tensor] = None,
+    dt_softplus: bool = False,
+) -> Tuple[Tensor, Tensor]:
+    """One recurrence step for one token (the decode path), pure: returns
+    ``(y, new_state)`` instead of updating ``state`` in place.
+
+    state: (B, D, N); x, dt, z: (B, D); A: (D, N); B, C: (B, N); D, dt_bias:
+    (D,). The math is fp32; y comes back in x.dtype and new_state in
+    state.dtype.
+    """
+    x32 = x.float()
+    dt32 = dt.float()
+    if dt_bias is not None:
+        dt32 = dt32 + dt_bias.float()
+    if dt_softplus:
+        dt32 = _scan.softplus(dt32)
+    dA = torch.exp(dt32[:, :, None] * A.float())
+    dBx = (dt32 * x32)[:, :, None] * B.float()[:, None, :]
+    new_state = dA * state.float() + dBx
+    y = torch.einsum("bdn,bn->bd", new_state, C.float())
+    if D is not None:
+        y = y + x32 * D.float()
+    if z is not None:
+        y = y * F.silu(z.float())
+    return y.to(x.dtype), new_state.to(state.dtype)

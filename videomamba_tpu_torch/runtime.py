@@ -1,10 +1,11 @@
-"""Streaming serving runtime: a stateful session over the chunk forward.
+"""Serving runtime: stateful sessions over the chunk forward and token decode.
 
-Port of ``StreamingSession`` from videomamba_tpu/runtime.py: per-layer
-(conv_state, ssm_state) and the temporal offset are carried across chunk
-calls; each batch row is an independent video stream. The decode session is
-not ported yet. :func:`resolve_device` is the port's one rule for a device
-that the caller did not name.
+Port of videomamba_tpu/runtime.py. ``StreamingSession`` carries per-layer
+(conv_state, ssm_state) and the temporal offset across chunk calls; each
+batch row is an independent video stream. ``DecodeSession`` advances the
+whole layer stack one token at a time (the Mamba-1 branch; Mamba-2 decode,
+K15, is not ported). :func:`resolve_device` is the port's one rule for a
+device that the caller did not name.
 """
 
 from __future__ import annotations
@@ -82,3 +83,136 @@ class StreamingSession:
         for conv, ssm in self.state:
             conv[idx.to(conv.device)] = 0
             ssm[idx.to(ssm.device)] = 0
+
+
+class DecodeSession:
+    """Token-level decode through the whole layer stack (JAX runtime.py:79-372).
+
+    Works on token embeddings (B, d_model): embed video patches upstream
+    (e.g. with a streaming prefill and :meth:`load_streaming_state`) and feed
+    tokens one at a time; :meth:`step` returns the final-norm features.
+
+    ``use_kernel=None`` takes K9 (ops/kernels/decode_step.py) when it takes
+    the model (bias-free projections, RMS or LayerNorm, its width gate; any
+    batch size): on the card the kernel, on the CPU its plain version, by
+    the dispatch rule; the final norm goes through K2. A model outside that
+    gate runs every layer through ``Mamba.step`` (plain torch), as the JAX
+    package falls back to its XLA route. ``True`` raises on such a model;
+    ``False`` always takes the per-layer route. The layer weights are
+    stacked once here; the states are (depth, B, d_inner, d_conv) and
+    (depth, B, d_inner, d_state), fp32 unless ``dtype`` says otherwise, and
+    the kernel route advances them in place.
+    """
+
+    def __init__(self, model, batch_size: int, dtype: Optional[torch.dtype] = None,
+                 use_kernel: Optional[bool] = None):
+        from videomamba_tpu_torch.models.mamba import Mamba
+
+        self.model = model
+        self.batch_size = batch_size
+        block = model.layers[0]
+        self.mixer = block.mixer
+        if not isinstance(self.mixer, Mamba):
+            raise NotImplementedError(
+                "DecodeSession: Mamba-2 (SSD) decode, the JAX package's "
+                "decode_stack_pallas_m2 (K15), is not ported")
+        self.norm_type = block.norm_type
+        self.eps = block.norm_epsilon
+        self.residual_in_fp32 = block.residual_in_fp32
+        conv, ssm = self.mixer.allocate_state(batch_size, dtype=dtype)
+        depth = len(model.layers)
+        self.conv_states = conv.expand((depth,) + tuple(conv.shape)).contiguous()
+        self.ssm_states = ssm.expand((depth,) + tuple(ssm.shape)).contiguous()
+        self.use_kernel = self._kernel_ok(use_kernel)
+        self.stacked = self._stack_weights() if self.use_kernel else None
+
+    def _kernel_ok(self, use_kernel: Optional[bool]) -> bool:
+        """K9's eligibility (JAX runtime.py:128-168), forced or automatic."""
+        from videomamba_tpu_torch.ops.kernels.decode_step import decode_stack_supported
+
+        if use_kernel is False:
+            return False
+        mx = self.mixer
+        compatible = (
+            mx.in_proj.bias is None and mx.out_proj.bias is None
+            and self.norm_type in ("rms", "layer")
+            and decode_stack_supported(mx.d_model, mx.d_inner)
+        )
+        if use_kernel and not compatible:
+            raise ValueError(
+                "use_kernel=True but the decode kernel does not support this model "
+                "(needs bias-free projections, rms/layer norm, d_model and d_inner "
+                "multiples of 8, d_model up to 6400)."
+            )
+        return compatible
+
+    def _stack_weights(self) -> dict:
+        """The layers' weights stacked on depth in K9's layouts, once."""
+        layers = self.model.layers
+        mixers = [layer.mixer for layer in layers]
+
+        def stack(fn):
+            return torch.stack([fn(m) for m in mixers]).contiguous()
+
+        with torch.no_grad():
+            norm_b = (torch.stack([layer.norm.bias.float() for layer in layers])
+                      if self.norm_type == "layer" else None)
+            return dict(
+                norm_w=torch.stack([layer.norm.weight.float() for layer in layers]),
+                norm_b=norm_b,
+                in_proj_w=stack(lambda m: m.in_proj.weight),
+                out_proj_w=stack(lambda m: m.out_proj.weight),
+                conv_w=stack(lambda m: m.conv1d.weight.squeeze(1)),
+                conv_b=stack(lambda m: m.conv1d.bias.float() if m.conv1d.bias is not None
+                             else torch.zeros(m.d_inner, device=m.A_log.device)),
+                x_proj_w=stack(lambda m: m.x_proj.weight),
+                dt_proj_w=stack(lambda m: m.dt_proj.weight),
+                dt_bias=stack(lambda m: m.dt_proj.bias.float()),
+                A=stack(lambda m: -torch.exp(m.A_log.float())),
+                D=stack(lambda m: m.D.float()),
+            )
+
+    @torch.no_grad()
+    def step(self, token: torch.Tensor) -> torch.Tensor:
+        """Advance one token (B, d_model); returns (B, d_model) final-norm
+        features."""
+        from videomamba_tpu_torch.ops.kernels.decode_step import decode_stack
+        from videomamba_tpu_torch.ops.norm import fused_add_norm
+
+        model = self.model
+        if self.use_kernel:
+            hidden, residual, self.conv_states, self.ssm_states = decode_stack(
+                token, **self.stacked, conv_states=self.conv_states,
+                ssm_states=self.ssm_states, norm_type=self.norm_type, eps=self.eps)
+            return fused_add_norm(
+                hidden.to(self.conv_states.dtype), model.norm.weight, model.norm.bias,
+                residual=residual, prenorm=False, residual_in_fp32=self.residual_in_fp32,
+                eps=self.eps, norm_type=self.norm_type, use_kernel=True)
+        hidden = token[:, None, :]
+        residual = torch.zeros_like(
+            hidden, dtype=torch.float32 if self.residual_in_fp32 else hidden.dtype)
+        convs, ssms = [], []
+        for k, layer in enumerate(model.layers):
+            normed, residual = fused_add_norm(
+                hidden, layer.norm.weight, layer.norm.bias, residual=residual, prenorm=True,
+                residual_in_fp32=self.residual_in_fp32, eps=self.eps,
+                norm_type=self.norm_type)
+            hidden, conv, ssm = layer.mixer.step(normed, self.conv_states[k],
+                                                 self.ssm_states[k])
+            convs.append(conv)
+            ssms.append(ssm)
+        self.conv_states = torch.stack(convs)
+        self.ssm_states = torch.stack(ssms)
+        feat = fused_add_norm(
+            hidden, model.norm.weight, model.norm.bias, residual=residual, prenorm=False,
+            residual_in_fp32=self.residual_in_fp32, eps=self.eps, norm_type=self.norm_type)
+        return feat[:, 0]
+
+    def load_streaming_state(self, state) -> None:
+        """Adopt a streaming-contract state (a list, tuple or dict of
+        per-layer (conv_state, ssm_state), e.g. after a chunked prefill)."""
+        items = list(state.values()) if isinstance(state, dict) else list(state)
+        self.conv_states = torch.stack([s[0] for s in items]).to(
+            self.conv_states.dtype).contiguous()
+        self.ssm_states = torch.stack([s[1] for s in items]).to(
+            self.ssm_states.dtype).contiguous()
