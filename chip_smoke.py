@@ -87,11 +87,38 @@ failure, so the script exits nonzero:
     share under torch.profiler.
 16. K10's route, ``causal_conv1d(use_kernel=True)`` at (4, 1569, 1536),
     forward and backward against the plain composition (1e-5).
+17. Mamba-2 kernels at VideoMamba-Base-m2 shapes (B=1, L=1569, E=768, 24
+    heads of 64, d_state 64, chunk 128, nonzero h0 and conv window): K12
+    (SSD mixer core) and K14 (projected mixer) against their plain versions,
+    fp32 (1e-5) and bf16 (1e-2), K12 with two groups at Di 512, and both
+    at upstream Mamba-2's chunk 256 and d_state 128 (fp32 and bf16); each
+    timed beside its plain version.
+18. m2 fp32 serving: ``videomamba_base_m2`` with seeded weights, full clip:
+    K2 25, K14 24, K12 0 launches, against the same weights on the plain
+    add-norm and the plain chunked SSD (VIDEOMAMBA_SSD_METHOD=chunked),
+    1e-4; StreamingSession over two 4-frame chunks against the full clip
+    (1e-4); the forward under VIDEOMAMBA_SSD_PMIXER=0 (K12 24, K14 0)
+    against the K14 forward (1e-4); a backward through the model raises
+    NotImplementedError naming K13.
+19. m2 bf16 serving: the phase-18 weights cast for bf16: K2 25, K14 24,
+    against the same model with every kernel swapped for its plain version
+    (2e-2), max and mean relative error against phase 18's fp32 features
+    printed; two-chunk streaming (1e-2, fp32 states). Then the m2 full-clip
+    and chunk host times at fp32 and bf16, printed beside the Mamba-1 ones;
+    then, after every host timing of the family, the device time, idle share
+    and top kernels of a full clip and a first chunk under torch.profiler
+    (for both families).
+20. m2 decode, fp32 and bf16: phase 15 with K15 (decode_stack_m2, three
+    launches a layer) in K9's place: the 5th frame's 196 tokens against the
+    5-frame forward (1e-4 / 2e-2), K15 against its plain version over 8
+    steps at B=1 and at B=80, ms a token at B=1, 8 and 80, profiler idle.
 
 The launch counters are zeroed just before each main path and read just
 after: phases 2-4 (fp32 serving), 6-7 (bf16 serving), 9 (fp32 training),
 10 (bf16 training), 13 (eval backward), 14 (whole-block training), 15
-(decode, per dtype) and 16 (the conv route); the kernels line sums them.
+(decode, per dtype), 16 (the conv route), 18 (m2 fp32 serving, both
+routes), 19 (m2 bf16 serving) and 20 (m2 decode, per dtype); the kernels
+line sums them.
 TF32 is off for matmuls and cuDNN throughout. Times are CUDA-event times per
 launch (kernels) or host time around a synchronised call (forward, chunk,
 step, token), on the card named in the output. Each kernel's bound is
@@ -102,7 +129,8 @@ computes any kernel's function (K10's carries its window and applies
 SiLU), so ``library_ms`` is null. The kernels line reports K7 at bf16 Base,
 K9 at fp32 B=1 (one launch is one token through the stack: 4 x depth CUDA
 launches) and K10 at fp32 B=1. The last stdout line is the contract JSON;
-the line before it lists the kernels.
+the line before it lists the kernels (13 rows: K12 and K14 at fp32 Base
+m2, K15 at fp32 B=1).
 """
 
 from __future__ import annotations
@@ -123,8 +151,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from videomamba_tpu_torch.checkpoint import load_state_dict  # noqa: E402
 from videomamba_tpu_torch.models import block as block_mod  # noqa: E402
 from videomamba_tpu_torch.models import mamba as mamba_mod  # noqa: E402
+from videomamba_tpu_torch.models import mamba2 as mamba2_mod  # noqa: E402
 from videomamba_tpu_torch.models.mamba import Mamba  # noqa: E402
-from videomamba_tpu_torch.models.presets import videomamba_base  # noqa: E402
+from videomamba_tpu_torch.models.presets import videomamba_base, videomamba_base_m2  # noqa: E402
 from videomamba_tpu_torch.ops.causal_conv1d import causal_conv1d  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import _build  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import block_bwd as k7  # noqa: E402
@@ -135,6 +164,8 @@ from videomamba_tpu_torch.ops.kernels import fused_add_norm as k2  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import mixer_bwd as k6  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import mixer_fused as k3  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import scan as k1  # noqa: E402
+from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12  # noqa: E402
+from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14  # noqa: E402
 from videomamba_tpu_torch.parallel.train_step import make_train_step  # noqa: E402
 from videomamba_tpu_torch.runtime import DecodeSession, StreamingSession  # noqa: E402
 from videomamba_tpu_torch.utils.precision import cast_module_for_compute  # noqa: E402
@@ -161,7 +192,10 @@ WRAPPERS = {"selective_scan": k1.selective_scan,
             "fused_add_norm_bwd": k2.fused_add_norm_bwd,
             "block_bwd": k7.block_bwd,
             "decode_stack": k9.decode_stack,
-            "causal_conv": k10.causal_conv}
+            "causal_conv": k10.causal_conv,
+            "ssd_mixer": k12.ssd_mixer,
+            "ssd_pmixer": k14.ssd_pmixer,
+            "decode_stack_m2": k9.decode_stack_m2}
 SOURCES = {
     "selective_scan": ("videomamba_tpu_torch/csrc/selective_scan.cu",
                        "videomamba_tpu/ops/pallas/scan.py:181"),
@@ -183,6 +217,12 @@ SOURCES = {
                      "videomamba_tpu/ops/pallas/decode_step.py:193"),
     "causal_conv": ("videomamba_tpu_torch/csrc/causal_conv.cu",
                     "videomamba_tpu/ops/pallas/causal_conv.py:68"),
+    "ssd_mixer": ("videomamba_tpu_torch/csrc/ssd_mixer.cu",
+                  "videomamba_tpu/ops/pallas/ssd_scan.py:2328"),
+    "ssd_pmixer": ("videomamba_tpu_torch/csrc/ssd_pmixer.cu",
+                   "videomamba_tpu/ops/pallas/ssd_block.py:1583"),
+    "decode_stack_m2": ("videomamba_tpu_torch/csrc/decode_step.cu",
+                        "videomamba_tpu/ops/pallas/decode_step.py:418"),
 }
 
 
@@ -695,9 +735,12 @@ def phase_train_fp32(device, batch, depth):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Every kernel the training route calls, swapped for its plain version
-    (same rounding points, no kernel): the reference of the bf16 step."""
+    """Every kernel the training route and the m2 serving route call,
+    swapped for its plain version (same rounding points, no kernel): the
+    reference of the bf16 step and of the m2 bf16 forward."""
     swaps = [(mamba_mod, "mixer_fused", k3.mixer_fused_plain),
+             (mamba2_mod, "ssd_pmixer", k14.ssd_pmixer_plain),
+             (mamba2_mod, "ssd_mixer", k12.ssd_mixer_plain),
              (mamba_mod, "mixer_bwd", k6.mixer_bwd_plain),
              (block_mod, "block_fused", k4.block_fused_plain),
              (block_mod, "block_bwd", k7.block_bwd_plain),
@@ -980,68 +1023,70 @@ def frame_tokens(model, frames, offset):
     return tok.reshape(tok.shape[0], -1, model.embed_dim)
 
 
-def phase_decode(model, label, clip5, tol, kernel_tol, depth):
+def phase_decode(model, label, clip5, tol, kernel_tol, depth, wide_steps=3):
     """Prefill 4 frames with StreamingSession, adopt its state in a
-    DecodeSession, decode the 5th frame's 196 tokens through K9 (+ K2 for
-    the final norm) and hold them against the 5-frame full forward's last
-    196 tokens; then K9 against its plain version over 8 steps from the
-    same states (and over 3 at B=80), and the time per token at B=1, 8 and
-    80. Returns (launches
-    of the decode, the kernels-line entry at B=1)."""
+    DecodeSession, decode the 5th frame's 196 tokens through the decode
+    kernel (K9, or K15 for a Mamba-2 model; + K2 for the final norm) and
+    hold them against the 5-frame full forward's last 196 tokens; then the
+    kernel against its plain version over 8 steps from the same states (and
+    over ``wide_steps`` at B=80), and the time per token at B=1, 8 and 80.
+    Returns (launches of the decode, the kernels-line entry at B=1)."""
     tpf = model.patch_embed.num_patches
     full_vis, _ = model(clip5)
     stream = StreamingSession(model, batch_size=1)
     stream.process(clip5[:, :, :4])
     session = DecodeSession(model, batch_size=1)
-    check(session.use_kernel, f"{label} decode: the session did not take K9")
+    check(session.use_kernel, f"{label} decode: the session did not take its kernel")
+    if session.is_m2:
+        name, kernel, plain = "decode_stack_m2", k9.decode_stack_m2, k9.decode_stack_m2_plain
+        per_layer, knum = k9.LAUNCHES_PER_LAYER_M2, "K15"
+    else:
+        name, kernel, plain = "decode_stack", k9.decode_stack, k9.decode_stack_plain
+        per_layer, knum = k9.LAUNCHES_PER_LAYER, "K9"
     session.load_streaming_state(stream.state)
     tokens = frame_tokens(model, clip5[:, :, 4:], offset=4)
     before = launches()
     feats = [session.step(tokens[:, i]) for i in range(tokens.shape[1])]
     torch.cuda.synchronize()
     used = delta(launches(), before)
-    expect_launches(f"{label} decode", used, decode_stack=tpf, fused_add_norm=tpf,
-                    block_fused=0, mixer_fused=0)
-    check_close(f"{label} decode (K9) vs full 5-frame forward, last frame",
+    others = {k: 0 for k in ("decode_stack", "decode_stack_m2", "block_fused", "mixer_fused",
+                             "ssd_mixer", "ssd_pmixer") if k != name}
+    expect_launches(f"{label} decode", used, **{name: tpf}, fused_add_norm=tpf, **others)
+    check_close(f"{label} decode ({knum}) vs full 5-frame forward, last frame",
                 torch.stack(feats, dim=1), full_vis[:, -tpf:], tol)
 
-    kc, ks = session.conv_states.clone(), session.ssm_states.clone()
-    pc, ps = kc.clone(), ks.clone()
-    kw = dict(session.stacked, norm_type=session.norm_type, eps=session.eps)
-    errs = []
-    for i in range(8):
-        tok = tokens[:, i % tokens.shape[1]]
-        hk, rk, kc, ks = k9.decode_stack(tok, **kw, conv_states=kc, ssm_states=ks)
-        hp, rp, pc, ps = k9.decode_stack_plain(tok, **kw, conv_states=pc, ssm_states=ps)
-        torch.cuda.synchronize()
-        for name, a, b in (("hidden", hk, hp), ("residual", rk, rp), ("conv_states", kc, pc),
-                           ("ssm_states", ks, ps)):
-            errs.append(check_close(f"kernel decode_stack {label} step {i} {name}", a, b,
-                                    kernel_tol))
+    def against_plain(tag, kw, tok_at, steps):
+        """``steps`` tokens through the kernel and its plain version from
+        copies of the same states; returns the largest abs error."""
+        kc, ks = kw["conv_states"].clone(), kw["ssm_states"].clone()
+        pc, ps = kc.clone(), ks.clone()
+        errs = []
+        for i in range(steps):
+            hk, rk, kc, ks = kernel(tok_at(i), **dict(kw, conv_states=kc, ssm_states=ks))
+            hp, rp, pc, ps = plain(tok_at(i), **dict(kw, conv_states=pc, ssm_states=ps))
+            torch.cuda.synchronize()
+            for out, a, b in (("hidden", hk, hp), ("residual", rk, rp),
+                              ("conv_states", kc, pc), ("ssm_states", ks, ps)):
+                errs.append(check_close(f"kernel {name} {label} {tag} step {i} {out}", a, b,
+                                        kernel_tol))
+        return max(errs)
 
+    err = against_plain("B=1", dict(session.stacked, **session.kernel_kw,
+                                    conv_states=session.conv_states,
+                                    ssm_states=session.ssm_states),
+                        lambda i: tokens[:, i % tokens.shape[1]], 8)
     entry = None
     for bsz in (1, 8, 80):
         sess = DecodeSession(model, batch_size=bsz)
-        check(sess.use_kernel, f"{label} decode B={bsz}: the session did not take K9")
+        check(sess.use_kernel, f"{label} decode B={bsz}: the session did not take {knum}")
         tok = randn((bsz, model.embed_dim), torch.Generator().manual_seed(bsz),
                     model.norm.weight.device)
-        kwb = dict(sess.stacked, norm_type=sess.norm_type, eps=sess.eps,
-                   conv_states=sess.conv_states, ssm_states=sess.ssm_states)
-        if bsz > 8:  # ten of K9's 8-row passes: three tokens against the plain version
-            kc, ks = sess.conv_states.clone(), sess.ssm_states.clone()
-            pc, ps = kc.clone(), ks.clone()
-            for i in range(3):
-                step_kw = dict(kwb, conv_states=kc, ssm_states=ks)
-                hk, rk, kc, ks = k9.decode_stack(tok * (i + 1), **step_kw)
-                hp, rp, pc, ps = k9.decode_stack_plain(
-                    tok * (i + 1), **dict(kwb, conv_states=pc, ssm_states=ps))
-                torch.cuda.synchronize()
-                for name, a, b in (("hidden", hk, hp), ("residual", rk, rp),
-                                   ("conv_states", kc, pc), ("ssm_states", ks, ps)):
-                    check_close(f"kernel decode_stack {label} B={bsz} step {i} {name}", a, b,
-                                kernel_tol)
-        ms = event_ms(lambda: k9.decode_stack(tok, **kwb), iters=100, warmup=5)
-        plain_ms = event_ms(lambda: k9.decode_stack_plain(tok, **kwb), iters=5, warmup=1)
+        kwb = dict(sess.stacked, **sess.kernel_kw, conv_states=sess.conv_states,
+                   ssm_states=sess.ssm_states)
+        if bsz > 8:  # ten of the kernel's 8-row passes, against the plain version
+            against_plain(f"B={bsz}", kwb, lambda i: tok * (i + 1), wide_steps)
+        ms = event_ms(lambda: kernel(tok, **kwb), iters=100, warmup=5)
+        plain_ms = event_ms(lambda: plain(tok, **kwb), iters=5, warmup=1)
         step_ms = host_ms(lambda: sess.step(tok), repeats=50)
         wall, dev = device_ms(lambda: sess.step(tok), iters=50,
                               label=f"decode {label} B={bsz}", top=6)
@@ -1049,7 +1094,8 @@ def phase_decode(model, label, clip5, tol, kernel_tol, depth):
                        sess.ssm_states) + nbytes(sess.conv_states, sess.ssm_states) \
             + 2 * 4 * bsz * model.embed_dim
         w_el = sum(sess.stacked[k].numel()
-                   for k in ("in_proj_w", "out_proj_w", "x_proj_w", "dt_proj_w"))
+                   for k in ("in_proj_w", "out_proj_w", "x_proj_w", "dt_proj_w")
+                   if k in sess.stacked)
         kind = "bf16" if sess.stacked["in_proj_w"].dtype == torch.bfloat16 else "fp32"
         mx = model.layers[0].mixer
         ops = {kind: 2 * bsz * w_el}
@@ -1058,16 +1104,216 @@ def phase_decode(model, label, clip5, tol, kernel_tol, depth):
         b = bound(moved, ops)
         idle = "not measured" if dev is None else f"{100 * (wall - dev) / wall:.1f} %"
         dev_txt = "not measured" if dev is None else f"{dev:.4f} ms"
-        print(f"decode {label} B={bsz}: K9 {ms:.4f} ms a token (event), plain "
+        print(f"decode {label} B={bsz}: {knum} {ms:.4f} ms a token (event), plain "
               f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
               f"{moved / 1e6:.1f} MB); session step {step_ms:.4f} ms host, profiled "
               f"{wall:.4f} ms wall, device kernels {dev_txt}, idle {idle}; "
-              f"{k9.LAUNCHES_PER_LAYER * depth + 1} launches a token")
+              f"{per_layer * depth + 1} launches a token")
         if bsz == 1:
-            entry = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, **b,
+            entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
                      "library_ms": None}
         del sess
     return used, entry
+
+
+BASE_M2 = dict(batch=1, seqlen=1569, embed=768, nheads=24, hdim=64, ngroups=1, d_state=64,
+               chunk=128, width=4)
+
+
+def ssd_inputs(cfg, device, dtype, seed=13):
+    """K12 and K14 operands at the shapes a Mamba2 layer gives them (nonzero
+    h0 and conv window): activations and the weights a bf16 model casts in
+    ``dtype``; A, D, the norm weight and the states fp32."""
+    g = torch.Generator().manual_seed(seed)
+    b, L, e = cfg["batch"], cfg["seqlen"], cfg["embed"]
+    h, p, gr, n, w = cfg["nheads"], cfg["hdim"], cfg["ngroups"], cfg["d_state"], cfg["width"]
+    di = h * p
+    cd = di + 2 * gr * n
+    common = dict(
+        A=-torch.exp(randn((h,), g, device, 0.5)), conv_weight=randn((cd, w), g, device, 0.5).to(dtype),
+        conv_bias=randn((cd,), g, device, 0.2).to(dtype), D=randn((h,), g, device),
+        dt_bias=torch.linspace(-6.9, -2.3, h).to(device).to(dtype),
+        initial_state=randn((b, h, p, n), g, device, 0.3), conv_state=randn((b, cd, w), g, device),
+        norm_weight=1 + randn((di,), g, device, 0.1), norm_eps=1e-5, chunk_size=cfg["chunk"],
+        nheads=h, hdim=p, ngroups=gr, d_state=n)
+    mixer = dict(common, zxbcdt=randn((b, L, di + cd + h), g, device).to(dtype))
+    pmixer = dict(common, hidden=randn((b, L, e), g, device).to(dtype),
+                  in_proj_w=randn((di + cd + h, e), g, device, e ** -0.5).to(dtype),
+                  out_proj_w=randn((e, di), g, device, di ** -0.5).to(dtype))
+    return mixer, pmixer
+
+
+def ssd_flops(cfg, dtype, projected):
+    """K12's operations (K14's with ``projected``): the conv; per row the
+    causal half of C B^T and of m x (Q / 2 keys on average); the inter-chunk
+    readout and the chunk states (2 P N a head each); D skip, gate and
+    norm; K14 adds in_proj (all its columns) and out_proj."""
+    b, L, e = cfg["batch"], cfg["seqlen"], cfg["embed"]
+    h, p, gr, n, w, q = (cfg["nheads"], cfg["hdim"], cfg["ngroups"], cfg["d_state"],
+                         cfg["width"], cfg["chunk"])
+    di = h * p
+    cd = di + 2 * gr * n
+    kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+    products = b * L * (q * (gr * n + h * p) + 4 * h * p * n)
+    if projected:
+        products += 2 * b * L * e * (di + cd + h + di)
+    return {kind: products, "fp32": (products if kind == "fp32" else 0)
+            + b * L * (2 * w * cd + 12 * di)}
+
+
+def phase_ssd_kernels(device):
+    """K12 and K14 against their plain versions at Base m2 shapes, fp32 and
+    bf16, K12 with two groups at a small width, and both at upstream
+    Mamba-2's chunk 256 and d_state 128; each timed beside its plain
+    version. Returns the kernels-line entries (fp32 Base)."""
+    entries = {}
+    for dtype, tol in ((torch.float32, KERNEL_TOL), (torch.bfloat16, BF16_TOL)):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        mixer, pmixer = ssd_inputs(BASE_M2, device, dtype)
+        for name, fn, plain, kw, projected in (
+                ("ssd_mixer", k12.ssd_mixer, k12.ssd_mixer_plain, mixer, False),
+                ("ssd_pmixer", k14.ssd_pmixer, k14.ssd_pmixer_plain, pmixer, True)):
+            result = time_against_plain(f"{name} {tag} Base m2", fn, plain, kw, tol,
+                                        ssd_flops(BASE_M2, dtype, projected))
+            if dtype == torch.float32:
+                entries[name] = result
+    small = dict(BASE_M2, embed=256, nheads=8, ngroups=2)
+    time_against_plain("ssd_mixer fp32 two groups (Di 512)", k12.ssd_mixer,
+                       k12.ssd_mixer_plain, ssd_inputs(small, device, torch.float32)[0],
+                       KERNEL_TOL, ssd_flops(small, torch.float32, False))
+    for label, cfg in (("chunk 256", dict(BASE_M2, chunk=256)),
+                       ("d_state 128", dict(BASE_M2, d_state=128))):
+        for dtype, tol in ((torch.float32, KERNEL_TOL), (torch.bfloat16, BF16_TOL)):
+            tag = "fp32" if dtype == torch.float32 else "bf16"
+            mixer, pmixer = ssd_inputs(cfg, device, dtype)
+            for name, fn, plain, kw, projected in (
+                    ("ssd_mixer", k12.ssd_mixer, k12.ssd_mixer_plain, mixer, False),
+                    ("ssd_pmixer", k14.ssd_pmixer, k14.ssd_pmixer_plain, pmixer, True)):
+                time_against_plain(f"{name} {tag} Base m2, {label}", fn, plain, kw, tol,
+                                   ssd_flops(cfg, dtype, projected), iters=5)
+    return entries
+
+
+def build_m2_models(device):
+    """VideoMamba-Base-m2 fp32 with kernels on, and the same weights with the
+    plain add-norm (its forwards run under VIDEOMAMBA_SSD_METHOD=chunked:
+    the plain chunked SSD, an independent algorithm)."""
+    g = torch.Generator().manual_seed(0)
+    fast = videomamba_base_m2(pool_type="avg", device=device, generator=g).eval()
+    plain = videomamba_base_m2(pool_type="avg", device=device, fused_add_norm=False).eval()
+    load_state_dict(plain, fast.state_dict())
+    return fast, plain
+
+
+@contextlib.contextmanager
+def env(**values):
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_m2_forward(fast, plain, clip, depth):
+    """The Base m2 fp32 full clip: K2 25, K14 24, K12 0 launches; against the
+    plain chunked path; then the same forward under VIDEOMAMBA_SSD_PMIXER=0:
+    K12 24, K14 0, against the K14 forward."""
+    before = launches()
+    x_vis, x_pool = fast(clip)
+    torch.cuda.synchronize()
+    expect_launches("m2 forward", delta(launches(), before), fused_add_norm=depth + 1,
+                    ssd_pmixer=depth, ssd_mixer=0, mixer_fused=0, block_fused=0)
+    tokens = clip.shape[2] // fast.patch_embed.tubelet_size * fast.patch_embed.num_patches
+    check(x_vis.shape == (clip.shape[0], tokens, fast.embed_dim),
+          f"m2 x_vis shape {tuple(x_vis.shape)}")
+    with env(VIDEOMAMBA_SSD_METHOD="chunked"):
+        p_vis, p_pool = plain(clip)
+    check_close("m2 forward x_vis vs plain chunked path", x_vis, p_vis, MODEL_TOL)
+    check_close("m2 forward x_pool vs plain chunked path", x_pool, p_pool, MODEL_TOL)
+    with env(VIDEOMAMBA_SSD_PMIXER="0"):
+        before = launches()
+        k12_vis, _ = fast(clip)
+        torch.cuda.synchronize()
+        expect_launches("m2 forward, VIDEOMAMBA_SSD_PMIXER=0", delta(launches(), before),
+                        fused_add_norm=depth + 1, ssd_mixer=depth, ssd_pmixer=0)
+    check_close("m2 forward K12 route vs K14 route", k12_vis, x_vis, MODEL_TOL)
+    return x_vis
+
+
+def phase_m2_backward_raises(model, clip):
+    """K14 is forward only: a backward through the m2 model on the card
+    raises naming K13; it never leaves grad=None behind."""
+    with torch.enable_grad():
+        x_vis, _ = model(clip.clone())  # the clip was made in inference mode
+        check(x_vis.requires_grad, "m2 backward: the output has no graph")
+        try:
+            x_vis.square().mean().backward()
+        except NotImplementedError as exc:
+            check("K13" in str(exc), f"m2 backward raised without naming K13: {exc}")
+            print(f"m2 backward raises NotImplementedError: {str(exc)[:100]}")
+        else:
+            raise AssertionError("m2 backward through K14 did not raise")
+    model.zero_grad(set_to_none=True)
+
+
+def phase_m2_bf16_forward(model, clip, fp32_vis, depth):
+    """The Base m2 weights cast for bf16 serving: K2 25, K14 24; against the
+    same model with every kernel swapped for its plain version (2e-2); the
+    max and mean relative error against the fp32 features printed."""
+    before = launches()
+    x_vis, x_pool = model(clip)
+    torch.cuda.synchronize()
+    expect_launches("m2 bf16 forward", delta(launches(), before), fused_add_norm=depth + 1,
+                    ssd_pmixer=depth, ssd_mixer=0)
+    check(x_vis.dtype == torch.bfloat16, f"m2 bf16 x_vis is {x_vis.dtype}")
+    check(bool(torch.isfinite(x_pool).all()), "m2 bf16 forward: non-finite x_pool")
+    with plain_versions():
+        ref, _ = model(clip)
+    check_close("m2 bf16 forward x_vis vs plain versions", x_vis, ref, BF16_MODEL_TOL)
+    diff = (x_vis.double() - fp32_vis.double()).abs()
+    print(f"m2 bf16 vs fp32 x_vis: max rel {float(diff.max() / fp32_vis.abs().max()):.3e}, "
+          f"mean rel {float(diff.mean() / fp32_vis.double().abs().mean()):.3e}")
+    return x_vis
+
+
+def serving_times(label, model, clip, plain_model=None, plain_env=None):
+    """Host ms of the full clip (median of 5) and of a first and a
+    continuation 4-frame chunk (medians over 5 sessions)."""
+    fwd_ms = host_ms(lambda: model(clip), repeats=5)
+    chunk0, chunk1 = [], []
+    for _ in range(5):
+        session = StreamingSession(model, batch_size=1)
+        chunk0.append(host_ms(lambda: session.process(clip[:, :, :4]), repeats=1))
+        chunk1.append(host_ms(lambda: session.process(clip[:, :, 4:]), repeats=1))
+    plain_note = ""
+    if plain_model is not None:
+        with env(**(plain_env or {})):
+            plain_note = f"; plain path {host_ms(lambda: plain_model(clip), repeats=1):.3f} ms"
+    times = (fwd_ms, statistics.median(chunk0), statistics.median(chunk1))
+    print(f"{label} full-clip forward (1,3,8,224,224): {fwd_ms:.3f} ms{plain_note}")
+    print(f"{label} streaming chunk (4 frames): first {times[1]:.3f} ms, "
+          f"continuation {times[2]:.3f} ms")
+    return times
+
+
+def serving_profile(label, model, clip):
+    """The full clip's and a first chunk's device kernel time, idle share
+    and top kernels under torch.profiler. Run after the host timings, which
+    a profiler session before them can slow where the host, not the device,
+    sets the time."""
+    for what, fn in (("full clip", lambda: model(clip)),
+                     ("first chunk", lambda: StreamingSession(model, batch_size=1).process(
+                         clip[:, :, :4]))):
+        wall, dev = device_ms(fn, iters=3, label=f"{label} {what}", top=8)
+        idle = "not measured" if dev is None else f"{100 * (wall - dev) / wall:.1f} %"
+        dev_txt = "not measured" if dev is None else f"{dev:.3f} ms"
+        print(f"{label} {what} under the profiler: {wall:.3f} ms wall, device kernels "
+              f"{dev_txt}, idle {idle}")
 
 
 def card_line() -> str:
@@ -1119,19 +1365,10 @@ def main() -> int:
         for name in ("fused_add_norm", "block_fused"):
             check(bf16_counts[name] > 0, f"{name} was not launched on the bf16 main path")
 
-        for label, model, plain_model in (("fp32", fast, plain), ("bf16", bf16, None)):
-            fwd_ms = host_ms(lambda: model(clip), repeats=5)
-            chunk0, chunk1 = [], []
-            for _ in range(5):
-                session = StreamingSession(model, batch_size=1)
-                chunk0.append(host_ms(lambda: session.process(clip[:, :, :4]), repeats=1))
-                chunk1.append(host_ms(lambda: session.process(clip[:, :, 4:]), repeats=1))
-            plain_note = ""
-            if plain_model is not None:
-                plain_note = f"; plain path {host_ms(lambda: plain_model(clip), repeats=1):.3f} ms"
-            print(f"{label} full-clip forward (1,3,8,224,224): {fwd_ms:.3f} ms{plain_note}")
-            print(f"{label} streaming chunk (4 frames): first {statistics.median(chunk0):.3f} ms, "
-                  f"continuation {statistics.median(chunk1):.3f} ms")
+        m1_times = {"fp32": serving_times("fp32", fast, clip, plain),
+                    "bf16": serving_times("bf16", bf16, clip)}
+        serving_profile("fp32", fast, clip)
+        serving_profile("bf16", bf16, clip)
 
         kernels.update(phase_bwd_kernels(device))
     del fast, plain, bf16
@@ -1206,9 +1443,53 @@ def main() -> int:
 
     zero_launches()
     conv_counts = phase_conv_path(device)
+    torch.cuda.empty_cache()
+
+    m2, m2_plain = build_m2_models(device)  # outside inference mode: phase 18 differentiates it
+    with torch.inference_mode():
+        kernels.update(phase_ssd_kernels(device))
+        zero_launches()
+        m2_vis = phase_m2_forward(m2, m2_plain, clip, depth)
+        phase_stream(m2, clip, m2_vis, chunk_frames=4)
+        m2_fp32_counts = launches()
+        print(f"m2 fp32 main path launches: {m2_fp32_counts}")
+        for name in ("fused_add_norm", "ssd_pmixer", "ssd_mixer"):
+            check(m2_fp32_counts[name] > 0, f"{name} was not launched on the m2 fp32 path")
+    phase_m2_backward_raises(m2, clip)
+    with torch.inference_mode():
+        m2_bf16 = cast_module_for_compute(copy.deepcopy(m2), torch.bfloat16)
+        zero_launches()
+        m2_bf16_vis = phase_m2_bf16_forward(m2_bf16, clip, m2_vis, depth)
+        phase_stream(m2_bf16, clip, m2_bf16_vis, chunk_frames=4, tol=BF16_TOL)
+        m2_bf16_counts = launches()
+        print(f"m2 bf16 main path launches: {m2_bf16_counts}")
+        for name in ("fused_add_norm", "ssd_pmixer"):
+            check(m2_bf16_counts[name] > 0, f"{name} was not launched on the m2 bf16 path")
+        m2_times = {"fp32": serving_times("m2 fp32", m2, clip, m2_plain,
+                                          {"VIDEOMAMBA_SSD_METHOD": "chunked"}),
+                    "bf16": serving_times("m2 bf16", m2_bf16, clip)}
+        serving_profile("m2 fp32", m2, clip)
+        serving_profile("m2 bf16", m2_bf16, clip)
+        for tag in ("fp32", "bf16"):
+            print(f"serving host ms, {tag}, full clip / first chunk / continuation: "
+                  f"Mamba-1 Base {' / '.join(f'{t:.3f}' for t in m1_times[tag])}, "
+                  f"Mamba-2 Base {' / '.join(f'{t:.3f}' for t in m2_times[tag])}")
+        del m2_plain
+        m2_decode_counts = {name: 0 for name in WRAPPERS}
+        for label, model, tol, ktol in (("m2 fp32", m2, MODEL_TOL, KERNEL_TOL),
+                                        ("m2 bf16", m2_bf16, BF16_MODEL_TOL, BF16_TOL)):
+            zero_launches()
+            used, entry = phase_decode(model, label, clip5, tol, ktol, depth, wide_steps=8)
+            m2_decode_counts = {k: m2_decode_counts[k] + used[k] for k in used}
+            kernels.setdefault("decode_stack_m2", entry)
+        del m2, m2_bf16, model
+    check(m2_decode_counts["decode_stack_m2"] > 0,
+          "decode_stack_m2 was not launched on the m2 decode path")
+    torch.cuda.empty_cache()
 
     paths = (fp32_counts, bf16_counts, train32_counts, train16_counts, eval_counts,
-             block_route_counts, decode_counts, conv_counts)
+             block_route_counts, decode_counts, conv_counts, m2_fp32_counts, m2_bf16_counts,
+             m2_decode_counts)
     counts = {name: sum(c[name] for c in paths) for name in WRAPPERS}
 
     rows = [

@@ -561,3 +561,220 @@ def test_causal_conv_kernel_matches_plain(dev, dtype, w, L):
         torch.cuda.synchronize()
         assert y.dtype == ref.dtype == dtype and rel_err(y, ref) <= tol
     assert k10.causal_conv.launches == before + 2
+
+
+# ---------------------------------------------------------- Mamba-2 (SSD)
+
+def _ssd_inputs(dev, dtype, b, L, h, p, g, n, q, e=128, w=4, norm=True, state=True):
+    """K12 / K14 operands: activations and the weights a bf16 model casts
+    in ``dtype``; A, D, norm weight, h0 and the window fp32."""
+    gen = torch.Generator().manual_seed(5)
+
+    def rn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen)).to(dev)
+
+    di = h * p
+    cd = di + 2 * g * n
+    dpj = di + cd + h
+    return dict(
+        hidden=rn(b, L, e).to(dtype), zxbcdt=rn(b, L, dpj).to(dtype),
+        in_proj_w=rn(dpj, e, scale=e ** -0.5).to(dtype),
+        out_proj_w=rn(e, di, scale=di ** -0.5).to(dtype),
+        conv_weight=rn(cd, w, scale=0.5).to(dtype), conv_bias=rn(cd, scale=0.2).to(dtype),
+        A=-torch.exp(rn(h, scale=0.5)), D=rn(h),
+        dt_bias=torch.linspace(-4.0, -1.0, h, device=dev).to(dtype),
+        initial_state=rn(b, h, p, n, scale=0.3) if state else None,
+        conv_state=rn(b, cd, w) if state else None,
+        norm_weight=1 + rn(di, scale=0.1) if norm else None,
+        cfg=dict(chunk_size=q, nheads=h, hdim=p, ngroups=g, d_state=n),
+    )
+
+
+SSD_CASES = {
+    # name: (dtype, b, L, h, p, g, n, q, e, norm, state)
+    "base_m2_fp32": (torch.float32, 1, 1569, 24, 64, 1, 64, 128, 768, True, True),
+    "base_m2_bf16": (torch.bfloat16, 1, 1569, 24, 64, 1, 64, 128, 768, True, True),
+    "ragged_two_groups": (torch.float32, 2, 41, 8, 32, 2, 16, 16, 128, True, True),
+    "no_norm_no_state_bf16": (torch.bfloat16, 3, 70, 4, 16, 1, 8, 32, 64, False, False),
+    "one_token": (torch.float32, 2, 1, 8, 32, 1, 16, 16, 128, True, True),
+    # upstream Mamba-2's chunk 256 and d_state 128 at Base widths, and a
+    # chunk that is no multiple of the kernels' 64-row slabs
+    "base_chunk256_fp32": (torch.float32, 1, 1569, 24, 64, 1, 64, 256, 768, True, True),
+    "base_dstate128_bf16": (torch.bfloat16, 1, 1569, 24, 64, 1, 128, 128, 768, True, True),
+    "chunk100_two_groups": (torch.float32, 2, 250, 8, 32, 2, 16, 100, 128, True, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+@pytest.mark.parametrize("kind", ["ssd_mixer", "ssd_pmixer"])
+def test_ssd_kernels_match_plain(dev, kind, case):
+    """K12 and K14 against their plain versions: the output (the input
+    dtype) and h_last (fp32), each launch counted."""
+    from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12
+    from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14
+
+    dtype, b, L, h, p, g, n, q, e, norm, state = SSD_CASES[case]
+    kw = _ssd_inputs(dev, dtype, b, L, h, p, g, n, q, e=e, norm=norm, state=state)
+    kw.update(kw.pop("cfg"))
+    hidden, in_w, out_w = kw.pop("hidden"), kw.pop("in_proj_w"), kw.pop("out_proj_w")
+    zxbcdt = kw.pop("zxbcdt")
+    if kind == "ssd_mixer":
+        fn, plain = k12.ssd_mixer, k12.ssd_mixer_plain
+        kw.update(zxbcdt=zxbcdt)
+    else:
+        fn, plain = k14.ssd_pmixer, k14.ssd_pmixer_plain
+        kw.update(hidden=hidden, in_proj_w=in_w, out_proj_w=out_w)
+    before = fn.launches
+    out, h_last = fn(**kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref, ref_h = plain(**kw)
+    tol = TOL if dtype == torch.float32 else BF16_TOL
+    assert out.dtype == ref.dtype == dtype and h_last.dtype == torch.float32
+    assert rel_err(out, ref) <= tol and rel_err(h_last, ref_h) <= tol
+
+
+def _decode_m2_inputs(dev, wdt, cdt, depth, b, e, h, p, n, w=4, norm="rms", gated=True):
+    gen = torch.Generator().manual_seed(9)
+
+    def rn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen)).to(dev)
+
+    di = h * p
+    cd = di + 2 * n
+    return dict(
+        token=rn(b, e), norm_w=1 + rn(depth, e, scale=0.1),
+        norm_b=rn(depth, e, scale=0.1) if norm == "layer" else None,
+        in_proj_w=rn(depth, di + cd + h, e, scale=e ** -0.5).to(wdt),
+        out_proj_w=rn(depth, e, di, scale=di ** -0.5).to(wdt),
+        conv_w=rn(depth, cd, w, scale=0.5).to(wdt), conv_b=rn(depth, cd, scale=0.1),
+        A=-torch.exp(rn(depth, h, scale=0.5)), D=rn(depth, h),
+        dt_bias=torch.linspace(-4.0, -1.0, h, device=dev).expand(depth, h).contiguous(),
+        gate_w=1 + rn(depth, di, scale=0.1) if gated else None,
+        conv_states=rn(depth, b, cd, w).to(cdt),
+        ssm_states=rn(depth, b, h, p, n, scale=0.3),  # fp32: the Mamba-2 contract
+        norm_type=norm,
+    )
+
+
+@pytest.mark.parametrize("wdt,cdt,b,norm,gated,widths", [
+    (torch.float32, torch.float32, 1, "rms", True, (768, 24, 64, 64)),
+    (torch.bfloat16, torch.float32, 1, "rms", True, (768, 24, 64, 64)),
+    (torch.float32, torch.float32, 80, "rms", True, (768, 24, 64, 64)),
+    (torch.float32, torch.float32, 9, "layer", False, (128, 8, 32, 16)),
+    (torch.bfloat16, torch.bfloat16, 3, "layer", True, (128, 8, 32, 16))])
+def test_decode_stack_m2_kernel_matches_plain(dev, wdt, cdt, b, norm, gated, widths):
+    """Three tokens through K15 and its plain version from the same states
+    (Base m2 widths at B = 1 and 80; conv windows fp32 or bf16, SSD states
+    fp32): features and both state stacks."""
+    from videomamba_tpu_torch.ops.kernels import decode_step as k9
+
+    e, h, p, n = widths
+    kw = _decode_m2_inputs(dev, wdt, cdt, 2, b, e, h, p, n, norm=norm, gated=gated)
+    kw.pop("token")
+    states = (kw.pop("conv_states"), kw.pop("ssm_states"))
+    kc, ks = (s.clone() for s in states)
+    pc, ps = states
+    tol = TOL if wdt == torch.float32 and cdt == torch.float32 else BF16_TOL
+    before = k9.decode_stack_m2.launches
+    for step in range(3):
+        tok = randn(b, e, dev=dev, seed=40 + step)
+        hk, rk, kc, ks = k9.decode_stack_m2(tok, **kw, conv_states=kc, ssm_states=ks)
+        hp, rp, pc, ps = k9.decode_stack_m2_plain(tok, **kw, conv_states=pc, ssm_states=ps)
+        torch.cuda.synchronize()
+        for a, ref in ((hk, hp), (rk, rp), (kc, pc), (ks, ps)):
+            assert a.dtype == ref.dtype and rel_err(a, ref) <= tol, step
+    assert k9.decode_stack_m2.launches == before + 3
+
+
+def _m2_model(dev, depth=2):
+    from videomamba_tpu_torch.models.videomamba import PretrainVideoMamba
+
+    return PretrainVideoMamba(
+        img_size=32, patch_size=8, depth=depth, embed_dim=128, num_frames=4, pool_type="avg",
+        ssm_cfg={"layer": "Mamba2", "d_state": 16, "headdim": 32, "chunk_size": 16},
+        device=dev, generator=torch.Generator().manual_seed(0)).eval()
+
+
+@pytest.mark.parametrize("pmixer", ["1", "0"])
+def test_m2_model_backward_raises_on_the_card(dev, monkeypatch, pmixer):
+    """K14 and K12 are forward only: a backward through an m2 model on the
+    card raises naming K13 instead of leaving ``grad=None``."""
+    from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12
+    from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14
+
+    monkeypatch.setenv("VIDEOMAMBA_SSD_PMIXER", pmixer)
+    model = _m2_model(dev)
+    before = (k12.ssd_mixer.launches, k14.ssd_pmixer.launches)
+    x_vis, _ = model(randn(1, 3, 4, 32, 32, dev=dev, seed=3))
+    used = (k12.ssd_mixer.launches - before[0], k14.ssd_pmixer.launches - before[1])
+    assert used == ((0, 2) if pmixer == "1" else (2, 0))
+    assert x_vis.requires_grad
+    with pytest.raises(NotImplementedError, match="K13"):
+        x_vis.square().mean().backward()
+
+
+
+@pytest.mark.parametrize("pmixer", ["1", "0"])
+@pytest.mark.parametrize("chunk,d_state", [(256, 64), (128, 128)])
+def test_m2_model_takes_the_kernels_at_upstream_shapes(dev, monkeypatch, pmixer, chunk,
+                                                        d_state):
+    """Upstream Mamba-2's chunk 256 and d_state 128 run on K14 or K12 on
+    the card, within 1e-4 of the plain chunked route on the same weights."""
+    from videomamba_tpu_torch.models.videomamba import PretrainVideoMamba
+    from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12
+    from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14
+
+    monkeypatch.setenv("VIDEOMAMBA_SSD_PMIXER", pmixer)
+    model = PretrainVideoMamba(
+        img_size=64, patch_size=8, depth=2, embed_dim=128, num_frames=8, pool_type="avg",
+        ssm_cfg={"layer": "Mamba2", "d_state": d_state, "headdim": 64, "chunk_size": chunk},
+        device=dev, generator=torch.Generator().manual_seed(0)).eval()
+    clip = randn(1, 3, 8, 64, 64, dev=dev, seed=4)  # L = 513: three chunks of 256
+    before = (k12.ssd_mixer.launches, k14.ssd_pmixer.launches)
+    with torch.no_grad():
+        got, _ = model(clip)
+        used = (k12.ssd_mixer.launches - before[0], k14.ssd_pmixer.launches - before[1])
+        monkeypatch.setenv("VIDEOMAMBA_SSD_METHOD", "chunked")
+        want, _ = model(clip)
+    assert used == ((0, 2) if pmixer == "1" else (2, 0))
+    assert rel_err(got, want) <= 1e-4
+
+
+def test_m2_shape_outside_the_kernel_gate_raises_on_the_card(dev):
+    """A head dim the kernels do not take raises on the card; it never
+    falls back to a plain version there."""
+    from videomamba_tpu_torch.models.mamba2 import Mamba2
+
+    mixer = Mamba2(d_model=60, d_state=16, headdim=30, chunk_size=16, device=dev).eval()
+    with torch.no_grad(), pytest.raises(ValueError, match="multiples of 4"):
+        mixer(randn(1, 21, 60, dev=dev, seed=6))
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_m2_decode_session_kernel_matches_step_route(dev, dtype):
+    """DecodeSession on K15 (+ K2) against the per-layer Mamba2.step route
+    on the card, after a streaming prefill; ``dtype`` sets the conv
+    windows' (the SSD states stay fp32)."""
+    from videomamba_tpu_torch.ops.kernels import decode_step as k9
+    from videomamba_tpu_torch.runtime import DecodeSession
+
+    model = _m2_model(dev, depth=3)
+    clip = randn(2, 3, 4, 32, 32, dev=dev, seed=12)
+    with torch.inference_mode():
+        _, _, state = model(clip[:, :, :2], ssm_state=model.allocate_state(2))
+    sessions = [DecodeSession(model, batch_size=2, dtype=dtype, use_kernel=flag)
+                for flag in (None, False)]
+    assert sessions[0].use_kernel and sessions[0].is_m2
+    assert sessions[0].ssm_states.dtype == torch.float32
+    # bf16 windows: the kernel convolves the token's own fp32 input, step()
+    # its bf16-rounded copy in the window (as the JAX package's two routes).
+    tol = 1e-4 if dtype is None else BF16_TOL
+    for s in sessions:
+        s.load_streaming_state(state)
+    before = k9.decode_stack_m2.launches
+    for step in range(4):
+        tok = randn(2, 128, dev=dev, seed=50 + step)
+        got, want = (s.step(tok) for s in sessions)
+        assert rel_err(got, want) <= tol, step
+    assert k9.decode_stack_m2.launches == before + 4
+    assert rel_err(sessions[0].ssm_states, sessions[1].ssm_states) <= tol

@@ -1,8 +1,8 @@
-"""Token decode (K9, DecodeSession, InferenceCache, Mamba.step and the two
-single-token ops) vs videomamba_tpu on the CPU.
+"""Token decode (K9 and K15, DecodeSession, InferenceCache, Mamba.step and
+the two single-token ops) vs videomamba_tpu on the CPU.
 
-The port's K9 wrapper runs its plain version on CPU tensors; the JAX
-package runs its decode kernel in interpret mode (VIDEOMAMBA_PALLAS_
+The port's K9 and K15 wrappers run their plain versions on CPU tensors; the
+JAX package runs its decode kernels in interpret mode (VIDEOMAMBA_PALLAS_
 INTERPRET=1, as tests/test_decode_pallas.py does), where its
 ``precision=DEFAULT`` products are exact fp32. Same weights (exported from
 the JAX model), same numpy tokens. rel_err = max|a - b| / max|b|. Bars: a
@@ -202,18 +202,95 @@ def test_kernel_gate_takes_any_batch():
     assert DecodeSession(tm, batch_size=80, use_kernel=True).use_kernel
 
 
-def test_mamba2_model_raises_naming_k15():
-    class Mamba2Like:  # a stand-in: the port builds no Mamba-2 model
-        pass
+M2_CFG = {"layer": "Mamba2", "d_state": 32, "headdim": 32, "chunk_size": 8}
 
-    class Layer:
-        mixer = Mamba2Like()
 
-    class Model:
-        layers = [Layer()]
+def m2_states_from_jax(js):
+    """JAX's K15 keeps lane-major states, (K, B, W, CD) and (K, B, N, H*P);
+    the port keeps the streaming contract's (K, B, CD, W), (K, B, H, P, N)."""
+    k, b, n, hp = js.ssm_states.shape
+    ssm = np.asarray(js.ssm_states).swapaxes(2, 3).reshape(k, b, hp // 32, 32, n)
+    return np.asarray(js.conv_states).swapaxes(2, 3), ssm
 
-    with pytest.raises(NotImplementedError, match="K15"):
-        DecodeSession(Model(), batch_size=1)
+
+@pytest.mark.parametrize("dtype,rms", [("fp32", True), ("fp32", False), ("bf16", True)])
+def test_m2_decode_kernel_route_matches_jax_kernel(dtype, rms):
+    """Five steps of the port's K15 route (its plain version here) against
+    JAX's K15 (decode_stack_pallas_m2 in interpret mode): features and both
+    state stacks each step."""
+    jm, tm = pair(dtype, rms_norm=rms, ssm_cfg=M2_CFG)
+    js = JSession(jm, batch_size=2, use_pallas=True)
+    ts = DecodeSession(tm, batch_size=2, use_kernel=True)
+    assert js.backend == "pallas" and ts.use_kernel and ts.is_m2
+    assert ts.ssm_states.shape == (3, 2, 4, 32, 32) and ts.ssm_states.dtype == torch.float32
+    before = (k9.decode_stack.launches, k9.decode_stack_m2.launches)
+    for tok in tokens(12, steps=5):
+        jf, tf = js.step(j(tok)), ts.step(t(tok))
+        assert tf.shape == jf.shape and tf.dtype == torch.float32
+        assert rel_err(tf, jf) <= TOL[dtype]
+        conv, ssm = m2_states_from_jax(js)
+        assert rel_err(ts.conv_states, conv) <= TOL[dtype]
+        assert rel_err(ts.ssm_states, ssm) <= TOL[dtype]
+    assert (k9.decode_stack.launches, k9.decode_stack_m2.launches) == before  # plain on the CPU
+
+
+def test_m2_decode_bf16_windows_match_jax_kernel():
+    """dtype=bf16 stores the conv windows in bf16 while the SSD states stay
+    fp32 (the Mamba-2 contract), on both packages' K15 routes."""
+    jm, tm = pair(ssm_cfg=M2_CFG)
+    js = JSession(jm, batch_size=2, dtype=jnp.bfloat16, use_pallas=True)
+    ts = DecodeSession(tm, batch_size=2, dtype=torch.bfloat16, use_kernel=True)
+    assert ts.conv_states.dtype == torch.bfloat16 and ts.ssm_states.dtype == torch.float32
+    for tok in tokens(14, steps=3):
+        assert rel_err(ts.step(t(tok)), js.step(j(tok))) <= TOL["bf16"]
+    conv, ssm = m2_states_from_jax(js)
+    assert rel_err(ts.conv_states, conv) <= TOL["bf16"]
+    assert rel_err(ts.ssm_states, ssm) <= TOL["bf16"]
+
+
+def test_m2_decode_step_route_matches_jax_xla_route():
+    """use_kernel=False (Mamba2.step per layer) against JAX's XLA route."""
+    jm, tm = pair(ssm_cfg=M2_CFG)
+    js = JSession(jm, batch_size=2, use_pallas=False)
+    ts = DecodeSession(tm, batch_size=2, use_kernel=False)
+    assert js.backend == "xla" and not ts.use_kernel
+    for tok in tokens(13, steps=3):
+        assert rel_err(ts.step(t(tok)), js.step(j(tok))) <= TOL["fp32"]
+    assert rel_err(ts.conv_states, js.conv_states) <= TOL["fp32"]
+    assert rel_err(ts.ssm_states, js.ssm_states) <= TOL["fp32"]
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_m2_prefill_then_decode_matches_full_forward(use_kernel):
+    """A 2-frame streaming prefill, load_streaming_state, then the last 2
+    frames token by token: the JAX package's full m2 forward's last tokens."""
+    jm, tm = pair(ssm_cfg=M2_CFG)
+    x = np.random.default_rng(6).standard_normal((1, 3, 4, 16, 16)).astype(np.float32)
+    full = jm.forward_features(j(x))
+    with torch.no_grad():
+        _, state = tm.forward_features(t(x)[:, :, :2], ssm_state=tm.allocate_state(1))
+        session = DecodeSession(tm, batch_size=1, use_kernel=use_kernel)
+        session.load_streaming_state(state)
+        tok = _port_tokens(tm, t(x)[:, :, 2:], offset=2)
+        decoded = torch.stack([session.step(tok[:, i]) for i in range(tok.shape[1])], dim=1)
+    assert rel_err(decoded, full[:, -8:]) <= 1e-4
+
+
+def test_m2_kernel_gate():
+    """K15's gate is the JAX package's (one B/C group, d_inner a multiple of
+    128, its weight budget) and the card's widths, with no batch limit; a
+    model outside it decodes per layer, and forcing the kernel raises."""
+    assert k9.decode_stack_m2_supported(768, 1536, 24, 1, 64)
+    assert not k9.decode_stack_m2_supported(768, 1536, 24, 2, 64)
+    assert not k9.decode_stack_m2_supported(576, 1152 + 64, 19, 1, 64)
+    _, tm = pair(ssm_cfg=M2_CFG)
+    assert DecodeSession(tm, batch_size=80).use_kernel
+    _, two_groups = pair(ssm_cfg=dict(M2_CFG, ngroups=2))
+    with pytest.raises(ValueError, match="decode kernel"):
+        DecodeSession(two_groups, batch_size=1, use_kernel=True)
+    session = DecodeSession(two_groups, batch_size=1)
+    assert not session.use_kernel
+    assert session.step(torch.zeros(1, 64)).shape == (1, 64)
 
 
 @pytest.fixture(scope="module")

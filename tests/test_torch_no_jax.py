@@ -15,6 +15,7 @@ MODULES = [
     "videomamba_tpu_torch.models.block",
     "videomamba_tpu_torch.models.initializers",
     "videomamba_tpu_torch.models.mamba",
+    "videomamba_tpu_torch.models.mamba2",
     "videomamba_tpu_torch.models.presets",
     "videomamba_tpu_torch.models.videomamba",
     "videomamba_tpu_torch.ops",
@@ -23,6 +24,7 @@ MODULES = [
     "videomamba_tpu_torch.ops.norm",
     "videomamba_tpu_torch.ops.resample",
     "videomamba_tpu_torch.ops.selective_scan",
+    "videomamba_tpu_torch.ops.ssd",
     "videomamba_tpu_torch.ops.kernels",
     "videomamba_tpu_torch.ops.kernels._build",
     "videomamba_tpu_torch.ops.kernels.block_bwd",
@@ -33,6 +35,8 @@ MODULES = [
     "videomamba_tpu_torch.ops.kernels.mixer_bwd",
     "videomamba_tpu_torch.ops.kernels.mixer_fused",
     "videomamba_tpu_torch.ops.kernels.scan",
+    "videomamba_tpu_torch.ops.kernels.ssd_mixer",
+    "videomamba_tpu_torch.ops.kernels.ssd_pmixer",
     "videomamba_tpu_torch.parallel",
     "videomamba_tpu_torch.parallel.train_step",
     "videomamba_tpu_torch.utils",

@@ -11,7 +11,11 @@ checkpointing; the whole-block route with its backward), through ten
 hand-written Hopper kernels (``ops/kernels``): the selective scan and its
 backward, the fused residual add + norm and its backward, the fused mixer
 core and its backward, the whole Block and its backward, the causal conv,
-and the whole-stack decode step. bf16 serving weights come from
+and the whole-stack decode step; and the fp32 and bf16 serving path of the
+Mamba-2 (SSD) VideoMamba (``videomamba_*_m2``: full clip, streaming and
+``DecodeSession``) through three more: the SSD mixer core, the projected
+mixer and the Mamba-2 decode step (forward only: differentiating them on
+the card raises). bf16 serving weights come from
 ``utils.precision.cast_module_for_compute``. Entry points build on the CUDA
 card unless given ``device="cpu"`` (``runtime.resolve_device``).
 """
@@ -19,12 +23,17 @@ card unless given ``device="cpu"`` (``runtime.resolve_device``).
 from videomamba_tpu_torch.models import (
     InferenceCache,
     Mamba,
+    Mamba2,
     PretrainVideoMamba,
     build_videomamba,
     videomamba_base,
+    videomamba_base_m2,
     videomamba_middle,
+    videomamba_middle_m2,
     videomamba_small,
+    videomamba_small_m2,
     videomamba_tiny,
+    videomamba_tiny_m2,
 )
 from videomamba_tpu_torch.ops.causal_conv1d import causal_conv1d_update
 from videomamba_tpu_torch.ops.selective_scan import selective_state_update
@@ -42,6 +51,7 @@ __all__ = [
     "DecodeSession",
     "InferenceCache",
     "Mamba",
+    "Mamba2",
     "PretrainVideoMamba",
     "STREAMING_CONTRACT_VERSION",
     "StateShape",
@@ -54,7 +64,11 @@ __all__ = [
     "selective_state_update",
     "validate_state",
     "videomamba_base",
+    "videomamba_base_m2",
     "videomamba_middle",
+    "videomamba_middle_m2",
     "videomamba_small",
+    "videomamba_small_m2",
     "videomamba_tiny",
+    "videomamba_tiny_m2",
 ]

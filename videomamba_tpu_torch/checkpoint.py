@@ -9,6 +9,9 @@ videomamba_tpu/checkpoint.py:224-277 (params_to_torch_state_dict):
   patch ``kernel (C*kt*p*p, E)``      -> ``patch_embed.proj.weight (E, C, kt, p, p)``
   everything else                     -> unchanged
 
+for both mixers: Mamba-1's in_proj, conv1d, x_proj, dt_proj, A_log, D,
+out_proj and Mamba-2's in_proj, conv1d, dt_bias, A_log, D, norm, out_proj.
+
 It reads NumPy only and never imports jax. ``load_state_dict`` loads a
 state_dict strictly: a missing or unexpected key raises. A bf16 tree (from
 ``cast_params_for_compute``) maps to fp32 tensors holding the same values,
@@ -23,6 +26,10 @@ import numpy as np
 import torch
 
 Tensor = torch.Tensor
+
+# Mixer keys in state_dict order (the JAX exporter's, checkpoint.py:246-272).
+_MAMBA1_KEYS = ("in_proj", "conv1d", "x_proj", "dt_proj", "A_log", "D", "out_proj")
+_MAMBA2_KEYS = ("in_proj", "conv1d", "dt_bias", "A_log", "D", "norm", "out_proj")
 
 
 def params_from_jax(tree: Mapping[str, Any], model) -> Dict[str, Tensor]:
@@ -51,17 +58,21 @@ def params_from_jax(tree: Mapping[str, Any], model) -> Dict[str, Tensor]:
             put(pfx + "norm.bias", lp["norm"]["bias"])
         mx = lp["mixer"]
         mpfx = pfx + "mixer."
-        for name in ("in_proj", "conv1d", "x_proj", "dt_proj", "A_log", "D", "out_proj"):
-            if name in ("A_log", "D"):
-                put(mpfx + name, mx[name])
+        names = _MAMBA1_KEYS if "x_proj" in mx else _MAMBA2_KEYS
+        for name in (n for n in names if n in mx):
+            leaf = mx[name]
+            if not isinstance(leaf, Mapping):  # A_log, D, dt_bias
+                put(mpfx + name, leaf)
                 continue
             if name == "conv1d":
-                w = np.asarray(mx[name]["weight"], np.float32).T[:, None, :]
-            else:
-                w = np.asarray(mx[name]["kernel"], np.float32).T
+                w = np.asarray(leaf["weight"], np.float32).T[:, None, :]
+            elif "kernel" in leaf:
+                w = np.asarray(leaf["kernel"], np.float32).T
+            else:  # Mamba-2's gated-norm weight
+                w = leaf["weight"]
             put(mpfx + name + ".weight", w)
-            if "bias" in mx[name]:
-                put(mpfx + name + ".bias", mx[name]["bias"])
+            if "bias" in leaf:
+                put(mpfx + name + ".bias", leaf["bias"])
     put("norm.weight", tree["norm"]["weight"])
     if "bias" in tree["norm"]:
         put("norm.bias", tree["norm"]["bias"])

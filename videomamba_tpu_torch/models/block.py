@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from videomamba_tpu_torch.models.mamba import InferenceCache, LayerState, Mamba
+from videomamba_tpu_torch.models.mamba2 import Mamba2
 from videomamba_tpu_torch.ops import dispatch
 from videomamba_tpu_torch.ops.causal_conv1d import causal_conv1d, conv_window
 from videomamba_tpu_torch.ops.kernels.block_bwd import block_bwd
@@ -239,10 +240,13 @@ class Block(nn.Module):
         the mixer's fast path, no in_proj/out_proj bias, a conv bias, and the
         byte rule of :func:`block_fused_supported` at 4 bytes a weight for
         fp32 and 2 for bf16. The rule is the TPU kernel's VMEM budget, ported
-        to keep both packages on one route, not a limit of this card. (The
-        JAX gate's Mamba-2, sequence-parallel and scan-backend conditions
-        have no counterpart here: the port's fast path is its kernels.)"""
+        to keep both packages on one route, not a limit of this card. A
+        Mamba-2 mixer never takes it. (The JAX gate's sequence-parallel and
+        scan-backend conditions have no counterpart here: the port's fast
+        path is its kernels.)"""
         mx = self.mixer
+        if not getattr(mx, "supports_block_fusion", True):
+            return False  # Mamba2: add + norm, then its own kernels (JAX block.py:321-322)
         if not (self.fused_add_norm and mx.use_fast_path):
             return False
         if (mx.in_proj.bias is not None or mx.out_proj.bias is not None
@@ -354,16 +358,20 @@ def create_block(
     generator: Optional[torch.Generator] = None,
 ) -> Block:
     """Block factory (videomamba_tpu/models/block.py:436-476). The inner
-    mixer is unidirectional; ``ssm_cfg={"layer": "Mamba2"}`` (the SSD mixer)
-    is not ported yet and raises."""
+    mixer is unidirectional; ``ssm_cfg={"layer": "Mamba2", ...}`` selects the
+    SSD mixer (models/mamba2.py)."""
     del bimamba
     ssm_cfg = dict(ssm_cfg or {})
     ssm_cfg.pop("bimamba", None)
     layer_kind = str(ssm_cfg.pop("layer", "Mamba"))
-    if layer_kind != "Mamba":
-        raise NotImplementedError(f"ssm_cfg layer {layer_kind!r} is not ported")
-    mixer = Mamba(d_model=d_model, layer_idx=layer_idx, device=device,
-                  dtype=dtype, generator=generator, **ssm_cfg)
+    if layer_kind == "Mamba2":
+        mixer_cls = Mamba2
+    elif layer_kind == "Mamba":
+        mixer_cls = Mamba
+    else:
+        raise ValueError(f"unknown ssm_cfg layer {layer_kind!r}")
+    mixer = mixer_cls(d_model=d_model, layer_idx=layer_idx, device=device,
+                      dtype=dtype, generator=generator, **ssm_cfg)
     return Block(
         dim=d_model,
         mixer=mixer,

@@ -3,7 +3,8 @@
 
 Port of videomamba_tpu/models/initializers.py: PyTorch module defaults
 (kaiming-uniform a=sqrt(5)), timm ``trunc_normal_(std=0.02)``, and Mamba's
-dt-bias / S4D-real A initializations. Every draw happens on the CPU from the
+dt-bias / S4D-real A initializations, with Mamba-2's per-head dt bias (the
+same draw over heads) and A_log = log(U(A_init_range)). Every draw happens on the CPU from the
 caller's generator and is then moved, so one seed gives the same weights on
 every device. The JAX package draws from ``jax.random``, so the two packages
 give different weights for one seed; tests share weights through
@@ -59,6 +60,15 @@ def dt_bias_init(d_inner: int, dt_min: float, dt_max: float,
     dt = torch.exp(u * (math.log(dt_max) - math.log(dt_min)) + math.log(dt_min))
     dt = dt.clamp(min=dt_init_floor)
     return dt + torch.log(-torch.expm1(-dt))
+
+
+def a_log_uniform(nheads: int, low: float, high: float,
+                  generator: torch.Generator) -> Tensor:
+    """Mamba-2's per-head A init: A_log = log(U(low, high)) (JAX
+    models/mamba2.py:145-150)."""
+    if not 0 < low <= high:
+        raise ValueError(f"A_init_range=({low}, {high}) must be positive")
+    return torch.log(uniform((nheads,), low, high, generator))
 
 
 def s4d_real_A_log(d_inner: int, d_state: int) -> Tensor:

@@ -1,8 +1,9 @@
-"""VideoMamba model-size presets (Mamba-1), as in videomamba_tpu/models/presets.py.
+"""VideoMamba model-size presets, as in videomamba_tpu/models/presets.py.
 
 Tiny is the reference README quick-usage config; Small, Middle and Base
-follow the VideoMamba paper sizing. The Mamba-2 (``*_m2``) constructors are
-not ported yet.
+follow the VideoMamba paper sizing. The ``*_m2`` constructors build the same
+sizes on the Mamba-2 (SSD) mixer with ``M2_SSM_CFG`` (d_state 64, headdim
+64, chunk 128), any key of which ``ssm_cfg`` overrides.
 """
 
 from __future__ import annotations
@@ -10,6 +11,13 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from videomamba_tpu_torch.models.videomamba import PretrainVideoMamba
+
+M2_SSM_CFG: Dict[str, Any] = {
+    "layer": "Mamba2",
+    "d_state": 64,
+    "headdim": 64,
+    "chunk_size": 128,
+}
 
 PRESETS: Dict[str, Dict[str, Any]] = {
     "tiny": dict(embed_dim=192, depth=24),
@@ -54,3 +62,27 @@ def videomamba_middle(**overrides) -> PretrainVideoMamba:
 
 def videomamba_base(**overrides) -> PretrainVideoMamba:
     return _build("base", **overrides)
+
+
+def _build_m2(preset: str, **overrides) -> PretrainVideoMamba:
+    ssm_cfg = dict(M2_SSM_CFG)
+    user_cfg = overrides.pop("ssm_cfg", None)
+    if user_cfg:
+        ssm_cfg.update(user_cfg)
+    return _build(preset, ssm_cfg=ssm_cfg, **overrides)
+
+
+def videomamba_tiny_m2(**overrides) -> PretrainVideoMamba:
+    return _build_m2("tiny", **overrides)
+
+
+def videomamba_small_m2(**overrides) -> PretrainVideoMamba:
+    return _build_m2("small", **overrides)
+
+
+def videomamba_middle_m2(**overrides) -> PretrainVideoMamba:
+    return _build_m2("middle", **overrides)
+
+
+def videomamba_base_m2(**overrides) -> PretrainVideoMamba:
+    return _build_m2("base", **overrides)

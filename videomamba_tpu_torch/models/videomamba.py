@@ -238,7 +238,9 @@ class PretrainVideoMamba(nn.Module):
         """The reference's init passes (videomamba_tpu/models/videomamba.py:
         213-269): Conv3d default for the patch projection, trunc_normal(0.02)
         on pos_embed and on every mixer Linear weight with dt_proj.bias
-        zeroed (segm_init), then out_proj kaiming-uniform / sqrt(depth)."""
+        zeroed (segm_init), then out_proj kaiming-uniform / sqrt(depth);
+        a Mamba-2 mixer's Linear weights are in_proj and out_proj (JAX
+        videomamba.py:242-249)."""
         pe = self.patch_embed
         pe.proj.weight.copy_(
             init.kaiming_uniform(pe.proj.weight.shape, pe.patch_dim, g)
@@ -247,9 +249,11 @@ class PretrainVideoMamba(nn.Module):
         self.pos_embed.copy_(init.trunc_normal(self.pos_embed.shape, g))
         for block in self.layers:
             mx = block.mixer
-            for lin in (mx.in_proj, mx.x_proj, mx.dt_proj):
+            mamba1 = hasattr(mx, "x_proj")
+            for lin in (mx.in_proj, mx.x_proj, mx.dt_proj) if mamba1 else (mx.in_proj,):
                 lin.weight.copy_(init.trunc_normal(lin.weight.shape, g))
-            mx.dt_proj.bias.zero_()
+            if mamba1:
+                mx.dt_proj.bias.zero_()
             mx.out_proj.weight.copy_(
                 init.kaiming_uniform(mx.out_proj.weight.shape, mx.d_inner, g)
                 / np.sqrt(self.depth)

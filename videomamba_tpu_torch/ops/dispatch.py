@@ -7,10 +7,12 @@ tensor launches its kernel or raises. ``use_fast_path=False`` on a mixer, or
 ``VIDEOMAMBA_DISABLE_FUSED`` in the environment, selects the plain path
 explicitly on any device (videomamba_tpu/models/mamba.py:50-54, 264-266).
 
-The backward routes are the JAX package's own switches, read at call time
-from the same environment variables, so one environment drives both
-packages: ``VIDEOMAMBA_MIXER_BWD`` (mamba.py:107-113), ``VIDEOMAMBA_NORM_BWD``
-(norm.py:59-61) and ``VIDEOMAMBA_BLOCK_BWD`` (block.py:111-116).
+The backward routes and the Mamba-2 (SSD) routes are the JAX package's own
+switches, read at call time from the same environment variables, so one
+environment drives both packages: ``VIDEOMAMBA_MIXER_BWD`` (mamba.py:107-113),
+``VIDEOMAMBA_NORM_BWD`` (norm.py:59-61), ``VIDEOMAMBA_BLOCK_BWD``
+(block.py:111-116), ``VIDEOMAMBA_SSD_METHOD`` and ``VIDEOMAMBA_SSD_PMIXER``
+(dispatch.py:91-99, 176-195).
 """
 
 from __future__ import annotations
@@ -70,3 +72,23 @@ def block_bwd_backend() -> str:
     """"fused" (K7, the default) or "composite": :func:`block_bwd_mode` with
     an unset variable meaning K7."""
     return block_bwd_mode() or "fused"
+
+
+def preferred_ssd_method() -> str:
+    """The Mamba-2 fast path's SSD route, from VIDEOMAMBA_SSD_METHOD: "ref"
+    (the sequential oracle) or "chunked" (plain chunked products) when
+    forced, else "pallas", the kernel route (K14 or K12; their plain versions
+    on CPU tensors). The JAX package picks "chunked" where Pallas cannot run;
+    the port's kernels run on every device it builds on."""
+    forced = os.getenv("VIDEOMAMBA_SSD_METHOD", "").strip().lower()
+    return forced if forced in {"ref", "chunked"} else "pallas"
+
+
+def ssd_pmixer_enabled() -> bool:
+    """Whether a Mamba-2 layer may take the projected-mixer kernel (K14,
+    in_proj and out_proj inside the kernel): on unless
+    VIDEOMAMBA_SSD_PMIXER is 0/false/off/no, which selects the mixer kernel
+    (K12) between ``torch.matmul`` projections."""
+    return os.getenv("VIDEOMAMBA_SSD_PMIXER", "1").strip().lower() not in {
+        "0", "false", "off", "no"
+    }

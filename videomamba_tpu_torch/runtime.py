@@ -3,9 +3,9 @@
 Port of videomamba_tpu/runtime.py. ``StreamingSession`` carries per-layer
 (conv_state, ssm_state) and the temporal offset across chunk calls; each
 batch row is an independent video stream. ``DecodeSession`` advances the
-whole layer stack one token at a time (the Mamba-1 branch; Mamba-2 decode,
-K15, is not ported). :func:`resolve_device` is the port's one rule for a
-device that the caller did not name.
+whole layer stack one token at a time (K9 for Mamba-1, K15 for Mamba-2).
+:func:`resolve_device` is the port's one rule for a device that the caller
+did not name.
 """
 
 from __future__ import annotations
@@ -92,30 +92,32 @@ class DecodeSession:
     (e.g. with a streaming prefill and :meth:`load_streaming_state`) and feed
     tokens one at a time; :meth:`step` returns the final-norm features.
 
-    ``use_kernel=None`` takes K9 (ops/kernels/decode_step.py) when it takes
-    the model (bias-free projections, RMS or LayerNorm, its width gate; any
-    batch size): on the card the kernel, on the CPU its plain version, by
-    the dispatch rule; the final norm goes through K2. A model outside that
-    gate runs every layer through ``Mamba.step`` (plain torch), as the JAX
-    package falls back to its XLA route. ``True`` raises on such a model;
-    ``False`` always takes the per-layer route. The layer weights are
-    stacked once here; the states are (depth, B, d_inner, d_conv) and
-    (depth, B, d_inner, d_state), fp32 unless ``dtype`` says otherwise, and
-    the kernel route advances them in place.
+    ``use_kernel=None`` takes the whole-stack decode kernel when it takes the
+    model (bias-free projections, RMS or LayerNorm, its width gate; any
+    batch size): K9 (ops/kernels/decode_step.py ``decode_stack``) for a
+    Mamba-1 model, K15 (``decode_stack_m2``: one B/C group, d_inner a
+    multiple of 128) for a Mamba-2 one. On the card the kernel, on the CPU
+    its plain version, by the dispatch rule; the final norm goes through K2.
+    A model outside that gate runs every layer through its mixer's ``step``
+    (plain torch), as the JAX package falls back to its XLA route. ``True``
+    raises on such a model; ``False`` always takes the per-layer route. The
+    layer weights are stacked once here; the states are the streaming
+    contract's stacked on depth, (depth, B, d_inner, d_conv) and (depth, B,
+    d_inner, d_state) for Mamba-1, (depth, B, conv_dim, d_conv) and (depth,
+    B, nheads, headdim, d_state) fp32 for Mamba-2; the conv window (and the
+    Mamba-1 state) is fp32 unless ``dtype`` says otherwise. The kernel route
+    advances them in place.
     """
 
     def __init__(self, model, batch_size: int, dtype: Optional[torch.dtype] = None,
                  use_kernel: Optional[bool] = None):
-        from videomamba_tpu_torch.models.mamba import Mamba
+        from videomamba_tpu_torch.models.mamba2 import Mamba2
 
         self.model = model
         self.batch_size = batch_size
         block = model.layers[0]
         self.mixer = block.mixer
-        if not isinstance(self.mixer, Mamba):
-            raise NotImplementedError(
-                "DecodeSession: Mamba-2 (SSD) decode, the JAX package's "
-                "decode_stack_pallas_m2 (K15), is not ported")
+        self.is_m2 = isinstance(self.mixer, Mamba2)
         self.norm_type = block.norm_type
         self.eps = block.norm_epsilon
         self.residual_in_fp32 = block.residual_in_fp32
@@ -125,29 +127,41 @@ class DecodeSession:
         self.ssm_states = ssm.expand((depth,) + tuple(ssm.shape)).contiguous()
         self.use_kernel = self._kernel_ok(use_kernel)
         self.stacked = self._stack_weights() if self.use_kernel else None
+        self.kernel_kw = dict(norm_type=self.norm_type, eps=self.eps)
+        if self.is_m2:
+            self.kernel_kw.update(ngroups=self.mixer.ngroups, gate_eps=self.mixer.norm_epsilon)
 
     def _kernel_ok(self, use_kernel: Optional[bool]) -> bool:
-        """K9's eligibility (JAX runtime.py:128-168), forced or automatic."""
-        from videomamba_tpu_torch.ops.kernels.decode_step import decode_stack_supported
+        """The decode kernel's eligibility (JAX runtime.py:128-168), forced
+        or automatic."""
+        from videomamba_tpu_torch.ops.kernels.decode_step import (
+            decode_stack_m2_supported,
+            decode_stack_supported,
+        )
 
         if use_kernel is False:
             return False
         mx = self.mixer
+        if self.is_m2:
+            widths = decode_stack_m2_supported(mx.d_model, mx.d_inner, mx.nheads, mx.ngroups,
+                                               mx.d_state)
+        else:
+            widths = decode_stack_supported(mx.d_model, mx.d_inner)
         compatible = (
             mx.in_proj.bias is None and mx.out_proj.bias is None
-            and self.norm_type in ("rms", "layer")
-            and decode_stack_supported(mx.d_model, mx.d_inner)
+            and self.norm_type in ("rms", "layer") and widths
         )
         if use_kernel and not compatible:
             raise ValueError(
                 "use_kernel=True but the decode kernel does not support this model "
                 "(needs bias-free projections, rms/layer norm, d_model and d_inner "
-                "multiples of 8, d_model up to 6400)."
+                "multiples of 8, d_model up to 6400, and for Mamba-2 one B/C group and "
+                "d_inner a multiple of 128)."
             )
         return compatible
 
     def _stack_weights(self) -> dict:
-        """The layers' weights stacked on depth in K9's layouts, once."""
+        """The layers' weights stacked on depth in the kernel's layouts, once."""
         layers = self.model.layers
         mixers = [layer.mixer for layer in layers]
 
@@ -157,33 +171,42 @@ class DecodeSession:
         with torch.no_grad():
             norm_b = (torch.stack([layer.norm.bias.float() for layer in layers])
                       if self.norm_type == "layer" else None)
-            return dict(
+            common = dict(
                 norm_w=torch.stack([layer.norm.weight.float() for layer in layers]),
                 norm_b=norm_b,
                 in_proj_w=stack(lambda m: m.in_proj.weight),
                 out_proj_w=stack(lambda m: m.out_proj.weight),
                 conv_w=stack(lambda m: m.conv1d.weight.squeeze(1)),
                 conv_b=stack(lambda m: m.conv1d.bias.float() if m.conv1d.bias is not None
-                             else torch.zeros(m.d_inner, device=m.A_log.device)),
+                             else torch.zeros(m.conv1d.weight.shape[0], device=m.A_log.device)),
+                A=stack(lambda m: -torch.exp(m.A_log.float())),
+                D=stack(lambda m: m.D.float()),
+            )
+            if self.is_m2:
+                return dict(
+                    common, dt_bias=stack(lambda m: m.dt_bias.float()),
+                    gate_w=stack(lambda m: m.norm.weight.float()) if self.mixer.rmsnorm
+                    else None)
+            return dict(
+                common,
                 x_proj_w=stack(lambda m: m.x_proj.weight),
                 dt_proj_w=stack(lambda m: m.dt_proj.weight),
                 dt_bias=stack(lambda m: m.dt_proj.bias.float()),
-                A=stack(lambda m: -torch.exp(m.A_log.float())),
-                D=stack(lambda m: m.D.float()),
             )
 
     @torch.no_grad()
     def step(self, token: torch.Tensor) -> torch.Tensor:
         """Advance one token (B, d_model); returns (B, d_model) final-norm
         features."""
-        from videomamba_tpu_torch.ops.kernels.decode_step import decode_stack
+        from videomamba_tpu_torch.ops.kernels.decode_step import decode_stack, decode_stack_m2
         from videomamba_tpu_torch.ops.norm import fused_add_norm
 
         model = self.model
         if self.use_kernel:
-            hidden, residual, self.conv_states, self.ssm_states = decode_stack(
+            kernel = decode_stack_m2 if self.is_m2 else decode_stack
+            hidden, residual, self.conv_states, self.ssm_states = kernel(
                 token, **self.stacked, conv_states=self.conv_states,
-                ssm_states=self.ssm_states, norm_type=self.norm_type, eps=self.eps)
+                ssm_states=self.ssm_states, **self.kernel_kw)
             return fused_add_norm(
                 hidden.to(self.conv_states.dtype), model.norm.weight, model.norm.bias,
                 residual=residual, prenorm=False, residual_in_fp32=self.residual_in_fp32,

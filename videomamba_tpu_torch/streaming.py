@@ -2,8 +2,10 @@
 
 Port of videomamba_tpu/streaming.py, frozen at contract version "1.0.0":
 per-layer ``(conv_state, ssm_state)`` tensors shaped ``(B, d_inner, d_conv)``
-and ``(B, d_inner, d_state)``, allocate / shape / validate functions for any
-model exposing ``layers[i].mixer``, and the frozen forward-return strings.
+and ``(B, d_inner, d_state)`` (a Mamba-2 mixer's ``state_shapes``: ``(B,
+conv_dim, d_conv)`` and ``(B, nheads, headdim, d_state)``), allocate / shape /
+validate functions for any model exposing ``layers[i].mixer``, and the
+frozen forward-return strings.
 """
 
 from __future__ import annotations
@@ -67,6 +69,13 @@ def expected_state_shapes(model: _ModelLike, batch_size: int) -> Dict[int, State
         mixer = getattr(layer, "mixer", None)
         if mixer is None:
             raise TypeError(f"Layer {idx} does not expose a mixer attribute.")
+        # Mixers with another state layout (Mamba2's 4-D SSM state) publish
+        # their shapes; the d_inner-based shapes stay the Mamba-1 contract.
+        state_shapes = getattr(mixer, "state_shapes", None)
+        if callable(state_shapes):
+            conv_shape, ssm_shape = state_shapes(batch_size)
+            shapes[idx] = StateShape(conv_state=tuple(conv_shape), ssm_state=tuple(ssm_shape))
+            continue
         try:
             d_inner = int(getattr(mixer, "d_inner"))
             d_conv = int(getattr(mixer, "d_conv"))
