@@ -98,8 +98,7 @@ failure, so the script exits nonzero:
     add-norm and the plain chunked SSD (VIDEOMAMBA_SSD_METHOD=chunked),
     1e-4; StreamingSession over two 4-frame chunks against the full clip
     (1e-4); the forward under VIDEOMAMBA_SSD_PMIXER=0 (K12 24, K14 0)
-    against the K14 forward (1e-4); a backward through the model raises
-    NotImplementedError naming K13.
+    against the K14 forward (1e-4).
 19. m2 bf16 serving: the phase-18 weights cast for bf16: K2 25, K14 24,
     against the same model with every kernel swapped for its plain version
     (2e-2), max and mean relative error against phase 18's fp32 features
@@ -112,13 +111,38 @@ failure, so the script exits nonzero:
     launches a layer) in K9's place: the 5th frame's 196 tokens against the
     5-frame forward (1e-4 / 2e-2), K15 against its plain version over 8
     steps at B=1 and at B=80, ms a token at B=1, 8 and 80, profiler idle.
+21. Mamba-2 training kernels at Base-m2 shapes, B=1 and B=4, fp32 and
+    bf16 (nonzero h0, conv window and h_last cotangent): K12 with its
+    checkpoints (each chunk's entry state, the pre-gate y), K11 (the bare
+    SSD scan) forward and backward, K13 (the mixer backward) and K14's
+    backward against their plain versions, fp32 within 2e-5 and bf16
+    within 2e-2, the backward kernels twice bit-identical, each timed
+    beside its plain version; then all five at head dim 256 and at d_state
+    256 (fp32).
+22. m2 training, ``make_train_step`` on ``videomamba_base_m2`` with the
+    bench recipe (AdamW lr 1e-4, weight decay 0.05): at fp32 and bf16
+    compute over fp32 masters one B=2 step on the default ("mixer") train
+    route, K2 25, K12 24, K13 24 launches, against the same model with every
+    kernel wrapper taking its plain version (loss 1e-5 / 1e-2, gradients
+    1e-4 / 5e-2); then 2 warm and 5 timed B=4 steps on the zero target
+    (median host ms, peak memory). At fp32 one step each under
+    VIDEOMAMBA_SSD_TRAIN_ROUTE=pmixer (K14 24, its backward 24) and
+    VIDEOMAMBA_SSD_BWD=composite (K12 24, K11's backward 24), gradients
+    within 1e-4 of the default route; checkpoint_num=24 with
+    drop_path_rate=0.1 against no remat (1e-6).
+23. K11's route, ``ssd_chunked(method="pallas")`` at Base-m2 shapes (B=2),
+    forward and backward against ``method="chunked"`` (1e-4).
+24. Mamba-1 kernels at the state sizes the JAX package's kernels take
+    beyond 8/16/32/64, at Base widths: K1 and K5 at d_state 24, 128 and
+    256 (two slices of 128), K3 and K6 (fp32), K4 and K7 (bf16) at 24 and
+    128, each against its plain version.
 
 The launch counters are zeroed just before each main path and read just
 after: phases 2-4 (fp32 serving), 6-7 (bf16 serving), 9 (fp32 training),
 10 (bf16 training), 13 (eval backward), 14 (whole-block training), 15
 (decode, per dtype), 16 (the conv route), 18 (m2 fp32 serving, both
-routes), 19 (m2 bf16 serving) and 20 (m2 decode, per dtype); the kernels
-line sums them.
+routes), 19 (m2 bf16 serving), 20 (m2 decode, per dtype), 22 (m2
+training, every route) and 23 (K11's route); the kernels line sums them.
 TF32 is off for matmuls and cuDNN throughout. Times are CUDA-event times per
 launch (kernels) or host time around a synchronised call (forward, chunk,
 step, token), on the card named in the output. Each kernel's bound is
@@ -129,8 +153,9 @@ computes any kernel's function (K10's carries its window and applies
 SiLU), so ``library_ms`` is null. The kernels line reports K7 at bf16 Base,
 K9 at fp32 B=1 (one launch is one token through the stack: 4 x depth CUDA
 launches) and K10 at fp32 B=1. The last stdout line is the contract JSON;
-the line before it lists the kernels (13 rows: K12 and K14 at fp32 Base
-m2, K15 at fp32 B=1).
+the line before it lists the kernels (17 rows: K12 and K14 at fp32 Base
+m2, K15 at fp32 B=1, K11's forward and backward, K13 and K14's backward
+at fp32 Base m2, B=1).
 """
 
 from __future__ import annotations
@@ -154,6 +179,7 @@ from videomamba_tpu_torch.models import mamba as mamba_mod  # noqa: E402
 from videomamba_tpu_torch.models import mamba2 as mamba2_mod  # noqa: E402
 from videomamba_tpu_torch.models.mamba import Mamba  # noqa: E402
 from videomamba_tpu_torch.models.presets import videomamba_base, videomamba_base_m2  # noqa: E402
+from videomamba_tpu_torch.ops import dispatch  # noqa: E402
 from videomamba_tpu_torch.ops.causal_conv1d import causal_conv1d  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import _build  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import block_bwd as k7  # noqa: E402
@@ -164,8 +190,11 @@ from videomamba_tpu_torch.ops.kernels import fused_add_norm as k2  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import mixer_bwd as k6  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import mixer_fused as k3  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import scan as k1  # noqa: E402
+from videomamba_tpu_torch.ops.kernels import ssd_core as k11  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12  # noqa: E402
+from videomamba_tpu_torch.ops.kernels import ssd_mixer_bwd as k13  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14  # noqa: E402
+from videomamba_tpu_torch.ops.ssd import _prepare_dt, ssd_chunked  # noqa: E402
 from videomamba_tpu_torch.parallel.train_step import make_train_step  # noqa: E402
 from videomamba_tpu_torch.runtime import DecodeSession, StreamingSession  # noqa: E402
 from videomamba_tpu_torch.utils.precision import cast_module_for_compute  # noqa: E402
@@ -195,7 +224,11 @@ WRAPPERS = {"selective_scan": k1.selective_scan,
             "causal_conv": k10.causal_conv,
             "ssd_mixer": k12.ssd_mixer,
             "ssd_pmixer": k14.ssd_pmixer,
-            "decode_stack_m2": k9.decode_stack_m2}
+            "decode_stack_m2": k9.decode_stack_m2,
+            "ssd_scan": k11.ssd_scan,
+            "ssd_scan_bwd": k11.ssd_scan_bwd,
+            "ssd_mixer_bwd": k13.ssd_mixer_bwd,
+            "ssd_pmixer_bwd": k14.ssd_pmixer_bwd}
 SOURCES = {
     "selective_scan": ("videomamba_tpu_torch/csrc/selective_scan.cu",
                        "videomamba_tpu/ops/pallas/scan.py:181"),
@@ -223,6 +256,14 @@ SOURCES = {
                    "videomamba_tpu/ops/pallas/ssd_block.py:1583"),
     "decode_stack_m2": ("videomamba_tpu_torch/csrc/decode_step.cu",
                         "videomamba_tpu/ops/pallas/decode_step.py:418"),
+    "ssd_scan": ("videomamba_tpu_torch/csrc/ssd_mixer.cu",
+                 "videomamba_tpu/ops/pallas/ssd_scan.py:262"),
+    "ssd_scan_bwd": ("videomamba_tpu_torch/csrc/ssd_core_bwd.cu",
+                     "videomamba_tpu/ops/pallas/ssd_scan.py:618"),
+    "ssd_mixer_bwd": ("videomamba_tpu_torch/csrc/ssd_mixer_bwd.cu",
+                      "videomamba_tpu/ops/pallas/ssd_scan.py:1515"),
+    "ssd_pmixer_bwd": ("videomamba_tpu_torch/csrc/ssd_pmixer_bwd.cu",
+                       "videomamba_tpu/ops/pallas/ssd_block.py:885"),
 }
 
 
@@ -1245,22 +1286,6 @@ def phase_m2_forward(fast, plain, clip, depth):
     return x_vis
 
 
-def phase_m2_backward_raises(model, clip):
-    """K14 is forward only: a backward through the m2 model on the card
-    raises naming K13; it never leaves grad=None behind."""
-    with torch.enable_grad():
-        x_vis, _ = model(clip.clone())  # the clip was made in inference mode
-        check(x_vis.requires_grad, "m2 backward: the output has no graph")
-        try:
-            x_vis.square().mean().backward()
-        except NotImplementedError as exc:
-            check("K13" in str(exc), f"m2 backward raised without naming K13: {exc}")
-            print(f"m2 backward raises NotImplementedError: {str(exc)[:100]}")
-        else:
-            raise AssertionError("m2 backward through K14 did not raise")
-    model.zero_grad(set_to_none=True)
-
-
 def phase_m2_bf16_forward(model, clip, fp32_vis, depth):
     """The Base m2 weights cast for bf16 serving: K2 25, K14 24; against the
     same model with every kernel swapped for its plain version (2e-2); the
@@ -1314,6 +1339,294 @@ def serving_profile(label, model, clip):
         dev_txt = "not measured" if dev is None else f"{dev:.3f} ms"
         print(f"{label} {what} under the profiler: {wall:.3f} ms wall, device kernels "
               f"{dev_txt}, idle {idle}")
+
+
+def ssd_bwd_flops(cfg, dtype, kind):
+    """The least operations of K11's backward ("scan"), K13 ("mixer") or
+    K14's backward ("pmixer"): per row the causal half of C B^T, dM, M^T dy
+    and the two dcb products (Q / 2 keys on average), and per row and head
+    the four (P, N) state products; K13 adds the conv backward and the
+    epilogue, K14 the five projection products."""
+    b, L, e = cfg["batch"], cfg["seqlen"], cfg["embed"]
+    h, p, gr, n, w, q = (cfg["nheads"], cfg["hdim"], cfg["ngroups"], cfg["d_state"],
+                         cfg["width"], cfg["chunk"])
+    di = h * p
+    cd = di + 2 * gr * n
+    tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+    products = 2 * b * L * ((q // 2) * (gr * n + 2 * h * (p + n)) + 4 * h * p * n)
+    fp32 = 0
+    if kind != "scan":
+        fp32 = b * L * (4 * w * cd + 20 * di)
+    if kind == "pmixer":
+        products += 2 * b * L * e * (3 * (di + cd) + 2 * di)
+    return {tag: products, "fp32": (products if tag == "fp32" else 0) + fp32}
+
+
+def ssd_train_checks(cfg, device, dtype, label, iters):
+    """K12 with checkpoints, K11 forward and backward, K13 and K14's
+    backward against their plain versions on one set of Base-m2-shaped
+    inputs (fp32 2e-5, bf16 2e-2), each timed beside its plain version;
+    the backward kernels twice bit-identical. Returns the kernels-line
+    entries."""
+    tol = GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL
+    tag = f"{'fp32' if dtype == torch.float32 else 'bf16'} {label}"
+    mixer, pmixer = ssd_inputs(cfg, device, dtype)
+    g = torch.Generator().manual_seed(29)
+    b, L, e = cfg["batch"], cfg["seqlen"], cfg["embed"]
+    h, p, gr, n, q = cfg["nheads"], cfg["hdim"], cfg["ngroups"], cfg["d_state"], cfg["chunk"]
+    di, gn = h * p, gr * n
+    shape = dict(chunk_size=q, nheads=h, hdim=p, ngroups=gr, d_state=n)
+    dev = device
+    zx = mixer["zxbcdt"]
+    core = dict(zx=zx, dt_p=_prepare_dt(zx[..., 2 * di + 2 * gn:], mixer["dt_bias"], True),
+                A=mixer["A"], conv_weight=mixer["conv_weight"], conv_bias=mixer["conv_bias"],
+                D=mixer["D"], initial_state=mixer["initial_state"],
+                conv_state=mixer["conv_state"], norm_weight=mixer["norm_weight"],
+                norm_eps=1e-5, **shape)
+    out = {}
+    out["ssd_mixer"] = time_against_plain(
+        f"ssd_mixer checkpoints {tag}", lambda **kw: k12.ssd_mixer_core(**kw, checkpoints=True),
+        lambda **kw: k12.ssd_core_plain(*kw.values(), checkpoints=True), core, tol,
+        ssd_flops(cfg, dtype, False), iters=iters)
+    *_, hins, yd = k12.ssd_mixer_core(**core, checkpoints=True)
+    scan = dict(x4=zx[..., di:2 * di].reshape(b, L, h, p), dt_p=core["dt_p"], A=core["A"],
+                B4=zx[..., 2 * di:2 * di + gn].reshape(b, L, gr, n),
+                C4=zx[..., 2 * di + gn:2 * di + 2 * gn].reshape(b, L, gr, n),
+                h0=core["initial_state"], chunk_size=q)
+    out["ssd_scan"] = time_against_plain(
+        f"ssd_scan {tag}", lambda **kw: k11.ssd_scan(**kw, checkpoints=True),
+        lambda **kw: k11.ssd_scan_plain(**kw, checkpoints=True), scan, tol,
+        {"fp32" if dtype == torch.float32 else "bf16":
+         b * L * (q * (gn + di) + 4 * di * n)}, iters=iters)
+    scan_bwd = dict(scan, hins=k11.ssd_scan(**scan, checkpoints=True)[2],
+                    dy=randn((b, L, h, p), g, dev), dhlast=randn((b, h, p, n), g, dev, 0.5))
+    del scan_bwd["h0"]
+    out["ssd_scan_bwd"] = time_against_plain(
+        f"ssd_scan_bwd {tag}", k11.ssd_scan_bwd, k11.ssd_scan_bwd_plain, scan_bwd, tol,
+        ssd_bwd_flops(cfg, dtype, "scan"), iters=iters, repeat_identical=True)
+    mixer_bwd = dict(core, hins=hins, yd=yd, dout=randn((b, L, di), g, dev).to(dtype),
+                     dhlast=scan_bwd["dhlast"])
+    del mixer_bwd["initial_state"]
+    out["ssd_mixer_bwd"] = time_against_plain(
+        f"ssd_mixer_bwd {tag}", k13.ssd_mixer_bwd, k13.ssd_mixer_bwd_plain, mixer_bwd, tol,
+        ssd_bwd_flops(cfg, dtype, "mixer"), iters=iters, repeat_identical=True)
+    dt_p = k14.dt_projection(pmixer["hidden"], pmixer["in_proj_w"], h, pmixer["dt_bias"])
+    pw = {k: pmixer[k] for k in ("A", "in_proj_w", "out_proj_w", "conv_weight", "conv_bias",
+                                 "D")}
+    *_, hins2, yd2 = k14.ssd_pmixer_core(
+        pmixer["hidden"], dt_p, *pw.values(), pmixer["initial_state"], pmixer["conv_state"],
+        pmixer["norm_weight"], 1e-5, q, h, p, gr, n, checkpoints=True)
+    pmixer_bwd = dict(hidden=pmixer["hidden"], dt_p=dt_p, **pw,
+                      conv_state=pmixer["conv_state"], norm_weight=pmixer["norm_weight"],
+                      norm_eps=1e-5, hins=hins2, yd=yd2,
+                      dout=randn((b, L, e), g, dev).to(dtype), dhlast=scan_bwd["dhlast"],
+                      **shape)
+    out["ssd_pmixer_bwd"] = time_against_plain(
+        f"ssd_pmixer_bwd {tag}", k14.ssd_pmixer_bwd, k14.ssd_pmixer_bwd_plain, pmixer_bwd,
+        tol, ssd_bwd_flops(cfg, dtype, "pmixer"), iters=iters, repeat_identical=True)
+    return out
+
+
+def phase_ssd_train_kernels(device):
+    """The Mamba-2 training kernels at Base-m2 shapes, B = 1 and 4, fp32 and
+    bf16 (ssd_train_checks), then at head dim 256 and d_state 256 (fp32).
+    Returns the kernels-line entries of fp32 B = 1."""
+    entries = {}
+    for batch in (1, 4):
+        for dtype in (torch.float32, torch.bfloat16):
+            res = ssd_train_checks(dict(BASE_M2, batch=batch), device, dtype,
+                                   f"Base m2 B={batch}", iters=10 if batch == 1 else 3)
+            if batch == 1 and dtype == torch.float32:
+                entries = {k: v for k, v in res.items() if k != "ssd_mixer"}
+    for label, cfg in (("head dim 256", dict(BASE_M2, nheads=6, hdim=256)),
+                       ("d_state 256", dict(BASE_M2, d_state=256))):
+        ssd_train_checks(cfg, device, torch.float32, label, iters=2)
+    return entries
+
+
+def m2_model(device, sd=None, **overrides):
+    model = videomamba_base_m2(pool_type="avg", device=device,
+                               generator=torch.Generator().manual_seed(0), **overrides)
+    if sd is not None:
+        load_state_dict(model, sd)
+    return model
+
+
+@contextlib.contextmanager
+def all_plain():
+    """Every kernel wrapper takes its plain version (the kernels' rounding
+    points, no kernel), on card tensors too: the reference of the m2
+    training checks."""
+    saved = dispatch.runs_plain
+    dispatch.runs_plain = lambda t: True
+    try:
+        yield
+    finally:
+        dispatch.runs_plain = saved
+
+
+def phase_m2_train(device, depth):
+    """``make_train_step`` on ``videomamba_base_m2``, the bench recipe: at
+    fp32 and bf16 one B=2 step on the mixer route (K2 25, K12 24, K13 24)
+    against the same model on plain versions (loss 1e-5 / 1e-2, gradients
+    1e-4 / 5e-2), then the B=4 zero-target step times and peak memory; at
+    fp32 one step each on VIDEOMAMBA_SSD_TRAIN_ROUTE=pmixer (K14 24, its
+    backward 24) and VIDEOMAMBA_SSD_BWD=composite (K12 24, K11's backward
+    24) against the mixer route (1e-4), and remat with drop path against no
+    remat (1e-6). Returns the step times and peaks."""
+    batch2 = train_batch(2, device, zero_target=False)
+    batch4 = train_batch(4, device)
+    sd0, times, fp32_grads = None, {}, None
+    for dtype, tol, step_tol in ((None, 1e-5, STEP_GRAD_TOL),
+                                 (torch.bfloat16, BF16_TOL, BF16_STEP_TOL)):
+        tag = "fp32" if dtype is None else "bf16"
+        model = m2_model(device, sd0)
+        if sd0 is None:
+            sd0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        step = make_train_step(model, adamw(model), compute_dtype=dtype)
+        before = launches()
+        metrics = step(batch2, torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        expect_launches(f"m2 {tag} train step", delta(launches(), before),
+                        fused_add_norm=depth + 1, ssd_mixer=depth, ssd_mixer_bwd=depth,
+                        ssd_pmixer=0, ssd_pmixer_bwd=0, ssd_scan_bwd=0)
+        check(all(p.dtype == torch.float32 for p in model.parameters()),
+              f"m2 {tag} step: masters not fp32")
+        grads = grads_of(model)
+        load_state_dict(model, sd0)
+        with all_plain():
+            before = launches()
+            plain_metrics = step(batch2, torch.Generator().manual_seed(1))
+            torch.cuda.synchronize()
+            check(launches() == before, f"m2 {tag} plain-version step launched a kernel")
+        check_close(f"m2 {tag} train step loss vs plain versions", metrics["loss"].reshape(1),
+                    plain_metrics["loss"].reshape(1), tol)
+        compare_grads(f"m2 {tag} train step vs plain versions", grads, grads_of(model),
+                      step_tol)
+        if dtype is None:
+            fp32_grads = grads
+        else:
+            worst = max(rel_err(grads[k], fp32_grads[k]) for k in fp32_grads)
+            print(f"m2 bf16 vs fp32 train-step gradients: max rel {worst:.3e}")
+        load_state_dict(model, sd0)
+        before = launches()
+        times[tag] = timed_steps(step, batch4, f"m2 {tag} train step (4,3,8,224,224)")
+        expect_launches(f"m2 {tag} B=4 steps", delta(launches(), before),
+                        ssd_mixer=7 * depth, ssd_mixer_bwd=7 * depth, ssd_pmixer=0)
+        del model, step
+        torch.cuda.empty_cache()
+
+    model = m2_model(device, sd0)
+    step = make_train_step(model, adamw(model))
+    for route_env, want in (({"VIDEOMAMBA_SSD_TRAIN_ROUTE": "pmixer"},
+                             dict(ssd_pmixer=depth, ssd_pmixer_bwd=depth, ssd_mixer=0,
+                                  ssd_mixer_bwd=0)),
+                            ({"VIDEOMAMBA_SSD_BWD": "composite"},
+                             dict(ssd_mixer=depth, ssd_scan_bwd=depth, ssd_mixer_bwd=0))):
+        load_state_dict(model, sd0)
+        with env(**route_env):
+            before = launches()
+            step(batch2, torch.Generator().manual_seed(1))
+            torch.cuda.synchronize()
+        label = ", ".join(f"{k}={v}" for k, v in route_env.items())
+        expect_launches(f"m2 fp32 train step, {label}", delta(launches(), before), **want)
+        compare_grads(f"m2 {label} vs mixer route", grads_of(model), fp32_grads,
+                      STEP_GRAD_TOL)
+    del model, step
+    torch.cuda.empty_cache()
+
+    remat_grads = []
+    for use_checkpoint in (True, False):
+        model = m2_model(device, sd0, drop_path_rate=0.1, use_checkpoint=use_checkpoint,
+                         checkpoint_num=depth)
+        make_train_step(model, adamw(model))(batch2, torch.Generator().manual_seed(7))
+        remat_grads.append(grads_of(model))
+        del model
+    compare_grads("m2 checkpoint_num=24, drop_path 0.1 vs no remat", *remat_grads, 1e-6)
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_ssd_chunked_path(device):
+    """K11's route, ``ssd_chunked(method="pallas")`` (the JAX package's
+    ``ssd_core_pallas``), forward and backward at Base-m2 shapes, B = 2, with
+    D, z, dt_bias and h0: y, h_last and every gradient against
+    ``method="chunked"`` (the plain chunked SSD, autograd), 1e-4."""
+    g = torch.Generator().manual_seed(31)
+    c = BASE_M2
+    b, L, h, p, n = 2, c["seqlen"], c["nheads"], c["hdim"], c["d_state"]
+    leaves = [randn((b, L, h, p), g, device), randn((b, L, h), g, device, 0.5) - 2.0,
+              -torch.exp(randn((h,), g, device, 0.5)), randn((b, L, 1, n), g, device),
+              randn((b, L, 1, n), g, device), randn((h,), g, device),
+              randn((b, L, h, p), g, device), randn((h,), g, device, 0.1),
+              randn((b, h, p, n), g, device, 0.3)]
+    names = ("x", "dt", "A", "B", "C", "D", "z", "dt_bias", "initial_state")
+    outs = []
+    for method in ("pallas", "chunked"):
+        args = [t.detach().clone().requires_grad_() for t in leaves]
+        before = launches()
+        y, h_last = ssd_chunked(**dict(zip(names, args)), return_last_state=True,
+                                chunk_size=c["chunk"], method=method)
+        (y.square().mean() + h_last.square().mean()).backward()
+        torch.cuda.synchronize()
+        outs.append((y.detach(), h_last.detach(), [a.grad for a in args]))
+        if method == "pallas":
+            used = delta(launches(), before)
+            expect_launches("ssd_chunked pallas path", used, ssd_scan=1, ssd_scan_bwd=1)
+    check_close("ssd_chunked pallas y vs chunked", outs[0][0], outs[1][0], MODEL_TOL)
+    check_close("ssd_chunked pallas h_last vs chunked", outs[0][1], outs[1][1], MODEL_TOL)
+    for name, a, b in zip(names, outs[0][2], outs[1][2]):
+        check_close(f"ssd_chunked pallas d{name} vs chunked", a, b, MODEL_TOL)
+    return used
+
+
+def phase_state_sizes(device):
+    """The Mamba-1 kernels at state sizes outside their walks' 8/16/32/64
+    at Base widths (B = 1, L 1569, Di 1536): K1 and K5 at 24 (zero lanes to
+    32), 128 and 256 (two slices of 128); K3 and K6, K4 and K7 (bf16) at 24
+    and 128; each against its plain version (fp32 1e-5 / 2e-5, bf16 1e-2 /
+    2e-2), timed over 3 calls."""
+    for n in (24, 128, 256):
+        cfg = dict(BASE, d_state=n)
+        kw = kernel_inputs(cfg, device)
+        scan = dict(kw["selective_scan"], z=kw["selective_scan"]["z"].contiguous())
+        time_against_plain(f"selective_scan d_state {n}", WRAPPERS["selective_scan"],
+                           k1.selective_scan_plain, dict(scan, checkpoints=True), KERNEL_TOL,
+                           scan_flops(1, cfg["seqlen"], cfg["d_inner"], n), iters=3,
+                           plain_iters=1)
+        *_, ckpt = k1.selective_scan(**scan, checkpoints=True)
+        g = torch.Generator().manual_seed(41)
+        bwd = dict({k: v for k, v in scan.items() if k != "h0"}, ckpt=ckpt,
+                   g_out=randn(scan["u"].shape, g, device),
+                   g_hlast=randn(scan["h0"].shape, g, device, 0.3))
+        time_against_plain(f"selective_scan_bwd d_state {n}", k1.selective_scan_bwd,
+                           k1.selective_scan_bwd_plain, bwd, GRAD_TOL,
+                           scan_flops(1, cfg["seqlen"], cfg["d_inner"], n, 26), iters=3,
+                           plain_iters=1)
+        if n > 128:
+            continue
+        mixer = kw["mixer_fused"]
+        time_against_plain(f"mixer_fused d_state {n}", k3.mixer_fused, k3.mixer_fused_plain,
+                           dict(mixer, checkpoints=True), KERNEL_TOL,
+                           mixer_flops(1, cfg["seqlen"], cfg["d_inner"], n, cfg["dt_rank"],
+                                       cfg["width"], torch.float32), iters=3, plain_iters=1)
+        *_, ckpt = k3.mixer_fused(**mixer, checkpoints=True)
+        g = torch.Generator().manual_seed(43)
+        mbwd = dict({k: v for k, v in mixer.items() if k != "h0"}, ckpt=ckpt,
+                    g_y=randn(mixer["x"].shape, g, device),
+                    g_hlast=randn(mixer["h0"].shape, g, device, 0.3))
+        time_against_plain(f"mixer_bwd d_state {n}", k6.mixer_bwd, k6.mixer_bwd_plain, mbwd,
+                           GRAD_TOL, mixer_flops(1, cfg["seqlen"], cfg["d_inner"], n,
+                                                 cfg["dt_rank"], cfg["width"], torch.float32,
+                                                 backward=True), iters=3, plain_iters=1)
+        blk = block_inputs(cfg, device, torch.bfloat16)
+        time_against_plain(f"block_fused bf16 d_state {n}", k4.block_fused,
+                           k4.block_fused_plain, dict(blk, checkpoints=True), BF16_TOL,
+                           block_flops(cfg, torch.bfloat16), iters=3, plain_iters=1)
+        bb = block_bwd_inputs(cfg, device, torch.bfloat16)
+        time_against_plain(f"block_bwd bf16 d_state {n}", k7.block_bwd, k7.block_bwd_plain,
+                           bb, BF16_GRAD_TOL, block_flops(cfg, torch.bfloat16, backward=True),
+                           iters=3, plain_iters=1)
 
 
 def card_line() -> str:
@@ -1455,7 +1768,6 @@ def main() -> int:
         print(f"m2 fp32 main path launches: {m2_fp32_counts}")
         for name in ("fused_add_norm", "ssd_pmixer", "ssd_mixer"):
             check(m2_fp32_counts[name] > 0, f"{name} was not launched on the m2 fp32 path")
-    phase_m2_backward_raises(m2, clip)
     with torch.inference_mode():
         m2_bf16 = cast_module_for_compute(copy.deepcopy(m2), torch.bfloat16)
         zero_launches()
@@ -1487,9 +1799,29 @@ def main() -> int:
           "decode_stack_m2 was not launched on the m2 decode path")
     torch.cuda.empty_cache()
 
+    with torch.inference_mode():
+        kernels.update(phase_ssd_train_kernels(device))
+    torch.cuda.empty_cache()
+    zero_launches()
+    m2_train_times = phase_m2_train(device, depth)
+    m2_train_counts = launches()
+    print(f"m2 training main path launches: {m2_train_counts}")
+    for name in ("fused_add_norm", "ssd_mixer", "ssd_mixer_bwd", "ssd_pmixer",
+                 "ssd_pmixer_bwd", "ssd_scan_bwd"):
+        check(m2_train_counts[name] > 0, f"{name} was not launched on the m2 training path")
+    print("m2 train step B=4: " + ", ".join(
+        f"{tag} {ms:.3f} ms ({peak:.2f} GiB peak)" for tag, (ms, peak) in m2_train_times.items())
+          + f"; Mamba-1 mixer route fp32 {fp32_ms:.3f} ms, bf16 {bf16_ms:.3f} ms")
+    zero_launches()
+    ssd_path_counts = phase_ssd_chunked_path(device)
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        phase_state_sizes(device)
+    torch.cuda.empty_cache()
+
     paths = (fp32_counts, bf16_counts, train32_counts, train16_counts, eval_counts,
              block_route_counts, decode_counts, conv_counts, m2_fp32_counts, m2_bf16_counts,
-             m2_decode_counts)
+             m2_decode_counts, m2_train_counts, ssd_path_counts)
     counts = {name: sum(c[name] for c in paths) for name in WRAPPERS}
 
     rows = [

@@ -1,14 +1,18 @@
 """Device-time breakdown of the PyTorch port's train step on one CUDA card.
 
     python3 scripts/profile_torch_train.py [--batch 4] [--dtype fp32|bf16|both]
+        [--model m1|m2|both]
 
-Builds VideoMamba-Base (depth 24, random weights from a seeded generator),
-takes two warm steps of ``make_train_step`` (AdamW lr 1e-4, weight decay
-0.05, zero target: the bench.py recipe; bf16 is ``compute_dtype``), then
-profiles one step with ``torch.profiler`` and prints, for each dtype, the
-step's host wall time, the device time summed by kernel group and the top
-kernels by name. The device's idle share is the wall time not covered by
-kernel time (one stream: kernels do not overlap). Needs a CUDA card.
+Builds VideoMamba-Base (Mamba-1, ``m1``) or VideoMamba-Base-m2 (Mamba-2,
+``m2``; its layers on the default "mixer" train route: ``torch.matmul``
+projections around K12 with checkpoints and K13), depth 24, random weights
+from a seeded generator; takes two warm steps of ``make_train_step`` (AdamW
+lr 1e-4, weight decay 0.05, zero target: the bench.py recipe; bf16 is
+``compute_dtype``), then profiles one step with ``torch.profiler`` and
+prints, for each model and dtype, the step's host wall time, the device
+time summed by kernel group and the top kernels by name. The device's idle
+share is the wall time not covered by kernel time (one stream: kernels do
+not overlap). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -25,17 +29,26 @@ from torch.autograd import DeviceType
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from videomamba_tpu_torch.models.presets import videomamba_base  # noqa: E402
+from videomamba_tpu_torch.models.presets import videomamba_base, videomamba_base_m2  # noqa: E402
 from videomamba_tpu_torch.parallel.train_step import make_train_step  # noqa: E402
 
 # Kernel-name fragments -> group, first match wins.
 GROUPS = (
+    ("ssd_bwd_kside", "SSD reverse walk, input-row tiles (K13 / K11)"),
+    ("ssd_bwd_qside", "SSD reverse walk, output-row tiles (K13 / K11)"),
+    ("ssd_bwd_", "SSD reverse walk, chunk dh, pass, group sums (K13 / K11)"),
+    ("ssd_epilogue_bwd", "SSD gate and norm backward (K13)"),
+    ("ssd_chunk_out", "SSD chunk outputs (K12)"),
+    ("ssd_chunk_state", "SSD chunk states and pass (K12)"),
+    ("ssd_state_pass", "SSD chunk states and pass (K12)"),
+    ("ssd_gate", "SSD gate and norm (K12)"),
+    ("dsilu_kernel", "conv kernels (K3/K6, K12/K13)"),
     ("scan_bwd_kernel", "reverse walk (K6 / K5)"),
     ("scan_walk_kernel", "forward walk (K3)"),
     ("gemm_nt", "K3/K6 recompute product tiles"),
     ("gemm_nn", "K6 cotangent product tiles"),
     ("gemm_tn", "K6 weight-gradient tiles"),
-    ("conv_", "K3/K6 conv kernels"),
+    ("conv_", "conv kernels (K3/K6, K12/K13)"),
     ("reduce_bc_kernel", "K5/K6 ordered reductions"),
     ("reduce_batch_kernel", "K5/K6 ordered reductions"),
     ("sum_slices", "K5/K6 ordered reductions"),
@@ -64,9 +77,12 @@ def card_line() -> str:
     return out.splitlines()[0] if out else "unknown"
 
 
-def profile_step(dtype: torch.dtype, batch: int, device) -> None:
-    model = videomamba_base(pool_type="avg", device=device,
-                            generator=torch.Generator().manual_seed(0))
+PRESETS = {"m1": ("Mamba-1 Base", videomamba_base), "m2": ("Mamba-2 Base", videomamba_base_m2)}
+
+
+def profile_step(model_key: str, dtype: torch.dtype, batch: int, device) -> None:
+    title, preset = PRESETS[model_key]
+    model = preset(pool_type="avg", device=device, generator=torch.Generator().manual_seed(0))
     opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=0.05)
     step = make_train_step(model, opt,
                            compute_dtype=None if dtype == torch.float32 else dtype)
@@ -91,7 +107,7 @@ def profile_step(dtype: torch.dtype, batch: int, device) -> None:
     for name, ms in by_name.items():
         by_group[group_of(name)] += ms
     label = "fp32" if dtype == torch.float32 else "bf16"
-    print(f"\n{label} train step, B={batch}: wall {wall_ms:.3f} ms, kernel time "
+    print(f"\n{title} {label} train step, B={batch}: wall {wall_ms:.3f} ms, kernel time "
           f"{total:.3f} ms, device idle {wall_ms - total:.3f} ms "
           f"({100 * (wall_ms - total) / wall_ms:.1f} %)")
     for group, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
@@ -105,6 +121,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, default=4)
     parser.add_argument("--dtype", choices=("fp32", "bf16", "both"), default="both")
+    parser.add_argument("--model", choices=("m1", "m2", "both"), default="both")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA card", file=sys.stderr)
@@ -115,9 +132,11 @@ def main() -> int:
     device = torch.device("cuda")
     dtypes = {"fp32": [torch.float32], "bf16": [torch.bfloat16],
               "both": [torch.float32, torch.bfloat16]}[args.dtype]
-    for dtype in dtypes:
-        profile_step(dtype, args.batch, device)
-        torch.cuda.empty_cache()
+    models = ["m1", "m2"] if args.model == "both" else [args.model]
+    for model_key in models:
+        for dtype in dtypes:
+            profile_step(model_key, dtype, args.batch, device)
+            torch.cuda.empty_cache()
     return 0
 
 

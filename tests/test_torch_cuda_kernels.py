@@ -563,6 +563,108 @@ def test_causal_conv_kernel_matches_plain(dev, dtype, w, L):
     assert k10.causal_conv.launches == before + 2
 
 
+# --------------------------------- Mamba-1 at any state size the JAX package takes
+
+@pytest.mark.parametrize("n", [24, 48, 128, 256])
+def test_scan_kernels_at_any_state_size(dev, n):
+    """K1 (with checkpoints) and K5 at state sizes outside the walks' own
+    8/16/32/64: 24 and 48 run on zero lanes up to 32 and 64, 128 on its own
+    walk, 256 as two slices of 128 (the JAX package's K1 takes N up to 512);
+    against the plain versions, with D, z and the delta bias."""
+    b, L, d = 2, 37, 200
+    u = randn(b, L, d, dev=dev, seed=1)
+    delta = randn(b, L, d, dev=dev, scale=0.5, seed=2)
+    A = -torch.exp(randn(d, n, dev=dev, scale=0.3, seed=3))
+    xdbl = randn(b, L, 5 + 2 * n, dev=dev, seed=4)
+    Bm, Cm = xdbl[..., 5:5 + n], xdbl[..., 5 + n:]
+    D, bias = randn(d, dev=dev, seed=5), randn(d, dev=dev, seed=7)
+    z = randn(b, L, d, dev=dev, seed=6)
+    h0 = randn(b, d, n, dev=dev, scale=0.2, seed=8)
+    before = k1.selective_scan.launches, k1.selective_scan_bwd.launches
+    got = k1.selective_scan(u, delta, A, Bm, Cm, D, z, bias, h0, True, checkpoints=True)
+    want = k1.selective_scan_plain(u, delta, A, Bm, Cm, D, z, bias, h0, True, checkpoints=True)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and rel_err(a, w) <= TOL
+    args = (u, delta, A, Bm, Cm, D, z, bias, got[2], randn(b, L, d, dev=dev, seed=9),
+            randn(b, d, n, dev=dev, seed=10))
+    grads = k1.selective_scan_bwd(*args)
+    torch.cuda.synchronize()
+    slices = -(-n // 128)  # above 128 K5 also reruns K1 per slice for dz
+    assert k1.selective_scan.launches - before[0] == (2 * slices if slices > 1 else 1)
+    assert k1.selective_scan_bwd.launches - before[1] == slices
+    for a, w in zip(grads, k1.selective_scan_bwd_plain(*args)):
+        assert a.shape == w.shape and rel_err(a, w) <= GRAD_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("n", [24, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixer_and_block_kernels_at_any_state_size(dev, n, dtype):
+    """K3 and K6, K4 and K7 at d_state 24 (zero lanes up to 32) and 128,
+    which the JAX package's fused kernels take: outputs, checkpoints and
+    every gradient against the plain versions."""
+    from videomamba_tpu_torch.ops.kernels import block_bwd as k7
+
+    kw = _mixer_inputs(dev, n=n)
+    if dtype == torch.bfloat16:
+        kw = {k: v.to(dtype) if k in ("x", "z", "conv_w", "conv_b", "x_proj_w", "dt_proj_w")
+              else v for k, v in kw.items()}
+    tol = TOL if dtype == torch.float32 else BF16_TOL
+    before = (k3.mixer_fused.launches, k6.mixer_bwd.launches, k4.block_fused.launches,
+              k7.block_bwd.launches)
+    y, h, ckpt = k3.mixer_fused(**kw, checkpoints=True)
+    for a, w in zip((y, h, ckpt), k3.mixer_fused_plain(**kw, checkpoints=True)):
+        assert a.shape == w.shape and rel_err(a, w) <= tol
+    args = {k: v for k, v in kw.items() if k != "h0"}
+    g, ghl = randn(*y.shape, dev=dev, seed=12).to(dtype), randn(*h.shape, dev=dev, seed=13)
+    got = k6.mixer_bwd(**args, ckpt=ckpt, g_y=g, g_hlast=ghl)
+    for a, w in zip(got, k6.mixer_bwd_plain(**args, ckpt=ckpt, g_y=g, g_hlast=ghl)):
+        assert a.shape == w.shape and rel_err(a, w) <= GRAD_TOL[dtype]
+    bk = _block_inputs(dev, dtype, n=n)
+    with torch.inference_mode():
+        out = k4.block_fused(**bk, checkpoints=True)
+        ref = k4.block_fused_plain(**bk, checkpoints=True)
+        for a, w in zip(out, ref):
+            assert a.shape == w.shape and rel_err(a, w) <= tol
+        res_out = bk["hidden"].float() + bk["residual"].float()
+        bargs = dict(res_out=res_out, norm_w=bk["norm_w"], norm_b=None,
+                     in_proj_w=bk["in_proj_w"], out_proj_w=bk["out_proj_w"],
+                     conv_w=bk["conv_w"], conv_b=bk["conv_b"], x_proj_w=bk["x_proj_w"],
+                     dt_proj_w=bk["dt_proj_w"], dt_bias=bk["dt_bias"], A=bk["A"], D=bk["D"],
+                     conv_state=bk["conv_state"], ckpt=out[3],
+                     g_out=randn(*bk["hidden"].shape, dev=dev, seed=14).to(dtype),
+                     g_res=randn(*res_out.shape, dev=dev, scale=0.3, seed=15),
+                     g_hlast=randn(*bk["h0"].shape, dev=dev, scale=0.3, seed=16))
+        for a, w in zip(k7.block_bwd(**bargs), k7.block_bwd_plain(**bargs)):
+            assert a.shape == w.shape and rel_err(a, w) <= GRAD_TOL[dtype]
+    torch.cuda.synchronize()
+    assert (k3.mixer_fused.launches - before[0], k6.mixer_bwd.launches - before[1],
+            k4.block_fused.launches - before[2], k7.block_bwd.launches - before[3]) == (1, 1, 1, 1)
+
+
+@pytest.mark.parametrize("d_state", [24, 48, 128])
+def test_mamba_layer_trains_on_the_card_at_any_state_size(dev, d_state):
+    """Mamba(d_model=128, d_state=...) on the card takes K3 forward and K6
+    backward, as the JAX package routes it, and matches the same layer's
+    plain versions on the CPU (output 1e-5, gradients 1e-4)."""
+    from videomamba_tpu_torch.models.mamba import Mamba
+
+    layer = Mamba(128, d_state=d_state, device=dev, generator=torch.Generator().manual_seed(0))
+    cpu = Mamba(128, d_state=d_state, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in layer.state_dict().items()})
+    assert layer._use_fused_mixer()
+    x = randn(2, 37, 128, dev=dev, seed=17)
+    before = k3.mixer_fused.launches, k6.mixer_bwd.launches
+    out = layer(x)
+    out.square().mean().backward()
+    torch.cuda.synchronize()
+    assert (k3.mixer_fused.launches - before[0], k6.mixer_bwd.launches - before[1]) == (1, 1)
+    ref = cpu(x.cpu())
+    ref.square().mean().backward()
+    assert rel_err(out.cpu(), ref) <= TOL
+    for k, p in cpu.named_parameters():
+        assert rel_err(layer.get_parameter(k).grad.cpu(), p.grad) <= 1e-4, k
+
+
 # ---------------------------------------------------------- Mamba-2 (SSD)
 
 def _ssd_inputs(dev, dtype, b, L, h, p, g, n, q, e=128, w=4, norm=True, state=True):
@@ -602,6 +704,10 @@ SSD_CASES = {
     "base_chunk256_fp32": (torch.float32, 1, 1569, 24, 64, 1, 64, 256, 768, True, True),
     "base_dstate128_bf16": (torch.bfloat16, 1, 1569, 24, 64, 1, 128, 128, 768, True, True),
     "chunk100_two_groups": (torch.float32, 2, 250, 8, 32, 2, 16, 100, 128, True, True),
+    # head dim and d_state 256, which the JAX package's kernels take
+    "p256_fp32": (torch.float32, 1, 300, 6, 256, 1, 64, 128, 256, True, True),
+    "n256_bf16": (torch.bfloat16, 1, 300, 8, 64, 1, 256, 128, 256, True, True),
+    "p256_n256_fp32": (torch.float32, 1, 200, 4, 256, 1, 256, 128, 256, True, True),
 }
 
 
@@ -697,22 +803,32 @@ def _m2_model(dev, depth=2):
 
 
 @pytest.mark.parametrize("pmixer", ["1", "0"])
-def test_m2_model_backward_raises_on_the_card(dev, monkeypatch, pmixer):
-    """K14 and K12 are forward only: a backward through an m2 model on the
-    card raises naming K13 instead of leaving ``grad=None``."""
+def test_m2_model_card_gradients_match_plain(dev, monkeypatch, pmixer):
+    """A backward through an m2 model on the card (training mode, the
+    default routes: K14's layer on the "mixer" train route, or K12) runs
+    K12 with checkpoints and K13, and every parameter's gradient matches
+    the same model's plain versions on the CPU (1e-4)."""
     from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12
-    from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14
+    from videomamba_tpu_torch.ops.kernels import ssd_mixer_bwd as k13
 
     monkeypatch.setenv("VIDEOMAMBA_SSD_PMIXER", pmixer)
-    model = _m2_model(dev)
-    before = (k12.ssd_mixer.launches, k14.ssd_pmixer.launches)
-    x_vis, _ = model(randn(1, 3, 4, 32, 32, dev=dev, seed=3))
-    used = (k12.ssd_mixer.launches - before[0], k14.ssd_pmixer.launches - before[1])
-    assert used == ((0, 2) if pmixer == "1" else (2, 0))
-    assert x_vis.requires_grad
-    with pytest.raises(NotImplementedError, match="K13"):
-        x_vis.square().mean().backward()
-
+    model = _m2_model(dev).train()
+    clip = randn(2, 3, 4, 32, 32, dev=dev, seed=3)
+    before = (k12.ssd_mixer.launches, k13.ssd_mixer_bwd.launches)
+    x_vis, _ = model(clip)
+    target = randn(*x_vis.shape, dev=dev, seed=8)
+    (x_vis - target).square().mean().backward()
+    torch.cuda.synchronize()
+    assert (k12.ssd_mixer.launches - before[0], k13.ssd_mixer_bwd.launches - before[1]) == (2, 2)
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    cpu = _m2_model("cpu").train()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x_vis, _ = cpu(clip.cpu())
+    (x_vis - target.cpu()).square().mean().backward()
+    for k, p in cpu.named_parameters():  # the pool norm is off the loss's path
+        assert (grads[k] is None) == (p.grad is None), k
+        if p.grad is not None:
+            assert rel_err(grads[k].cpu(), p.grad) <= 1e-4, k
 
 
 @pytest.mark.parametrize("pmixer", ["1", "0"])
@@ -739,6 +855,33 @@ def test_m2_model_takes_the_kernels_at_upstream_shapes(dev, monkeypatch, pmixer,
         want, _ = model(clip)
     assert used == ((0, 2) if pmixer == "1" else (2, 0))
     assert rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("headdim,d_state", [(256, 64), (64, 256)])
+def test_m2_layer_trains_on_the_card_at_head_dim_and_state_256(dev, headdim, d_state):
+    """A Mamba-2 layer at head dim 256 or d_state 256 (which the JAX
+    package's kernels take) runs K12 and K13 on the card, forward within
+    1e-5 and every gradient within 1e-4 of the same layer's plain versions
+    on the CPU."""
+    from videomamba_tpu_torch.models.mamba2 import Mamba2
+    from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12
+    from videomamba_tpu_torch.ops.kernels import ssd_mixer_bwd as k13
+
+    kw = dict(d_model=256, d_state=d_state, headdim=headdim, chunk_size=128)
+    layer = Mamba2(**kw, device=dev, generator=torch.Generator().manual_seed(0))
+    cpu = Mamba2(**kw, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in layer.state_dict().items()})
+    x = randn(2, 300, 256, dev=dev, seed=19)
+    before = k12.ssd_mixer.launches, k13.ssd_mixer_bwd.launches
+    out = layer(x)
+    out.square().mean().backward()
+    torch.cuda.synchronize()
+    assert (k12.ssd_mixer.launches - before[0], k13.ssd_mixer_bwd.launches - before[1]) == (1, 1)
+    ref = cpu(x.cpu())
+    ref.square().mean().backward()
+    assert rel_err(out.cpu(), ref) <= TOL
+    for k, p in cpu.named_parameters():
+        assert rel_err(layer.get_parameter(k).grad.cpu(), p.grad) <= 1e-4, k
 
 
 def test_m2_shape_outside_the_kernel_gate_raises_on_the_card(dev):
@@ -778,3 +921,184 @@ def test_m2_decode_session_kernel_matches_step_route(dev, dtype):
         assert rel_err(got, want) <= tol, step
     assert k9.decode_stack_m2.launches == before + 4
     assert rel_err(sessions[0].ssm_states, sessions[1].ssm_states) <= tol
+
+
+# ------------------------------------------- Mamba-2 (SSD) training kernels
+
+BWD_TOL = 2e-5  # the backward kernels' bar against their plain versions
+BWD_BF16_TOL = 2e-2
+
+SSD_BWD_CASES = {k: SSD_CASES[k] for k in (
+    "base_m2_fp32", "base_m2_bf16", "ragged_two_groups", "no_norm_no_state_bf16",
+    "one_token", "base_chunk256_fp32", "base_dstate128_bf16", "chunk100_two_groups",
+    "p256_n256_fp32")}
+
+
+def _close(got, want, tol, names):
+    for name, a, b in zip(names, got, want):
+        if b is None:
+            assert a is None, name
+            continue
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert rel_err(a, b) <= tol, f"{name}: {rel_err(a, b):.3e}"
+
+
+def _ssd_bwd_setup(dev, case):
+    """K12's checkpointed forward on the card and the cotangents, for the
+    backward kernels' tests."""
+    from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12
+    from videomamba_tpu_torch.ops.ssd import _prepare_dt
+
+    dtype, b, L, h, p, g, n, q, e, norm, state = SSD_BWD_CASES[case]
+    kw = _ssd_inputs(dev, dtype, b, L, h, p, g, n, q, e=e, norm=norm, state=state)
+    cfg = kw.pop("cfg")
+    di, cd = h * p, h * p + 2 * g * n
+    dt_p = _prepare_dt(kw["zxbcdt"][..., di + cd:], kw["dt_bias"], True)
+    core = (kw["A"], kw["conv_weight"], kw["conv_bias"], kw["D"])
+    gated, h_last, hins, yd = k12.ssd_mixer_core(
+        kw["zxbcdt"], dt_p, *core, kw["initial_state"], kw["conv_state"], kw["norm_weight"],
+        1e-5, q, h, p, g, n, checkpoints=True)
+    dout = randn(b, L, di, dev=dev, seed=21).to(dtype)
+    dhlast = randn(b, h, p, n, dev=dev, seed=22, scale=0.5)
+    tol = BWD_TOL if dtype == torch.float32 else BWD_BF16_TOL
+    return kw, cfg, dt_p, (gated, h_last, hins, yd), dout, dhlast, tol
+
+
+@pytest.mark.parametrize("case", sorted(SSD_BWD_CASES))
+def test_ssd_mixer_checkpoints_match_plain(dev, case):
+    """K12's training forward: the output, h_last and its checkpoints (each
+    chunk's entry state, the pre-gate y) against the plain version's."""
+    from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12
+
+    kw, cfg, dt_p, got, _, _, _ = _ssd_bwd_setup(dev, case)
+    want = k12.ssd_core_plain(kw["zxbcdt"], dt_p, kw["A"], kw["conv_weight"],
+                              kw["conv_bias"], kw["D"], kw["initial_state"], kw["conv_state"],
+                              kw["norm_weight"], 1e-5, cfg["chunk_size"], cfg["nheads"],
+                              cfg["hdim"], cfg["ngroups"], cfg["d_state"], checkpoints=True)
+    tol = TOL if got[0].dtype == torch.float32 else BF16_TOL
+    _close(got, want, tol, ("gated", "h_last", "hins", "yd"))
+
+
+@pytest.mark.parametrize("case", sorted(SSD_BWD_CASES))
+def test_ssd_scan_kernels_match_plain(dev, case):
+    """K11, the bare chunk scan: its forward (y, h_last, the chunks' entry
+    states) and its backward (dx, ddt, dA, dB, dC, dh0) against their plain
+    versions; two backward runs give bit-identical gradients."""
+    from videomamba_tpu_torch.ops.kernels import ssd_core as k11
+
+    dtype, b, L, h, p, g, n, q, e, norm, state = SSD_BWD_CASES[case]
+    x = randn(b, L, h, p, dev=dev, seed=31).to(dtype)
+    Bm = randn(b, L, g, n, dev=dev, seed=32).to(dtype)
+    Cm = randn(b, L, g, n, dev=dev, seed=33).to(dtype)
+    dt_p = torch.nn.functional.softplus(randn(b, L, h, dev=dev, seed=34) - 3.0)
+    A = -torch.exp(randn(h, dev=dev, seed=35, scale=0.5))
+    h0 = randn(b, h, p, n, dev=dev, seed=36, scale=0.3) if state else None
+    before = k11.ssd_scan.launches, k11.ssd_scan_bwd.launches
+    got = k11.ssd_scan(x, dt_p, A, Bm, Cm, h0, q, checkpoints=True)
+    want = k11.ssd_scan_plain(x, dt_p, A, Bm, Cm, h0, q, checkpoints=True)
+    tol = BWD_TOL if dtype == torch.float32 else BWD_BF16_TOL
+    _close(got, want, tol, ("y", "h_last", "hins"))
+    dy = randn(b, L, h, p, dev=dev, seed=37)
+    dhl = randn(b, h, p, n, dev=dev, seed=38, scale=0.5)
+    grads = k11.ssd_scan_bwd(x, dt_p, A, Bm, Cm, want[2], dy, dhl, q)
+    again = k11.ssd_scan_bwd(x, dt_p, A, Bm, Cm, want[2], dy, dhl, q)
+    torch.cuda.synchronize()
+    assert (k11.ssd_scan.launches - before[0], k11.ssd_scan_bwd.launches - before[1]) == (1, 2)
+    ref = k11.ssd_scan_bwd_plain(x, dt_p, A, Bm, Cm, want[2], dy, dhl, q)
+    _close(grads, ref, tol, ("dx", "ddt", "dA", "dB", "dC", "dh0"))
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+@pytest.mark.parametrize("case,backend", [(c, "fused") for c in sorted(SSD_BWD_CASES)] + [
+    (c, "composite") for c in sorted(SSD_BWD_CASES) if SSD_BWD_CASES[c][0] == torch.float32])
+def test_ssd_mixer_bwd_kernel_matches_plain(dev, monkeypatch, case, backend):
+    """K13 (or, at fp32, the composite backward around K11's) against K13's
+    plain version: dzxbcdt, ddt, dA, the conv window's, taps' and bias'
+    gradients, dh0, dD and the norm weight's; K13 twice gives bit-identical
+    gradients. (At bf16 the composite backward rounds the conv output, as
+    the JAX package's does, so it is held to K13 at fp32 only.)"""
+    from videomamba_tpu_torch.ops.kernels import ssd_core as k11
+    from videomamba_tpu_torch.ops.kernels import ssd_mixer_bwd as k13
+
+    monkeypatch.setenv("VIDEOMAMBA_SSD_BWD", backend)
+    kw, cfg, dt_p, (_, _, hins, yd), dout, dhlast, tol = _ssd_bwd_setup(dev, case)
+    args = (kw["zxbcdt"], dt_p, kw["A"], kw["conv_weight"], kw["conv_bias"], kw["D"],
+            kw["conv_state"], kw["norm_weight"], 1e-5, hins, yd, dout, dhlast,
+            cfg["chunk_size"], cfg["nheads"], cfg["hdim"], cfg["ngroups"], cfg["d_state"])
+    before = k13.ssd_mixer_bwd.launches, k11.ssd_scan_bwd.launches
+    got = k13.mixer_backward(*args)
+    torch.cuda.synchronize()
+    want = k13.ssd_mixer_bwd_plain(*args)
+    names = ("dzx", "ddt", "dA", "dconv_state", "dconv_w", "dconv_b", "dh0", "dD", "dnorm")
+    if backend == "composite":
+        assert (k13.ssd_mixer_bwd.launches, k11.ssd_scan_bwd.launches) == (before[0],
+                                                                          before[1] + 1)
+        _close([a.to(b.dtype) if a is not None and b is not None else a
+                for a, b in zip(got, want)], want, tol, names)
+        return
+    assert k13.ssd_mixer_bwd.launches == before[0] + 1
+    _close(got, want, tol, names)
+    again = k13.ssd_mixer_bwd(*args)
+    assert all(a is None or torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("case", sorted(SSD_BWD_CASES))
+def test_ssd_pmixer_bwd_kernel_matches_plain(dev, case):
+    """K14's backward against its plain version from K14's checkpointed
+    forward: dhidden, ddt, dA, the conv gradients, dWin (zero dt rows),
+    dWout, dh0, dD and the norm weight's gradient."""
+    from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14
+
+    dtype, b, L, h, p, g, n, q, e, norm, state = SSD_BWD_CASES[case]
+    kw = _ssd_inputs(dev, dtype, b, L, h, p, g, n, q, e=e, norm=norm, state=state)
+    cfg = kw.pop("cfg")
+    dt_p = k14.dt_projection(kw["hidden"], kw["in_proj_w"], h, kw["dt_bias"])
+    ws = (kw["in_proj_w"], kw["out_proj_w"], kw["conv_weight"], kw["conv_bias"], kw["D"])
+    out, h_last, hins, yd = k14.ssd_pmixer_core(
+        kw["hidden"], dt_p, kw["A"], *ws, kw["initial_state"], kw["conv_state"],
+        kw["norm_weight"], 1e-5, q, h, p, g, n, checkpoints=True)
+    dout = randn(b, L, e, dev=dev, seed=23).to(dtype)
+    dhlast = randn(b, h, p, n, dev=dev, seed=24, scale=0.5)
+    args = (kw["hidden"], dt_p, kw["A"], *ws[:2], *ws[2:4], kw["D"], kw["conv_state"],
+            kw["norm_weight"], 1e-5, hins, yd, dout, dhlast, q, h, p, g, n)
+    before = k14.ssd_pmixer_bwd.launches
+    got = k14.ssd_pmixer_bwd(*args)
+    again = k14.ssd_pmixer_bwd(*args)
+    torch.cuda.synchronize()
+    assert k14.ssd_pmixer_bwd.launches == before + 2
+    want = k14.ssd_pmixer_bwd_plain(*args)
+    tol = BWD_TOL if dtype == torch.float32 else BWD_BF16_TOL
+    _close(got, want, tol, ("dhidden", "ddt", "dA", "dconv_state", "dWin", "dWout", "dconv_w",
+                            "dconv_b", "dh0", "dD", "dnorm"))
+    assert all(a is None or torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("route", ["mixer", "pmixer"])
+def test_m2_train_routes_run_the_kernels(dev, monkeypatch, route):
+    """Training an m2 model on the card on each VIDEOMAMBA_SSD_TRAIN_ROUTE:
+    "mixer" runs K12 with checkpoints and K13, "pmixer" K14 and its
+    backward; the gradients match the CPU model's plain versions (1e-4)."""
+    from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12
+    from videomamba_tpu_torch.ops.kernels import ssd_mixer_bwd as k13
+    from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14
+
+    monkeypatch.setenv("VIDEOMAMBA_SSD_TRAIN_ROUTE", route)
+    model = _m2_model(dev).train()
+    clip = randn(2, 3, 4, 32, 32, dev=dev, seed=5)
+    counters = (k12.ssd_mixer, k13.ssd_mixer_bwd, k14.ssd_pmixer, k14.ssd_pmixer_bwd)
+    before = [c.launches for c in counters]
+    x_vis, _ = model(clip)
+    target = randn(*x_vis.shape, dev=dev, seed=9)
+    (x_vis - target).square().mean().backward()
+    torch.cuda.synchronize()
+    used = tuple(c.launches - b for c, b in zip(counters, before))
+    assert used == ((2, 2, 0, 0) if route == "mixer" else (0, 0, 2, 2))
+    cpu = _m2_model("cpu").train()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x_vis, _ = cpu(clip.cpu())
+    (x_vis - target.cpu()).square().mean().backward()
+    for k, p in cpu.named_parameters():  # the pool norm is off the loss's path
+        got = model.get_parameter(k).grad
+        assert (got is None) == (p.grad is None), k
+        if p.grad is not None:
+            assert rel_err(got.cpu(), p.grad) <= 1e-4, k

@@ -35,7 +35,9 @@ MODULES = [
     "videomamba_tpu_torch.ops.kernels.mixer_bwd",
     "videomamba_tpu_torch.ops.kernels.mixer_fused",
     "videomamba_tpu_torch.ops.kernels.scan",
+    "videomamba_tpu_torch.ops.kernels.ssd_core",
     "videomamba_tpu_torch.ops.kernels.ssd_mixer",
+    "videomamba_tpu_torch.ops.kernels.ssd_mixer_bwd",
     "videomamba_tpu_torch.ops.kernels.ssd_pmixer",
     "videomamba_tpu_torch.parallel",
     "videomamba_tpu_torch.parallel.train_step",

@@ -160,9 +160,13 @@ def test_backward_switches_read_the_jax_environment(monkeypatch):
 def test_kill_switch_selects_plain_path(monkeypatch):
     from videomamba_tpu_torch.models.mamba import Mamba
 
-    assert Mamba(16, device="cpu").use_fast_path and Mamba(16, device="cpu")._use_fused_mixer()
-    assert not Mamba(16, use_fast_path=False, device="cpu")._use_fused_mixer()
-    assert not Mamba(16, conv_bias=False, device="cpu")._use_fused_mixer()
+    assert Mamba(64, device="cpu").use_fast_path and Mamba(64, device="cpu")._use_fused_mixer()
+    assert not Mamba(64, use_fast_path=False, device="cpu")._use_fused_mixer()
+    assert not Mamba(64, conv_bias=False, device="cpu")._use_fused_mixer()
+    # The JAX package's shape rule (mixer_fused_supported): d_inner 32 is
+    # no multiple of 128, d_state 12 no multiple of 8.
+    assert Mamba(16, device="cpu").use_fast_path and not Mamba(16, device="cpu")._use_fused_mixer()
+    assert not Mamba(64, d_state=12, device="cpu")._use_fused_mixer()
     monkeypatch.setenv("VIDEOMAMBA_DISABLE_FUSED", "1")
-    assert not Mamba(16, device="cpu").use_fast_path
-    assert not Mamba(16, device="cpu")._use_fused_mixer()
+    assert not Mamba(64, device="cpu").use_fast_path
+    assert not Mamba(64, device="cpu")._use_fused_mixer()

@@ -97,10 +97,36 @@ def test_ssd_chunked_bf16_tracks_jax():
     assert rel_err(got, want) <= 1e-2
 
 
-def test_ssd_chunked_pallas_method_raises_naming_k11():
-    kw = {k: torch.from_numpy(v) for k, v in scan_inputs(4, 1).items()}
-    with pytest.raises(NotImplementedError, match="K11"):
-        tssd.ssd_chunked(**kw, method="pallas")
+@pytest.mark.parametrize("ngroups", [1, 2])
+def test_ssd_chunked_pallas_method_matches_jax(ngroups, monkeypatch):
+    """method="pallas" runs K11 (its plain version on the CPU) forward and
+    backward, against the JAX package's ssd_core_pallas in interpret mode:
+    y, the final state and every input's gradient (fp32 2e-5)."""
+    import jax
+
+    monkeypatch.setenv("VIDEOMAMBA_PALLAS_INTERPRET", "1")
+    kw = scan_inputs(4, ngroups)
+    names = ("x", "dt", "A", "B", "C", "D", "z", "dt_bias", "initial_state")
+    rng = np.random.default_rng(40)
+    gy = rng.standard_normal(kw["x"].shape).astype(np.float32)
+    gh = rng.standard_normal(kw["initial_state"].shape).astype(np.float32)
+
+    def j_loss(*args):
+        y, h = jssd.ssd_chunked(**dict(zip(names, args)), return_last_state=True,
+                                chunk_size=16, method="pallas")
+        return jnp.sum(y * gy) + jnp.sum(h * gh), (y, h)
+
+    jargs = [jnp.asarray(kw[k]) for k in names]
+    (_, (jy, jh)), jgrads = jax.value_and_grad(j_loss, argnums=tuple(range(9)),
+                                                 has_aux=True)(*jargs)
+    targs = [torch.from_numpy(kw[k]).requires_grad_() for k in names]
+    ty, th = tssd.ssd_chunked(**dict(zip(names, targs)), return_last_state=True,
+                              chunk_size=16, method="pallas")
+    assert rel_err(ty, jy) <= 2e-5 and rel_err(th, jh) <= 2e-5
+    (ty * torch.from_numpy(gy)).sum().add((th * torch.from_numpy(gh)).sum()).backward()
+    for name, a, g_ in zip(names, targs, jgrads):
+        assert a.grad.shape == g_.shape, name
+        assert rel_err(a.grad, g_) <= 2e-5, name
 
 
 @pytest.mark.parametrize("full", [True, False])
@@ -223,16 +249,23 @@ def test_plain_versions_match_both_jax_arms(kind, monkeypatch, merged, ngroups, 
 def test_kernel_shape_gate():
     """The Hopper kernels' own gate: head dim and state multiples of 4 and
     the chunk-output tiles in one block's shared memory, which the 64-row
-    slabs keep small at upstream Mamba-2's chunk 256 and d_state 128; the
+    slabs and the 64-wide head-dim and state tiles keep small at any P and
+    N, so every shape the JAX package's kernels take (pallas_ssd_supported:
+    head dim and state multiples of 8) passes, P = N = 256 included; the
     TPU's 128-lane chunk rule is not ported. The projected-mixer route
     keeps the JAX package's width and byte rule: Base and Small m2 pass at
     fp32 and bf16, Tiny and Middle (d_model % 128) do not."""
+    from videomamba_tpu.ops.pallas.ssd_scan import pallas_ssd_supported
+
     assert k12.ssd_kernel_supported(24, 64, 1, 64, 128)
     assert k12.ssd_kernel_supported(8, 32, 2, 16, 16)
     assert k12.ssd_kernel_supported(24, 64, 1, 64, 256)
     assert k12.ssd_kernel_supported(24, 64, 1, 128, 256)
     assert k12.ssd_kernel_supported(24, 64, 1, 64, 100)
-    assert not k12.ssd_kernel_supported(8, 256, 1, 256, 128)  # (N, P) state too large
+    for h, p, g, n, q in ((8, 256, 1, 256, 128), (6, 256, 1, 64, 128), (24, 64, 1, 256, 128),
+                          (24, 64, 2, 64, 256), (8, 512, 1, 512, 128)):
+        assert pallas_ssd_supported(h, p, g, n, q)
+        assert k12.ssd_kernel_supported(h, p, g, n, q)
     assert not k12.ssd_kernel_supported(24, 62, 1, 64, 128)
     assert not k12.ssd_kernel_supported(24, 64, 5, 64, 128)
     for e, ok in ((768, True), (384, True), (192, False), (576, False)):

@@ -210,7 +210,8 @@ void launch_walk_n(const ScanArgs& a, dim3 grid, cudaStream_t stream) {
 }
 
 // Launches the walk over grid (ceil(D / kScanThreads), batch) for the state
-// sizes the library is built for (N in {8, 16, 32, 64}). round_z (K4's bf16
+// sizes the library is built for (N in {8, 16, 32, 64, 128}; the wrappers pad
+// other sizes with zero lanes). round_z (K4's bf16
 // gate) only where kRoundZOk; checkpoints with or without it.
 template <typename TU, typename TZ, typename TY, bool kRoundZOk = false>
 cudaError_t launch_scan_walk_t(const ScanArgs& a, int batch, int n,
@@ -229,6 +230,9 @@ cudaError_t launch_scan_walk_t(const ScanArgs& a, int batch, int n,
       break;
     case 64:
       launch_walk_n<64, TU, TZ, TY, kRoundZOk>(a, grid, stream);
+      break;
+    case 128:
+      launch_walk_n<128, TU, TZ, TY, kRoundZOk>(a, grid, stream);
       break;
     default:
       return cudaErrorInvalidValue;

@@ -27,7 +27,9 @@
 // keeps them in shared memory (8 x N x 64 floats: 32 KB at N = 16), since
 // 16 x N per thread does not fit in registers. Rebuilding the second half
 // first re-runs the first half's 8 steps: 1.5 forward rebuilds per segment
-// instead of 1, traded for half the shared memory.
+// instead of 1, traded for half the shared memory. At N = 128 the walk goes
+// back in quarters of 4 steps (2.5 rebuilds a segment), so its rebuilt
+// states keep to 128 KB; its per-thread arrays then spill to local memory.
 //
 // Reductions without floating-point atomics, so repeated runs are
 // bit-identical: dB and dC (2N values a step, summed over channels) are
@@ -111,25 +113,32 @@ __device__ __forceinline__ void warp_reduce_scatter(float (&v)[V], int lane) {
   }
 }
 
+// Steps a rebuilt part of a segment holds: half a segment, a quarter at N = 128.
+template <int N>
+__host__ __device__ constexpr int bwd_sub() {
+  return N > 64 ? kBwdSub / 2 : kBwdSub;
+}
+
 template <int N>
 constexpr size_t scan_bwd_smem_bytes() {
-  return sizeof(float) * ((size_t)kBwdSub * N * kBwdThreads  // rebuilt states
-                          + 4 * kScanTile * kBwdThreads      // u, dt, z, g
-                          + 2 * kScanTile * N                // B, C
-                          + 2 * kBwdSub * 2 * N);            // warp partials
+  return sizeof(float) * ((size_t)bwd_sub<N>() * N * kBwdThreads  // rebuilt states
+                          + 4 * kScanTile * kBwdThreads           // u, dt, z, g
+                          + 2 * kScanTile * N                     // B, C
+                          + 2 * bwd_sub<N>() * 2 * N);            // warp partials
 }
 
 template <int N, typename TU, typename TZ, typename TO, bool kY>
 __global__ void __launch_bounds__(kBwdThreads) scan_bwd_kernel(ScanBwdArgs a) {
   extern __shared__ float smem[];
-  float* sH = smem;                                  // [kBwdSub][N][64]
-  float* sU = sH + kBwdSub * N * kBwdThreads;        // [16][64]
+  constexpr int kSub = bwd_sub<N>();
+  float* sH = smem;                                  // [kSub][N][64]
+  float* sU = sH + kSub * N * kBwdThreads;           // [16][64]
   float* sDt = sU + kScanTile * kBwdThreads;
   float* sZ = sDt + kScanTile * kBwdThreads;
   float* sG = sZ + kScanTile * kBwdThreads;
   float* sB = sG + kScanTile * kBwdThreads;          // [16][N]
   float* sC = sB + kScanTile * N;
-  float* sRed = sC + kScanTile * N;                  // [2][kBwdSub][2N]
+  float* sRed = sC + kScanTile * N;                  // [2][kSub][2N]
   constexpr int V = 2 * N;
 
   const int tid = threadIdx.x;
@@ -194,9 +203,9 @@ __global__ void __launch_bounds__(kBwdThreads) scan_bwd_kernel(ScanBwdArgs a) {
     }
     __syncthreads();
 
-    for (int sub = 1; sub >= 0; --sub) {
-      const int s0 = sub * kBwdSub;
-      const int m = min(kBwdSub, steps - s0);
+    for (int sub = kScanTile / kSub - 1; sub >= 0; --sub) {
+      const int s0 = sub * kSub;
+      const int m = min(kSub, steps - s0);
       if (m <= 0) continue;  // uniform over the block
       // Chain 1: from the segment checkpoint to the half's first step, then
       // through the half, keeping each pre-update state.
@@ -264,7 +273,7 @@ __global__ void __launch_bounds__(kBwdThreads) scan_bwd_kernel(ScanBwdArgs a) {
         const int base = (lane * V) / 32;
         if ((lane * V) % 32 == 0 || V >= 32) {
 #pragma unroll
-          for (int i = 0; i < R; ++i) sRed[(warp * kBwdSub + kk) * V + base + i] = vals[i];
+          for (int i = 0; i < R; ++i) sRed[(warp * kSub + kk) * V + base + i] = vals[i];
         }
       }
       __syncthreads();
@@ -272,7 +281,7 @@ __global__ void __launch_bounds__(kBwdThreads) scan_bwd_kernel(ScanBwdArgs a) {
         const int kk = i / V;
         const int j = i - kk * V;
         part_b[(t0 + s0 + kk) * V + j] =
-            sRed[kk * V + j] + sRed[(kBwdSub + kk) * V + j];
+            sRed[kk * V + j] + sRed[(kSub + kk) * V + j];
       }
       __syncthreads();
     }
@@ -368,6 +377,9 @@ cudaError_t launch_scan_bwd(const ScanBwdArgs& a, int batch, int n, float* dA,
       break;
     case 64:
       err = launch_scan_bwd_n<64, TU, TZ, TO, kY>(a, batch, s);
+      break;
+    case 128:
+      err = launch_scan_bwd_n<128, TU, TZ, TO, kY>(a, batch, s);
       break;
     default:
       return cudaErrorInvalidValue;

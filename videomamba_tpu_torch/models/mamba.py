@@ -53,6 +53,7 @@ from videomamba_tpu_torch.ops.causal_conv1d import (
     causal_conv1d_update,
     conv_window,
 )
+from videomamba_tpu_torch.ops.kernels.block_fused import mixer_fused_supported
 from videomamba_tpu_torch.ops.kernels.mixer_bwd import mixer_bwd
 from videomamba_tpu_torch.ops.kernels.mixer_fused import mixer_fused
 from videomamba_tpu_torch.ops.kernels.scan import selective_scan_bwd
@@ -369,9 +370,13 @@ class Mamba(nn.Module):
         return out[:, None], new_conv_state, new_ssm_state
 
     def _use_fused_mixer(self) -> bool:
-        """The fused core (K3) needs the fast path and a conv bias, as in
-        videomamba_tpu/models/mamba.py:552-560."""
-        return self.use_fast_path and self.conv1d.bias is not None
+        """The fused core (K3) needs the fast path, a conv bias and the JAX
+        package's shape rule (d_inner a multiple of 128, dt_rank and d_state
+        up to 128, d_state a multiple of 8), as in
+        videomamba_tpu/models/mamba.py:552-560; other layers take the
+        unfused branch, whose scan is K1."""
+        return (self.use_fast_path and self.conv1d.bias is not None
+                and mixer_fused_supported(self.d_inner, self.dt_rank, self.d_state))
 
     def allocate_state(
         self, batch_size: int, dtype: Optional[torch.dtype] = None, device=None

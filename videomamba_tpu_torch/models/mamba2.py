@@ -26,10 +26,16 @@ On the card the kernel route is taken whatever the shapes: a shape outside
 the kernels' gate raises there. Only a CPU tensor, whose kernel route runs
 the kernels' plain versions, takes the chunked SSD for such a shape.
 
-On the card K12 and K14 are forward only: a call that autograd records runs
-through their autograd Functions, whose backward raises naming K13 (the
-Mamba-2 training slice). On CPU tensors the plain versions stay
-differentiable.
+A call that autograd records runs through the kernels' autograd Functions
+(ops/kernels/ssd_mixer_bwd.py ``SsdMixerFn``, ops/kernels/ssd_pmixer.py
+``SsdPmixerFn``), on the card and on the CPU alike: the forward keeps the
+chunk walk's checkpoints, the backward is K13 (or, under
+``VIDEOMAMBA_SSD_BWD=composite``, torch around K11's backward), and a
+projected-mixer layer follows ``VIDEOMAMBA_SSD_TRAIN_ROUTE`` ("mixer", the
+default: the K12 route above, ``torch.matmul`` projections around K12 and
+K13; "pmixer": K14 and its backward), as the JAX package routes a
+differentiated layer. dt enters the Functions post-softplus, so autograd
+carries softplus, ``dt_bias`` and the dt columns of ``in_proj``.
 
 Streaming contract: ``conv_state (B, conv_dim, d_conv)`` raw-input window,
 ``ssm_state (B, nheads, headdim, d_state)`` fp32. ``state=(conv_state,
@@ -56,13 +62,24 @@ from videomamba_tpu_torch.ops.causal_conv1d import (
     causal_conv1d_update,
     conv_window,
 )
-from videomamba_tpu_torch.ops.kernels.ssd_mixer import SsdMixerFn, ssd_kernel_supported, ssd_mixer
-from videomamba_tpu_torch.ops.kernels.ssd_pmixer import SsdPmixerFn, pmixer_route_ok, ssd_pmixer
+from videomamba_tpu_torch.ops.kernels.ssd_mixer import ssd_kernel_supported, ssd_mixer
+from videomamba_tpu_torch.ops.kernels.ssd_mixer_bwd import SsdMixerFn
+from videomamba_tpu_torch.ops.kernels.ssd_pmixer import (
+    SsdPmixerFn,
+    dt_projection,
+    pmixer_route_ok,
+    ssd_pmixer,
+)
 from videomamba_tpu_torch.ops.norm import rms_norm
-from videomamba_tpu_torch.ops.ssd import ssd_chunked, ssd_ref, ssd_state_update
+from videomamba_tpu_torch.ops.ssd import _prepare_dt, ssd_chunked, ssd_ref, ssd_state_update
 from videomamba_tpu_torch.runtime import resolve_device
 
 Tensor = torch.Tensor
+
+
+def _records(args) -> bool:
+    """Whether autograd records a call on these tensors."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args)
 
 
 class GatedNormWeight(nn.Module):
@@ -238,14 +255,18 @@ class Mamba2(nn.Module):
         norm_w = self.norm.weight if self.rmsnorm else None
         cfg = (self.norm_epsilon, self.chunk_size, self.nheads, self.headdim, self.ngroups,
                self.d_state)
-        on_card = not dispatch.runs_plain(hidden)
         raw = None
-        if self._pmixer_ok():
-            args = (hidden, A, self.in_proj.weight, self.out_proj.weight, *weights, h0,
-                    conv_state, norm_w)
-            if on_card and torch.is_grad_enabled() and any(
-                    t is not None and t.requires_grad for t in args):
-                out, h_last = SsdPmixerFn.apply(*args, cfg)
+        args = (hidden, A, self.in_proj.weight, self.out_proj.weight, *weights, h0, conv_state,
+                norm_w)
+        recorded = _records(args + (self.in_proj.bias,))
+        # A recorded call on the "mixer" train route is K12 between the
+        # projections below, as JAX _pmixer_vjp_fwd runs it.
+        if self._pmixer_ok() and (not recorded or dispatch.ssd_train_route() == "pmixer"):
+            if recorded:
+                dt_p = dt_projection(hidden, self.in_proj.weight, self.nheads, self.dt_bias)
+                out, h_last = SsdPmixerFn.apply(hidden, dt_p, A, self.in_proj.weight,
+                                                self.out_proj.weight, *weights[:3], h0,
+                                                conv_state, norm_w, cfg)
             else:
                 out, h_last = ssd_pmixer(*args, *cfg)
             if return_state:
@@ -256,12 +277,12 @@ class Mamba2(nn.Module):
         zxbcdt = hidden @ self.in_proj.weight.t()
         if self.in_proj.bias is not None:
             zxbcdt = zxbcdt + self.in_proj.bias
-        args = (zxbcdt, A, *weights, h0, conv_state, norm_w)
-        if on_card and torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad for t in args):
-            gated, h_last = SsdMixerFn.apply(*args, cfg)
+        if recorded:
+            dt_p = _prepare_dt(zxbcdt[..., di + cd:], self.dt_bias, True)
+            gated, h_last = SsdMixerFn.apply(zxbcdt, dt_p, A, *weights[:3], h0, conv_state,
+                                             norm_w, cfg)
         else:
-            gated, h_last = ssd_mixer(*args, *cfg)
+            gated, h_last = ssd_mixer(zxbcdt, A, *weights, h0, conv_state, norm_w, *cfg)
         out = gated @ self.out_proj.weight.t()
         if self.out_proj.bias is not None:
             out = out + self.out_proj.bias

@@ -12,7 +12,8 @@ switches, read at call time from the same environment variables, so one
 environment drives both packages: ``VIDEOMAMBA_MIXER_BWD`` (mamba.py:107-113),
 ``VIDEOMAMBA_NORM_BWD`` (norm.py:59-61), ``VIDEOMAMBA_BLOCK_BWD``
 (block.py:111-116), ``VIDEOMAMBA_SSD_METHOD`` and ``VIDEOMAMBA_SSD_PMIXER``
-(dispatch.py:91-99, 176-195).
+(dispatch.py:91-99, 176-195), ``VIDEOMAMBA_SSD_TRAIN_ROUTE`` and
+``VIDEOMAMBA_SSD_BWD`` (dispatch.py:101-133).
 """
 
 from __future__ import annotations
@@ -92,3 +93,20 @@ def ssd_pmixer_enabled() -> bool:
     return os.getenv("VIDEOMAMBA_SSD_PMIXER", "1").strip().lower() not in {
         "0", "false", "off", "no"
     }
+
+
+def ssd_train_route() -> str:
+    """How a differentiated projected-mixer call runs, from
+    VIDEOMAMBA_SSD_TRAIN_ROUTE: "mixer" (the default) runs ``torch.matmul``
+    projections around the mixer kernel's checkpointed forward (K12) and its
+    backward (K13); "pmixer" runs the projected mixer's checkpointed forward
+    and backward (K14). Serving calls take K14 either way."""
+    v = os.getenv("VIDEOMAMBA_SSD_TRAIN_ROUTE", "mixer").strip().lower()
+    return "pmixer" if v == "pmixer" else "mixer"
+
+
+def ssd_bwd_fused_enabled() -> bool:
+    """The mixer backward kernel (K13, the default) against the composite
+    backward (VIDEOMAMBA_SSD_BWD=composite): a torch recompute of the conv
+    and autograd of the epilogue around the bare scan's backward (K11)."""
+    return os.getenv("VIDEOMAMBA_SSD_BWD", "fused").strip().lower() != "composite"

@@ -27,9 +27,10 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "videomamba_tpu_torch"
 SOURCES = ("fused_add_norm.cu", "selective_scan.cu", "mixer_fused.cu",
            "block_fused.cu", "selective_scan_bwd.cu", "mixer_bwd.cu",
            "fused_add_norm_bwd.cu", "block_bwd.cu", "causal_conv.cu",
-           "decode_step.cu", "ssd_mixer.cu", "ssd_pmixer.cu")
+           "decode_step.cu", "ssd_mixer.cu", "ssd_pmixer.cu", "ssd_core_bwd.cu",
+           "ssd_mixer_bwd.cu", "ssd_pmixer_bwd.cu")
 HEADERS = ("add_norm.cuh", "add_norm_bwd.cuh", "mixer_bwd.cuh", "mixer_parts.cuh",
-           "scan_walk.cuh", "scan_walk_bwd.cuh", "ssd_core.cuh")
+           "scan_walk.cuh", "scan_walk_bwd.cuh", "ssd_core.cuh", "ssd_core_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -71,6 +72,10 @@ SIGNATURES = {
     "vmt_decode_stack_m2": (*(_P,) * 16, *(_I,) * 10, _F, _I, _F, _I, _P),
     "vmt_ssd_mixer": (_P, _LL, *(_P,) * 13, *(_I,) * 8, _F, _I, _I, _P),
     "vmt_ssd_pmixer": (*(_P,) * 6, _I, *(_P,) * 12, *(_I,) * 8, _F, _I, _I, _P),
+    "vmt_ssd_scan": (*(_P,) * 7, *(_I,) * 9, _P),
+    "vmt_ssd_scan_bwd": (*(_P,) * 15, *(_I,) * 9, _P),
+    "vmt_ssd_mixer_bwd": (_P, _LL, _P, _P, _LL, *(_P,) * 28, *(_I,) * 8, _F, _I, _I, _P),
+    "vmt_ssd_pmixer_bwd": (*(_P,) * 12, _I, *(_P,) * 28, *(_I,) * 8, _F, _I, _I, _P),
 }
 # Entry points that return a size instead of a CUDA error code.
 SIZE_QUERIES = {

@@ -39,7 +39,15 @@ from videomamba_tpu_torch.ops.kernels import _build
 from videomamba_tpu_torch.ops.kernels.fused_add_norm import MAX_D, fused_add_norm_bwd_plain
 from videomamba_tpu_torch.ops.kernels.mixer_bwd import _rnd, mixer_bwd_plain
 from videomamba_tpu_torch.ops.kernels.mixer_fused import mixer_fused_plain
-from videomamba_tpu_torch.ops.kernels.scan import STATE_SIZES, num_segments
+from videomamba_tpu_torch.ops.kernels.scan import (
+    check_x_proj,
+    num_segments,
+    pad_state,
+    pad_x_proj,
+    unpad,
+    unpad_x_proj,
+    walk_state,
+)
 from videomamba_tpu_torch.ops.norm import layer_norm, rms_norm
 
 Tensor = torch.Tensor
@@ -134,8 +142,16 @@ def block_bwd(
     width = conv_w.shape[1]
     r = dt_proj_w.shape[1]
     n = A.shape[1]
-    if n not in STATE_SIZES:
-        raise ValueError(f"block_bwd kernel: d_state {n} not in {STATE_SIZES}")
+    check_x_proj("block_bwd", x_proj_w, r, n)
+    npad = walk_state(n, "block_bwd")
+    if npad != n:
+        out = list(block_bwd(res_out, norm_w, norm_b, in_proj_w, out_proj_w, conv_w, conv_b,
+                             pad_x_proj(x_proj_w, r, n, npad), dt_proj_w, dt_bias,
+                             pad_state(A, npad), D, conv_state, pad_state(ckpt, npad), g_out,
+                             g_res, pad_state(g_hlast, npad), norm_type=norm_type, eps=eps))
+        out[7] = unpad_x_proj(out[7], r, n, npad)
+        out[10], out[12] = unpad(out[10], n), unpad(out[12], n)
+        return tuple(out)
     if e > MAX_D:
         raise ValueError(f"block_bwd kernel takes d_model <= {MAX_D}, got {e}")
     if width > 8:

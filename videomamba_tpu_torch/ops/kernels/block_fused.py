@@ -44,7 +44,11 @@ from videomamba_tpu_torch.ops.causal_conv1d import causal_conv1d
 from videomamba_tpu_torch.ops.kernels import _build
 from videomamba_tpu_torch.ops.kernels.fused_add_norm import MAX_D
 from videomamba_tpu_torch.ops.kernels.scan import (
-    STATE_SIZES,
+    check_x_proj,
+    pad_state,
+    pad_x_proj,
+    unpad,
+    walk_state,
     num_segments,
     selective_scan_plain,
 )
@@ -193,8 +197,15 @@ def block_fused(
     width = conv_w.shape[1]
     r = dt_proj_w.shape[1]
     n = A.shape[1]
-    if n not in STATE_SIZES:
-        raise ValueError(f"block_fused kernel: d_state {n} not in {STATE_SIZES}")
+    check_x_proj("block_fused", x_proj_w, r, n)
+    npad = walk_state(n, "block_fused")
+    if npad != n:
+        out = block_fused(hidden, residual, norm_w, norm_b, in_proj_w, out_proj_w, conv_w,
+                          conv_b, pad_x_proj(x_proj_w, r, n, npad), dt_proj_w, dt_bias,
+                          pad_state(A, npad), D, pad_state(h0, npad), conv_state,
+                          norm_type=norm_type, eps=eps, residual_fp32=residual_fp32,
+                          checkpoints=checkpoints)
+        return (*out[:2], *(unpad(t, n) for t in out[2:]))
     if e > MAX_D:
         raise ValueError(f"block_fused kernel takes d_model <= {MAX_D}, got {e}")
     wdt = hidden.dtype

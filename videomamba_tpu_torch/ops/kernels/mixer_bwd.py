@@ -34,7 +34,12 @@ import torch.nn.functional as F
 from videomamba_tpu_torch.ops import dispatch
 from videomamba_tpu_torch.ops.kernels import _build
 from videomamba_tpu_torch.ops.kernels.scan import (
-    STATE_SIZES,
+    check_x_proj,
+    pad_state,
+    pad_x_proj,
+    unpad,
+    unpad_x_proj,
+    walk_state,
     _delta,
     num_segments,
     scan_bwd_core,
@@ -145,8 +150,15 @@ def mixer_bwd(
     width = conv_w.shape[1]
     r = dt_proj_w.shape[1]
     n = A.shape[1]
-    if n not in STATE_SIZES:
-        raise ValueError(f"mixer_bwd kernel: d_state {n} not in {STATE_SIZES}")
+    check_x_proj("mixer_bwd", x_proj_w, r, n)
+    npad = walk_state(n, "mixer_bwd")
+    if npad != n:
+        (dx, dz, dcw, dcb, dxp, ddtp, ddtb, dA, dD, dh0, dcst) = mixer_bwd(
+            x, z, conv_w, conv_b, pad_x_proj(x_proj_w, r, n, npad), dt_proj_w, dt_bias,
+            pad_state(A, npad), D, conv_state, pad_state(ckpt, npad), g_y,
+            pad_state(g_hlast, npad))
+        return (dx, dz, dcw, dcb, unpad_x_proj(dxp, r, n, npad), ddtp, ddtb, unpad(dA, n),
+                dD, unpad(dh0, n), dcst)
     if width > 8:
         raise ValueError(f"mixer_bwd kernel takes d_conv <= 8, got {width}")
     if bsz == 0 or seqlen == 0:

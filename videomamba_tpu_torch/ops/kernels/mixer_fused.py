@@ -32,7 +32,11 @@ from videomamba_tpu_torch.ops import dispatch
 from videomamba_tpu_torch.ops.causal_conv1d import causal_conv1d
 from videomamba_tpu_torch.ops.kernels import _build
 from videomamba_tpu_torch.ops.kernels.scan import (
-    STATE_SIZES,
+    check_x_proj,
+    pad_state,
+    pad_x_proj,
+    unpad,
+    walk_state,
     num_segments,
     selective_scan_plain,
 )
@@ -112,8 +116,13 @@ def mixer_fused(
     width = conv_w.shape[1]
     r = dt_proj_w.shape[1]
     n = A.shape[1]
-    if n not in STATE_SIZES:
-        raise ValueError(f"mixer_fused kernel: d_state {n} not in {STATE_SIZES}")
+    check_x_proj("mixer_fused", x_proj_w, r, n)
+    npad = walk_state(n, "mixer_fused")
+    if npad != n:
+        out = mixer_fused(x, z, conv_w, conv_b, pad_x_proj(x_proj_w, r, n, npad), dt_proj_w,
+                          dt_bias, pad_state(A, npad), D, pad_state(h0, npad), conv_state,
+                          checkpoints)
+        return (out[0], *(unpad(t, n) for t in out[1:]))
     weights = {"conv_w": (conv_w, (di, width)), "conv_b": (conv_b, (di,)),
                "x_proj_w": (x_proj_w, (r + 2 * n, di)), "dt_proj_w": (dt_proj_w, (di, r))}
     wdt, xdt = _build.one_dtype(x_proj_w), _build.one_dtype(x)

@@ -18,6 +18,14 @@ K5 replaces scan.py (scan_bwd_pallas, ``_scan_bwd_kernel``): every gradient
 of K1 from those checkpoints, in csrc/selective_scan_bwd.cu over the reverse
 walk in csrc/scan_walk_bwd.cuh (design and bound in its header note). It is
 latency-bound like the forward: two serial chains per step.
+
+State sizes: the walks are compiled for N in :data:`STATE_SIZES`; every
+Mamba-1 wrapper (K1, K3-K7) pads a smaller N with zero lanes (zero B and C
+columns, A and h0, whose states stay zero and add nothing to y) up to the
+next of them and slices the states and their gradients back. K1 and K5 run
+an N above 128 (the JAX package's K1 takes N up to 512) as slices of 128
+states whose y (and du, ddelta) partials are summed, with the D skip and
+the gate in torch: one thread cannot hold more states.
 """
 
 from __future__ import annotations
@@ -32,8 +40,53 @@ from videomamba_tpu_torch.ops.kernels import _build
 
 Tensor = torch.Tensor
 
-STATE_SIZES = (8, 16, 32, 64)  # N the library is built for
+STATE_SIZES = (8, 16, 32, 64, 128)  # N the walks are built for
+WALK_STATE = STATE_SIZES[-1]  # K1 and K5 run a wider state as slices of this many
 SEGMENT = 16  # steps per checkpoint (csrc/scan_walk.cuh kScanTile)
+
+
+def walk_state(n: int, kernel: str) -> int:
+    """The built state size a state of n runs at: the smallest of
+    STATE_SIZES that holds it. Raises above WALK_STATE."""
+    if not 0 < n <= WALK_STATE:
+        raise ValueError(f"{kernel} kernel takes d_state 1..{WALK_STATE}, got {n}")
+    return next(size for size in STATE_SIZES if size >= n)
+
+
+def pad_state(t: Optional[Tensor], npad: int) -> Optional[Tensor]:
+    """t with its last axis (the state) zero-padded to npad lanes."""
+    if t is None or t.shape[-1] == npad:
+        return t
+    return F.pad(t, (0, npad - t.shape[-1])).contiguous()
+
+
+def pad_x_proj(w: Tensor, r: int, n: int, npad: int) -> Tensor:
+    """x_proj's weight (R + 2 N, Di) with its B and C rows each followed by
+    npad - n zero rows: the projection then gives zero padded B and C."""
+    if npad == n:
+        return w
+    zeros = w.new_zeros((npad - n, w.shape[1]))
+    return torch.cat([w[:r + n], zeros, w[r + n:], zeros]).contiguous()
+
+
+def check_x_proj(kernel: str, x_proj_w: Tensor, r: int, n: int) -> None:
+    """Raise unless x_proj's weight has dt_rank + 2 d_state rows (before any
+    padding, which would hide a mismatch)."""
+    if x_proj_w.shape[0] != r + 2 * n:
+        raise ValueError(f"{kernel} kernel: x_proj_w has {x_proj_w.shape[0]} rows, expected "
+                         f"dt_rank {r} + 2 x d_state {n}")
+
+
+def unpad_x_proj(dw: Tensor, r: int, n: int, npad: int) -> Tensor:
+    """The gradient of a padded x_proj weight back at (R + 2 N, Di)."""
+    if npad == n:
+        return dw
+    return torch.cat([dw[:r + n], dw[r + npad:r + npad + n]])
+
+
+def unpad(t: Optional[Tensor], n: int) -> Optional[Tensor]:
+    """The first n states of t's last axis."""
+    return None if t is None or t.shape[-1] == n else t[..., :n].contiguous()
 
 
 def num_segments(seqlen: int) -> int:
@@ -125,8 +178,15 @@ def selective_scan(
         )
     bsz, seqlen, d = u.shape
     n = A.shape[1]
-    if n not in STATE_SIZES:
-        raise ValueError(f"selective_scan kernel: d_state {n} not in {STATE_SIZES}")
+    if n > WALK_STATE:
+        return _scan_sliced(u, delta, A, B, C, D, z, delta_bias, h0, softplus_delta,
+                            checkpoints)
+    npad = walk_state(n, "selective_scan")
+    if npad != n:
+        out = selective_scan(u, delta, pad_state(A, npad), pad_state(B, npad),
+                             pad_state(C, npad), D, z, delta_bias, pad_state(h0, npad),
+                             softplus_delta, checkpoints)
+        return (out[0], *(unpad(t, n) for t in out[1:]))
     act = _build.one_dtype(u)
     rows, states = (bsz, seqlen, d), (bsz, seqlen, n)
     _build.check_operands(
@@ -163,6 +223,30 @@ def selective_scan(
 
 
 selective_scan.launches = 0
+
+
+def _slices(n: int):
+    return [slice(lo, min(n, lo + WALK_STATE)) for lo in range(0, n, WALK_STATE)]
+
+
+def _scan_sliced(u, delta, A, B, C, D, z, delta_bias, h0, softplus_delta, checkpoints):
+    """K1 for a state wider than the walk's: a launch per slice of
+    WALK_STATE states without the D skip and the gate, on fp32 copies of the
+    activations (a widening, so the walk's arithmetic is unchanged); the
+    slices' y summed, then D u and silu(z) in fp32."""
+    u32, d32 = u.float(), delta.float()
+    y, outs = 0.0, []
+    for sl in _slices(A.shape[1]):
+        out = selective_scan(u32, d32, A[:, sl].contiguous(), B[..., sl].float(),
+                             C[..., sl].float(), None, None, delta_bias,
+                             h0[..., sl].contiguous(), softplus_delta, checkpoints)
+        y = y + out[0]
+        outs.append(out[1:])
+    if D is not None:
+        y = y + u32 * D.float()
+    if z is not None:
+        y = y * F.silu(z.float())
+    return (y.to(u.dtype), *(torch.cat(ts, dim=-1) for ts in zip(*outs)))
 
 
 def scan_bwd_core(u32, dt, A32, B32, C32, D32, z32, g32, ckpt, g_hlast, softplus_delta):
@@ -282,8 +366,17 @@ def selective_scan_bwd(
         )
     bsz, seqlen, d = u.shape
     n = A.shape[1]
-    if n not in STATE_SIZES:
-        raise ValueError(f"selective_scan_bwd kernel: d_state {n} not in {STATE_SIZES}")
+    if n > WALK_STATE:
+        return _scan_bwd_sliced(u, delta, A, B, C, D, z, delta_bias, ckpt, g_out, g_hlast,
+                                softplus_delta)
+    npad = walk_state(n, "selective_scan_bwd")
+    if npad != n:
+        du, ddelta, dA, dB, dC, dD, dz, dbias, dh0 = selective_scan_bwd(
+            u, delta, pad_state(A, npad), pad_state(B, npad), pad_state(C, npad), D, z,
+            delta_bias, pad_state(ckpt, npad), g_out, pad_state(g_hlast, npad),
+            softplus_delta)
+        return (du, ddelta, unpad(dA, n), unpad(dB, n), unpad(dC, n), dD, dz, dbias,
+                unpad(dh0, n))
     dtype = _common_dtype(u, delta, z, B, C, g_out)
     if dtype not in _build.FP32_OR_BF16:
         dtype = torch.float32
@@ -346,3 +439,38 @@ def selective_scan_bwd(
 
 
 selective_scan_bwd.launches = 0
+
+
+def _scan_bwd_sliced(u, delta, A, B, C, D, z, delta_bias, ckpt, g_out, g_hlast,
+                     softplus_delta):
+    """K5 for a state wider than the walk's: the gate's and the D skip's
+    gradients in fp32 torch, and a launch per slice of WALK_STATE states
+    without them (at the cotangent of the pre-gate y), whose du, ddelta and
+    dbias sum; y before the gate, which dz needs, from K1 per slice."""
+    u32, d32 = u.float(), delta.float()
+    g2 = g_out.float() * F.silu(z.float()) if z is not None else g_out.float()
+    du, ddelta, dbias, pre = 0.0, 0.0, 0.0, 0.0
+    per_state = []
+    for sl in _slices(A.shape[1]):
+        As, Bs, Cs = A[:, sl].contiguous(), B[..., sl].float(), C[..., sl].float()
+        gh = g_hlast[..., sl].contiguous() if g_hlast is not None else None
+        out = selective_scan_bwd(u32, d32, As, Bs, Cs, None, None, delta_bias,
+                                 ckpt[..., sl].contiguous(), g2, gh, softplus_delta)
+        du, ddelta = du + out[0].float(), ddelta + out[1].float()
+        dbias = dbias + out[7] if delta_bias is not None else None
+        per_state.append((out[2], out[3], out[4], out[8]))
+        if z is not None:
+            pre = pre + selective_scan(u32, d32, As, Bs, Cs, None, None, delta_bias,
+                                       ckpt[:, 0, :, sl].contiguous(), softplus_delta)[0]
+    dD = None
+    if D is not None:
+        du = du + g2 * D.float()
+        dD = (g2 * u32).sum((0, 1))
+        pre = pre + u32 * D.float()
+    dz = None
+    if z is not None:
+        sig = torch.sigmoid(z.float())
+        dz = g_out.float() * pre * (sig * (1.0 + z.float() * (1.0 - sig)))
+    dA, dB, dC, dh0 = (torch.cat(ts, dim=-1) for ts in zip(*per_state))
+    return (du.to(u.dtype), ddelta.to(delta.dtype), dA.to(A.dtype), dB.to(B.dtype),
+            dC.to(C.dtype), _cast(dD, D), _cast(dz, z), _cast(dbias, delta_bias), dh0)

@@ -14,12 +14,13 @@ splits the walk by state passing instead, five launches on the current
 stream: the conv (K3's ``conv_silu`` over the slab, left context from the
 window); per (chunk, head, batch) block the chunk's own state (x w)^T B; a
 short sequential pass per (head, batch) that turns those into each chunk's
-entry state and h_last; per (64 rows of a chunk, head, batch) block the
-intra-chunk (C B^T * decay * dt) x over the causal 64-row slabs, the
-inter-chunk (C h_entry^T) e^s and D x; then a row pass for the gate and the
-norm, which spans every head of a row. That is 26 x 24 = 624 blocks at
-VideoMamba-Base-m2, B = 1, and shared memory that hardly grows with the
-chunk, so chunk 256 and d_state 128 run too. The dt softplus and the
+entry state and h_last; per (64 rows of a chunk, 64 head-dim columns,
+head, batch) block the intra-chunk (C B^T * decay * dt) x over the causal
+64-row slabs, the inter-chunk (C h_entry^T) e^s and D x; then a row pass
+for the gate and the norm, which spans every head of a row. That is 26 x
+24 = 624 blocks at VideoMamba-Base-m2, B = 1, and shared memory that grows
+with neither the head dim nor the state (both staged 64 wide), only by the
+chunk's s and dt, so chunk 256, d_state 128 and P = N = 256 run too. The dt softplus and the
 per-chunk decay cumsum are torch ops around it, as they are XLA ops in the
 JAX package (``_prepare_dt``, ``_decay_tensors``).
 
@@ -36,13 +37,18 @@ stays fp32 between chunks; the output is rounded once. At fp32 nothing is
 rounded (the TPU's ``Precision.HIGHEST``). The conv window is rounded to the
 compute dtype first, as the JAX wrapper casts it.
 
+Training: with ``checkpoints=True`` (:func:`ssd_mixer_core`) the call also
+returns the walk's own buffers, each chunk's entry state ``hins`` (B, nc,
+H, P, N) fp32 and the pre-gate y ``yd`` (B, L, Di) fp32: the residuals the
+backward (K13, ops/kernels/ssd_mixer_bwd.py) starts from, as the JAX
+package's ``_mixer_vjp_fwd`` emits them. They cost no extra launch.
+
 The kernel's shape gate (:func:`ssd_kernel_supported`) is its own: head dim
-and state multiples of 4, groups dividing heads, and the chunk-output tiles
-in one block's shared memory (up to P = N = 128 at any chunk a model uses).
-The TPU's 128-lane chunk rule is not ported. On a CUDA tensor a shape
-outside the gate raises; the model routes never send one to a plain
-version. Forward only: under autograd on the card the call runs as
-:class:`SsdMixerFn`, whose backward raises (K13 is not ported).
+and state multiples of 4 and groups dividing heads. The chunk tiles stage
+64 rows, 64 head-dim columns and 64 states at a time, so shared memory
+grows only with the chunk's s and dt (every chunk a model uses fits). The
+TPU's 128-lane chunk rule is not ported. On a CUDA tensor a shape outside
+the gate raises; the model routes never send one to a plain version.
 """
 
 from __future__ import annotations
@@ -60,30 +66,22 @@ from videomamba_tpu_torch.ops.ssd import _expand_groups, _prepare_dt
 Tensor = torch.Tensor
 
 MAX_SMEM_BYTES = 232448  # one Hopper block's shared memory (227 KB)
-K13_MISSING = (
-    "the Mamba-2 mixer backward (K13, ssd_scan.py _ssd_mixer_bwd_*) is not "
-    "ported: differentiating a Mamba-2 layer on the card is the training "
-    "slice's work"
-)
+SLAB = 64  # chunk rows, head-dim columns and states the chunk kernels stage at a time
 
 
-SLAB = 64  # chunk rows the chunk kernels stage in shared memory at a time
-
-
-def chunk_out_smem_bytes(chunk: int, hdim: int, d_state: int) -> int:
-    """Shared memory of the chunk-output kernel: C and B slabs (N, SLAB),
-    the (SLAB, SLAB) tile of m, an x slab and the rows' sums (SLAB, P), the
-    entry state (N, P), s and dt (Q,)."""
-    return 4 * (2 * SLAB * d_state + SLAB * SLAB + 2 * SLAB * hdim + d_state * hdim
-                + 2 * chunk)
+def chunk_out_smem_bytes(chunk: int) -> int:
+    """Shared memory of the chunk-output kernel: six (SLAB, SLAB) tiles (C
+    and B slabs of an N tile, m, an x slab of a P tile, an entry-state tile
+    and the rows' sums), s and dt (Q,)."""
+    return 4 * (6 * SLAB * SLAB + 2 * chunk)
 
 
 def ssd_kernel_supported(nheads: int, hdim: int, ngroups: int, d_state: int,
                          chunk_size: int) -> bool:
-    """The Hopper kernels' shape gate (K12 and K14 share the chunk walk)."""
+    """The Hopper kernels' shape gate (K11-K14 share the chunk walk)."""
     return (hdim % 4 == 0 and d_state % 4 == 0 and chunk_size > 0 and ngroups > 0
             and nheads % ngroups == 0
-            and chunk_out_smem_bytes(chunk_size, hdim, d_state) <= MAX_SMEM_BYTES)
+            and chunk_out_smem_bytes(chunk_size) <= MAX_SMEM_BYTES)
 
 
 def decay_cumsum(dt_p: Tensor, A: Tensor, chunk: int) -> Tuple[Tensor, Tensor]:
@@ -98,64 +96,98 @@ def decay_cumsum(dt_p: Tensor, A: Tensor, chunk: int) -> Tuple[Tensor, Tensor]:
     return dtf.contiguous(), s.reshape(bsz, lp, nheads).contiguous()
 
 
-def ssd_core_plain(zx: Tensor, dt_p: Tensor, A: Tensor, conv_w: Tensor, conv_b: Tensor,
-                   D: Tensor, h0: Optional[Tensor], conv_state: Optional[Tensor],
-                   norm_weight: Optional[Tensor], norm_eps: float, chunk_size: int,
-                   nheads: int, hdim: int, ngroups: int, d_state: int
-                   ) -> Tuple[Tensor, Tensor]:
-    """The kernels' chunk walk in plain PyTorch, with their rounding points.
-    zx (B, L, >= Di + CD): z at columns [0, Di), [x B C] at [Di, Di + CD);
-    dt_p (B, L, H) post-softplus. Returns (gated (B, L, Di) in zx.dtype,
-    h_last (B, H, P, N) fp32)."""
-    cdt = zx.dtype
-    bsz, seqlen, _ = zx.shape
-    di, gn = nheads * hdim, ngroups * d_state
-    cd = di + 2 * gn
-    q = int(chunk_size)
-    width = conv_w.shape[1]
-    cst = (conv_state.to(cdt) if conv_state is not None
-           else zx.new_zeros((bsz, cd, width)))
-    pre, _ = conv_pre(zx[..., di:di + cd], conv_w, conv_b.float(), cst)
-    cy = F.silu(pre)  # (B, L, CD) fp32
-    dtf, s = decay_cumsum(dt_p, A, q)
+def to_chunks(t: Tensor, lp: int, chunk: int) -> Tensor:
+    """(B, L, X, Y) zero-padded to Lp rows and split into (B, nc, Q, X, Y)."""
+    bsz, seqlen = t.shape[:2]
+    t = F.pad(t, (0, 0, 0, 0, 0, lp - seqlen))
+    return t.reshape(bsz, lp // chunk, chunk, *t.shape[2:])
+
+
+def walk_plain(x_f: Tensor, Bm: Tensor, Cm: Tensor, dtf: Tensor, s: Tensor,
+               h0: Optional[Tensor], D: Optional[Tensor], cdt: torch.dtype,
+               chunk: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """The chunk walk (launches 2-4 of csrc/ssd_mixer.cu) in plain PyTorch,
+    with its rounding points. x_f (B, L, H, P), Bm and Cm (B, L, G, N),
+    fp32; dtf and s (B, Lp, H) from :func:`decay_cumsum`; h0 (B, H, P, N)
+    or None; D (H,) or None. Returns (y (B, L, H, P) fp32 with the D skip,
+    h_last (B, H, P, N) fp32, hins (B, nc, H, P, N) fp32: each chunk's entry
+    state)."""
+    bsz, seqlen, nheads, hdim = x_f.shape
+    d_state = Bm.shape[-1]
+    q = int(chunk)
     lp = dtf.shape[1]
     nc = lp // q
-    cy = F.pad(cy, (0, 0, 0, lp - seqlen))
-    x_f = cy[..., :di].reshape(bsz, nc, q, nheads, hdim)
-    xr = _rnd(x_f, cdt)
-    Bm = _rnd(cy[..., di:di + gn], cdt).reshape(bsz, nc, q, ngroups, d_state)
-    Cm = _rnd(cy[..., di + gn:], cdt).reshape(bsz, nc, q, ngroups, d_state)
-    Bh, Ch = _expand_groups(Bm, nheads), _expand_groups(Cm, nheads)  # (B, C, Q, H, N)
+    xf = to_chunks(x_f.float(), lp, q)  # (B, C, Q, H, P)
+    xr = _rnd(xf, cdt)
+    Bh = _expand_groups(_rnd(to_chunks(Bm.float(), lp, q), cdt), nheads)  # (B, C, Q, H, N)
+    Ch = _expand_groups(_rnd(to_chunks(Cm.float(), lp, q), cdt), nheads)
     sc = s.reshape(bsz, nc, q, nheads)
     dtc = dtf.reshape(bsz, nc, q, nheads)
 
     # Intra-chunk: m[q, k] = rnd(C_q . B_k e^(s_q - s_k) dt_k), k <= q.
     cb = torch.einsum("bcqhn,bckhn->bchqk", Ch, Bh)
     seg = (sc[:, :, :, None, :] - sc[:, :, None, :, :]).movedim(-1, 2)  # (B, C, H, Q, Q)
-    causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=zx.device))
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x_f.device))
     m = cb * torch.exp(seg.masked_fill(~causal, float("-inf")))
     m = _rnd(m * dtc.permute(0, 1, 3, 2)[:, :, :, None, :], cdt)
     y = torch.einsum("bchqk,bckhp->bcqhp", m, xr)
 
     # Chunk states S_c = (x_f w rounded)^T B, w = dt e^(s_last - s); entry states.
     w = dtc * torch.exp(sc[:, :, -1:, :] - sc)
-    S = torch.einsum("bcqhp,bcqhn->bchpn", _rnd(x_f * w[..., None], cdt), Bh)
-    h = h0.float() if h0 is not None else zx.new_zeros(
+    S = torch.einsum("bcqhp,bcqhn->bchpn", _rnd(xf * w[..., None], cdt), Bh)
+    h = h0.float() if h0 is not None else x_f.new_zeros(
         (bsz, nheads, hdim, d_state), dtype=torch.float32)
     entries = []
     for c in range(nc):
         entries.append(h)
         h = torch.exp(sc[:, c, -1])[:, :, None, None] * h + S[:, c]
-    h_in = _rnd(torch.stack(entries, dim=1), cdt)  # (B, C, H, P, N)
+    hins = torch.stack(entries, dim=1)  # (B, C, H, P, N)
 
-    y = y + torch.einsum("bcqhn,bchpn->bcqhp", Ch, h_in) * torch.exp(sc)[..., None]
-    y = y + D.float()[:, None] * x_f
-    y = y.reshape(bsz, lp, di)[:, :seqlen]
-    gated = y * F.silu(zx[..., :di].float())
+    y = y + torch.einsum("bcqhn,bchpn->bcqhp", Ch, _rnd(hins, cdt)) * torch.exp(sc)[..., None]
+    if D is not None:
+        y = y + D.float()[:, None] * xf
+    return y.reshape(bsz, lp, nheads, hdim)[:, :seqlen], h, hins
+
+
+def gate_plain(y: Tensor, z: Tensor, norm_weight: Optional[Tensor], norm_eps: float) -> Tensor:
+    """Launch 5 in plain PyTorch: norm(y silu(z)) in fp32, y (B, L, Di)."""
+    gated = y * F.silu(z.float())
     if norm_weight is not None:
         var = gated.square().mean(-1, keepdim=True)
         gated = gated * torch.rsqrt(var + norm_eps) * norm_weight.float()
-    return gated.to(cdt), h
+    return gated
+
+
+def ssd_core_plain(zx: Tensor, dt_p: Tensor, A: Tensor, conv_w: Tensor, conv_b: Tensor,
+                   D: Tensor, h0: Optional[Tensor], conv_state: Optional[Tensor],
+                   norm_weight: Optional[Tensor], norm_eps: float, chunk_size: int,
+                   nheads: int, hdim: int, ngroups: int, d_state: int,
+                   checkpoints: bool = False) -> Tuple:
+    """The kernels' span in plain PyTorch, with their rounding points.
+    zx (B, L, >= Di + CD): z at columns [0, Di), [x B C] at [Di, Di + CD);
+    dt_p (B, L, H) post-softplus. Returns (gated (B, L, Di) in zx.dtype,
+    h_last (B, H, P, N) fp32), and with ``checkpoints`` also (hins (B, nc,
+    H, P, N), yd (B, L, Di)), fp32."""
+    cdt = zx.dtype
+    bsz, seqlen, _ = zx.shape
+    di, gn = nheads * hdim, ngroups * d_state
+    cd = di + 2 * gn
+    width = conv_w.shape[1]
+    cst = (conv_state.to(cdt) if conv_state is not None
+           else zx.new_zeros((bsz, cd, width)))
+    pre, _ = conv_pre(zx[..., di:di + cd], conv_w, conv_b.float(), cst)
+    cy = F.silu(pre)  # (B, L, CD) fp32
+    dtf, s = decay_cumsum(dt_p, A, int(chunk_size))
+    y, h, hins = walk_plain(
+        cy[..., :di].reshape(bsz, seqlen, nheads, hdim),
+        cy[..., di:di + gn].reshape(bsz, seqlen, ngroups, d_state),
+        cy[..., di + gn:].reshape(bsz, seqlen, ngroups, d_state),
+        dtf, s, h0, D, cdt, chunk_size)
+    y = y.reshape(bsz, seqlen, di)
+    gated = gate_plain(y, zx[..., :di], norm_weight, norm_eps).to(cdt)
+    if checkpoints:
+        return gated, h, hins, y
+    return gated, h
 
 
 def ssd_mixer_plain(
@@ -201,7 +233,7 @@ def core_operands(kernel: str, zx: Tensor, dt_p: Tensor, A: Tensor, conv_weight:
         raise ValueError(
             f"{kernel} kernel: head dim {hdim} and d_state {d_state} must be multiples "
             f"of 4, chunk {chunk_size} positive, {ngroups} groups must divide {nheads} "
-            f"heads and {chunk_out_smem_bytes(chunk_size, hdim, d_state)} <= "
+            f"heads and {chunk_out_smem_bytes(chunk_size)} <= "
             f"{MAX_SMEM_BYTES} bytes of chunk tiles")
     dev, cdt = zx.device, zx.dtype
     bsz = zx.shape[0]
@@ -250,6 +282,57 @@ def core_args(ops: dict, chunk_size: int, nheads: int, hdim: int, ngroups: int,
             ngroups, d_state, ops["conv_w"].shape[1], norm_eps)
 
 
+def ssd_mixer_core(zx: Tensor, dt_p: Tensor, A: Tensor, conv_weight: Tensor,
+                   conv_bias: Optional[Tensor], D: Tensor, initial_state: Optional[Tensor],
+                   conv_state: Optional[Tensor], norm_weight: Optional[Tensor],
+                   norm_eps: float, chunk_size: int, nheads: int, hdim: int, ngroups: int,
+                   d_state: int, checkpoints: bool = False) -> Tuple:
+    """K12 with dt given post-softplus (B, L, H), the contract of
+    :func:`ssd_core_plain`: with ``checkpoints`` it also returns (hins (B,
+    nc, H, P, N), yd (B, L, Di)) fp32, the walk's own buffers."""
+    if dispatch.runs_plain(zx):
+        conv_b = conv_bias if conv_bias is not None else zx.new_zeros(
+            conv_weight.shape[0], dtype=torch.float32)
+        return ssd_core_plain(zx, dt_p, A, conv_weight, conv_b, D, initial_state, conv_state,
+                              norm_weight, norm_eps, chunk_size, nheads, hdim, ngroups,
+                              d_state, checkpoints)
+    bsz, seqlen, dpj = zx.shape
+    di = nheads * hdim
+    cd = di + 2 * ngroups * d_state
+    if dpj < di + cd:
+        raise ValueError(f"ssd_mixer kernel: zxbcdt has {dpj} columns, expected at least "
+                         f"{di + cd}")
+    _build.check_operands("ssd_mixer", zx.device, {"zxbcdt": (zx, (bsz, seqlen, dpj))},
+                          dtypes={"zxbcdt": _build.FP32_OR_BF16})
+    ld = _build.row_stride(zx, "ssd_mixer zxbcdt")
+    ops = core_operands("ssd_mixer", zx, dt_p, A, conv_weight, conv_bias, D,
+                        initial_state, conv_state, norm_weight, chunk_size, nheads, hdim,
+                        ngroups, d_state, seqlen)
+    if bsz == 0 or seqlen == 0:
+        ops["h_last"].copy_(ops["h0"])
+    else:
+        err = _build.library().vmt_ssd_mixer(
+            _build.ptr(zx), ld, _build.ptr(ops["gated"]),
+            *core_args(ops, chunk_size, nheads, hdim, ngroups, d_state, norm_eps, bsz,
+                       seqlen),
+            _build.is_bf16(zx), zx.device.index, _build.stream_of(zx),
+        )
+        _build.check(err, "ssd_mixer")
+        ssd_mixer.launches += 1
+    if checkpoints:
+        return ops["gated"], ops["h_last"], *walk_checkpoints(ops, bsz, seqlen, nheads,
+                                                              hdim, d_state)
+    return ops["gated"], ops["h_last"]
+
+
+def walk_checkpoints(ops: dict, bsz: int, seqlen: int, nheads: int, hdim: int,
+                     d_state: int) -> Tuple[Tensor, Tensor]:
+    """The walk's hin and y buffers after a launch, as (hins (B, nc, H, P,
+    N), yd (B, L, Di)): the training forward's checkpoints."""
+    return (ops["hin"].view(bsz, -1, nheads, hdim, d_state),
+            ops["y"].view(bsz, seqlen, nheads * hdim))
+
+
 def ssd_mixer(
     zxbcdt: Tensor,
     A: Tensor,
@@ -276,47 +359,15 @@ def ssd_mixer(
         return ssd_mixer_plain(zxbcdt, A, conv_weight, conv_bias, D, dt_bias,
                                initial_state, conv_state, norm_weight, norm_eps, chunk_size,
                                nheads, hdim, ngroups, d_state)
-    bsz, seqlen, dpj = zxbcdt.shape
     di = nheads * hdim
     cd = di + 2 * ngroups * d_state
-    if dpj != di + cd + nheads:
-        raise ValueError(f"ssd_mixer kernel: zxbcdt has {dpj} columns, expected "
+    if zxbcdt.shape[-1] != di + cd + nheads:
+        raise ValueError(f"ssd_mixer kernel: zxbcdt has {zxbcdt.shape[-1]} columns, expected "
                          f"{di + cd + nheads}")
-    _build.check_operands("ssd_mixer", zxbcdt.device,
-                          {"zxbcdt": (zxbcdt, (bsz, seqlen, dpj))},
-                          dtypes={"zxbcdt": _build.FP32_OR_BF16})
-    ld = _build.row_stride(zxbcdt, "ssd_mixer zxbcdt")
     dt_p = _prepare_dt(zxbcdt[..., di + cd:], dt_bias, True)
-    ops = core_operands("ssd_mixer", zxbcdt, dt_p, A, conv_weight, conv_bias, D,
-                        initial_state, conv_state, norm_weight, chunk_size, nheads, hdim,
-                        ngroups, d_state, seqlen)
-    if bsz == 0 or seqlen == 0:
-        ops["h_last"].copy_(ops["h0"])
-        return ops["gated"], ops["h_last"]
-    err = _build.library().vmt_ssd_mixer(
-        _build.ptr(zxbcdt), ld, _build.ptr(ops["gated"]),
-        *core_args(ops, chunk_size, nheads, hdim, ngroups, d_state, norm_eps, bsz, seqlen),
-        _build.is_bf16(zxbcdt), zxbcdt.device.index, _build.stream_of(zxbcdt),
-    )
-    _build.check(err, "ssd_mixer")
-    ssd_mixer.launches += 1
-    return ops["gated"], ops["h_last"]
+    return ssd_mixer_core(zxbcdt, dt_p, A, conv_weight, conv_bias, D, initial_state,
+                          conv_state, norm_weight, norm_eps, chunk_size, nheads, hdim,
+                          ngroups, d_state)
 
 
 ssd_mixer.launches = 0
-
-
-class SsdMixerFn(torch.autograd.Function):
-    """K12 under autograd on the card: the forward is the kernel, the
-    backward raises, so a graph through it never ends in ``grad=None``."""
-
-    @staticmethod
-    def forward(ctx, zxbcdt, A, conv_weight, conv_bias, D, dt_bias, initial_state,
-                conv_state, norm_weight, cfg):
-        return ssd_mixer(zxbcdt, A, conv_weight, conv_bias, D, dt_bias, initial_state,
-                         conv_state, norm_weight, *cfg)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(K13_MISSING)
-

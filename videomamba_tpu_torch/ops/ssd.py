@@ -126,16 +126,20 @@ def ssd_chunked(
     """Chunked SSD: matrix products within chunks and a short state pass
     across them (:func:`ssd_core_chunked`), then the D skip and the gate.
 
-    ``method="ref"`` runs the core as the sequential oracle instead. The JAX
-    package's ``method="pallas"`` (the bare-scan kernel K11) is not ported
-    and raises.
+    ``method="ref"`` runs the core as the sequential oracle instead;
+    ``method="pallas"`` runs the bare-scan kernel K11
+    (ops/kernels/ssd_core.py, its plain version on CPU tensors; under
+    autograd its backward), as the JAX package's ``ssd_core_pallas``.
     """
-    if method not in ("chunked", "ref"):
-        raise NotImplementedError(
-            f"ssd_chunked method {method!r}: the bare SSD scan kernel "
-            "(ssd_core_pallas, K11) is not ported; use 'chunked' or 'ref'")
+    if method not in ("chunked", "ref", "pallas"):
+        raise ValueError(f"ssd_chunked method {method!r}: use 'chunked', 'ref' or 'pallas'")
     dt_p = _prepare_dt(dt, dt_bias, dt_softplus)
-    if method == "ref":
+    if method == "pallas":
+        # Imported here: the kernel module builds on this one.
+        from videomamba_tpu_torch.ops.kernels.ssd_core import ssd_core_pallas
+
+        y, h_last = ssd_core_pallas(x, dt_p, A, B, C, initial_state, chunk_size)
+    elif method == "ref":
         y, h_last = ssd_ref(x, dt_p, A, B, C, dt_softplus=False,
                             initial_state=initial_state, return_last_state=True)
         y = y.float()
