@@ -9,7 +9,9 @@ failure, so the script exits nonzero:
 1. kernels: K1 (selective scan), K2 (fused add + RMSNorm) and K3 (fused
    mixer) against their plain PyTorch versions on the card at
    VideoMamba-Base shapes (B=1, L=1569, E=768, Di=1536, N=16, R=48), fp32,
-   rel_err <= 1e-5; each timed beside its plain version.
+   rel_err <= 1e-5, two runs bit-identical; each timed beside its plain
+   version; K3's launches' device time a call under torch.profiler (conv,
+   products, and the time-split walk's chunk states, pass and output walk).
 2. forward: VideoMamba-Base fp32 (depth 24, pool 'avg', weights from a
    seeded torch.Generator), full clip (1, 3, 8, 224, 224), kernels on,
    against the plain path on the card (rel_err <= 1e-4: 24 layers of
@@ -20,7 +22,8 @@ failure, so the script exits nonzero:
    unfused branch) runs K1, against the plain path, rel_err <= 1e-5.
 5. kernels at bf16: K4 (whole Block) against its plain version at Base
    shapes in bf16 with nonzero h0 and conv_state (rel_err <= 1e-2) and at
-   Small shapes in fp32, the fp32 whole-block route (<= 1e-5); K2 with a
+   Small shapes in fp32, the fp32 whole-block route (<= 1e-5), two runs
+   bit-identical, and each of K4's launches' device time a call; K2 with a
    bf16 x and an fp32 residual (<= 1e-2); each timed beside its plain version.
 6. bf16 forward: the Base weights of phase 2 cast for bf16 serving
    (utils/precision.py), full clip, kernels on: 24 K4, 1 K2 and 0 K3
@@ -30,6 +33,9 @@ failure, so the script exits nonzero:
    fp32 features are printed.
 7. bf16 stream: StreamingSession over two 4-frame chunks; stitched patch
    tokens against the bf16 full clip, rel_err <= 1e-2; states stay fp32.
+   Then the fp32 and bf16 Base serving times (full clip, first and
+   continuation chunk) and, under torch.profiler, the full clip's and first
+   chunk's device kernel time, idle share and top kernels.
 
 8. backward kernels at Base shapes (B=1, L=1569, nonzero h0, conv_state
    and h_last cotangent): K1's and K3's checkpoints (fp32, 1e-5) and K1 with
@@ -410,9 +416,20 @@ def phase_kernels(cfg, device):
     flops = {"selective_scan": scan_flops(b, L, di, n),
              "fused_add_norm": {"fp32": 8 * b * L * e},
              "mixer_fused": mixer_flops(b, L, di, n, r, w, torch.float32)}
-    return {name: time_against_plain(name, WRAPPERS[name], plains[name], kw, KERNEL_TOL,
-                                     flops[name])
-            for name, kw in kernel_inputs(cfg, device).items()}
+    results = {}
+    for name, kw in kernel_inputs(cfg, device).items():
+        results[name] = time_against_plain(name, WRAPPERS[name], plains[name], kw, KERNEL_TOL,
+                                           flops[name], repeat_identical=True)
+        if name == "mixer_fused":
+            launch_split("mixer_fused fp32 Base", WRAPPERS[name], kw)
+    return results
+
+
+def launch_split(label, fn, kw):
+    """Each launch's device time a call of a multi-launch kernel (K3, K4)."""
+    _, dev = device_ms(lambda: fn(**kw), iters=10, label=label, top=10)
+    print(f"{label}: " + ("device time not measured" if dev is None
+                          else f"{dev:.4f} ms of device kernels a call"))
 
 
 def block_inputs(cfg, device, dtype, seed=3):
@@ -454,13 +471,15 @@ def block_flops(cfg, dtype, backward=False):
 
 def phase_bf16_kernels(device):
     """K4 at bf16 (Base) and fp32 (Small), K2 at bf16, against plain."""
+    base = block_inputs(BASE, device, torch.bfloat16)
     result = time_against_plain(
-        "block_fused bf16 Base", k4.block_fused, k4.block_fused_plain,
-        block_inputs(BASE, device, torch.bfloat16), BF16_TOL,
-        block_flops(BASE, torch.bfloat16))
-    time_against_plain("block_fused fp32 Small", k4.block_fused, k4.block_fused_plain,
-                       block_inputs(SMALL, device, torch.float32), KERNEL_TOL,
-                       block_flops(SMALL, torch.float32))
+        "block_fused bf16 Base", k4.block_fused, k4.block_fused_plain, base, BF16_TOL,
+        block_flops(BASE, torch.bfloat16), repeat_identical=True)
+    launch_split("block_fused bf16 Base", k4.block_fused, base)
+    small = block_inputs(SMALL, device, torch.float32)
+    time_against_plain("block_fused fp32 Small", k4.block_fused, k4.block_fused_plain, small,
+                       KERNEL_TOL, block_flops(SMALL, torch.float32), repeat_identical=True)
+    launch_split("block_fused fp32 Small", k4.block_fused, small)
     norm = kernel_inputs(BASE, device)["fused_add_norm"]
     time_against_plain("fused_add_norm bf16 x, fp32 residual", k2.fused_add_norm,
                        k2.fused_add_norm_plain, dict(norm, x=norm["x"].bfloat16()), BF16_TOL,

@@ -1,11 +1,14 @@
-"""Mamba-2 serving times of one checkout of the port, for same-card comparisons.
+"""Serving times of one checkout of the port, for same-card comparisons.
 
-    python3 scripts/compare_m2_serving.py [--root DIR] [--label NAME] [--out FILE]
+    python3 scripts/compare_m2_serving.py [--model m2|m1] [--root DIR] [--label NAME]
+                                          [--out FILE] [--walk-blocks N]
 
 Imports ``videomamba_tpu_torch`` from DIR (default: the checkout holding
-this script), builds its kernels and measures, on one CUDA card, at
-VideoMamba-Base-m2 shapes (B = 1, L = 1569, P = N = 64, chunk 128) with
-random inputs and weights from fixed seeds:
+this script), builds its kernels and measures, on one CUDA card, with random
+inputs and weights from fixed seeds.
+
+``--model m2`` (the default), at VideoMamba-Base-m2 shapes (B = 1, L = 1569,
+P = N = 64, chunk 128):
 
 * K12 (``ssd_mixer``) and K14's forward (``ssd_pmixer``), fp32 and bf16: the
   mean CUDA-event time of one call over 50 back-to-back calls, taken 5
@@ -17,8 +20,23 @@ random inputs and weights from fixed seeds:
   profiler, then the host time again (a profiler session can slow a
   process's later host-bound calls).
 
+``--model m1``, at VideoMamba-Base shapes (B = 1, L = 1569, Di = 1536,
+N = 16, R = 48; Small for K4 at fp32):
+
+* K3 (``mixer_fused``) at fp32 and K4 (``block_fused``) at bf16 (Base) and
+  fp32 (Small), nonzero h0 and conv state: event times and each launch's
+  device time, as above;
+* the Mamba-1 Base clip, fp32 and cast for bf16 serving, as above, and the
+  first 4-frame chunk of a ``StreamingSession`` under the profiler (device
+  ms, idle share, top kernels).
+
+``--walk-blocks N`` sets the least grid of the split forward walk (K3's
+and K4's, ``ops/kernels/scan.py WALK_MIN_BLOCKS``) on a checkout that has
+one, to compare chunk lengths.
+
 Only entry points that every version of the port since Mamba-2 serving has
-are used, so a parent and a change can be compared: run the script once per
+(and, for ``--model m1``, since Mamba-1 bf16 serving) are used, so a
+parent and a change can be compared: run the script once per
 checkout, each in its own process, alternating (parent, change, change,
 parent) in one call to the card. It prints the card's name and power limit
 first and one JSON object of the numbers last, and writes that object to
@@ -40,6 +58,8 @@ from torch.autograd import DeviceType
 
 BASE_M2 = dict(batch=1, seqlen=1569, embed=768, nheads=24, hdim=64, ngroups=1, d_state=64,
                chunk=128, width=4)
+BASE = dict(batch=1, seqlen=1569, embed=768, d_inner=1536, d_state=16, dt_rank=48, width=4)
+SMALL = dict(BASE, embed=384, d_inner=768, dt_rank=24)
 
 
 def event_ms(fn, iters: int = 50, warmup: int = 3) -> float:
@@ -110,25 +130,136 @@ def ssd_inputs(device, dtype, seed=13):
     return mixer, pmixer
 
 
+def m1_inputs(cfg, device, seed=3):
+    """K3's operands (fp32) and K4's (weights in the caller's dtype) at the
+    shapes a Base (or Small) Block gives them: nonzero h0 and conv state."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(device)
+
+    b, L, e, di, n, r, w = (cfg[k] for k in ("batch", "seqlen", "embed", "d_inner", "d_state",
+                                             "dt_rank", "width"))
+    a = -torch.arange(1, n + 1, dtype=torch.float32).expand(di, n).contiguous().to(device)
+    common = dict(conv_w=rnd((di, w), 0.5), conv_b=rnd((di,), 0.5),
+                  x_proj_w=rnd((r + 2 * n, di), di ** -0.5), dt_proj_w=rnd((di, r), r ** -0.5),
+                  dt_bias=torch.linspace(-6.9, -2.3, di).to(device), A=a,
+                  D=torch.ones(di, device=device), h0=rnd((b, di, n), 0.1),
+                  conv_state=rnd((b, di, w)))
+    xz = rnd((b, L, 2 * di))
+    mixer = dict(common, x=xz[..., :di], z=xz[..., di:])
+    block = dict(common, hidden=rnd((b, L, e)), residual=rnd((b, L, e)),
+                 norm_w=1 + rnd((e,), 0.1), norm_b=None,
+                 in_proj_w=rnd((2 * di, e), e ** -0.5), out_proj_w=rnd((e, di), di ** -0.5))
+    return mixer, block
+
+
+def time_kernel(result, label, name, fn, kw):
+    """Event ms (median and range of 5) and each launch's device ms a call."""
+    call = lambda: fn(**kw)  # noqa: E731
+    reps = [event_ms(call) for _ in range(5)]
+    _, dev, launches = profile(call, iters=10, top=10)
+    result["kernels"][name] = {"ms": statistics.median(reps), "ms_min": min(reps),
+                               "ms_max": max(reps), "device_ms": dev, "launches_ms": launches}
+    print(f"{label} {name}: {statistics.median(reps):.4f} ms "
+          f"({min(reps):.4f}-{max(reps):.4f}); device {dev:.4f} ms")
+    for k, v in launches.items():
+        print(f"    {v:.4f} ms  {k}")
+
+
+def time_serving(result, label, tag, calls):
+    """Host ms, then the profiler's wall, device ms, idle share and top
+    kernels, then host ms again, of each (what, call)."""
+    for what, call in calls:
+        for _ in range(3):
+            call()
+        before = host_ms(call)
+        wall, dev, top = profile(call, iters=5, top=10)
+        after = host_ms(call)
+        result["clip" if what == "clip" else what][tag] = {
+            "host_ms": before, "profiled_wall_ms": wall, "device_ms": dev,
+            "idle": (wall - dev) / wall, "host_ms_after_profiler": after,
+            "top_kernels_ms": top}
+        print(f"{label} {tag} {what}: host {before:.3f} ms; profiler wall {wall:.3f} "
+              f"ms, device {dev:.3f} ms, idle {100 * (wall - dev) / wall:.1f} %; host "
+              f"after the profiler {after:.3f} ms")
+        for k, v in top.items():
+            print(f"    {v:.4f} ms  {k}")
+
+
+def measure_m2(result, label, device):
+    from videomamba_tpu_torch.models.presets import videomamba_base_m2
+    from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12
+    from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14
+    from videomamba_tpu_torch.utils.precision import cast_module_for_compute
+
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        mixer, pmixer = ssd_inputs(device, dtype)
+        time_kernel(result, label, f"ssd_mixer {tag}", k12.ssd_mixer, mixer)
+        time_kernel(result, label, f"ssd_pmixer {tag}", k14.ssd_pmixer, pmixer)
+        del mixer, pmixer
+
+    g = torch.Generator().manual_seed(0)
+    m2 = videomamba_base_m2(pool_type="avg", device=device, generator=g).eval()
+    clip = torch.randn((1, 3, 8, 224, 224), generator=torch.Generator().manual_seed(2)).to(device)
+    for tag in ("fp32", "bf16"):
+        model = m2 if tag == "fp32" else cast_module_for_compute(m2, torch.bfloat16)
+        time_serving(result, f"{label} m2", tag, [("clip", lambda: model(clip))])
+
+
+def measure_m1(result, label, device):
+    from videomamba_tpu_torch.models.presets import videomamba_base
+    from videomamba_tpu_torch.ops.kernels import block_fused as k4
+    from videomamba_tpu_torch.ops.kernels import mixer_fused as k3
+    from videomamba_tpu_torch.runtime import StreamingSession
+    from videomamba_tpu_torch.utils.precision import cast_module_for_compute
+
+    mixer, block = m1_inputs(BASE, device)
+    time_kernel(result, label, "mixer_fused fp32", k3.mixer_fused, mixer)
+    bf16 = {k: v.bfloat16() if k in ("hidden", "in_proj_w", "out_proj_w", "conv_w", "conv_b",
+                                      "x_proj_w", "dt_proj_w") else v for k, v in block.items()}
+    time_kernel(result, label, "block_fused bf16", k4.block_fused, bf16)
+    del mixer, block, bf16
+    _, small = m1_inputs(SMALL, device)
+    time_kernel(result, label, "block_fused fp32 Small", k4.block_fused, small)
+    del small
+
+    g = torch.Generator().manual_seed(0)
+    m1 = videomamba_base(pool_type="avg", device=device, generator=g).eval()
+    clip = torch.randn((1, 3, 8, 224, 224), generator=torch.Generator().manual_seed(2)).to(device)
+    result["first_chunk"] = {}
+    for tag in ("fp32", "bf16"):
+        model = m1 if tag == "fp32" else cast_module_for_compute(m1, torch.bfloat16)
+        time_serving(result, f"{label} m1", tag, [
+            ("clip", lambda: model(clip)),
+            ("first_chunk",
+             lambda: StreamingSession(model, batch_size=1).process(clip[:, :, :4]))])
+
+
 def main() -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=("m2", "m1"), default="m2")
     ap.add_argument("--root", default=here, help="checkout to import the port from")
     ap.add_argument("--label", default="this")
     ap.add_argument("--out", default=None, help="file for the JSON object")
+    ap.add_argument("--walk-blocks", type=int, default=None,
+                    help="least grid of the split forward walk (a checkout that has one)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compare_m2_serving: no CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(args.root))
-    from videomamba_tpu_torch.models.presets import videomamba_base_m2
     from videomamba_tpu_torch.ops.kernels import _build
-    from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12
-    from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14
-    from videomamba_tpu_torch.utils.precision import cast_module_for_compute
+    from videomamba_tpu_torch.ops.kernels import scan
 
     import videomamba_tpu_torch
     assert os.path.abspath(videomamba_tpu_torch.__file__).startswith(os.path.abspath(args.root))
+    if args.walk_blocks is not None:
+        if not hasattr(scan, "WALK_MIN_BLOCKS"):
+            print(f"compare_m2_serving: {args.root} has no split walk", file=sys.stderr)
+            return 1
+        scan.WALK_MIN_BLOCKS = args.walk_blocks
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip().splitlines()[0] if card.strip() else "nvidia-smi: no card line")
@@ -137,46 +268,12 @@ def main() -> int:
     device = torch.device("cuda")
     t0 = time.perf_counter()
     _build.library()
-    result = {"label": args.label, "root": args.root,
+    result = {"label": args.label, "root": args.root, "model": args.model,
+              "walk_blocks": args.walk_blocks,
               "build_s": round(time.perf_counter() - t0, 1), "kernels": {}, "clip": {}}
 
     with torch.inference_mode():
-        for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
-            mixer, pmixer = ssd_inputs(device, dtype)
-            for name, fn, kw in (("ssd_mixer", k12.ssd_mixer, mixer),
-                                 ("ssd_pmixer", k14.ssd_pmixer, pmixer)):
-                call = lambda: fn(**kw)  # noqa: E731
-                reps = [event_ms(call) for _ in range(5)]
-                _, dev, launches = profile(call, iters=10, top=8)
-                result["kernels"][f"{name} {tag}"] = {
-                    "ms": statistics.median(reps), "ms_min": min(reps), "ms_max": max(reps),
-                    "device_ms": dev, "launches_ms": launches}
-                print(f"{args.label} {name} {tag}: {statistics.median(reps):.4f} ms "
-                      f"({min(reps):.4f}-{max(reps):.4f}); device {dev:.4f} ms")
-                for k, v in launches.items():
-                    print(f"    {v:.4f} ms  {k}")
-            del mixer, pmixer
-
-        g = torch.Generator().manual_seed(0)
-        m2 = videomamba_base_m2(pool_type="avg", device=device, generator=g).eval()
-        clip = torch.randn((1, 3, 8, 224, 224),
-                           generator=torch.Generator().manual_seed(2)).to(device)
-        for tag in ("fp32", "bf16"):
-            model = m2 if tag == "fp32" else cast_module_for_compute(m2, torch.bfloat16)
-            call = lambda: model(clip)  # noqa: E731
-            for _ in range(3):
-                call()
-            before = host_ms(call)
-            wall, dev, top = profile(call, iters=5, top=10)
-            after = host_ms(call)
-            result["clip"][tag] = {"host_ms": before, "profiled_wall_ms": wall,
-                                   "device_ms": dev, "idle": (wall - dev) / wall,
-                                   "host_ms_after_profiler": after, "top_kernels_ms": top}
-            print(f"{args.label} m2 {tag} clip: host {before:.3f} ms; profiler wall {wall:.3f} "
-                  f"ms, device {dev:.3f} ms, idle {100 * (wall - dev) / wall:.1f} %; host "
-                  f"after the profiler {after:.3f} ms")
-            for k, v in top.items():
-                print(f"    {v:.4f} ms  {k}")
+        (measure_m1 if args.model == "m1" else measure_m2)(result, args.label, device)
     line = json.dumps(result)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -44,7 +44,8 @@ GROUPS = (
     ("ssd_gate", "SSD gate and norm (K12)"),
     ("dsilu_kernel", "conv kernels (K3/K6, K12/K13)"),
     ("scan_bwd_kernel", "reverse walk (K6 / K5)"),
-    ("scan_walk_kernel", "forward walk (K3)"),
+    ("split_", "forward walk, split over time (K3 / K4)"),
+    ("scan_walk_kernel", "forward walk (K1)"),
     ("gemm_nt", "K3/K6 recompute product tiles"),
     ("gemm_nn", "K6 cotangent product tiles"),
     ("gemm_tn", "K6 weight-gradient tiles"),

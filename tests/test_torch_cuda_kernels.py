@@ -98,15 +98,44 @@ def _mixer_inputs(dev, b=2, L=37, di=256, r=12, n=16, w=4):
     )
 
 
-@pytest.mark.parametrize("L", [1, 3, 37, 300])
-def test_mixer_fused_kernel_matches_plain(dev, L):
-    kw = _mixer_inputs(dev, L=L)
-    before = k3.mixer_fused.launches
-    y, h = k3.mixer_fused(**kw)
+def _same_twice_and_plain(fn, plain, kw, tol):
+    """Two kernel calls bit-identical (no atomics in the split walk), and
+    every output (y, h_last and, with checkpoints, each segment-start state)
+    against the plain version."""
+    out = fn(**kw)
+    again = fn(**kw)
     torch.cuda.synchronize()
-    assert k3.mixer_fused.launches == before + 1
-    py, ph = k3.mixer_fused_plain(**kw)
-    assert rel_err(y, py) <= TOL and rel_err(h, ph) <= TOL
+    ref = plain(**kw)
+    assert len(out) == len(ref)
+    for a, a2, w in zip(out, again, ref):
+        assert torch.equal(a, a2)
+        assert a.shape == w.shape and a.dtype == w.dtype and rel_err(a, w) <= tol
+
+
+# The time-split walk (csrc/scan_walk_split.cuh) at every chunk layout: L
+# inside one 16-step segment, one segment exactly, one step over, ragged
+# multi-chunk L at narrow width (chunks of 16), and the Base shapes where the
+# wrapper takes chunks of 32 (L 785, a last chunk of 17) and 64 (L 1569, a
+# last chunk of 33).
+MIXER_GEOMS = {
+    **{f"L{L}": dict(L=L) for L in (1, 3, 15, 16, 17, 37, 300)},
+    "base_785": dict(b=1, L=785, di=1536, r=48),
+    "base_1569": dict(b=1, L=1569, di=1536, r=48),
+}
+MIXER_BF16 = ("x", "z", "conv_w", "conv_b", "x_proj_w", "dt_proj_w")
+
+
+@pytest.mark.parametrize("checkpoints", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", sorted(MIXER_GEOMS))
+def test_mixer_fused_kernel_matches_plain(dev, geom, dtype, checkpoints):
+    kw = _mixer_inputs(dev, **MIXER_GEOMS[geom])
+    kw = {k: v.to(dtype) if k in MIXER_BF16 else v for k, v in kw.items()}
+    before = k3.mixer_fused.launches
+    _same_twice_and_plain(k3.mixer_fused, k3.mixer_fused_plain,
+                          dict(kw, checkpoints=checkpoints),
+                          TOL if dtype == torch.float32 else BF16_TOL)
+    assert k3.mixer_fused.launches == before + 2
 
 
 def test_wrappers_raise_on_what_they_do_not_take(dev):
@@ -173,28 +202,34 @@ def _block_inputs(dev, dtype, b=2, L=37, e=200, di=256, n=16, r=12, w=4,
     )
 
 
+BASE_WIDTHS = dict(b=1, e=768, di=1536, r=48)
 BLOCK_CASES = {
     # name: (dtype, geometry, tolerance)
-    "bf16_base": (torch.bfloat16, dict(b=1, L=1569, e=768, di=1536, r=48), BF16_TOL),
+    "bf16_base": (torch.bfloat16, dict(BASE_WIDTHS, L=1569), BF16_TOL),
+    "bf16_base_785": (torch.bfloat16, dict(BASE_WIDTHS, L=785), BF16_TOL),
+    "fp32_base_785": (torch.float32, dict(BASE_WIDTHS, L=785), TOL),
     "fp32_small": (torch.float32, dict(b=1, L=1569, e=384, di=768, r=24), TOL),
     "bf16_ragged": (torch.bfloat16, dict(), BF16_TOL),
     "fp32_ragged": (torch.float32, dict(), TOL),
     "bf16_bf16_residual": (torch.bfloat16, dict(L=5, residual_fp32=False), BF16_TOL),
+    "fp32_L1": (torch.float32, dict(L=1), TOL),
+    "bf16_L15": (torch.bfloat16, dict(L=15), BF16_TOL),
+    "fp32_L16": (torch.float32, dict(L=16), TOL),
+    "bf16_L17": (torch.bfloat16, dict(L=17), BF16_TOL),
+    "fp32_L300": (torch.float32, dict(L=300), TOL),
 }
 
 
+@pytest.mark.parametrize("checkpoints", [False, True])
 @pytest.mark.parametrize("case", sorted(BLOCK_CASES))
-def test_block_fused_kernel_matches_plain(dev, case):
+def test_block_fused_kernel_matches_plain(dev, case, checkpoints):
     dtype, geom, tol = BLOCK_CASES[case]
     kw = _block_inputs(dev, dtype, **geom)
     before = k4.block_fused.launches
     with torch.inference_mode():
-        out = k4.block_fused(**kw)
-        torch.cuda.synchronize()
-        ref = k4.block_fused_plain(**kw)
-    assert k4.block_fused.launches == before + 1
-    for a, b in zip(out, ref):
-        assert a.dtype == b.dtype and rel_err(a, b) <= tol
+        _same_twice_and_plain(k4.block_fused, k4.block_fused_plain,
+                              dict(kw, checkpoints=checkpoints), tol)
+    assert k4.block_fused.launches == before + 2
 
 
 def test_block_fused_layer_norm_matches_plain(dev):

@@ -22,23 +22,27 @@
 // VMEM (about 9 MB at VideoMamba-Base bf16) and streams time blocks past
 // them. A Hopper block has 227 KB of shared memory, and the x_proj
 // contraction crosses every channel while the walk runs in parallel over
-// channels, so the span runs as seven launches on one stream through
+// channels, so the span runs as nine launches on one stream through
 // scratch the caller allocates: add + norm (add_norm.cuh), in_proj, conv +
-// SiLU, x_proj, dt_proj (mixer_parts.cuh), the walk (scan_walk.cuh), out_proj.
+// SiLU, x_proj, dt_proj (mixer_parts.cuh), the walk's three (chunk states,
+// the pass over chunks, the output walk: scan_walk_split.cuh), out_proj.
 // The four products are written here (the TPU kernel computes them in its
 // body): bf16 tensor-core tiles (mma.sync) on the bf16 path, fp32 FMA tiles
 // on the fp32 path.
 //
-// What bounds it on the H100 at batch 1: the walk, a serial chain of L steps
-// per channel with only ceil(Di / 128) blocks in flight (latency-bound, as
-// in selective_scan.cu), then in_proj and out_proj (7.4 and 3.7 GFLOP at
-// Base, L = 1569), which single-stage tiles run well below the tensor-core
-// peak.
+// What bounds it on the H100 (Base, batch 1, bf16): its operations, 0.0156
+// ms (11 GFLOP of bf16 products on the tensor cores, the walk's and conv's
+// fp32 arithmetic), beside 0.0065 ms for the 22 MB of its inputs and outputs.
+// The walk once set the time, a serial chain of L steps on ceil(Di / 128)
+// blocks (12 at Base); it now cuts time into chunks that pass a state from
+// one to the next (scan_walk_split.cuh), so its launches fill the card.
+// Then in_proj and out_proj (7.4 and 3.7 GFLOP at Base, L = 1569), which
+// single-stage tiles run well below the tensor-core peak.
 #include <type_traits>
 
 #include "add_norm.cuh"
 #include "mixer_parts.cuh"
-#include "scan_walk.cuh"
+#include "scan_walk_split.cuh"
 
 namespace {
 
@@ -49,7 +53,8 @@ cudaError_t products_and_walk(const void* normed, const void* in_w,
                               const void* conv_w, const void* conv_b,
                               const void* x_proj_w, const void* dt_proj_w,
                               const void* out_w, const float* conv_state,
-                              vmt::ScanArgs& walk, float* xz, float* conv_out,
+                              vmt::ScanArgs& walk, const vmt::SplitArgs& split,
+                              float* xz, float* conv_out,
                               float* x_dbl, float* delta, float* y, void* out,
                               int batch, int L, int E, int Di, int W, int R,
                               int N, cudaStream_t s) {
@@ -101,7 +106,7 @@ cudaError_t products_and_walk(const void* normed, const void* in_w,
   walk.D = Di;
   walk.softplus = 1;
   walk.round_z = kBf16 ? 1 : 0;
-  err = vmt::launch_scan_walk(walk, batch, N, s);
+  err = vmt::launch_scan_walk_split<float, float, float, true>(walk, split, batch, N, s);
   if (err != cudaSuccess) return err;
 
   if constexpr (kBf16) {
@@ -121,8 +126,11 @@ cudaError_t products_and_walk(const void* normed, const void* in_w,
 // the weight dtype; dt_bias, Dskip (Di,), A (Di, N), h0 / h_last
 // (batch, Di, N), conv_state (batch, Di, W): fp32. All contiguous. Scratch:
 // normed (batch * L * E, weight dtype), xz (batch * L * 2Di), conv_out, delta
-// and y (batch * L * Di), x_dbl (batch * L * (R + 2N)), all fp32. ckpt:
-// (batch, ceil(L / 16), Di, N) fp32, or null for serving.
+// and y (batch * L * Di), x_dbl (batch * L * (R + 2N)), all fp32; the
+// walk's walk_states (batch, nchunks - 1, Di, N) and walk_dtsum
+// (batch, nchunks - 1, Di), fp32, nchunks = ceil(L / walk_chunk), walk_chunk
+// a multiple of 16. ckpt: (batch, ceil(L / 16), Di, N) fp32, or null for
+// serving.
 extern "C" int vmt_block_fused(
     const void* hidden, const void* residual, int res_bf16,
     const float* norm_w, const float* norm_b, const void* in_w,
@@ -131,8 +139,9 @@ extern "C" int vmt_block_fused(
     const float* A, const float* Dskip, const float* h0,
     const float* conv_state, void* out, void* res_out, int res_out_bf16,
     float* h_last, float* ckpt, void* normed, float* xz, float* conv_out,
-    float* x_dbl, float* delta, float* y, int is_bf16, int batch, int L, int E, int Di,
-    int W, int R, int N, float eps, int is_rms, int device, void* stream) {
+    float* x_dbl, float* delta, float* y, float* walk_states, float* walk_dtsum,
+    int walk_chunk, int is_bf16, int batch, int L, int E, int Di, int W, int R,
+    int N, float eps, int is_rms, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -161,13 +170,17 @@ extern "C" int vmt_block_fused(
   walk.h0 = h0;
   walk.h_last = h_last;
   walk.ckpt = ckpt;
+  vmt::SplitArgs split;
+  split.states = walk_states;
+  split.dtsum = walk_dtsum;
+  split.chunk = walk_chunk;
   err = is_bf16
             ? products_and_walk<true>(normed, in_w, conv_w, conv_b, x_proj_w,
-                                      dt_proj_w, out_w, conv_state, walk, xz,
+                                      dt_proj_w, out_w, conv_state, walk, split, xz,
                                       conv_out, x_dbl, delta, y, out, batch, L,
                                       E, Di, W, R, N, s)
             : products_and_walk<false>(normed, in_w, conv_w, conv_b, x_proj_w,
-                                       dt_proj_w, out_w, conv_state, walk, xz,
+                                       dt_proj_w, out_w, conv_state, walk, split, xz,
                                        conv_out, x_dbl, delta, y, out, batch,
                                        L, E, Di, W, R, N, s);
   return (int)err;

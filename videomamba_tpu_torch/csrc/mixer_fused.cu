@@ -8,14 +8,16 @@
 //   x_dbl    = conv_out @ W_x^T                     (dt | B | C columns)
 //   delta    = x_dbl[:, :R] @ W_dt^T
 //   y, h     = selective scan walk (softplus(delta + dt_bias), D-skip,
-//              silu(z) gate), the walk of scan_walk.cuh
+//              silu(z) gate), the time-split walk of scan_walk_split.cuh
 //
 // On the TPU one kernel holds all of this, because the x_proj contraction
 // crosses every channel while the walk is parallel over channels and VMEM
 // holds a whole time block of both. On Hopper a block sees 227 KB of shared
-// memory, so the span runs as four launches on one stream: conv, two
-// products, walk. conv_out, x_dbl and delta make one round trip through
-// device memory each (about 20 MB at VideoMamba-Base, batch 1).
+// memory, so the span runs as launches on one stream: conv, two products,
+// and the walk's three (chunk states, the pass over chunks, the output
+// walk; only the last when L fits one chunk). conv_out, x_dbl and delta
+// make one round trip through device memory each (about 20 MB at
+// VideoMamba-Base, batch 1).
 //
 // Precision follows the TPU kernel's two routes (mixer_fused.py:121-127):
 // with fp32 weights ("highest") everything is fp32 and the products are FMA
@@ -25,12 +27,17 @@
 // delta and the walk are fp32; y is stored in x's dtype. With ckpt the walk
 // stores its 16-step segment-start states for the backward (mixer_bwd.cu).
 //
-// What bounds it on the H100: the walk, which is latency-bound at batch 1
-// (see selective_scan.cu). The products are small (0.2 GFLOP each at Base);
-// the conv is one memory pass. The conv and the tiles are in
-// mixer_parts.cuh, shared with the whole-block kernel and the backward.
+// What bounds it on the H100 (Base, batch 1, fp32): its operations, 0.0129
+// ms at the fp32 rate (0.87 GFLOP of products, conv and walk; x, z, y and
+// the states are 39 MB, 0.0117 ms). As built the span also moves conv_out
+// and delta through device memory, about 80 MB in all. The walk once set
+// the time, a serial chain of L steps on ceil(Di / 128) blocks (12 at Base,
+// batch 1); it now cuts time into chunks that pass a state from one to the
+// next (scan_walk_split.cuh), so its launches fill the card. The conv and
+// the tiles are in mixer_parts.cuh, shared with the whole-block kernel and
+// the backward.
 #include "mixer_parts.cuh"
-#include "scan_walk.cuh"
+#include "scan_walk_split.cuh"
 
 namespace {
 
@@ -42,7 +49,8 @@ cudaError_t mixer_fused_t(const void* x, long long ld_x, const void* z,
                           const float* dt_bias, const float* A,
                           const float* Dskip, const float* h0, void* y,
                           float* h_last, float* ckpt, float* conv_out,
-                          float* x_dbl, float* delta, int batch, int L, int Di,
+                          float* x_dbl, float* delta,
+                          const vmt::SplitArgs& split, int batch, int L, int Di,
                           int W, int R, int N, cudaStream_t s) {
   const int rows = batch * L;
   const int P = R + 2 * N;
@@ -87,7 +95,7 @@ cudaError_t mixer_fused_t(const void* x, long long ld_x, const void* z,
   a.L = L;
   a.D = Di;
   a.softplus = 1;
-  return vmt::launch_scan_walk_t<float, TX, TX>(a, batch, N, s);
+  return vmt::launch_scan_walk_split<float, TX, TX>(a, split, batch, N, s);
 }
 
 }  // namespace
@@ -98,23 +106,30 @@ cudaError_t mixer_fused_t(const void* x, long long ld_x, const void* z,
 // conv_state (batch, Di, W), dt_bias, Dskip (Di,), A (Di, N), h0 / h_last
 // (batch, Di, N), ckpt (batch, ceil(L / 16), Di, N) or null: fp32. conv_out
 // and delta (batch * L * Di) and x_dbl (batch * L * (R + 2N)) are fp32
-// scratch the caller allocates.
+// scratch the caller allocates, and so are the walk's: walk_states
+// (batch, nchunks - 1, Di, N) and walk_dtsum (batch, nchunks - 1, Di), fp32,
+// nchunks = ceil(L / walk_chunk), walk_chunk a multiple of 16.
 extern "C" int vmt_mixer_fused(
     const void* x, long long ld_x, const void* z, long long ld_z,
     const float* conv_state, const void* conv_w, const void* conv_b,
     const void* x_proj_w, const void* dt_proj_w, const float* dt_bias,
     const float* A, const float* Dskip, const float* h0, void* y,
     float* h_last, float* ckpt, float* conv_out, float* x_dbl, float* delta,
-    int x_bf16, int w_bf16, int batch, int L, int Di, int W, int R, int N,
-    int device, void* stream) {
+    float* walk_states, float* walk_dtsum, int walk_chunk, int x_bf16,
+    int w_bf16, int batch, int L, int Di, int W, int R, int N, int device,
+    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
+  vmt::SplitArgs split;
+  split.states = walk_states;
+  split.dtsum = walk_dtsum;
+  split.chunk = walk_chunk;
   using bf = vmt::bf16;
 #define VMT_MIXER_ARGS                                                        \
   x, ld_x, z, ld_z, conv_state, conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias, \
-      A, Dskip, h0, y, h_last, ckpt, conv_out, x_dbl, delta, batch, L, Di, W, \
-      R, N, s
+      A, Dskip, h0, y, h_last, ckpt, conv_out, x_dbl, delta, split, batch, L, \
+      Di, W, R, N, s
   if (x_bf16) {
     err = w_bf16 ? mixer_fused_t<bf, bf>(VMT_MIXER_ARGS)
                  : mixer_fused_t<bf, float>(VMT_MIXER_ARGS);

@@ -1,21 +1,23 @@
-// Selective-scan time walk shared by the selective-scan kernel
-// (selective_scan.cu), the last stage of the fused mixer (mixer_fused.cu) and
-// the whole-block kernel (block_fused.cu).
+// Selective-scan time walk of the selective-scan kernel (selective_scan.cu,
+// K1), and the operands (ScanArgs) and helpers every walk shares. The fused
+// mixer (K3) and the whole-block kernel (K4) walk with the time-split walk of
+// scan_walk_split.cuh; the reverse walks are in scan_walk_bwd.cuh.
 //
 // Recurrence per (batch b, channel d, state n), all in fp32:
 //   dt     = softplus(delta[t, d] + delta_bias[d])     (softplus optional)
 //   h[n]   = exp(dt * A[d, n]) * h[n] + dt * u[t, d] * B[t, n]
 //   y[t,d] = (sum_n C[t, n] * h[n] + Dskip[d] * u[t, d]) * silu(z[t, d])
 // z may be rounded to bf16 first (round_z), as the whole-block kernel's bf16
-// path stores the gate input (videomamba_tpu/ops/pallas/block_fused.py:427).
+// path stores the gate input (videomamba_tpu/ops/pallas/block_fused.py:427):
+// a flag of the split walk; this one refuses it.
 //
 // Operand types are template arguments: TU for u, delta, B and C (fp32 or
 // bf16, widened on load), TZ for z and TY for y. With kCkpt the walk also
 // stores the state at the start of every kScanTile-step segment, in fp32, as
 // ckpt[b][t / kScanTile][d][n]: the residual the reverse walk
-// (scan_walk_bwd.cuh) rebuilds each segment from (K1, K3 and K4's training
-// forward, whose backward is K7). The store sits at the tile
-// boundary, outside the step loop, and is compile-time, like kRoundZ.
+// (scan_walk_bwd.cuh) rebuilds each segment from (K1's training forward, whose
+// backward is K5). The store sits at the tile boundary, outside the step
+// loop, and is compile-time.
 //
 // One thread owns one channel and keeps its N states in registers for the
 // whole walk, so the state never touches device memory between steps. A
@@ -82,10 +84,9 @@ __device__ __forceinline__ float softplus_f(float x) {
 
 // Walks batch row blockIdx.y, channels blockIdx.x * kScanThreads + [0, 128).
 // Must be called by all kScanThreads threads of the block (it synchronises).
-// kRoundZ is a template argument, and z is rounded where it is used, not
-// where the tile is staged: a runtime test in the staging loop slowed the
+// kCkpt is a template argument: a runtime test in the staging loop slowed the
 // fp32 walk by 29% at VideoMamba-Base (H100).
-template <int N, typename TU, typename TZ, typename TY, bool kRoundZ, bool kCkpt>
+template <int N, typename TU, typename TZ, typename TY, bool kCkpt>
 __device__ __forceinline__ void scan_walk(const ScanArgs& a) {
   __shared__ float sU[kScanTile][kScanThreads];
   __shared__ float sDt[kScanTile][kScanThreads];
@@ -168,8 +169,7 @@ __device__ __forceinline__ void scan_walk(const ScanArgs& a) {
       }
       yv += uu * dskip;
       if (has_z) {
-        float zz = sZ[k][tid];
-        if constexpr (kRoundZ) zz = __bfloat162float(__float2bfloat16_rn(zz));
+        const float zz = sZ[k][tid];
         yv *= zz * (1.f / (1.f + expf(-zz)));
       }
       if (active) store_as(y_b + (t0 + k) * a.ld_y + d, yv);
@@ -183,67 +183,48 @@ __device__ __forceinline__ void scan_walk(const ScanArgs& a) {
   }
 }
 
-template <int N, typename TU, typename TZ, typename TY, bool kRoundZ, bool kCkpt>
+template <int N, typename TU, typename TZ, typename TY, bool kCkpt>
 __global__ void __launch_bounds__(kScanThreads) scan_walk_kernel(ScanArgs a) {
-  scan_walk<N, TU, TZ, TY, kRoundZ, kCkpt>(a);
+  scan_walk<N, TU, TZ, TY, kCkpt>(a);
 }
 
-// kRoundZOk: whether the caller may round z (K4 only), so K1 and K3 compile
-// no rounding variants.
-template <int N, typename TU, typename TZ, typename TY, bool kRoundZOk>
+template <int N, typename TU, typename TZ, typename TY>
 void launch_walk_n(const ScanArgs& a, dim3 grid, cudaStream_t stream) {
-  if constexpr (kRoundZOk) {
-    if (a.round_z) {
-      if (a.ckpt) {
-        scan_walk_kernel<N, TU, TZ, TY, true, true><<<grid, kScanThreads, 0, stream>>>(a);
-      } else {
-        scan_walk_kernel<N, TU, TZ, TY, true, false><<<grid, kScanThreads, 0, stream>>>(a);
-      }
-      return;
-    }
-  }
   if (a.ckpt) {
-    scan_walk_kernel<N, TU, TZ, TY, false, true><<<grid, kScanThreads, 0, stream>>>(a);
+    scan_walk_kernel<N, TU, TZ, TY, true><<<grid, kScanThreads, 0, stream>>>(a);
   } else {
-    scan_walk_kernel<N, TU, TZ, TY, false, false><<<grid, kScanThreads, 0, stream>>>(a);
+    scan_walk_kernel<N, TU, TZ, TY, false><<<grid, kScanThreads, 0, stream>>>(a);
   }
 }
 
 // Launches the walk over grid (ceil(D / kScanThreads), batch) for the state
 // sizes the library is built for (N in {8, 16, 32, 64, 128}; the wrappers pad
-// other sizes with zero lanes). round_z (K4's bf16
-// gate) only where kRoundZOk; checkpoints with or without it.
-template <typename TU, typename TZ, typename TY, bool kRoundZOk = false>
+// other sizes with zero lanes), with or without checkpoints.
+template <typename TU, typename TZ, typename TY>
 cudaError_t launch_scan_walk_t(const ScanArgs& a, int batch, int n,
                                cudaStream_t stream) {
-  if (a.round_z && !kRoundZOk) return cudaErrorInvalidValue;
+  if (a.round_z) return cudaErrorInvalidValue;
   const dim3 grid((a.D + kScanThreads - 1) / kScanThreads, batch);
   switch (n) {
     case 8:
-      launch_walk_n<8, TU, TZ, TY, kRoundZOk>(a, grid, stream);
+      launch_walk_n<8, TU, TZ, TY>(a, grid, stream);
       break;
     case 16:
-      launch_walk_n<16, TU, TZ, TY, kRoundZOk>(a, grid, stream);
+      launch_walk_n<16, TU, TZ, TY>(a, grid, stream);
       break;
     case 32:
-      launch_walk_n<32, TU, TZ, TY, kRoundZOk>(a, grid, stream);
+      launch_walk_n<32, TU, TZ, TY>(a, grid, stream);
       break;
     case 64:
-      launch_walk_n<64, TU, TZ, TY, kRoundZOk>(a, grid, stream);
+      launch_walk_n<64, TU, TZ, TY>(a, grid, stream);
       break;
     case 128:
-      launch_walk_n<128, TU, TZ, TY, kRoundZOk>(a, grid, stream);
+      launch_walk_n<128, TU, TZ, TY>(a, grid, stream);
       break;
     default:
       return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
-}
-
-// K4's walk: fp32 operands, z rounded to bf16 on its bf16 path.
-inline cudaError_t launch_scan_walk(const ScanArgs& a, int batch, int n,
-                                    cudaStream_t stream) {
-  return launch_scan_walk_t<float, float, float, true>(a, batch, n, stream);
 }
 
 }  // namespace vmt

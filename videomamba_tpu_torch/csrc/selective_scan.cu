@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas kernel videomamba_tpu/ops/pallas/scan.py
 // (scan_chunked_pallas -> _scan_kernel). The walk itself is in
-// scan_walk.cuh, shared with the fused mixer and the whole-block kernel.
+// scan_walk.cuh; the fused mixer and the whole-block kernel walk with the
+// time-split walk of scan_walk_split.cuh instead.
 //
 // What bounds it on the H100: the time walk is a serial chain of L steps per
 // channel, so at batch 1 the kernel is latency-bound (grid ceil(D/128) x B:

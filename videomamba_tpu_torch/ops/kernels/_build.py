@@ -30,7 +30,8 @@ SOURCES = ("fused_add_norm.cu", "selective_scan.cu", "mixer_fused.cu",
            "decode_step.cu", "ssd_mixer.cu", "ssd_pmixer.cu", "ssd_core_bwd.cu",
            "ssd_mixer_bwd.cu", "ssd_pmixer_bwd.cu")
 HEADERS = ("add_norm.cuh", "add_norm_bwd.cuh", "mixer_bwd.cuh", "mixer_parts.cuh",
-           "scan_walk.cuh", "scan_walk_bwd.cuh", "ssd_core.cuh", "ssd_core_bwd.cuh")
+           "scan_walk.cuh", "scan_walk_bwd.cuh", "scan_walk_split.cuh", "ssd_core.cuh",
+           "ssd_core_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -50,12 +51,11 @@ SIGNATURES = {
         _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "vmt_mixer_fused": (
-        _P, _LL, _P, _LL, *(_P,) * 15, *(_I,) * 9, _P,
+        _P, _LL, _P, _LL, *(_P,) * 17, *(_I,) * 10, _P,
     ),
     "vmt_block_fused": (
         _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-        _F, _I, _I, _P,
+        _P, _I, *(_P,) * 10, *(_I,) * 9, _F, _I, _I, _P,
     ),
     "vmt_selective_scan_bwd": (
         *(_P, _LL) * 6, *(_P,) * 18, *(_I,) * 7, _P,

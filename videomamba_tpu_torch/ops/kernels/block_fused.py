@@ -5,13 +5,14 @@ _block_fused_jit -> ``_block_kernel_pipelined``, the serving form). The TPU
 kernel keeps all five weight matrices resident in VMEM and streams time
 blocks past them; a Hopper block has 227 KB of shared memory, and the
 x_proj contraction crosses every channel while the walk runs in parallel
-over channels. So csrc/block_fused.cu runs the span as seven hand-written
+over channels. So csrc/block_fused.cu runs the span as hand-written
 launches on the current stream, through scratch this wrapper allocates:
-add + norm (K2's row kernel), in_proj, conv + SiLU, x_proj, dt_proj, the walk
-of K1 (csrc/scan_walk.cuh), out_proj. The four products are computed inside
-the TPU kernel, so they are hand-written here too: bf16 tensor-core tiles
-(``mma.sync``, fp32 accumulate) at bf16, fp32 FMA tiles at fp32. At batch 1
-the walk bounds it (latency), then in_proj and out_proj.
+add + norm (K2's row kernel), in_proj, conv + SiLU, x_proj, dt_proj, the
+forward walk split over time chunks (csrc/scan_walk_split.cuh, K3's: chunk
+states, a pass over the chunks, the output walk), out_proj. The four
+products are computed inside the TPU kernel, so they are hand-written here
+too: bf16 tensor-core tiles (``mma.sync``, fp32 accumulate) at bf16, fp32
+FMA tiles at fp32.
 
 Both the kernel and :func:`block_fused_plain` keep the TPU kernel's rounding
 points (block_fused.py:379-471): the sum and the norm in fp32; each
@@ -48,6 +49,7 @@ from videomamba_tpu_torch.ops.kernels.scan import (
     pad_state,
     pad_x_proj,
     unpad,
+    walk_scratch,
     walk_state,
     num_segments,
     selective_scan_plain,
@@ -244,6 +246,7 @@ def block_fused(
     x_dbl = torch.empty((rows, r + 2 * n), **f32)
     delta = torch.empty((rows, di), **f32)
     y = torch.empty((rows, di), **f32)
+    chunk, walk_states, walk_dtsum = walk_scratch(bsz, seqlen, di, n, dev)
     cstate = conv_state.float().contiguous()
     err = _build.library().vmt_block_fused(
         _build.ptr(hidden), _build.ptr(residual), _build.is_bf16(residual),
@@ -254,6 +257,7 @@ def block_fused(
         _build.ptr(out), _build.ptr(res_out), _build.is_bf16(res_out),
         _build.ptr(h_last), _build.ptr(ckpt), _build.ptr(normed), _build.ptr(xz),
         _build.ptr(conv_out), _build.ptr(x_dbl), _build.ptr(delta), _build.ptr(y),
+        _build.ptr(walk_states), _build.ptr(walk_dtsum), chunk,
         _build.is_bf16(hidden), bsz, seqlen, e, di, width, r, n, eps,
         int(norm_type == "rms"), dev.index, _build.stream_of(hidden),
     )

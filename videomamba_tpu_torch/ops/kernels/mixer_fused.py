@@ -5,12 +5,14 @@ _mixer_fused_jit, ``_mixer_kernel`` / ``_mixer_kernel_pipelined``). The TPU
 kernel holds the whole span in one body because VMEM fits a time block of
 every intermediate; a Hopper block has 227 KB of shared memory and the
 x_proj contraction crosses all channels while the walk is parallel over
-them. So csrc/mixer_fused.cu runs the span as four hand-written launches on
-the current stream — causal conv + SiLU, x_proj and dt_proj as product tiles
+them. So csrc/mixer_fused.cu runs the span as hand-written launches on the
+current stream — causal conv + SiLU, x_proj and dt_proj as product tiles
 (the TPU kernel computes both products in its body, so no library GEMM), and
-the walk of K1 (csrc/scan_walk.cuh) — through fp32 scratch this wrapper
-allocates. At batch 1 the walk dominates and is latency-bound; see
-ops/kernels/scan.py.
+the forward walk split over time chunks (csrc/scan_walk_split.cuh: chunk
+states, a pass over the chunks, the output walk) — through fp32 scratch this
+wrapper allocates. The TPU kernel walks time in order; here the chunk length
+(:func:`~videomamba_tpu_torch.ops.kernels.scan.walk_chunk`) is chosen so the
+walk's grid holds four blocks per SM at batch 1.
 
 Precision follows the TPU kernel (mixer_fused.py:121-127): fp32 weights are
 its ``highest`` route (fp32 FMA tiles, nothing rounded); bf16 weights round
@@ -36,6 +38,7 @@ from videomamba_tpu_torch.ops.kernels.scan import (
     pad_state,
     pad_x_proj,
     unpad,
+    walk_scratch,
     walk_state,
     num_segments,
     selective_scan_plain,
@@ -148,6 +151,7 @@ def mixer_fused(
     conv_out = torch.empty((bsz, seqlen, di), dtype=torch.float32, device=dev)
     delta = torch.empty_like(conv_out)
     x_dbl = torch.empty((bsz, seqlen, r + 2 * n), dtype=torch.float32, device=dev)
+    chunk, walk_states, walk_dtsum = walk_scratch(bsz, seqlen, di, n, dev)
     cstate = conv_state.float().contiguous()
     err = _build.library().vmt_mixer_fused(
         _build.ptr(x), _build.row_stride(x, "x"), _build.ptr(z), _build.row_stride(z, "z"),
@@ -155,8 +159,9 @@ def mixer_fused(
         _build.ptr(x_proj_w), _build.ptr(dt_proj_w), _build.ptr(dt_bias),
         _build.ptr(A), _build.ptr(D), _build.ptr(h0), _build.ptr(y),
         _build.ptr(h_last), _build.ptr(ckpt), _build.ptr(conv_out), _build.ptr(x_dbl),
-        _build.ptr(delta), _build.is_bf16(x), _build.is_bf16(x_proj_w), bsz, seqlen,
-        di, width, r, n, dev.index, _build.stream_of(x),
+        _build.ptr(delta), _build.ptr(walk_states), _build.ptr(walk_dtsum), chunk,
+        _build.is_bf16(x), _build.is_bf16(x_proj_w), bsz, seqlen, di, width, r, n,
+        dev.index, _build.stream_of(x),
     )
     _build.check(err, "mixer_fused")
     mixer_fused.launches += 1

@@ -43,6 +43,9 @@ Tensor = torch.Tensor
 STATE_SIZES = (8, 16, 32, 64, 128)  # N the walks are built for
 WALK_STATE = STATE_SIZES[-1]  # K1 and K5 run a wider state as slices of this many
 SEGMENT = 16  # steps per checkpoint (csrc/scan_walk.cuh kScanTile)
+WALK_CHANNELS = 128  # channels a block of the forward walks (kScanThreads)
+WALK_CHUNKS = (128, 64, 32, SEGMENT)  # steps a chunk of the split walk may take
+WALK_MIN_BLOCKS = 528  # four blocks a streaming multiprocessor of an H100 (132)
 
 
 def walk_state(n: int, kernel: str) -> int:
@@ -91,6 +94,29 @@ def unpad(t: Optional[Tensor], n: int) -> Optional[Tensor]:
 
 def num_segments(seqlen: int) -> int:
     return -(-seqlen // SEGMENT)
+
+
+def walk_chunk(batch: int, seqlen: int, d: int) -> int:
+    """Steps per time chunk of K3's and K4's split walk
+    (csrc/scan_walk_split.cuh): the longest of WALK_CHUNKS at which both of
+    its walking launches hold WALK_MIN_BLOCKS blocks, else the shortest. The
+    chunk-state launch's grid is batch x ceil(d / 128) channel groups x
+    (ceil(seqlen / chunk) - 1) chunks, the output walk's one chunk more. A
+    thread walks at most 128 steps in series."""
+    groups = batch * -(-d // WALK_CHANNELS)
+    return next((chunk for chunk in WALK_CHUNKS
+                 if groups * (-(-seqlen // chunk) - 1) >= WALK_MIN_BLOCKS), WALK_CHUNKS[-1])
+
+
+def walk_scratch(batch: int, seqlen: int, d: int, n: int, device) -> Tuple[int, Tensor, Tensor]:
+    """The split walk's chunk length and its fp32 scratch: the chunks' end
+    (then start) states (batch, nchunks - 1, d, n) and their dt sums
+    (batch, nchunks - 1, d)."""
+    chunk = walk_chunk(batch, seqlen, d)
+    stored = -(-seqlen // chunk) - 1
+    f32 = dict(dtype=torch.float32, device=device)
+    return (chunk, torch.empty((batch, stored, d, n), **f32),
+            torch.empty((batch, stored, d), **f32))
 
 
 def softplus(x: Tensor) -> Tensor:
