@@ -87,10 +87,14 @@ failure, so the script exits nonzero:
     K9 (+ K2, the final norm; 196 launches of each) against the 5-frame
     full forward's last 196 tokens (fp32 1e-4, bf16 2e-2); K9 against its
     plain version from the same states over 8 steps (fp32 1e-5, bf16
-    1e-2), and at B=80 (ten of its 8-row passes) over 3 steps; K9's time
-    per token at B=1, 8 and 80 (CUDA events over 100 back-to-back tokens),
-    the session step's host time, and the device's kernel time and idle
-    share under torch.profiler.
+    1e-2), and at B=8, 9, 80 and 81 (the edges of its batch tiles of 8 and
+    16) over 3 steps, each first token run twice from the same states and
+    bit-identical; K9's time per token at B=1, 8 and 80 (CUDA events over
+    100 back-to-back tokens) with each phase's device time a token (in,
+    x_proj, state, out, from the kernel's own global-timer stamps), the
+    session
+    step's host time, and the device's kernel time and idle share under
+    torch.profiler.
 16. K10's route, ``causal_conv1d(use_kernel=True)`` at (4, 1569, 1536),
     forward and backward against the plain composition (1e-5).
 17. Mamba-2 kernels at VideoMamba-Base-m2 shapes (B=1, L=1569, E=768, 24
@@ -113,10 +117,12 @@ failure, so the script exits nonzero:
     then, after every host timing of the family, the device time, idle share
     and top kernels of a full clip and a first chunk under torch.profiler
     (for both families).
-20. m2 decode, fp32 and bf16: phase 15 with K15 (decode_stack_m2, three
-    launches a layer) in K9's place: the 5th frame's 196 tokens against the
-    5-frame forward (1e-4 / 2e-2), K15 against its plain version over 8
-    steps at B=1 and at B=80, ms a token at B=1, 8 and 80, profiler idle.
+20. m2 decode, fp32 and bf16: phase 15 with K15 (decode_stack_m2, one
+    launch a token, three phases a layer) in K9's place: the 5th frame's 196
+    tokens against the 5-frame forward (1e-4 / 2e-2), K15 against its plain
+    version over 8 steps at B=1 and at B=8, 9, 80 and 81 (bit-identical
+    repeats), ms a token at B=1, 8 and 80 with each phase's device time
+    (in, state, out), profiler idle.
 21. Mamba-2 training kernels at Base-m2 shapes, B=1 and B=4, fp32 and
     bf16 (nonzero h0, conv window and h_last cotangent): K12 with its
     checkpoints (each chunk's entry state, the pre-gate y), K11 (the bare
@@ -157,8 +163,8 @@ move over 3.35 TB/s and its operations over the peak rate of their type
 (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32). No single PyTorch call
 computes any kernel's function (K10's carries its window and applies
 SiLU), so ``library_ms`` is null. The kernels line reports K7 at bf16 Base,
-K9 at fp32 B=1 (one launch is one token through the stack: 4 x depth CUDA
-launches) and K10 at fp32 B=1. The last stdout line is the contract JSON;
+K9 at fp32 B=1 (one launch is one token through the stack: one persistent
+CUDA launch of 4 x depth phases) and K10 at fp32 B=1. The last stdout line is the contract JSON;
 the line before it lists the kernels (17 rows: K12 and K14 at fp32 Base
 m2, K15 at fp32 B=1, K11's forward and backward, K13 and K14's backward
 at fp32 Base m2, B=1).
@@ -1099,10 +1105,10 @@ def phase_decode(model, label, clip5, tol, kernel_tol, depth, wide_steps=3):
     check(session.use_kernel, f"{label} decode: the session did not take its kernel")
     if session.is_m2:
         name, kernel, plain = "decode_stack_m2", k9.decode_stack_m2, k9.decode_stack_m2_plain
-        per_layer, knum = k9.LAUNCHES_PER_LAYER_M2, "K15"
+        knum = "K15"
     else:
         name, kernel, plain = "decode_stack", k9.decode_stack, k9.decode_stack_plain
-        per_layer, knum = k9.LAUNCHES_PER_LAYER, "K9"
+        knum = "K9"
     session.load_streaming_state(stream.state)
     tokens = frame_tokens(model, clip5[:, :, 4:], offset=4)
     before = launches()
@@ -1117,12 +1123,18 @@ def phase_decode(model, label, clip5, tol, kernel_tol, depth, wide_steps=3):
 
     def against_plain(tag, kw, tok_at, steps):
         """``steps`` tokens through the kernel and its plain version from
-        copies of the same states; returns the largest abs error."""
+        copies of the same states, the first token also run again from a
+        copy and required bit-identical; returns the largest abs error."""
         kc, ks = kw["conv_states"].clone(), kw["ssm_states"].clone()
         pc, ps = kc.clone(), ks.clone()
+        rc, rs = kc.clone(), ks.clone()
+        again = [t.clone() for t in kernel(tok_at(0), **dict(kw, conv_states=rc, ssm_states=rs))]
         errs = []
         for i in range(steps):
             hk, rk, kc, ks = kernel(tok_at(i), **dict(kw, conv_states=kc, ssm_states=ks))
+            if i == 0:
+                check(all(torch.equal(a, b) for a, b in zip((hk, rk, kc, ks), again)),
+                      f"{name} {label} {tag}: two runs on the same inputs differ")
             hp, rp, pc, ps = plain(tok_at(i), **dict(kw, conv_states=pc, ssm_states=ps))
             torch.cuda.synchronize()
             for out, a, b in (("hidden", hk, hp), ("residual", rk, rp),
@@ -1136,6 +1148,16 @@ def phase_decode(model, label, clip5, tol, kernel_tol, depth, wide_steps=3):
                                     ssm_states=session.ssm_states),
                         lambda i: tokens[:, i % tokens.shape[1]], 8)
     entry = None
+    print(f"decode {label}: {name} B=1 repeats bit-identical")
+    for bsz in (9, 81):  # one past each batch-tile edge, against the plain version
+        sess = DecodeSession(model, batch_size=bsz)
+        tok = randn((bsz, model.embed_dim), torch.Generator().manual_seed(bsz),
+                    model.norm.weight.device)
+        against_plain(f"B={bsz}", dict(sess.stacked, **sess.kernel_kw,
+                                       conv_states=sess.conv_states,
+                                       ssm_states=sess.ssm_states),
+                      lambda i: tok * (i + 1), 3)
+        del sess
     for bsz in (1, 8, 80):
         sess = DecodeSession(model, batch_size=bsz)
         check(sess.use_kernel, f"{label} decode B={bsz}: the session did not take {knum}")
@@ -1143,9 +1165,11 @@ def phase_decode(model, label, clip5, tol, kernel_tol, depth, wide_steps=3):
                     model.norm.weight.device)
         kwb = dict(sess.stacked, **sess.kernel_kw, conv_states=sess.conv_states,
                    ssm_states=sess.ssm_states)
-        if bsz > 8:  # ten of the kernel's 8-row passes, against the plain version
-            against_plain(f"B={bsz}", kwb, lambda i: tok * (i + 1), wide_steps)
+        if bsz > 1:  # at full tiles, against the plain version
+            against_plain(f"B={bsz}", kwb, lambda i: tok * (i + 1),
+                          wide_steps if bsz > 8 else 3)
         ms = event_ms(lambda: kernel(tok, **kwb), iters=100, warmup=5)
+        phases = k9.phase_ms(kernel, tok, kwb)
         plain_ms = event_ms(lambda: plain(tok, **kwb), iters=5, warmup=1)
         step_ms = host_ms(lambda: sess.step(tok), repeats=50)
         wall, dev = device_ms(lambda: sess.step(tok), iters=50,
@@ -1168,7 +1192,9 @@ def phase_decode(model, label, clip5, tol, kernel_tol, depth, wide_steps=3):
               f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
               f"{moved / 1e6:.1f} MB); session step {step_ms:.4f} ms host, profiled "
               f"{wall:.4f} ms wall, device kernels {dev_txt}, idle {idle}; "
-              f"{per_layer * depth + 1} launches a token")
+              f"{k9.LAUNCHES_PER_TOKEN} launch of {len(phases)} x {depth} phases "
+              f"({len(phases) * depth - 1} grid barriers) + 1 K2 a token; phases, device ms "
+              "a token: " + ", ".join(f"{k} {v:.4f}" for k, v in phases.items()))
         if bsz == 1:
             entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
                      "library_ms": None}

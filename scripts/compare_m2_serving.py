@@ -1,6 +1,6 @@
 """Serving times of one checkout of the port, for same-card comparisons.
 
-    python3 scripts/compare_m2_serving.py [--model m2|m1] [--root DIR] [--label NAME]
+    python3 scripts/compare_m2_serving.py [--model m2|m1|decode] [--root DIR] [--label NAME]
                                           [--out FILE] [--walk-blocks N]
 
 Imports ``videomamba_tpu_torch`` from DIR (default: the checkout holding
@@ -30,11 +30,24 @@ N = 16, R = 48; Small for K4 at fp32):
   first 4-frame chunk of a ``StreamingSession`` under the profiler (device
   ms, idle share, top kernels).
 
+``--model decode``, token decode at VideoMamba-Base and Base-m2 widths
+(depth 24, seeded weights), fp32 and cast for bf16 serving, at B = 1, 8 and
+80: K9 (``decode_stack``) and K15 (``decode_stack_m2``) event ms a token
+(100 back-to-back tokens, taken 3 times: median and range), each launch
+kind's device time a token under the profiler (in, x_proj, state, out; a
+one-launch stack reports its phases when its module offers
+``phase_ms``), the host time to submit one token's launches (the call
+returning, no synchronise), and a ``DecodeSession.step``'s synchronised host
+ms and its profiled device ms and idle share; where the module has
+``MMA_MIN_BATCH``, K9 bf16 at B = 4 to 80 with and without its tensor-core
+products.
+
 ``--walk-blocks N`` sets the least grid of the split forward walk (K3's
 and K4's, ``ops/kernels/scan.py WALK_MIN_BLOCKS``) on a checkout that has
 one, to compare chunk lengths.
 
 Only entry points that every version of the port since Mamba-2 serving has
+(``DecodeSession`` and both decode wrappers for ``--model decode``)
 (and, for ``--model m1``, since Mamba-1 bf16 serving) are used, so a
 parent and a change can be compared: run the script once per
 checkout, each in its own process, alternating (parent, change, change,
@@ -236,10 +249,132 @@ def measure_m1(result, label, device):
              lambda: StreamingSession(model, batch_size=1).process(clip[:, :, :4]))])
 
 
+# Launch kinds of the decode stacks, by kernel name (the per-layer launches of
+# a multi-launch stack; x_proj and out_proj share K9's GEMV kernel and come
+# in that order within a layer).
+DECODE_KINDS = (("decode_in", "in"), ("decode_m2_state", "state"), ("decode_state", "state"),
+                ("decode_m2_out", "out"))
+
+
+def decode_split(fn, iters: int):
+    """(wall ms, device ms, {launch kind: device ms}) a token under the
+    profiler, the kinds told apart by kernel name and order."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    evts = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: e.time_range.start)
+    kinds, gemvs = {}, 0
+    for e in evts:
+        kind = next((k for pat, k in DECODE_KINDS if pat in e.name), None)
+        if kind is None and "decode_gemv" in e.name:
+            kind, gemvs = ("x_proj", "out")[gemvs % 2], gemvs + 1
+        kind = kind or e.name[:60]
+        kinds[kind] = kinds.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    return wall, sum(kinds.values()), kinds
+
+
+def submit_ms(fn, repeats: int = 50) -> float:
+    """Median host ms for ``fn`` to return, the queue drained before each."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def measure_decode(result, label, device):
+    from videomamba_tpu_torch.models.presets import videomamba_base, videomamba_base_m2
+    from videomamba_tpu_torch.ops.kernels import decode_step as k9
+    from videomamba_tpu_torch.runtime import DecodeSession
+    from videomamba_tpu_torch.utils.precision import cast_module_for_compute
+
+    result["decode"] = {}
+    for family, preset in (("m1", videomamba_base), ("m2", videomamba_base_m2)):
+        model = preset(pool_type="avg", device=device,
+                       generator=torch.Generator().manual_seed(0)).eval()
+        for tag in ("fp32", "bf16"):
+            if tag == "bf16":
+                model = cast_module_for_compute(model, torch.bfloat16)
+            for bsz in (1, 8, 80):
+                sess = DecodeSession(model, batch_size=bsz)
+                assert sess.use_kernel, f"{family} {tag} B={bsz}: no decode kernel"
+                kernel = k9.decode_stack_m2 if sess.is_m2 else k9.decode_stack
+                tok = torch.randn((bsz, model.embed_dim),
+                                  generator=torch.Generator().manual_seed(bsz)).to(device)
+                kw = dict(sess.stacked, **sess.kernel_kw, conv_states=sess.conv_states,
+                          ssm_states=sess.ssm_states)
+                call = lambda: kernel(tok, **kw)  # noqa: E731
+                reps = [event_ms(call, iters=100, warmup=5) for _ in range(3)]
+                _, dev, kinds = decode_split(call, iters=20)
+                if hasattr(k9, "phase_ms"):
+                    kinds.update({f"phase {k}": v for k, v in
+                                  k9.phase_ms(kernel, tok, kw).items()})
+                sub = submit_ms(call)
+                step = lambda: sess.step(tok)  # noqa: E731
+                step_ms = host_ms(step, repeats=50)
+                wall, step_dev, _ = decode_split(step, iters=50)
+                key = f"{family} {tag} B={bsz}"
+                result["decode"][key] = {
+                    "ms": statistics.median(reps), "ms_min": min(reps), "ms_max": max(reps),
+                    "device_ms": dev, "kinds_ms": kinds, "submit_ms": sub,
+                    "step_host_ms": step_ms, "step_profiled_wall_ms": wall,
+                    "step_device_ms": step_dev, "step_idle": (wall - step_dev) / wall}
+                print(f"{label} decode {key}: {statistics.median(reps):.4f} ms a token "
+                      f"({min(reps):.4f}-{max(reps):.4f}), device {dev:.4f}; submit "
+                      f"{sub:.4f} ms; session step host {step_ms:.4f} ms, profiled wall "
+                      f"{wall:.4f}, device {step_dev:.4f}, idle "
+                      f"{100 * (wall - step_dev) / wall:.1f} %")
+                for k, v in kinds.items():
+                    print(f"    {v:.4f} ms  {k}")
+                del sess, kw
+            if family == "m1" and tag == "bf16" and hasattr(k9, "MMA_MIN_BATCH"):
+                mma_crossover(result, label, model, k9)
+        del model
+        torch.cuda.empty_cache()
+
+
+def mma_crossover(result, label, model, k9, batches=(4, 8, 16, 32, 80)):
+    """K9 bf16 event ms a token with the tensor-core products (the plan's
+    default from k9.MMA_MIN_BATCH on) against FMA tiles only, by batch: the
+    batch from which mma.sync pays."""
+    from videomamba_tpu_torch.runtime import DecodeSession
+
+    default = k9.MMA_MIN_BATCH
+    rows = {}
+    for bsz in batches:
+        sess = DecodeSession(model, batch_size=bsz)
+        tok = torch.randn((bsz, model.embed_dim),
+                          generator=torch.Generator().manual_seed(bsz)).to(model.norm.weight.device)
+        kw = dict(sess.stacked, **sess.kernel_kw, conv_states=sess.conv_states,
+                  ssm_states=sess.ssm_states)
+        times = {}
+        for mode, least in (("mma", 1), ("fma", 1 << 30)):
+            k9.MMA_MIN_BATCH = least
+            times[mode] = statistics.median(
+                event_ms(lambda: k9.decode_stack(tok, **kw), iters=50) for _ in range(3))
+        k9.MMA_MIN_BATCH = default
+        rows[bsz] = times
+        print(f"{label} decode m1 bf16 B={bsz}: mma {times['mma']:.4f} ms, fma "
+              f"{times['fma']:.4f} ms a token")
+        del sess, kw
+    result["decode"]["m1 bf16 mma_vs_fma"] = rows
+
+
 def main() -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("m2", "m1"), default="m2")
+    ap.add_argument("--model", choices=("m2", "m1", "decode"), default="m2")
     ap.add_argument("--root", default=here, help="checkout to import the port from")
     ap.add_argument("--label", default="this")
     ap.add_argument("--out", default=None, help="file for the JSON object")
@@ -273,7 +408,8 @@ def main() -> int:
               "build_s": round(time.perf_counter() - t0, 1), "kernels": {}, "clip": {}}
 
     with torch.inference_mode():
-        (measure_m1 if args.model == "m1" else measure_m2)(result, args.label, device)
+        measure = {"m1": measure_m1, "m2": measure_m2, "decode": measure_decode}[args.model]
+        measure(result, args.label, device)
     line = json.dumps(result)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -525,29 +525,47 @@ def _decode_inputs(dev, wdt, sdt, depth=2, b=3, e=200, di=400, n=16, r=13, w=4, 
     )
 
 
-@pytest.mark.parametrize("wdt,sdt,b,norm", [
-    (torch.float32, torch.float32, 3, "rms"), (torch.float32, torch.float32, 9, "layer"),
-    (torch.bfloat16, torch.float32, 1, "rms"), (torch.bfloat16, torch.bfloat16, 3, "layer")])
-def test_decode_stack_kernel_matches_plain(dev, wdt, sdt, b, norm):
+DECODE_EDGES = (1, 7, 8, 9, 16, 17, 80, 81)  # around the batch tiles (1, 8, 16)
+BASE_M1 = dict(e=768, di=1536, n=16, r=48)
+
+
+@pytest.mark.parametrize("wdt,sdt,b,norm,widths", [
+    (torch.float32, torch.float32, 3, "rms", None), (torch.float32, torch.float32, 9, "layer", None),
+    (torch.bfloat16, torch.float32, 1, "rms", None), (torch.bfloat16, torch.bfloat16, 3, "layer", None),
+    *[(torch.float32, torch.float32, b, "rms", BASE_M1) for b in DECODE_EDGES],
+    *[(torch.bfloat16, torch.float32, b, "rms", BASE_M1) for b in DECODE_EDGES],
+    *[(torch.bfloat16, torch.bfloat16, b, "layer", BASE_M1) for b in (1, 9, 17, 81)],
+    *[(torch.float32, torch.bfloat16, b, "rms", BASE_M1) for b in (8, 16)],
+    (torch.float32, torch.float32, 3, "rms", dict(e=1536, di=2048, n=16, r=96))])
+def test_decode_stack_kernel_matches_plain(dev, wdt, sdt, b, norm, widths):
     """Three tokens through K9 and its plain version from the same states:
-    features and both state stacks (9 rows: two passes over the weights)."""
+    features and both state stacks, at ragged widths, at Base widths at the
+    batch-tile edges and at widths whose weight slices are taken in pieces
+    (d_model 1536, d_inner 2048 at fp32); a token run twice from the same
+    states gives bit-identical results."""
     from videomamba_tpu_torch.ops.kernels import decode_step as k9
 
-    kw = _decode_inputs(dev, wdt, sdt, b=b, norm=norm)
+    kw = _decode_inputs(dev, wdt, sdt, b=b, norm=norm, **(widths or {}))
     states = (kw.pop("conv_states"), kw.pop("ssm_states"))
     kc, ks = (s.clone() for s in states)
     pc, ps = states
     tol = TOL if wdt == torch.float32 and sdt == torch.float32 else BF16_TOL
     before = k9.decode_stack.launches
+    args = {k: v for k, v in kw.items() if k != "token"}
     for step in range(3):
         tok = randn(b, kw["token"].shape[1], dev=dev, seed=20 + step)
-        args = {k: v for k, v in kw.items() if k != "token"}
+        if step == 0:
+            c0, s0 = kc.clone(), ks.clone()
+            first = [t.clone() for t in k9.decode_stack(tok, **args, conv_states=c0,
+                                                         ssm_states=s0)]
         hk, rk, kc, ks = k9.decode_stack(tok, **args, conv_states=kc, ssm_states=ks)
         hp, rp, pc, ps = k9.decode_stack_plain(tok, **args, conv_states=pc, ssm_states=ps)
         torch.cuda.synchronize()
+        if step == 0:
+            assert all(torch.equal(a, f) for a, f in zip((hk, rk, kc, ks), first))
         for a, ref in ((hk, hp), (rk, rp), (kc, pc), (ks, ps)):
             assert a.dtype == ref.dtype and rel_err(a, ref) <= tol, step
-    assert k9.decode_stack.launches == before + 3
+    assert k9.decode_stack.launches == before + 4
 
 
 @pytest.mark.parametrize("e,b,depth", [(128, 2, 3), (768, 80, 2)])
@@ -577,6 +595,76 @@ def test_decode_session_kernel_matches_step_route(dev, e, b, depth):
         assert rel_err(got, want) <= 1e-4, step
     assert k9.decode_stack.launches == before + 4
     assert rel_err(sessions[0].ssm_states, sessions[1].ssm_states) <= 1e-4
+
+
+@pytest.mark.parametrize("m2", [False, True])
+def test_decode_session_prepares_once_and_reads_loaded_state(dev, m2, monkeypatch):
+    """DecodeSession validates, plans and allocates once (at construction;
+    again only when load_streaming_state changes the batch), each step is one
+    launch, and a step after load_streaming_state reads the loaded state: the
+    session's output equals a fresh session's that loaded the same state."""
+    from videomamba_tpu_torch.models.videomamba import PretrainVideoMamba
+    from videomamba_tpu_torch.ops.kernels import decode_step as k9
+    from videomamba_tpu_torch.runtime import DecodeSession
+
+    cfg = {"ssm_cfg": {"layer": "Mamba2", "d_state": 16, "headdim": 32, "chunk_size": 8}} \
+        if m2 else {}
+    model = PretrainVideoMamba(img_size=32, patch_size=8, depth=2, embed_dim=128, num_frames=4,
+                               pool_type="avg", device=dev,
+                               generator=torch.Generator().manual_seed(0), **cfg).eval()
+    name = "prepare_decode_stack_m2" if m2 else "prepare_decode_stack"
+    calls = []
+    real = getattr(k9, name)
+    monkeypatch.setattr(k9, name, lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    kernel = k9.decode_stack_m2 if m2 else k9.decode_stack
+    session = DecodeSession(model, batch_size=2)
+    assert session.use_kernel and len(calls) == 1
+    before = kernel.launches
+    for step in range(3):
+        session.step(randn(2, 128, dev=dev, seed=60 + step))
+    assert len(calls) == 1 and kernel.launches == before + 3
+    with torch.inference_mode():
+        _, _, state = model(randn(2, 3, 2, 32, 32, dev=dev, seed=61),
+                            ssm_state=model.allocate_state(2))
+    session.load_streaming_state(state)
+    assert len(calls) == 1
+    fresh = DecodeSession(model, batch_size=2)
+    fresh.load_streaming_state(state)
+    tok = randn(2, 128, dev=dev, seed=62)
+    assert torch.equal(session.step(tok), fresh.step(tok))
+
+
+@pytest.mark.parametrize("m2", [False, True])
+def test_decode_session_step_replays_in_a_cuda_graph(dev, m2):
+    """A DecodeSession step (K9 or K15, then K2) captured once in a CUDA
+    graph and replayed twice, a new token copied in before each replay,
+    matches the per-layer route step for step, and an eager step after the
+    replays still does: the grid barrier's start value lives on the card,
+    so no launch depends on a value the host passed when it was captured."""
+    from videomamba_tpu_torch.models.videomamba import PretrainVideoMamba
+    from videomamba_tpu_torch.runtime import DecodeSession
+
+    cfg = {"ssm_cfg": {"layer": "Mamba2", "d_state": 16, "headdim": 32, "chunk_size": 8}} \
+        if m2 else {}
+    model = PretrainVideoMamba(img_size=32, patch_size=8, depth=2, embed_dim=128, num_frames=4,
+                               pool_type="avg", device=dev,
+                               generator=torch.Generator().manual_seed(0), **cfg).eval()
+    fast, plain = (DecodeSession(model, batch_size=2, use_kernel=flag) for flag in (None, False))
+    assert fast.launch is not None
+    tok = randn(2, 128, dev=dev, seed=70)
+    assert rel_err(fast.step(tok), plain.step(tok)) <= 1e-4  # eager: the kernels are set up
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fast.step(tok)
+    for step in (1, 2):
+        tok.copy_(randn(2, 128, dev=dev, seed=70 + step))
+        graph.replay()
+        want = plain.step(tok)
+        torch.cuda.synchronize()
+        assert rel_err(out, want) <= 1e-4, step
+    tok = randn(2, 128, dev=dev, seed=73)
+    assert rel_err(fast.step(tok), plain.step(tok)) <= 1e-4
+    assert rel_err(fast.ssm_states, plain.ssm_states) <= 1e-4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -798,16 +886,28 @@ def _decode_m2_inputs(dev, wdt, cdt, depth, b, e, h, p, n, w=4, norm="rms", gate
     )
 
 
+BASE_M2_WIDTHS = (768, 24, 64, 64)
+
+
 @pytest.mark.parametrize("wdt,cdt,b,norm,gated,widths", [
-    (torch.float32, torch.float32, 1, "rms", True, (768, 24, 64, 64)),
-    (torch.bfloat16, torch.float32, 1, "rms", True, (768, 24, 64, 64)),
-    (torch.float32, torch.float32, 80, "rms", True, (768, 24, 64, 64)),
+    (torch.float32, torch.float32, 1, "rms", True, BASE_M2_WIDTHS),
+    (torch.bfloat16, torch.float32, 1, "rms", True, BASE_M2_WIDTHS),
+    (torch.float32, torch.float32, 80, "rms", True, BASE_M2_WIDTHS),
     (torch.float32, torch.float32, 9, "layer", False, (128, 8, 32, 16)),
-    (torch.bfloat16, torch.bfloat16, 3, "layer", True, (128, 8, 32, 16))])
+    (torch.bfloat16, torch.bfloat16, 3, "layer", True, (128, 8, 32, 16)),
+    *[(torch.float32, torch.float32, b, "rms", True, BASE_M2_WIDTHS)
+      for b in DECODE_EDGES if b not in (1, 80)],
+    *[(torch.bfloat16, torch.float32, b, "rms", True, BASE_M2_WIDTHS)
+      for b in DECODE_EDGES if b != 1],
+    *[(torch.bfloat16, torch.bfloat16, b, "rms", True, BASE_M2_WIDTHS) for b in (1, 9, 17, 81)],
+    *[(torch.float32, torch.bfloat16, b, "rms", False, BASE_M2_WIDTHS) for b in (8, 16)],
+    (torch.float32, torch.float32, 2, "rms", True, (1536, 32, 64, 64))])
 def test_decode_stack_m2_kernel_matches_plain(dev, wdt, cdt, b, norm, gated, widths):
     """Three tokens through K15 and its plain version from the same states
-    (Base m2 widths at B = 1 and 80; conv windows fp32 or bf16, SSD states
-    fp32): features and both state stacks."""
+    (Base m2 widths at the batch-tile edges, and d_model 1536 with d_inner
+    2048, whose slices are taken in pieces; conv windows fp32 or bf16, SSD
+    states fp32): features and both state stacks; a token run twice from the
+    same states gives bit-identical results."""
     from videomamba_tpu_torch.ops.kernels import decode_step as k9
 
     e, h, p, n = widths
@@ -820,12 +920,18 @@ def test_decode_stack_m2_kernel_matches_plain(dev, wdt, cdt, b, norm, gated, wid
     before = k9.decode_stack_m2.launches
     for step in range(3):
         tok = randn(b, e, dev=dev, seed=40 + step)
+        if step == 0:
+            c0, s0 = kc.clone(), ks.clone()
+            first = [t.clone() for t in k9.decode_stack_m2(tok, **kw, conv_states=c0,
+                                                            ssm_states=s0)]
         hk, rk, kc, ks = k9.decode_stack_m2(tok, **kw, conv_states=kc, ssm_states=ks)
+        if step == 0:
+            assert all(torch.equal(a, f) for a, f in zip((hk, rk, kc, ks), first))
         hp, rp, pc, ps = k9.decode_stack_m2_plain(tok, **kw, conv_states=pc, ssm_states=ps)
         torch.cuda.synchronize()
         for a, ref in ((hk, hp), (rk, rp), (kc, pc), (ks, ps)):
             assert a.dtype == ref.dtype and rel_err(a, ref) <= tol, step
-    assert k9.decode_stack_m2.launches == before + 3
+    assert k9.decode_stack_m2.launches == before + 4
 
 
 def _m2_model(dev, depth=2):

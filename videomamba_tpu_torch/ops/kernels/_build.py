@@ -29,8 +29,8 @@ SOURCES = ("fused_add_norm.cu", "selective_scan.cu", "mixer_fused.cu",
            "fused_add_norm_bwd.cu", "block_bwd.cu", "causal_conv.cu",
            "decode_step.cu", "ssd_mixer.cu", "ssd_pmixer.cu", "ssd_core_bwd.cu",
            "ssd_mixer_bwd.cu", "ssd_pmixer_bwd.cu")
-HEADERS = ("add_norm.cuh", "add_norm_bwd.cuh", "mixer_bwd.cuh", "mixer_parts.cuh",
-           "scan_walk.cuh", "scan_walk_bwd.cuh", "scan_walk_split.cuh", "ssd_core.cuh",
+HEADERS = ("add_norm.cuh", "add_norm_bwd.cuh", "decode_persist.cuh", "mixer_bwd.cuh",
+           "mixer_parts.cuh", "scan_walk.cuh", "scan_walk_bwd.cuh", "scan_walk_split.cuh", "ssd_core.cuh",
            "ssd_core_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -68,8 +68,8 @@ SIGNATURES = {
     ),
     "vmt_block_bwd": (*(_P,) * 16, _I, *(_P,) * 16, *(_I,) * 8, _F, _I, _I, _P),
     "vmt_causal_conv": (*(_P,) * 5, *(_I,) * 7, _P),
-    "vmt_decode_stack": (*(_P,) * 17, *(_I,) * 9, _F, _I, _I, _P),
-    "vmt_decode_stack_m2": (*(_P,) * 16, *(_I,) * 10, _F, _I, _F, _I, _P),
+    "vmt_decode_stack": (_P, _P, _P, _F, _I, _P),
+    "vmt_decode_stack_m2": (_P, _P, _P, _F, _F, _I, _P),
     "vmt_ssd_mixer": (_P, _LL, *(_P,) * 13, *(_I,) * 8, _F, _I, _I, _P),
     "vmt_ssd_pmixer": (*(_P,) * 6, _I, *(_P,) * 12, *(_I,) * 8, _F, _I, _I, _P),
     "vmt_ssd_scan": (*(_P,) * 7, *(_I,) * 9, _P),

@@ -1,7 +1,7 @@
 """K9 and K15: one decode token through the whole layer stack, CUDA for Hopper.
 
 K9 (:func:`decode_stack`) is the Mamba-1 stack, K15 (:func:`decode_stack_m2`,
-at the end of this module) the Mamba-2 one.
+further down) the Mamba-2 one.
 
 Replaces videomamba_tpu/ops/pallas/decode_step.py (decode_stack_pallas,
 ``_decode_kernel``): for a token (B, E) and each of the K layers, residual
@@ -11,17 +11,18 @@ gate and out_proj; the stacked conv and SSM states advance by one token.
 It returns (hidden, residual) in fp32 for the model's final norm.
 
 The TPU kernel's grid is the layer axis with each layer's weights
-double-buffered into VMEM. csrc/decode_step.cu runs four hand-written
-launches a layer on the current stream, all from one C call per token:
-norm + in_proj + conv (each block recomputes the normed rows into shared
-memory), x_proj, dt_proj + state update + gate (a thread per channel), and
-out_proj, the three products as GEMVs with one warp per weight row and
-16-byte weight loads; hidden and residual stay in fp32 device buffers
-between layers. It is bound by device memory (every weight read once per
-token: ~90.5 M parameters at VideoMamba-Base, 0.108 ms at fp32 and 0.054
-ms at bf16 on 3.35 TB/s) and, at B = 1, by the host's launch rate (4K
-launches a token). The conv and SSM states are updated in place on the
-kernel route (the session owns them); the plain version returns new ones.
+double-buffered into VMEM. csrc/decode_step.cu is one persistent launch a
+token (a block on every SM, :data:`PHASES_PER_LAYER` phases a layer between
+grid barriers): each block copies its slice of a phase's weights into
+shared memory two phases ahead, under the grid barriers, never waiting for
+the activations the phase reads, and uses each weight for every row of a
+batch tile, so every weight crosses device memory once a token at any
+batch. :func:`decode_plan` is the schedule the
+kernel runs (batch tile, row slices, x_proj's K pieces, the warps' split,
+the shared memory layout); the C entry takes it as ints. The conv and SSM
+states are updated in place on the kernel route (the session owns them); the
+plain version returns new ones. :class:`DecodeLaunch` holds a validated
+launch's buffers, so ``DecodeSession`` validates and plans once.
 
 Rounding (decode_step.py:134-184, with the TPU's ``precision=DEFAULT`` as
 interpret mode computes it): fp32 weights take fp32 products; bf16 weights
@@ -37,6 +38,8 @@ dt_proj_w (K, Di, R) in the weight dtype; conv_b, dt_bias, D (K, Di) and A
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -50,18 +53,315 @@ from videomamba_tpu_torch.ops.norm import layer_norm, rms_norm
 
 Tensor = torch.Tensor
 
-BATCH_PASS = 8  # kDecBatch: token rows staged in shared memory per pass
-MAX_PASS_BYTES = 200 * 1024  # BATCH_PASS x E fp32 normed rows in one block
-LAUNCHES_PER_LAYER = 4
+PHASES_PER_LAYER = 4     # K9: in, x_proj, state, out; grid barriers between them
+PHASES_PER_LAYER_M2 = 3  # K15: in, state, out
+LAUNCHES_PER_TOKEN = 1   # CUDA launches a token (each stack, whatever its depth)
+SMEM_BYTES = 232448      # shared memory one block may take on Hopper (227 KB)
+REF_SMS = 132            # the gates' reference card: an H100 SXM
+ROW_PAD = 16             # bytes after each weight row in shared memory
+ACT_PAD = 8              # floats after each staged activation row
+BATCH_TILES = (16, 8, 1)  # rows staged a pass (the kernel's template values)
+MMA_MIN_BATCH = 4        # bf16 weights take mma.sync from this batch on (measured)
+PLAN_FIELDS = ("bt", "wtot", "off_act", "off_red", "off_res", "off_misc", "off_bar", "smem", "lda",
+               "in_rb", "in_rw", "in_mma", "xp_kp", "xp_kw", "xp_rb", "xp_rw",
+               "out_rb", "out_rw", "out_mma", "in_cap", "out_cap", "xp_rg")
 
 
-def decode_stack_supported(d_model: int, d_inner: int) -> bool:
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _up(a: int, m: int) -> int:
+    return _cdiv(a, m) * m
+
+
+def block_span(n: int, grid: int, j: int) -> Tuple[int, int]:
+    """Units [lo, hi) of n that block j of ``grid`` owns (the kernel's
+    ``block_span``): a balanced split, every unit once."""
+    return n * j // grid, n * (j + 1) // grid
+
+
+def warp_split(nrows: int, k: int, bt: int) -> Tuple[int, int]:
+    """(row blocks RB, rows a warp RW) of a block's FMA product over nrows
+    weight rows of K columns and a batch tile of bt rows: the 8 warps are RB
+    row blocks x 8 / RB splits of K. The least shared-memory and FMA issue
+    time: a pass over 4 columns loads RW weight and bt activation vectors
+    (4 cycles each for a warp) for 4 RW bt multiply-adds (a quarter cycle
+    each), over the padded rows; ties go to fewer passes over the rows (each
+    ends in a block-wide sum), then to more rows a warp."""
+    best = None
+    for rb in (1, 2, 4, 8):
+        for rw in (1, 2, 3, 4):
+            padded = _cdiv(nrows, rb * rw) * rb * rw
+            lanes = _cdiv(_cdiv(k // 4, 8 // rb), 32) * 32 * (8 // rb)
+            key = (padded * lanes * max(4 * (rw + bt), rw * bt) / rw, padded // (rb * rw), -rw)
+            if best is None or key < best[0]:
+                best = (key, (rb, rw))
+    return best[1]
+
+
+def decode_plan(batch: int, d_model: int, d_inner: int, w_bytes: int, grid: int, *,
+                dt_rank: Optional[int] = None, d_state: Optional[int] = None,
+                d_proj: Optional[int] = None, nheads: Optional[int] = None,
+                s_bytes: int = 4) -> Optional[dict]:
+    """The schedule of one decode stack: K9 with ``dt_rank`` and ``d_state``,
+    K15 with ``d_proj`` (in_proj's rows, 2Di + 2GN + H), ``nheads`` and
+    ``d_state``. ``grid`` blocks (one an SM), weights of ``w_bytes`` and
+    states of ``s_bytes`` (4 fp32, 2 bf16). Returns the
+    kernel's ints (:data:`PLAN_FIELDS`) and ``grid``, ``units`` (each phase's
+    units, split over the blocks by :func:`block_span`), ``slice_bytes``
+    (each phase's largest weight slice) and ``scratch`` (fp32 floats of
+    activations between phases); None when no batch tile fits shared memory.
+
+    Phases: in (rows of in_proj; rows a block at once ``in_cap``), x_proj
+    (K9: units of ``xp_rg`` rows by ``xp_kw`` columns, ``xp_kp`` pieces of
+    K whose partial sums the state phase adds in piece order), state (K9:
+    groups of 8 channels; K15: groups of 4 (head, p) rows), out (rows of
+    out_proj). A phase's weight slice goes
+    to one end of the weight area (``wtot`` bytes), the next phase's to the
+    other, so ``wtot`` is the largest sum of two consecutive slices."""
+    m1 = d_proj is None
+    e, di, wb = d_model, d_inner, w_bytes
+    m_in = 2 * di if m1 else d_proj
+    in_rows, out_rows = _cdiv(m_in, grid), _cdiv(e, grid)
+    units = {"in": m_in, "out": e}
+    lda = max(e, di) + ACT_PAD
+    if m1:
+        p = dt_rank + 2 * d_state
+        pp = _up(p, 4)  # x_proj's partial-sum rows, 16-byte aligned
+        # Units of xp_rg rows by a piece of K, enough for every block; the
+        # state phase reads every piece's partial sums, so at large batches
+        # the rows split finer and K into fewer pieces.
+        xp_rg = 8 if batch <= 16 else 2
+        groups = _cdiv(p, xp_rg)
+        xp_kp = max(1, min(di // 8, _cdiv(grid, groups)))
+        xp_kw = _up(_cdiv(di, xp_kp), 8)
+        xp_kp = _cdiv(di, xp_kw)
+        xp_units = _cdiv(groups * xp_kp, grid)  # a block's most
+        units.update(x_proj=groups * xp_kp, state=_cdiv(di, 8))
+        xp_bytes = xp_units * xp_rg * (xp_kw * wb + ROW_PAD)
+        nch = 8 * _cdiv(_cdiv(di, 8), grid)  # the state phase's channels a block
+        # dt_proj's rows, A, D and dt_bias, then a tile of states
+        st_fixed, st_row = _up(nch * dt_rank * wb, 16) + nch * (d_state + 2) * 4, \
+            nch * d_state * s_bytes
+        # the state phase stages the partial sums in act, x_proj its units' slots
+        lda = max(lda, xp_kp * pp, xp_units * (xp_kw + ACT_PAD))
+        scratch = batch * (3 * di + xp_kp * pp)  # cy, z, y, partial sums
+        misc_row = pp + 2 * nch
+        nhp = p_dim = 1
+    else:
+        two_gn = d_proj - 2 * di - nheads
+        xp_kp, xp_kw, xp_bytes, xp_rg = 0, 0, 0, 1
+        units.update(state=di // 4)
+        nhp = 4 * _cdiv(di // 4, grid)  # the state phase's (head, p) rows a block
+        st_fixed, st_row = 0, nhp * d_state * 4  # a tile of fp32 SSD states
+        p_dim = di // nheads
+        lda = max(lda, 2 * nhp + _up(nhp // p_dim + 2, 4) + 8 + _up(two_gn, 4))
+        scratch = batch * (_up(d_proj, 4) + _up(di + two_gn, 4) + di)  # raw, cy, gated
+        misc_row = 0
+    first = next(bt for bt in reversed(BATCH_TILES) if bt >= min(batch, BATCH_TILES[0]))
+
+    def layout(bt, in_cap, out_cap):
+        in_mma = int(wb == 2 and bt >= 8 and batch >= MMA_MIN_BATCH and e % 16 == 0)
+        out_mma = int(wb == 2 and bt >= 8 and batch >= MMA_MIN_BATCH and di % 16 == 0)
+        in_rb, in_rw = warp_split(in_cap, e, bt)
+        out_rb, out_rw = warp_split(out_cap, di, bt)
+        xp_rb, xp_rw = warp_split(xp_rg, xp_kw, bt) if m1 else (1, 1)
+        bt0 = min(batch, bt)
+        in_b = in_cap * (e * wb + ROW_PAD)
+        # + R_k's first tile: the block's columns from and to 16-byte boundaries
+        out_b = out_cap * (di * wb + ROW_PAD) + bt0 * _up(out_rows + 6, 4) * 4
+        st_bytes = st_fixed + bt0 * st_row
+        slices = [in_b, xp_bytes, st_bytes, out_b] if m1 else [in_b, st_bytes, out_b]
+        wtot = _up(max(a + b for a, b in zip(slices, slices[1:] + slices[:1])), 16)
+        red = 8 * bt * (32 if in_mma or out_mma else 4)
+        # the sums of a pass; K15's state phase keeps dt, exp(dt A), D a head there
+        res = max(in_cap, out_cap, 8 if m1 else 3 * (nhp // p_dim + 2)) * bt
+        misc = max(2 * bt, bt * misc_row)
+        off_act = wtot
+        off_red = _up(off_act + bt * lda * 4, 16)
+        off_res = _up(off_red + red * 4, 16)
+        off_misc = _up(off_res + res * 4, 16)
+        off_bar = _up(off_misc + misc * 4, 16)
+        smem = off_bar + 16  # the activation copies' transaction barrier
+        if smem > SMEM_BYTES:
+            return None
+        return dict(bt=bt, wtot=wtot, off_act=off_act, off_red=off_red, off_res=off_res,
+                    off_misc=off_misc, off_bar=off_bar, smem=smem, lda=lda, in_rb=in_rb,
+                    in_rw=in_rw, in_mma=in_mma, xp_kp=xp_kp, xp_kw=xp_kw, xp_rb=xp_rb,
+                    xp_rw=xp_rw, out_rb=out_rb, out_rw=out_rw, out_mma=out_mma,
+                    in_cap=in_cap, out_cap=out_cap, xp_rg=xp_rg,
+                    slice_bytes=dict(zip(("in", "x_proj", "state", "out") if m1
+                                         else ("in", "state", "out"), slices)))
+
+    plan = None
+    for bt in (t for t in BATCH_TILES if t <= first):
+        plan = layout(bt, in_rows, out_rows)
+        if plan is not None:
+            break
+    in_cap, out_cap = in_rows, out_rows
+    while plan is None and (in_cap > 1 or out_cap > 1):  # slices too large to hold whole
+        if in_cap * (e * wb + ROW_PAD) >= out_cap * (di * wb + ROW_PAD) and in_cap > 1:
+            in_cap -= 1
+        elif out_cap > 1:
+            out_cap -= 1
+        else:
+            in_cap -= 1
+        plan = layout(1, in_cap, out_cap)
+    if plan is None:
+        return None
+    plan.update(grid=grid, units=units, scratch=scratch,
+                phases=PHASES_PER_LAYER if m1 else PHASES_PER_LAYER_M2)
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA card ``index``: the persistent grid (one block each)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_stack_supported(d_model: int, d_inner: int, dt_rank: Optional[int] = None,
+                           d_state: int = 16) -> bool:
     """The port's own gate for K9: 16-byte weight rows (d_model and d_inner
-    multiples of 8) and one pass's normed rows in one block's shared memory
-    (d_model up to 6400). Any batch size: the kernel takes the batch
-    BATCH_PASS rows at a time."""
-    return (d_model % 8 == 0 and d_inner % 8 == 0
-            and BATCH_PASS * d_model * 4 <= MAX_PASS_BYTES)
+    multiples of 8) and a schedule that fits one block's shared memory on
+    the reference card with fp32 weights (the larger; a slice too large to
+    hold whole is taken in pieces, so only a single weight row or activation
+    row of about 100 KB fails). Any batch size. ``dt_rank`` defaults to the
+    model's ``ceil(d_model / 16)``."""
+    if d_model % 8 or d_inner % 8:
+        return False
+    r = _cdiv(d_model, 16) if dt_rank is None else dt_rank
+    return decode_plan(1, d_model, d_inner, 4, REF_SMS, dt_rank=r, d_state=d_state) is not None
+
+
+class DecodeLaunch:
+    """One validated K9 or K15 launch: the buffers the kernel writes
+    (hidden, the two residual rows, scratch, the grid barrier and, for
+    :func:`phase_ms`, a phase timer), the plan and the C entry's pointer,
+    dim and plan arrays. :meth:`run` submits a token with no further checks;
+    the states are the caller's, advanced in place."""
+
+    def __init__(self, m2: bool, bsz: int, e: int, dev: torch.device, ops: list, dims: list,
+                 plan: dict, floats: tuple, timer: bool = False):
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.m2, self.plan, self.depth, self.dev = m2, plan, dims[2], dev
+        self.hidden = torch.empty((bsz, e), **f32)
+        self.res = (torch.empty((bsz, e), **f32), torch.empty((bsz, e), **f32))
+        self.scratch = torch.empty((plan["scratch"],), **f32)
+        # The grid barrier's counter and its value at a launch's start, both
+        # kept on the card by the kernel (a replayed CUDA graph stays right).
+        self.bar = torch.zeros((4,), dtype=torch.int32, device=dev)
+        phases = plan["phases"] * self.depth
+        self.timer = torch.zeros((phases + 1,), dtype=torch.int64, device=dev) if timer else None
+        self._ops = ops  # the operands stay alive while the launch may run
+        ptrs = [None, self.hidden, *self.res, *ops, self.scratch, self.bar, self.timer]
+        self._ptrs = (ctypes.c_void_p * len(ptrs))(*(_build.ptr(t) for t in ptrs))
+        self._dims = (ctypes.c_int * len(dims))(*dims)
+        self._plan = (ctypes.c_int * len(PLAN_FIELDS))(*(plan[k] for k in PLAN_FIELDS))
+        lib = _build.library()
+        self._entry = lib.vmt_decode_stack_m2 if m2 else lib.vmt_decode_stack
+        self._args = (ctypes.addressof(self._ptrs), ctypes.addressof(self._dims),
+                      ctypes.addressof(self._plan), *floats, dev.index)
+
+    def run(self, token: Tensor) -> Tuple[Tensor, Tensor]:
+        """Submit one token (B, E) of any float dtype (read as fp32); returns
+        (hidden, residual), this launch's buffers."""
+        tok = token.to(torch.float32).contiguous()
+        self._ptrs[0] = tok.data_ptr()
+        err = self._entry(*self._args, _build.stream_of(tok))
+        _build.check(err, "decode_stack_m2" if self.m2 else "decode_stack")
+        (decode_stack_m2 if self.m2 else decode_stack).launches += 1
+        return self.hidden, self.res[self.depth % 2]
+
+
+def _card(device) -> torch.device:
+    """The CUDA device with its index (``cuda`` names the current card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _plan_or_raise(name: str, dev: torch.device, **kw) -> dict:
+    plan = decode_plan(grid=sm_count(dev.index), **kw)
+    if plan is None:
+        raise ValueError(f"{name} kernel: no schedule fits one block's shared memory "
+                         f"({SMEM_BYTES} bytes) at these widths")
+    return plan
+
+
+def _check_aligned(name: str, tensors: dict) -> None:
+    for key, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel: {key} must start on a 16-byte boundary")
+
+
+def prepare_decode_stack(
+    bsz: int,
+    device: torch.device,
+    norm_w: Tensor,
+    norm_b: Optional[Tensor],
+    in_proj_w: Tensor,
+    out_proj_w: Tensor,
+    conv_w: Tensor,
+    conv_b: Tensor,
+    x_proj_w: Tensor,
+    dt_proj_w: Tensor,
+    dt_bias: Tensor,
+    A: Tensor,
+    D: Tensor,
+    conv_states: Tensor,
+    ssm_states: Tensor,
+    norm_type: str = "rms",
+    eps: float = 1e-5,
+    timer: bool = False,
+) -> DecodeLaunch:
+    """Validate K9's operands for a batch of ``bsz`` on ``device`` (a CUDA
+    card), plan it and allocate its buffers: the launch
+    :func:`decode_stack` makes for each call and ``DecodeSession`` once.
+
+    The five weight stacks in one dtype, fp32 or bf16, starting on 16-byte
+    boundaries; the two state stacks in one dtype, fp32 or bf16; everything
+    else fp32. All contiguous."""
+    if norm_type not in ("rms", "layer"):
+        raise ValueError(f"Unknown norm_type: {norm_type!r}")
+    device = _card(device)
+    depth, two_di, e = in_proj_w.shape
+    di = two_di // 2
+    width = conv_w.shape[2]
+    r = dt_proj_w.shape[2]
+    n = A.shape[2]
+    if e % 8 or di % 8:
+        raise ValueError(f"decode_stack kernel takes d_model and d_inner multiples of 8, got "
+                         f"d_model {e}, d_inner {di}")
+    norm_b = norm_b if norm_type == "layer" else None  # RMSNorm has no shift
+    wdt, sdt = _build.one_dtype(in_proj_w), _build.one_dtype(conv_states)
+    weights = {"in_proj_w": (in_proj_w, (depth, 2 * di, e)),
+               "out_proj_w": (out_proj_w, (depth, e, di)),
+               "conv_w": (conv_w, (depth, di, width)),
+               "x_proj_w": (x_proj_w, (depth, r + 2 * n, di)),
+               "dt_proj_w": (dt_proj_w, (depth, di, r))}
+    _build.check_operands(
+        "decode_stack", device,
+        {"norm_w": (norm_w, (depth, e)), "norm_b": (norm_b, (depth, e)), **weights,
+         "conv_b": (conv_b, (depth, di)), "dt_bias": (dt_bias, (depth, di)),
+         "A": (A, (depth, di, n)), "D": (D, (depth, di)),
+         "conv_states": (conv_states, (depth, bsz, di, width)),
+         "ssm_states": (ssm_states, (depth, bsz, di, n))},
+        contiguous=("norm_w", "norm_b", *weights, "conv_b", "dt_bias", "A", "D",
+                    "conv_states", "ssm_states"),
+        dtypes={**{k: wdt for k in weights}, "conv_states": sdt, "ssm_states": sdt},
+    )
+    _check_aligned("decode_stack", {k: v[0] for k, v in weights.items()})
+    plan = _plan_or_raise("decode_stack", device, batch=bsz, d_model=e, d_inner=di,
+                          w_bytes=in_proj_w.element_size(), dt_rank=r, d_state=n,
+                          s_bytes=conv_states.element_size())
+    ops = [norm_w, norm_b, in_proj_w, out_proj_w, conv_w, conv_b, x_proj_w, dt_proj_w,
+           dt_bias, A, D, conv_states, ssm_states]
+    dims = [_build.is_bf16(in_proj_w), _build.is_bf16(conv_states), depth, bsz, e, di, width,
+            r, n, int(norm_type == "rms"), plan["grid"]]
+    return DecodeLaunch(False, bsz, e, device, ops, dims, plan, (eps,), timer)
 
 
 def decode_stack_plain(
@@ -122,6 +422,7 @@ def decode_stack_plain(
     return hidden, residual, torch.stack(new_conv), torch.stack(new_ssm)
 
 
+
 def decode_stack(
     token: Tensor,
     norm_w: Tensor,
@@ -143,64 +444,47 @@ def decode_stack(
     """Kernel wrapper with the contract of :func:`decode_stack_plain`; on
     CUDA the states are advanced in place and returned.
 
-    On CUDA: the five weight stacks in one dtype, fp32 or bf16; the two
-    state stacks in one dtype, fp32 or bf16; the token any float dtype (read
-    as fp32); everything else fp32. All contiguous."""
+    On CUDA the operands are those :func:`prepare_decode_stack` takes, the
+    token (B, E) any float dtype (read as fp32); every call validates,
+    plans and allocates anew (``DecodeSession`` does so once)."""
     if dispatch.runs_plain(token):
         return decode_stack_plain(token, norm_w, norm_b, in_proj_w, out_proj_w, conv_w,
                                   conv_b, x_proj_w, dt_proj_w, dt_bias, A, D, conv_states,
                                   ssm_states, norm_type=norm_type, eps=eps)
-    if norm_type not in ("rms", "layer"):
-        raise ValueError(f"Unknown norm_type: {norm_type!r}")
-    bsz, e = token.shape
-    depth, two_di, _ = in_proj_w.shape
-    di = two_di // 2
-    width = conv_w.shape[2]
-    r = dt_proj_w.shape[2]
-    n = A.shape[2]
-    if not decode_stack_supported(e, di):
-        raise ValueError(
-            f"decode_stack kernel takes d_model and d_inner multiples of 8 and "
-            f"{BATCH_PASS} x d_model x 4 <= {MAX_PASS_BYTES} bytes, got d_model {e}, "
-            f"d_inner {di}")
-    norm_b = norm_b if norm_type == "layer" else None  # RMSNorm has no shift
-    wdt, sdt = _build.one_dtype(in_proj_w), _build.one_dtype(conv_states)
-    weights = {"in_proj_w": (in_proj_w, (depth, 2 * di, e)),
-               "out_proj_w": (out_proj_w, (depth, e, di)),
-               "conv_w": (conv_w, (depth, di, width)),
-               "x_proj_w": (x_proj_w, (depth, r + 2 * n, di)),
-               "dt_proj_w": (dt_proj_w, (depth, di, r))}
-    _build.check_operands(
-        "decode_stack", token.device,
-        {"norm_w": (norm_w, (depth, e)), "norm_b": (norm_b, (depth, e)), **weights,
-         "conv_b": (conv_b, (depth, di)), "dt_bias": (dt_bias, (depth, di)),
-         "A": (A, (depth, di, n)), "D": (D, (depth, di)),
-         "conv_states": (conv_states, (depth, bsz, di, width)),
-         "ssm_states": (ssm_states, (depth, bsz, di, n))},
-        contiguous=("norm_w", "norm_b", *weights, "conv_b", "dt_bias", "A", "D",
-                    "conv_states", "ssm_states"),
-        dtypes={**{k: wdt for k in weights}, "conv_states": sdt, "ssm_states": sdt},
-    )
-    dev = token.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    hidden = token.to(torch.float32, copy=True).contiguous()
-    res = (torch.zeros((bsz, e), **f32), torch.empty((bsz, e), **f32))
-    scratch = torch.empty((bsz * (3 * di + r + 2 * n),), **f32)
-    err = _build.library().vmt_decode_stack(
-        _build.ptr(hidden), _build.ptr(res[0]), _build.ptr(res[1]), _build.ptr(norm_w),
-        _build.ptr(norm_b), _build.ptr(in_proj_w), _build.ptr(out_proj_w),
-        _build.ptr(conv_w), _build.ptr(conv_b), _build.ptr(x_proj_w),
-        _build.ptr(dt_proj_w), _build.ptr(dt_bias), _build.ptr(A), _build.ptr(D),
-        _build.ptr(conv_states), _build.ptr(ssm_states), _build.ptr(scratch),
-        _build.is_bf16(in_proj_w), _build.is_bf16(conv_states), depth, bsz, e, di, width,
-        r, n, eps, int(norm_type == "rms"), dev.index, _build.stream_of(token),
-    )
-    _build.check(err, "decode_stack")
-    decode_stack.launches += 1
-    return hidden, res[depth % 2], conv_states, ssm_states
+    if token.dim() != 2 or token.shape[1] != in_proj_w.shape[2]:
+        raise ValueError(f"decode_stack kernel: token has shape {tuple(token.shape)}, expected "
+                         f"(batch, {in_proj_w.shape[2]})")
+    launch = prepare_decode_stack(token.shape[0], token.device, norm_w, norm_b, in_proj_w,
+                                  out_proj_w, conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias, A,
+                                  D, conv_states, ssm_states, norm_type=norm_type, eps=eps)
+    hidden, residual = launch.run(token)
+    return hidden, residual, conv_states, ssm_states
 
 
 decode_stack.launches = 0
+
+
+def phase_ms(kernel, token: Tensor, kw: dict, iters: int = 20) -> dict:
+    """Each phase's device ms a token of ``kernel`` (:func:`decode_stack`:
+    in, x_proj, state, out; :func:`decode_stack_m2`: in, state, out) on
+    ``token`` and the wrapper's keyword operands ``kw``, summed over the
+    layers and averaged over ``iters`` tokens: block 0 stamps the global
+    timer as each phase starts, so a phase's time holds the grid barrier
+    that closes it. Advances the states in ``kw``."""
+    m2 = kernel is decode_stack_m2
+    prep = prepare_decode_stack_m2 if m2 else prepare_decode_stack
+    launch = prep(token.shape[0], token.device, **kw, timer=True)
+    names = tuple(launch.plan["slice_bytes"])
+    sums = dict.fromkeys(names, 0.0)
+    for i in range(iters + 2):
+        launch.run(token)
+        if i < 2:
+            continue
+        stamps = launch.timer.cpu().double()
+        spans = (stamps[1:] - stamps[:-1]) / 1e6
+        for j, name in enumerate(names):
+            sums[name] += float(spans[j::len(names)].sum())
+    return {name: v / iters for name, v in sums.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -211,15 +495,13 @@ decode_stack.launches = 0
 # (z | [x B C] | dt), the rolling conv over [x B C] and SiLU, the per-head
 # scalar-decay state update h = exp(dt A_h) h + dt x B with y = C . h + D_h
 # x, the silu(z) gate, the gated RMSNorm and out_proj. csrc/decode_step.cu
-# runs three launches a layer from one C call per token: K9's norm + in_proj
-# + conv launch (taking the slab's rows as its channels), a warp per (b,
-# head, p) state row, and the gated norm + out_proj GEMV (each block
-# recomputing the normed rows, eight a pass, so any batch fits). It is bound
-# by device memory: the weights once a token and the (H, P, N) fp32 state of
-# every layer read and written. Rounding as the TPU kernel's: normed and the
-# normed gated rows are rounded to the weight dtype before their products,
-# the rest is fp32; the conv windows keep their dtype, the SSD states are
-# fp32 (the Mamba-2 streaming contract's).
+# runs it as K9 does, one persistent launch a token, three phases a layer:
+# K9's in phase (the slab's rows as its channels), a warp per (b, head, p)
+# state row (eight rows at a time), and the gated norm + out_proj. Rounding
+# as the TPU kernel's: normed and the normed gated rows are rounded to the
+# weight dtype before their products, the rest is fp32; the conv windows
+# keep their dtype, the SSD states are fp32 (the Mamba-2 streaming
+# contract's).
 #
 # Layouts (the streaming contract's, stacked on depth; the TPU's lane-major
 # (K, B, N, H*P) state is not ported): norm_w, norm_b (K, E) fp32;
@@ -227,24 +509,18 @@ decode_stack.launches = 0
 # in the weight dtype; conv_b (K, CD), A, D, dt_bias (K, H), gate_w (K, Di)
 # fp32; conv_states (K, B, CD, W), ssm_states (K, B, H, P, N).
 
-LAUNCHES_PER_LAYER_M2 = 3
-M2_WEIGHT_BUDGET_BYTES = 48 * 1024 * 1024
-
 
 def decode_stack_m2_supported(d_model: int, d_inner: int, nheads: int, ngroups: int,
                               d_state: int) -> bool:
-    """K15's gate: the JAX package's (decode_step.py:64-77: one B/C group,
-    d_inner a multiple of 128, its per-layer weight bytes) and the card's
-    (16-byte weight rows, one pass's normed rows in one block's shared
-    memory). Any batch size."""
+    """K15's gate: the JAX package's shape rule (decode_step.py:64-77: one
+    B/C group, d_inner a multiple of 128) and the card's (d_model a multiple
+    of 8 for 16-byte weight rows, a schedule that fits shared memory on the
+    reference card at fp32). Any batch size."""
     if ngroups != 1 or d_inner % 128 or d_model % 8:
         return False
-    conv_dim = d_inner + 2 * ngroups * d_state
     d_proj = 2 * d_inner + 2 * ngroups * d_state + nheads
-    weight_bytes = (d_model * d_proj + d_inner * d_model + 4 * conv_dim) * 2 \
-        + d_state * d_inner * 4
-    return (2 * weight_bytes < M2_WEIGHT_BUDGET_BYTES
-            and BATCH_PASS * max(d_model, d_inner) * 4 <= MAX_PASS_BYTES)
+    return decode_plan(1, d_model, d_inner, 4, REF_SMS, d_proj=d_proj, nheads=nheads,
+                       d_state=d_state) is not None
 
 
 def decode_stack_m2_plain(
@@ -315,6 +591,72 @@ def decode_stack_m2_plain(
     return hidden, residual, torch.stack(new_conv), torch.stack(new_ssm)
 
 
+
+def prepare_decode_stack_m2(
+    bsz: int,
+    device: torch.device,
+    norm_w: Tensor,
+    norm_b: Optional[Tensor],
+    in_proj_w: Tensor,
+    out_proj_w: Tensor,
+    conv_w: Tensor,
+    conv_b: Tensor,
+    A: Tensor,
+    D: Tensor,
+    dt_bias: Tensor,
+    gate_w: Optional[Tensor],
+    conv_states: Tensor,
+    ssm_states: Tensor,
+    ngroups: int = 1,
+    norm_type: str = "rms",
+    eps: float = 1e-5,
+    gate_eps: float = 1e-5,
+    timer: bool = False,
+) -> DecodeLaunch:
+    """Validate K15's operands for a batch of ``bsz`` on ``device``, plan
+    it and allocate its buffers (:func:`prepare_decode_stack`'s role for
+    K15). The three weight stacks in one dtype, fp32 or bf16, on 16-byte
+    boundaries; the conv windows fp32 or bf16 and the SSD states fp32 (the
+    streaming contract's); everything else fp32. All contiguous."""
+    if norm_type not in ("rms", "layer"):
+        raise ValueError(f"Unknown norm_type: {norm_type!r}")
+    device = _card(device)
+    depth, e, di = out_proj_w.shape
+    nheads, hdim, n = ssm_states.shape[2:]
+    cd = di + 2 * ngroups * n
+    width = conv_w.shape[2]
+    if not decode_stack_m2_supported(e, di, nheads, ngroups, n):
+        raise ValueError(
+            f"decode_stack_m2 kernel takes one group, d_inner a multiple of 128 and d_model "
+            f"a multiple of 8, got d_model {e}, d_inner {di}, {ngroups} groups")
+    norm_b = norm_b if norm_type == "layer" else None  # RMSNorm has no shift
+    wdt = _build.one_dtype(in_proj_w)
+    weights = {"in_proj_w": (in_proj_w, (depth, di + cd + nheads, e)),
+               "out_proj_w": (out_proj_w, (depth, e, di)),
+               "conv_w": (conv_w, (depth, cd, width))}
+    _build.check_operands(
+        "decode_stack_m2", device,
+        {"norm_w": (norm_w, (depth, e)), "norm_b": (norm_b, (depth, e)), **weights,
+         "conv_b": (conv_b, (depth, cd)), "A": (A, (depth, nheads)),
+         "D": (D, (depth, nheads)), "dt_bias": (dt_bias, (depth, nheads)),
+         "gate_w": (gate_w, (depth, di)),
+         "conv_states": (conv_states, (depth, bsz, cd, width)),
+         "ssm_states": (ssm_states, (depth, bsz, nheads, hdim, n))},
+        contiguous=("norm_w", "norm_b", *weights, "conv_b", "A", "D", "dt_bias", "gate_w",
+                    "conv_states", "ssm_states"),
+        dtypes={**{k: wdt for k in weights}, "conv_states": _build.FP32_OR_BF16},
+    )
+    _check_aligned("decode_stack_m2", {k: v[0] for k, v in weights.items()})
+    plan = _plan_or_raise("decode_stack_m2", device, batch=bsz, d_model=e, d_inner=di,
+                          w_bytes=in_proj_w.element_size(), d_proj=di + cd + nheads,
+                          nheads=nheads, d_state=n)
+    ops = [norm_w, norm_b, in_proj_w, out_proj_w, conv_w, conv_b, A, D, dt_bias, gate_w,
+           conv_states, ssm_states]
+    dims = [_build.is_bf16(in_proj_w), _build.is_bf16(conv_states), depth, bsz, e, nheads,
+            hdim, ngroups, n, width, int(norm_type == "rms"), plan["grid"]]
+    return DecodeLaunch(True, bsz, e, device, ops, dims, plan, (eps, gate_eps), timer)
+
+
 def decode_stack_m2(
     token: Tensor,
     norm_w: Tensor,
@@ -337,60 +679,23 @@ def decode_stack_m2(
     """Kernel wrapper with the contract of :func:`decode_stack_m2_plain`; on
     CUDA the states are advanced in place and returned.
 
-    On CUDA: the three weight stacks in one dtype, fp32 or bf16; the conv
-    windows fp32 or bf16 and the SSD states fp32 (the streaming contract's);
-    the token any float dtype (read as fp32); everything else fp32. All
-    contiguous."""
+    On CUDA the operands are those :func:`prepare_decode_stack_m2` takes,
+    the token (B, E) any float dtype (read as fp32); every call validates,
+    plans and allocates anew."""
     if dispatch.runs_plain(token):
         return decode_stack_m2_plain(token, norm_w, norm_b, in_proj_w, out_proj_w, conv_w,
                                      conv_b, A, D, dt_bias, gate_w, conv_states, ssm_states,
                                      ngroups=ngroups, norm_type=norm_type, eps=eps,
                                      gate_eps=gate_eps)
-    if norm_type not in ("rms", "layer"):
-        raise ValueError(f"Unknown norm_type: {norm_type!r}")
-    bsz, e = token.shape
-    depth, _, di = out_proj_w.shape
-    nheads, hdim, n = ssm_states.shape[2:]
-    cd = di + 2 * ngroups * n
-    width = conv_w.shape[2]
-    if not decode_stack_m2_supported(e, di, nheads, ngroups, n):
-        raise ValueError(
-            f"decode_stack_m2 kernel takes one group, d_inner a multiple of 128, d_model a "
-            f"multiple of 8 and the JAX package's weight budget, got d_model {e}, d_inner "
-            f"{di}, {ngroups} groups")
-    norm_b = norm_b if norm_type == "layer" else None  # RMSNorm has no shift
-    wdt = _build.one_dtype(in_proj_w)
-    weights = {"in_proj_w": (in_proj_w, (depth, di + cd + nheads, e)),
-               "out_proj_w": (out_proj_w, (depth, e, di)),
-               "conv_w": (conv_w, (depth, cd, width))}
-    _build.check_operands(
-        "decode_stack_m2", token.device,
-        {"norm_w": (norm_w, (depth, e)), "norm_b": (norm_b, (depth, e)), **weights,
-         "conv_b": (conv_b, (depth, cd)), "A": (A, (depth, nheads)),
-         "D": (D, (depth, nheads)), "dt_bias": (dt_bias, (depth, nheads)),
-         "gate_w": (gate_w, (depth, di)),
-         "conv_states": (conv_states, (depth, bsz, cd, width)),
-         "ssm_states": (ssm_states, (depth, bsz, nheads, hdim, n))},
-        contiguous=("norm_w", "norm_b", *weights, "conv_b", "A", "D", "dt_bias", "gate_w",
-                    "conv_states", "ssm_states"),
-        dtypes={**{k: wdt for k in weights}, "conv_states": _build.FP32_OR_BF16},
-    )
-    dev = token.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    hidden = token.to(torch.float32, copy=True).contiguous()
-    res = (torch.zeros((bsz, e), **f32), torch.empty((bsz, e), **f32))
-    scratch = torch.empty((bsz * (2 * di + cd + nheads + cd),), **f32)
-    p = _build.ptr
-    err = _build.library().vmt_decode_stack_m2(
-        p(hidden), p(res[0]), p(res[1]), p(norm_w), p(norm_b), p(in_proj_w), p(out_proj_w),
-        p(conv_w), p(conv_b), p(A), p(D), p(dt_bias), p(gate_w), p(conv_states),
-        p(ssm_states), p(scratch), _build.is_bf16(in_proj_w), _build.is_bf16(conv_states),
-        depth, bsz, e, nheads, hdim, ngroups, n, width, eps, int(norm_type == "rms"),
-        gate_eps, dev.index, _build.stream_of(token),
-    )
-    _build.check(err, "decode_stack_m2")
-    decode_stack_m2.launches += 1
-    return hidden, res[depth % 2], conv_states, ssm_states
+    if token.dim() != 2 or token.shape[1] != out_proj_w.shape[1]:
+        raise ValueError(f"decode_stack_m2 kernel: token has shape {tuple(token.shape)}, "
+                         f"expected (batch, {out_proj_w.shape[1]})")
+    launch = prepare_decode_stack_m2(token.shape[0], token.device, norm_w, norm_b, in_proj_w,
+                                     out_proj_w, conv_w, conv_b, A, D, dt_bias, gate_w,
+                                     conv_states, ssm_states, ngroups=ngroups,
+                                     norm_type=norm_type, eps=eps, gate_eps=gate_eps)
+    hidden, residual = launch.run(token)
+    return hidden, residual, conv_states, ssm_states
 
 
 decode_stack_m2.launches = 0

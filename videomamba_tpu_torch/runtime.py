@@ -130,6 +130,27 @@ class DecodeSession:
         self.kernel_kw = dict(norm_type=self.norm_type, eps=self.eps)
         if self.is_m2:
             self.kernel_kw.update(ngroups=self.mixer.ngroups, gate_eps=self.mixer.norm_epsilon)
+        self.launch = None
+        self._prepare()
+
+    def _prepare(self) -> None:
+        """On the card, validate the stacked weights and the states, plan the
+        kernel and allocate its buffers once (here, after a batch change in
+        :meth:`load_streaming_state`); :meth:`step` then submits each token
+        through the unchecked launch."""
+        from videomamba_tpu_torch.ops import dispatch
+        from videomamba_tpu_torch.ops.kernels.decode_step import (
+            prepare_decode_stack,
+            prepare_decode_stack_m2,
+        )
+
+        self.launch = None
+        if not self.use_kernel or dispatch.runs_plain(self.ssm_states):
+            return
+        prepare = prepare_decode_stack_m2 if self.is_m2 else prepare_decode_stack
+        self.launch = prepare(self.batch_size, self.ssm_states.device, **self.stacked,
+                              conv_states=self.conv_states, ssm_states=self.ssm_states,
+                              **self.kernel_kw)
 
     def _kernel_ok(self, use_kernel: Optional[bool]) -> bool:
         """The decode kernel's eligibility (JAX runtime.py:128-168), forced
@@ -146,7 +167,7 @@ class DecodeSession:
             widths = decode_stack_m2_supported(mx.d_model, mx.d_inner, mx.nheads, mx.ngroups,
                                                mx.d_state)
         else:
-            widths = decode_stack_supported(mx.d_model, mx.d_inner)
+            widths = decode_stack_supported(mx.d_model, mx.d_inner, mx.dt_rank, mx.d_state)
         compatible = (
             mx.in_proj.bias is None and mx.out_proj.bias is None
             and self.norm_type in ("rms", "layer") and widths
@@ -155,8 +176,8 @@ class DecodeSession:
             raise ValueError(
                 "use_kernel=True but the decode kernel does not support this model "
                 "(needs bias-free projections, rms/layer norm, d_model and d_inner "
-                "multiples of 8, d_model up to 6400, and for Mamba-2 one B/C group and "
-                "d_inner a multiple of 128)."
+                "multiples of 8 and a schedule that fits shared memory, and for Mamba-2 "
+                "one B/C group and d_inner a multiple of 128)."
             )
         return compatible
 
@@ -202,11 +223,17 @@ class DecodeSession:
         from videomamba_tpu_torch.ops.norm import fused_add_norm
 
         model = self.model
-        if self.use_kernel:
+        if self.launch is not None:
+            if tuple(token.shape) != (self.batch_size, model.embed_dim):
+                raise ValueError(f"DecodeSession.step: token has shape {tuple(token.shape)}, "
+                                 f"expected ({self.batch_size}, {model.embed_dim})")
+            hidden, residual = self.launch.run(token)
+        elif self.use_kernel:  # the kernel's plain version, on the CPU
             kernel = decode_stack_m2 if self.is_m2 else decode_stack
             hidden, residual, self.conv_states, self.ssm_states = kernel(
                 token, **self.stacked, conv_states=self.conv_states,
                 ssm_states=self.ssm_states, **self.kernel_kw)
+        if self.use_kernel:
             return fused_add_norm(
                 hidden.to(self.conv_states.dtype), model.norm.weight, model.norm.bias,
                 residual=residual, prenorm=False, residual_in_fp32=self.residual_in_fp32,
@@ -233,9 +260,27 @@ class DecodeSession:
 
     def load_streaming_state(self, state) -> None:
         """Adopt a streaming-contract state (a list, tuple or dict of
-        per-layer (conv_state, ssm_state), e.g. after a chunked prefill)."""
+        per-layer (conv_state, ssm_state), e.g. after a chunked prefill).
+
+        The states are copied into the session's own tensors, so a prepared
+        kernel launch reads them; a state of another batch size replaces them
+        and prepares the launch again. Any other shape raises here."""
         items = list(state.values()) if isinstance(state, dict) else list(state)
-        self.conv_states = torch.stack([s[0] for s in items]).to(
-            self.conv_states.dtype).contiguous()
-        self.ssm_states = torch.stack([s[1] for s in items]).to(
-            self.ssm_states.dtype).contiguous()
+        conv = torch.stack([s[0] for s in items])
+        ssm = torch.stack([s[1] for s in items])
+        bsz = conv.shape[1] if conv.dim() > 1 else -1
+        for name, got, have in (("conv_state", conv, self.conv_states),
+                                ("ssm_state", ssm, self.ssm_states)):
+            want = (have.shape[0], bsz) + tuple(have.shape[2:])
+            if tuple(got.shape) != want:
+                raise ValueError(
+                    f"load_streaming_state: the {name}s stack to {tuple(got.shape)}, expected "
+                    f"{want} (depth, batch, ...) for this model")
+        if bsz == self.batch_size:
+            self.conv_states.copy_(conv)
+            self.ssm_states.copy_(ssm)
+            return
+        self.batch_size = bsz
+        self.conv_states = conv.to(self.conv_states.dtype).contiguous()
+        self.ssm_states = ssm.to(self.ssm_states.dtype).contiguous()
+        self._prepare()
