@@ -43,9 +43,13 @@ failure, so the script exits nonzero:
    with and without D, z and delta_bias), K6 (mixer backward, all 11
    gradients) and K8 (add-norm backward) against
    their plain versions, fp32 within 2e-5 (K8 1e-5) and bf16 within 2e-2
-   (K8 bf16 x with an fp32 residual, 1e-2); K5, K6 and K8 run twice on the
-   same inputs and must be bit-identical; each timed beside its plain
-   version; K8's and K2's device time per call under torch.profiler.
+   (K8 bf16 x with an fp32 residual, 1e-2); K6 also at B=4 (the split
+   reverse walk at its other chunk; L 1569 is no multiple of either); K5,
+   K6 and K8 run twice on the same inputs and must be bit-identical; each
+   timed beside its plain version; each of K6's launches' device time a call
+   (the split reverse walk's chunk cotangents, pass and output walk, the
+   product tiles, the conv backward) and K8's and K2's under
+   torch.profiler.
 9. fp32 train step, Base depth 24, B=2, clip (2,3,8,224,224) and a noise
    target (a zero target leaves only cancellation noise below the final
    RMSNorm to compare), one step of ``make_train_step``'s default loss
@@ -68,7 +72,8 @@ failure, so the script exits nonzero:
 12. K4's checkpoints (fp32 1e-5, bf16 1e-2) and K7 (whole-Block backward)
     against their plain versions with nonzero h0, conv_state and every
     cotangent: Base
-    bf16 (2e-2) and fp32 (2e-5), Small fp32 (2e-5); K7 twice bit-identical;
+    bf16 (2e-2) and fp32 (2e-5), Small fp32 (2e-5), Base bf16 at B=4; K7
+    twice bit-identical, each of its launches' device time a call;
     K10 (causal conv) at (1, 1569, 1536) and (4, 1569, 1536), W = 4, fp32
     (1e-5) and bf16 (1e-2); each timed beside its plain version.
 13. eval-mode backward: the bf16 Base model in eval(), a loss on x_vis and
@@ -88,8 +93,9 @@ failure, so the script exits nonzero:
     full forward's last 196 tokens (fp32 1e-4, bf16 2e-2); K9 against its
     plain version from the same states over 8 steps (fp32 1e-5, bf16
     1e-2), and at B=8, 9, 80 and 81 (the edges of its batch tiles of 8 and
-    16) over 3 steps, each first token run twice from the same states and
-    bit-identical; K9's time per token at B=1, 8 and 80 (CUDA events over
+    16) over 3 steps, and at d_model 60 (not a multiple of 8: padded with
+    zero lanes) over 3 steps at B=3, each first token run twice from the
+    same states and bit-identical; K9's time per token at B=1, 8 and 80 (CUDA events over
     100 back-to-back tokens) with each phase's device time a token (in,
     x_proj, state, out, from the kernel's own global-timer stamps), the
     session
@@ -120,9 +126,9 @@ failure, so the script exits nonzero:
 20. m2 decode, fp32 and bf16: phase 15 with K15 (decode_stack_m2, one
     launch a token, three phases a layer) in K9's place: the 5th frame's 196
     tokens against the 5-frame forward (1e-4 / 2e-2), K15 against its plain
-    version over 8 steps at B=1 and at B=8, 9, 80 and 81 (bit-identical
-    repeats), ms a token at B=1, 8 and 80 with each phase's device time
-    (in, state, out), profiler idle.
+    version over 8 steps at B=1 and at B=8, 9, 80 and 81 and at d_model 100
+    (B=3; bit-identical repeats), ms a token at B=1, 8 and 80 with each
+    phase's device time (in, state, out), profiler idle.
 21. Mamba-2 training kernels at Base-m2 shapes, B=1 and B=4, fp32 and
     bf16 (nonzero h0, conv window and h_last cotangent): K12 with its
     checkpoints (each chunk's entry state, the pre-gate y), K11 (the bare
@@ -431,9 +437,11 @@ def phase_kernels(cfg, device):
     return results
 
 
-def launch_split(label, fn, kw):
-    """Each launch's device time a call of a multi-launch kernel (K3, K4)."""
-    _, dev = device_ms(lambda: fn(**kw), iters=10, label=label, top=10)
+def launch_split(label, fn, kw, top=10):
+    """Each launch's device time a call of a multi-launch kernel (K3, K4, K6,
+    K7: the split walks' chunk launches, pass and output walk, the product
+    tiles), the ``top`` longest."""
+    _, dev = device_ms(lambda: fn(**kw), iters=10, label=label, top=top)
     print(f"{label}: " + ("device time not measured" if dev is None
                           else f"{dev:.4f} ms of device kernels a call"))
 
@@ -665,8 +673,24 @@ def phase_bwd_kernels(device):
         res = time_against_plain(f"mixer_bwd {label}", k6.mixer_bwd, k6.mixer_bwd_plain, kw, gtol,
                                  mixer_flops(b, L, di, n, r, w, dtype, backward=True),
                                  plain_iters=1, repeat_identical=True)
+        launch_split(f"mixer_bwd {label} B={b} (chunk {k1.walk_bwd_chunk(b, L, di)})",
+                     k6.mixer_bwd, kw, top=20)
         if dtype == torch.float32:
             results["mixer_bwd"] = res
+        # B=4, the training batch: the split reverse walk at its other chunk.
+        mk4 = {k: v.to(dtype) if k in ("x", "z", "conv_w", "conv_b", "x_proj_w", "dt_proj_w",
+                                       "conv_state") else v
+               for k, v in kernel_inputs(dict(BASE, batch=4), device, seed=5)["mixer_fused"].items()}
+        *_, ckpt4 = k3.mixer_fused(**mk4, checkpoints=True)
+        kw4 = dict(mk4, ckpt=ckpt4, g_y=randn((4, L, di), g, device).to(dtype),
+                   g_hlast=randn((4, di, n), g, device, 0.3))
+        del kw4["h0"]
+        time_against_plain(f"mixer_bwd {label} B=4", k6.mixer_bwd, k6.mixer_bwd_plain, kw4, gtol,
+                           mixer_flops(4, L, di, n, r, w, dtype, backward=True), iters=10,
+                           plain_iters=1, repeat_identical=True)
+        launch_split(f"mixer_bwd {label} B=4 (chunk {k1.walk_bwd_chunk(4, L, di)})",
+                     k6.mixer_bwd, kw4, top=20)
+        del mk4, kw4, ckpt4
 
     nk = inputs["fused_add_norm"]
     kw = dict(x=nk["x"], weight=nk["weight"], residual=nk["residual"],
@@ -915,22 +939,28 @@ def block_bwd_inputs(cfg, device, dtype, seed=7):
 
 def phase_block_bwd_kernels(device):
     """K4's checkpoints and K7 against their plain versions: Base bf16 and
-    fp32, Small fp32 (the fp32 whole-block geometry); each twice
-    bit-identical. Returns the kernels-line entry of Base bf16."""
+    fp32, Small fp32 (the fp32 whole-block geometry), Base bf16 at B=4; each
+    twice bit-identical, and each of K7's launches' device time a call.
+    Returns the kernels-line entry of Base bf16."""
     result = None
     for cfg, label, dtype, tol in ((BASE, "bf16 Base", torch.bfloat16, BF16_GRAD_TOL),
                                    (BASE, "fp32 Base", torch.float32, GRAD_TOL),
-                                   (SMALL, "fp32 Small", torch.float32, GRAD_TOL)):
+                                   (SMALL, "fp32 Small", torch.float32, GRAD_TOL),
+                                   (dict(BASE, batch=4), "bf16 Base B=4", torch.bfloat16,
+                                    BF16_GRAD_TOL)):
         kw = block_inputs(cfg, device, dtype, seed=7)
         *_, ckpt = k4.block_fused(**kw, checkpoints=True)
         *_, pckpt = k4.block_fused_plain(**kw, checkpoints=True)
         check_close(f"K4 {label} checkpoints", ckpt, pckpt,
                     KERNEL_TOL if dtype == torch.float32 else BF16_TOL)
-        res = time_against_plain(f"block_bwd {label}", k7.block_bwd, k7.block_bwd_plain,
-                                 block_bwd_inputs(cfg, device, dtype), tol,
+        bkw = block_bwd_inputs(cfg, device, dtype)
+        res = time_against_plain(f"block_bwd {label}", k7.block_bwd, k7.block_bwd_plain, bkw, tol,
                                  block_flops(cfg, dtype, backward=True), iters=10,
                                  plain_iters=1, repeat_identical=True)
+        chunk = k1.walk_bwd_chunk(cfg["batch"], cfg["seqlen"], cfg["d_inner"])
+        launch_split(f"block_bwd {label} (chunk {chunk})", k7.block_bwd, bkw, top=24)
         result = result or res
+        del kw, bkw
     return result
 
 
@@ -1089,6 +1119,42 @@ def frame_tokens(model, frames, offset):
     return tok.reshape(tok.shape[0], -1, model.embed_dim)
 
 
+def odd_decode_inputs(m2, wdt, sdt, device, depth=2, b=3):
+    """A decode stack's operands (weights in ``wdt``, conv windows and the
+    Mamba-1 states in ``sdt``) at a d_model that is not a multiple of 8:
+    K9 at d_model 60, d_inner 120, dt_rank 4; K15 at d_model 100, 8 heads
+    of 16, d_state 16 (d_inner 128, the JAX gate's multiple)."""
+    g = torch.Generator().manual_seed(31)
+
+    def rn(*shape, scale=1.0):
+        return randn(shape, g, device, scale)
+
+    e, n, w = (100, 16, 4) if m2 else (60, 16, 4)
+    common = dict(token=rn(b, e), norm_w=1 + rn(depth, e, scale=0.1), norm_b=None,
+                  norm_type="rms", eps=1e-5)
+    if m2:
+        h, hp = 8, 16
+        di = h * hp
+        cd = di + 2 * n
+        return dict(common, in_proj_w=rn(depth, di + cd + h, e, scale=e ** -0.5).to(wdt),
+                    out_proj_w=rn(depth, e, di, scale=di ** -0.5).to(wdt),
+                    conv_w=rn(depth, cd, w, scale=0.5).to(wdt), conv_b=rn(depth, cd, scale=0.1),
+                    A=-torch.exp(rn(depth, h, scale=0.5)), D=rn(depth, h),
+                    dt_bias=torch.linspace(-4.0, -1.0, h).to(device).expand(depth, h).contiguous(),
+                    gate_w=1 + rn(depth, di, scale=0.1), conv_states=rn(depth, b, cd, w).to(sdt),
+                    ssm_states=rn(depth, b, h, hp, n, scale=0.3), ngroups=1, gate_eps=1e-5)
+    di, r = 2 * e, 4
+    return dict(common, in_proj_w=rn(depth, 2 * di, e, scale=e ** -0.5).to(wdt),
+                out_proj_w=rn(depth, e, di, scale=di ** -0.5).to(wdt),
+                conv_w=rn(depth, di, w, scale=0.5).to(wdt), conv_b=rn(depth, di, scale=0.1),
+                x_proj_w=rn(depth, r + 2 * n, di, scale=di ** -0.5).to(wdt),
+                dt_proj_w=rn(depth, di, r, scale=r ** -0.5).to(wdt),
+                dt_bias=torch.linspace(-4.0, -1.0, di).to(device).expand(depth, di).contiguous(),
+                A=-torch.exp(rn(depth, di, n, scale=0.3)), D=rn(depth, di),
+                conv_states=rn(depth, b, di, w).to(sdt),
+                ssm_states=rn(depth, b, di, n, scale=0.3).to(sdt))
+
+
 def phase_decode(model, label, clip5, tol, kernel_tol, depth, wide_steps=3):
     """Prefill 4 frames with StreamingSession, adopt its state in a
     DecodeSession, decode the 5th frame's 196 tokens through the decode
@@ -1158,6 +1224,12 @@ def phase_decode(model, label, clip5, tol, kernel_tol, depth, wide_steps=3):
                                        ssm_states=sess.ssm_states),
                       lambda i: tok * (i + 1), 3)
         del sess
+    # A d_model that is not a multiple of 8, which the launch pads with zero
+    # lanes: 60 (d_inner 120) for K9, 100 (d_inner 128) for K15.
+    odd = odd_decode_inputs(session.is_m2, session.stacked["in_proj_w"].dtype,
+                            session.conv_states.dtype, model.norm.weight.device)
+    tok_odd = odd.pop("token")
+    against_plain(f"d_model {tok_odd.shape[1]}", odd, lambda i: tok_odd * (i + 1), 3)
     for bsz in (1, 8, 80):
         sess = DecodeSession(model, batch_size=bsz)
         check(sess.use_kernel, f"{label} decode B={bsz}: the session did not take {knum}")

@@ -1,7 +1,8 @@
 """Serving times of one checkout of the port, for same-card comparisons.
 
-    python3 scripts/compare_m2_serving.py [--model m2|m1|decode] [--root DIR] [--label NAME]
-                                          [--out FILE] [--walk-blocks N]
+    python3 scripts/compare_m2_serving.py [--model m2|m1|m1bwd|decode] [--root DIR]
+                                          [--label NAME] [--out FILE] [--walk-blocks N]
+                                          [--bwd-chunk N]
 
 Imports ``videomamba_tpu_torch`` from DIR (default: the checkout holding
 this script), builds its kernels and measures, on one CUDA card, with random
@@ -30,6 +31,15 @@ N = 16, R = 48; Small for K4 at fp32):
   first 4-frame chunk of a ``StreamingSession`` under the profiler (device
   ms, idle share, top kernels).
 
+``--model m1bwd``, the Mamba-1 backward kernels at VideoMamba-Base shapes
+(L = 1569, Di = 1536, N = 16, R = 48; Small for K7 at fp32), B = 1 and 4,
+nonzero h0, conv state and every cotangent, checkpoints from the matching
+forward kernel: K6 (``mixer_bwd``) at fp32 and bf16 and K7 (``block_bwd``)
+at bf16 (Base) and fp32 (Small, and Base at B = 1): event times and each
+launch's device time a call, as above, the launches also summed into the
+parts of the span (reverse walk, product tiles, conv backward, ordered
+sums, norm and recompute).
+
 ``--model decode``, token decode at VideoMamba-Base and Base-m2 widths
 (depth 24, seeded weights), fp32 and cast for bf16 serving, at B = 1, 8 and
 80: K9 (``decode_stack``) and K15 (``decode_stack_m2``) event ms a token
@@ -44,7 +54,9 @@ products.
 
 ``--walk-blocks N`` sets the least grid of the split forward walk (K3's
 and K4's, ``ops/kernels/scan.py WALK_MIN_BLOCKS``) on a checkout that has
-one, to compare chunk lengths.
+one, to compare chunk lengths. ``--bwd-chunk N`` fixes the chunk of the
+split reverse walk (K6's and K7's, ``ops/kernels/scan.py walk_bwd_chunk``)
+at N steps on a checkout that has one.
 
 Only entry points that every version of the port since Mamba-2 serving has
 (``DecodeSession`` and both decode wrappers for ``--model decode``)
@@ -171,7 +183,7 @@ def time_kernel(result, label, name, fn, kw):
     """Event ms (median and range of 5) and each launch's device ms a call."""
     call = lambda: fn(**kw)  # noqa: E731
     reps = [event_ms(call) for _ in range(5)]
-    _, dev, launches = profile(call, iters=10, top=10)
+    _, dev, launches = profile(call, iters=10, top=24)
     result["kernels"][name] = {"ms": statistics.median(reps), "ms_min": min(reps),
                                "ms_max": max(reps), "device_ms": dev, "launches_ms": launches}
     print(f"{label} {name}: {statistics.median(reps):.4f} ms "
@@ -247,6 +259,73 @@ def measure_m1(result, label, device):
             ("clip", lambda: model(clip)),
             ("first_chunk",
              lambda: StreamingSession(model, batch_size=1).process(clip[:, :, :4]))])
+
+
+# Parts of K6's and K7's span, by kernel-name fragment (first match wins).
+BWD_PARTS = (("split_bwd", "reverse walk"), ("scan_bwd", "reverse walk"),
+             ("gemm_nn", "product tiles"), ("gemm_tn", "product tiles"),
+             ("mma_nn", "product tiles"), ("mma_tn", "product tiles"),
+             ("gemm_nt", "recompute tiles"), ("conv_silu", "recompute tiles"),
+             ("conv_", "conv backward"), ("reduce_", "ordered sums"),
+             ("sum_slices", "ordered sums"), ("add_norm", "norm and its backward"))
+
+
+def bwd_parts(launches: dict) -> dict:
+    parts = {}
+    for name, ms in launches.items():
+        part = next((p for frag, p in BWD_PARTS if frag in name), "other")
+        parts[part] = parts.get(part, 0.0) + ms
+    return parts
+
+
+def measure_m1bwd(result, label, device):
+    from videomamba_tpu_torch.ops.kernels import block_bwd as k7
+    from videomamba_tpu_torch.ops.kernels import block_fused as k4
+    from videomamba_tpu_torch.ops.kernels import mixer_bwd as k6
+    from videomamba_tpu_torch.ops.kernels import mixer_fused as k3
+
+    bf16 = torch.bfloat16
+    cases = [("mixer_bwd", torch.float32, BASE, 1), ("mixer_bwd", bf16, BASE, 1),
+             ("mixer_bwd", torch.float32, BASE, 4), ("mixer_bwd", bf16, BASE, 4),
+             ("block_bwd", bf16, BASE, 1), ("block_bwd", torch.float32, BASE, 1),
+             ("block_bwd", torch.float32, SMALL, 1), ("block_bwd", bf16, BASE, 4)]
+    for kind, dtype, cfg, bsz in cases:
+        cfg = dict(cfg, batch=bsz)
+        mixer, block = m1_inputs(cfg, device, seed=7)
+        g = torch.Generator().manual_seed(8)
+        tag = f"{'fp32' if dtype == torch.float32 else 'bf16'}"
+        tag += f"{' Small' if cfg['embed'] != BASE['embed'] else ''} B={bsz}"
+        if kind == "mixer_bwd":
+            kw = {k: v.to(dtype) if k in ("x", "z", "conv_w", "conv_b", "x_proj_w",
+                                          "dt_proj_w", "conv_state") else v
+                  for k, v in mixer.items()}
+            *_, ckpt = k3.mixer_fused(**kw, checkpoints=True)
+            kw = dict(kw, ckpt=ckpt, g_y=torch.randn(kw["x"].shape, generator=g).to(device)
+                      .to(dtype), g_hlast=0.3 * torch.randn(kw["h0"].shape, generator=g)
+                      .to(device))
+            del kw["h0"]
+            fn = k6.mixer_bwd
+        else:
+            kw = {k: v.to(dtype) if k in ("hidden", "in_proj_w", "out_proj_w", "conv_w",
+                                          "conv_b", "x_proj_w", "dt_proj_w") else v
+                  for k, v in block.items()}
+            *_, ckpt = k4.block_fused(**kw, checkpoints=True)
+            names = ("norm_w", "norm_b", "in_proj_w", "out_proj_w", "conv_w", "conv_b",
+                     "x_proj_w", "dt_proj_w", "dt_bias", "A", "D", "conv_state")
+            shape = kw["hidden"].shape
+            kw = dict(res_out=kw["hidden"].float() + kw["residual"].float(),
+                      **{k: kw[k] for k in names}, ckpt=ckpt,
+                      g_out=torch.randn(shape, generator=g).to(device).to(dtype),
+                      g_res=0.3 * torch.randn(shape, generator=g).to(device),
+                      g_hlast=0.3 * torch.randn(block["h0"].shape, generator=g).to(device))
+            fn = k7.block_bwd
+        name = f"{kind} {tag}"
+        time_kernel(result, label, name, fn, kw)
+        entry = result["kernels"][name]
+        entry["parts_ms"] = bwd_parts(entry["launches_ms"])
+        print("    parts: " + ", ".join(f"{k} {v:.4f}" for k, v in entry["parts_ms"].items()))
+        del mixer, block, kw, ckpt
+        torch.cuda.empty_cache()
 
 
 # Launch kinds of the decode stacks, by kernel name (the per-layer launches of
@@ -374,12 +453,14 @@ def mma_crossover(result, label, model, k9, batches=(4, 8, 16, 32, 80)):
 def main() -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("m2", "m1", "decode"), default="m2")
+    ap.add_argument("--model", choices=("m2", "m1", "m1bwd", "decode"), default="m2")
     ap.add_argument("--root", default=here, help="checkout to import the port from")
     ap.add_argument("--label", default="this")
     ap.add_argument("--out", default=None, help="file for the JSON object")
     ap.add_argument("--walk-blocks", type=int, default=None,
                     help="least grid of the split forward walk (a checkout that has one)")
+    ap.add_argument("--bwd-chunk", type=int, default=None,
+                    help="chunk of the split reverse walk (a checkout that has one)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compare_m2_serving: no CUDA card", file=sys.stderr)
@@ -395,6 +476,11 @@ def main() -> int:
             print(f"compare_m2_serving: {args.root} has no split walk", file=sys.stderr)
             return 1
         scan.WALK_MIN_BLOCKS = args.walk_blocks
+    if args.bwd_chunk is not None:
+        if not hasattr(scan, "walk_bwd_chunk"):
+            print(f"compare_m2_serving: {args.root} has no split reverse walk", file=sys.stderr)
+            return 1
+        scan.walk_bwd_chunk = lambda *_: args.bwd_chunk
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip().splitlines()[0] if card.strip() else "nvidia-smi: no card line")
@@ -404,11 +490,12 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     result = {"label": args.label, "root": args.root, "model": args.model,
-              "walk_blocks": args.walk_blocks,
+              "walk_blocks": args.walk_blocks, "bwd_chunk": args.bwd_chunk,
               "build_s": round(time.perf_counter() - t0, 1), "kernels": {}, "clip": {}}
 
     with torch.inference_mode():
-        measure = {"m1": measure_m1, "m2": measure_m2, "decode": measure_decode}[args.model]
+        measure = {"m1": measure_m1, "m1bwd": measure_m1bwd, "m2": measure_m2,
+                   "decode": measure_decode}[args.model]
         measure(result, args.label, device)
     line = json.dumps(result)
     if args.out:

@@ -63,9 +63,9 @@ HEADER_PATCHES = [
      """  __syncthreads();  // the last users of act are done
   if (threadIdx.x == 0) stamp(20);"""),
     ("""  if (norm) {
-    const float inv_k = 1.f / (float)K;""", """  if (threadIdx.x == 0) stamp(21);
+    const float inv_k = 1.f / (float)kn;""", """  if (threadIdx.x == 0) stamp(21);
   if (norm) {
-    const float inv_k = 1.f / (float)K;"""),
+    const float inv_k = 1.f / (float)kn;"""),
     ("""      *p = v;
     }
   }

@@ -1,24 +1,28 @@
 """Device-time breakdown of the PyTorch port's train step on one CUDA card.
 
     python3 scripts/profile_torch_train.py [--batch 4] [--dtype fp32|bf16|both]
-        [--model m1|m2|both]
+        [--model m1|m2|both] [--root DIR]
 
 Builds VideoMamba-Base (Mamba-1, ``m1``) or VideoMamba-Base-m2 (Mamba-2,
 ``m2``; its layers on the default "mixer" train route: ``torch.matmul``
 projections around K12 with checkpoints and K13), depth 24, random weights
 from a seeded generator; takes two warm steps of ``make_train_step`` (AdamW
 lr 1e-4, weight decay 0.05, zero target: the bench.py recipe; bf16 is
-``compute_dtype``), then profiles one step with ``torch.profiler`` and
-prints, for each model and dtype, the step's host wall time, the device
-time summed by kernel group and the top kernels by name. The device's idle
-share is the wall time not covered by kernel time (one stream: kernels do
-not overlap). Needs a CUDA card.
+``compute_dtype``), times five more (the median host ms of a synchronised
+step), then profiles one step with ``torch.profiler`` and prints, for each
+model and dtype, the step's host wall time, the device time summed by
+kernel group and the top kernels by name. The device's idle share is the
+wall time not covered by kernel time (one stream: kernels do not overlap).
+``--root`` imports the port from another checkout (default: the one holding
+this script), so two checkouts can be compared in one call to the card,
+each in its own process. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -26,11 +30,6 @@ from collections import defaultdict
 
 import torch
 from torch.autograd import DeviceType
-
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-from videomamba_tpu_torch.models.presets import videomamba_base, videomamba_base_m2  # noqa: E402
-from videomamba_tpu_torch.parallel.train_step import make_train_step  # noqa: E402
 
 # Kernel-name fragments -> group, first match wins.
 GROUPS = (
@@ -43,12 +42,15 @@ GROUPS = (
     ("ssd_state_pass", "SSD chunk states and pass (K12)"),
     ("ssd_gate", "SSD gate and norm (K12)"),
     ("dsilu_kernel", "conv kernels (K3/K6, K12/K13)"),
-    ("scan_bwd_kernel", "reverse walk (K6 / K5)"),
+    ("split_bwd", "reverse walk, split over time (K6 / K7)"),
+    ("scan_bwd_kernel", "reverse walk (K5)"),
     ("split_", "forward walk, split over time (K3 / K4)"),
     ("scan_walk_kernel", "forward walk (K1)"),
     ("gemm_nt", "K3/K6 recompute product tiles"),
-    ("gemm_nn", "K6 cotangent product tiles"),
-    ("gemm_tn", "K6 weight-gradient tiles"),
+    ("gemm_nn", "K6/K7 cotangent product tiles"),
+    ("mma_nn", "K6/K7 cotangent product tiles"),
+    ("gemm_tn", "K6/K7 weight-gradient tiles"),
+    ("mma_tn", "K6/K7 weight-gradient tiles"),
     ("conv_", "conv kernels (K3/K6, K12/K13)"),
     ("reduce_bc_kernel", "K5/K6 ordered reductions"),
     ("reduce_batch_kernel", "K5/K6 ordered reductions"),
@@ -78,11 +80,12 @@ def card_line() -> str:
     return out.splitlines()[0] if out else "unknown"
 
 
-PRESETS = {"m1": ("Mamba-1 Base", videomamba_base), "m2": ("Mamba-2 Base", videomamba_base_m2)}
-
-
 def profile_step(model_key: str, dtype: torch.dtype, batch: int, device) -> None:
-    title, preset = PRESETS[model_key]
+    from videomamba_tpu_torch.models.presets import videomamba_base, videomamba_base_m2
+    from videomamba_tpu_torch.parallel.train_step import make_train_step
+
+    title, preset = {"m1": ("Mamba-1 Base", videomamba_base),
+                     "m2": ("Mamba-2 Base", videomamba_base_m2)}[model_key]
     model = preset(pool_type="avg", device=device, generator=torch.Generator().manual_seed(0))
     opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=0.05)
     step = make_train_step(model, opt,
@@ -93,6 +96,12 @@ def profile_step(model_key: str, dtype: torch.dtype, batch: int, device) -> None
     for _ in range(2):
         step(data)
     torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step(data)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -108,7 +117,9 @@ def profile_step(model_key: str, dtype: torch.dtype, batch: int, device) -> None
     for name, ms in by_name.items():
         by_group[group_of(name)] += ms
     label = "fp32" if dtype == torch.float32 else "bf16"
-    print(f"\n{title} {label} train step, B={batch}: wall {wall_ms:.3f} ms, kernel time "
+    print(f"\n{title} {label} train step, B={batch}: host {statistics.median(times):.3f} ms "
+          f"(median of 5, {min(times):.3f}-{max(times):.3f}); profiled: wall {wall_ms:.3f} ms, "
+          f"kernel time "
           f"{total:.3f} ms, device idle {wall_ms - total:.3f} ms "
           f"({100 * (wall_ms - total) / wall_ms:.1f} %)")
     for group, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
@@ -123,7 +134,13 @@ def main() -> int:
     parser.add_argument("--batch", type=int, default=4)
     parser.add_argument("--dtype", choices=("fp32", "bf16", "both"), default="both")
     parser.add_argument("--model", choices=("m1", "m2", "both"), default="both")
+    parser.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), help="checkout to import the port from")
     args = parser.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    import videomamba_tpu_torch
+
+    assert os.path.abspath(videomamba_tpu_torch.__file__).startswith(os.path.abspath(args.root))
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA card", file=sys.stderr)
         return 1

@@ -379,6 +379,48 @@ def test_mixer_bwd_kernel_matches_plain(dev, dtype, L):
         assert a.dtype == w.dtype and rel_err(a, w) <= GRAD_TOL[dtype]
 
 
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixer_and_block_bwd_at_each_reverse_walk_chunk(dev, monkeypatch, dtype, chunk):
+    """K6 and K7 with the split reverse walk's chunk fixed at each length
+    the rule picks from, at batch 4 and an L (300) that is no multiple of
+    it, D 200 (a ragged channel group): against their plain versions, each
+    twice bit-identical."""
+    from videomamba_tpu_torch.ops.kernels import block_bwd as k7
+
+    monkeypatch.setattr(k1, "walk_bwd_chunk", lambda *_: chunk)
+    kw = _mixer_inputs(dev, b=4, L=300, di=200)
+    if dtype == torch.bfloat16:
+        kw = {k: v.to(dtype) if k in ("x", "z", "conv_w", "conv_b", "x_proj_w", "dt_proj_w")
+              else v for k, v in kw.items()}
+    *_, ckpt = k3.mixer_fused(**kw, checkpoints=True)
+    args = dict({k: v for k, v in kw.items() if k != "h0"}, ckpt=ckpt,
+                g_y=randn(4, 300, 200, dev=dev, seed=12).to(dtype),
+                g_hlast=randn(4, 200, 16, dev=dev, scale=0.3, seed=13))
+    got, again = k6.mixer_bwd(**args), k6.mixer_bwd(**args)
+    torch.cuda.synchronize()
+    assert _same(got, again)
+    for a, w in zip(got, k6.mixer_bwd_plain(**args)):
+        assert a.dtype == w.dtype and rel_err(a, w) <= GRAD_TOL[dtype]
+
+    bk = _block_inputs(dev, dtype, b=4, L=300, di=200)
+    with torch.inference_mode():
+        *_, ckpt = k4.block_fused(**bk, checkpoints=True)
+        res_out = bk["hidden"].float() + bk["residual"].float()
+        args = dict(res_out=res_out, ckpt=ckpt,
+                    **{k: bk[k] for k in ("norm_w", "norm_b", "in_proj_w", "out_proj_w",
+                                          "conv_w", "conv_b", "x_proj_w", "dt_proj_w",
+                                          "dt_bias", "A", "D", "conv_state")},
+                    g_out=randn(*bk["hidden"].shape, dev=dev, seed=12).to(dtype),
+                    g_res=randn(*res_out.shape, dev=dev, scale=0.3, seed=13),
+                    g_hlast=randn(*bk["h0"].shape, dev=dev, scale=0.3, seed=14))
+        got, again = k7.block_bwd(**args), k7.block_bwd(**args)
+        torch.cuda.synchronize()
+        assert _same(got, again)
+        for i, (a, w) in enumerate(zip(got, k7.block_bwd_plain(**args))):
+            assert a.dtype == w.dtype and rel_err(a, w) <= GRAD_TOL[dtype], i
+
+
 @pytest.mark.parametrize("d", [200, 768])
 @pytest.mark.parametrize("norm_type", ["rms", "layer"])
 @pytest.mark.parametrize("x_dtype,res_dtype,prenorm", [
@@ -527,6 +569,7 @@ def _decode_inputs(dev, wdt, sdt, depth=2, b=3, e=200, di=400, n=16, r=13, w=4, 
 
 DECODE_EDGES = (1, 7, 8, 9, 16, 17, 80, 81)  # around the batch tiles (1, 8, 16)
 BASE_M1 = dict(e=768, di=1536, n=16, r=48)
+ODD_M1 = dict(e=60, di=120, n=16, r=4)  # d_model not a multiple of 8 (the JAX kernel takes it)
 
 
 @pytest.mark.parametrize("wdt,sdt,b,norm,widths", [
@@ -536,13 +579,19 @@ BASE_M1 = dict(e=768, di=1536, n=16, r=48)
     *[(torch.bfloat16, torch.float32, b, "rms", BASE_M1) for b in DECODE_EDGES],
     *[(torch.bfloat16, torch.bfloat16, b, "layer", BASE_M1) for b in (1, 9, 17, 81)],
     *[(torch.float32, torch.bfloat16, b, "rms", BASE_M1) for b in (8, 16)],
-    (torch.float32, torch.float32, 3, "rms", dict(e=1536, di=2048, n=16, r=96))])
+    (torch.float32, torch.float32, 3, "rms", dict(e=1536, di=2048, n=16, r=96)),
+    *[(w, torch.float32, b, norm, ODD_M1) for w, b, norm in (
+        (torch.float32, 3, "rms"), (torch.float32, 9, "layer"), (torch.bfloat16, 1, "rms"))],
+    (torch.float32, torch.float32, 2, "layer", dict(e=44, di=92, n=16, r=3)),
+    (torch.bfloat16, torch.bfloat16, 17, "rms", dict(e=44, di=92, n=16, r=3))])
 def test_decode_stack_kernel_matches_plain(dev, wdt, sdt, b, norm, widths):
     """Three tokens through K9 and its plain version from the same states:
     features and both state stacks, at ragged widths, at Base widths at the
-    batch-tile edges and at widths whose weight slices are taken in pieces
-    (d_model 1536, d_inner 2048 at fp32); a token run twice from the same
-    states gives bit-identical results."""
+    batch-tile edges, at widths whose weight slices are taken in pieces
+    (d_model 1536, d_inner 2048 at fp32) and at widths that are not
+    multiples of 8 (d_model 60, and 44 with d_inner 92: padded with zero
+    lanes); a token run twice from the same states gives bit-identical
+    results."""
     from videomamba_tpu_torch.ops.kernels import decode_step as k9
 
     kw = _decode_inputs(dev, wdt, sdt, b=b, norm=norm, **(widths or {}))
@@ -595,6 +644,37 @@ def test_decode_session_kernel_matches_step_route(dev, e, b, depth):
         assert rel_err(got, want) <= 1e-4, step
     assert k9.decode_stack.launches == before + 4
     assert rel_err(sessions[0].ssm_states, sessions[1].ssm_states) <= 1e-4
+
+
+@pytest.mark.parametrize("e", [60, 50])
+def test_decode_session_takes_widths_not_multiples_of_8(dev, e):
+    """DecodeSession at d_model 60 (d_inner 120) and 50 (d_inner 100, whose
+    states the session keeps as views of its launch's zero-padded storage) stays on K9
+    and matches the per-layer Mamba.step route after a streaming prefill,
+    features and states."""
+    from videomamba_tpu_torch.models.videomamba import PretrainVideoMamba
+    from videomamba_tpu_torch.ops.kernels import decode_step as k9
+    from videomamba_tpu_torch.runtime import DecodeSession
+
+    model = PretrainVideoMamba(img_size=32, patch_size=8, depth=2, embed_dim=e, num_frames=4,
+                               pool_type="avg", device=dev,
+                               generator=torch.Generator().manual_seed(0)).eval()
+    clip = randn(3, 3, 4, 32, 32, dev=dev, seed=11)
+    with torch.inference_mode():
+        _, _, state = model(clip[:, :, :2], ssm_state=model.allocate_state(3))
+    sessions = [DecodeSession(model, batch_size=3, use_kernel=flag) for flag in (None, False)]
+    assert sessions[0].use_kernel and sessions[0].launch is not None
+    for s in sessions:
+        s.load_streaming_state(state)
+    before = k9.decode_stack.launches
+    for step in range(4):
+        tok = randn(3, e, dev=dev, seed=30 + step)
+        got, want = (s.step(tok) for s in sessions)
+        assert got.shape == (3, e) and rel_err(got, want) <= 1e-4, step
+    assert k9.decode_stack.launches == before + 4
+    for a, b in ((sessions[0].conv_states, sessions[1].conv_states),
+                 (sessions[0].ssm_states, sessions[1].ssm_states)):
+        assert a.shape == b.shape and rel_err(a, b) <= 1e-4
 
 
 @pytest.mark.parametrize("m2", [False, True])
@@ -901,13 +981,16 @@ BASE_M2_WIDTHS = (768, 24, 64, 64)
       for b in DECODE_EDGES if b != 1],
     *[(torch.bfloat16, torch.bfloat16, b, "rms", True, BASE_M2_WIDTHS) for b in (1, 9, 17, 81)],
     *[(torch.float32, torch.bfloat16, b, "rms", False, BASE_M2_WIDTHS) for b in (8, 16)],
-    (torch.float32, torch.float32, 2, "rms", True, (1536, 32, 64, 64))])
+    (torch.float32, torch.float32, 2, "rms", True, (1536, 32, 64, 64)),
+    (torch.float32, torch.float32, 3, "rms", True, (100, 8, 16, 16)),
+    (torch.bfloat16, torch.float32, 9, "layer", True, (100, 8, 16, 16))])
 def test_decode_stack_m2_kernel_matches_plain(dev, wdt, cdt, b, norm, gated, widths):
     """Three tokens through K15 and its plain version from the same states
-    (Base m2 widths at the batch-tile edges, and d_model 1536 with d_inner
-    2048, whose slices are taken in pieces; conv windows fp32 or bf16, SSD
-    states fp32): features and both state stacks; a token run twice from the
-    same states gives bit-identical results."""
+    (Base m2 widths at the batch-tile edges, d_model 1536 with d_inner
+    2048, whose slices are taken in pieces, and d_model 100, not a multiple
+    of 8; conv windows fp32 or bf16, SSD states fp32): features and both
+    state stacks; a token run twice from the same states gives bit-identical
+    results."""
     from videomamba_tpu_torch.ops.kernels import decode_step as k9
 
     e, h, p, n = widths

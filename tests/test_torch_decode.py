@@ -194,12 +194,33 @@ def test_forced_kernel_on_an_unsupported_model_raises():
 
 def test_kernel_gate_takes_any_batch():
     """K9's gate is the model's widths alone: a large batch stays on the
-    kernel route (the kernel stages it eight rows at a time)."""
+    kernel route (the kernel stages it eight rows at a time), and so do
+    widths that are not multiples of 8, which the JAX kernels take (the
+    launch pads them to 16-byte rows with zero lanes)."""
     assert k9.decode_stack_supported(768, 1536)
-    assert not k9.decode_stack_supported(6408, 12816) and not k9.decode_stack_supported(60, 120)
+    assert not k9.decode_stack_supported(6408, 12816) and k9.decode_stack_supported(60, 120)
     _, tm = pair()
     assert DecodeSession(tm, batch_size=80).use_kernel
     assert DecodeSession(tm, batch_size=80, use_kernel=True).use_kernel
+    _, odd = pair(embed_dim=60)
+    assert odd.layers[0].mixer.d_inner == 120
+    assert DecodeSession(odd, batch_size=3, use_kernel=True).use_kernel
+
+
+def test_decode_widths_pad_to_16_byte_rows():
+    """d_model and d_inner that are not multiples of 8 run at the next
+    multiple of 8: the states gain zero channels, K15's gate takes a d_model
+    of any width (its d_inner rule is the JAX package's)."""
+    assert [k9.decode_width(n) for n in (60, 64, 120, 121)] == [64, 64, 120, 128]
+    conv, ssm = torch.randn(2, 3, 60, 4), torch.randn(2, 3, 60, 16)
+    pconv, pssm = k9.pad_decode_states(conv, ssm, 60)
+    assert pconv.shape == (2, 3, 64, 4) and pssm.shape == (2, 3, 64, 16)
+    assert torch.equal(pconv[:, :, :60], conv) and not pconv[:, :, 60:].any()
+    assert torch.equal(pssm[:, :, :60], ssm) and not pssm[:, :, 60:].any()
+    even = torch.randn(2, 3, 64, 4)
+    assert k9.pad_decode_states(even, even, 64)[0] is even
+    assert k9.decode_stack_m2_supported(100, 128, 4, 1, 16)
+    assert not k9.decode_stack_m2_supported(100, 120, 4, 1, 16)
 
 
 M2_CFG = {"layer": "Mamba2", "d_state": 32, "headdim": 32, "chunk_size": 8}

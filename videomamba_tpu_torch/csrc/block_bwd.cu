@@ -8,9 +8,10 @@
 //              xz = normed Win^T (fp32); x, z = split (z stays fp32)
 //   out_proj   g_y = g_out Wout                      (g_out in its dtype)
 //   mixer      K6's span (mixer_bwd.cuh) with x, z read from xz and dx, dz
-//              written into dxz = [dx | dz]; its reverse walk also rebuilds
-//              the forward's gated output y = pre silu(z) (a compile-time
-//              flag of the walk, block_bwd.py:297-303): no forward y is kept
+//              written into dxz = [dx | dz]; its time-split reverse walk
+//              (scan_walk_split_bwd.cuh) also rebuilds the forward's gated
+//              output y = pre silu(z) (a compile-time flag of the walk,
+//              block_bwd.py:297-303): no forward y is kept
 //   weights    dWout = g_out^T y;  dWin = dxz^T normed
 //   in_proj    dnormed = dxz Win
 //   add-norm   K8's row backward (add_norm_bwd.cuh) at res_out, with the
@@ -28,22 +29,21 @@
 // sequence of launches on one stream through fp32 scratch the caller
 // allocates, reusing the forward's pieces: K2's row kernel for the norm,
 // K4's product tiles (bf16 mma.sync or fp32 FMA) for in_proj, K6's span
-// whole (conv recompute, NN/TN tiles, the reverse walk of K5, conv
-// backward, ordered partial sums) and K8's row backward. The three outer
-// products are hand-written FMA tiles: NN for g_y and dnormed, TN (split
-// over 256-row slices summed in order) for dWout and dWin. No floating-point
-// atomics: repeated runs are bit-identical.
+// whole (conv recompute, NN/TN tiles, the time-split reverse walk, conv
+// backward, ordered partial sums) and K8's row backward. The four outer
+// products are K6's NN tiles (g_y, dnormed) and TN tiles (dWout, dWin,
+// split over 256-row slices summed in order): bf16 mma.sync at bf16
+// weights, fp32 FMA at fp32. No floating-point atomics: repeated runs are
+// bit-identical.
 //
-// What bounds it on the H100 at batch 1-4: the reverse walk (latency, as
-// in K5 and K6), then the products: about 30 GFLOP at Base, B = 1 (in_proj
-// recompute, g_y, dnormed, dWout, dWin and K6's four), all but the
-// recompute on fp32 FMA tiles, far from the tensor cores' rate.
+// What bounds it on the H100: its operations, about 30 GFLOP at Base,
+// B = 1 (in_proj recompute, g_y, dnormed, dWout, dWin and K6's four), on
+// the tensor cores at bf16 and on FMA tiles at fp32. A serial reverse walk
+// and FMA tiles at bf16 took 2.5 and 2.0 of 5.1 ms (PERF.md).
 #include "add_norm_bwd.cuh"
 #include "mixer_bwd.cuh"
 
 namespace {
-
-inline long long align64(long long n) { return (n + 63) / 64 * 64; }
 
 struct BlockBwdIO {
   const float* res_out;
@@ -79,6 +79,7 @@ struct BlockBwdIO {
   float* dconv_state;
   float* scratch;
   int batch, L, E, Di, W, R, N;
+  int chunk;  // steps per chunk of the split reverse walk
   float eps;
   int is_rms;
 };
@@ -88,7 +89,8 @@ struct BlockBwdScratch {
   long long normed, xz, g_y, y, dxz, dnormed, tn_part, norm_part, mixer, total;
 };
 
-BlockBwdScratch block_bwd_scratch(int batch, int L, int E, int Di, int W, int R, int N) {
+BlockBwdScratch block_bwd_scratch(int batch, int L, int E, int Di, int W, int R, int N,
+                                  int chunk) {
   const long long rows = (long long)batch * L;
   BlockBwdScratch s;
   long long at = 0;
@@ -109,7 +111,7 @@ BlockBwdScratch block_bwd_scratch(int batch, int L, int E, int Di, int W, int R,
   s.norm_part = at;
   at += align64((long long)vmt::norm_bwd_blocks(rows) * 2 * E);
   s.mixer = at;
-  at += mixer_bwd_scratch_floats(batch, L, Di, W, R, N);
+  at += mixer_bwd_scratch(batch, L, Di, W, R, N, chunk).total;
   s.total = at;
   return s;
 }
@@ -119,7 +121,7 @@ cudaError_t block_bwd_t(const BlockBwdIO& io, cudaStream_t s) {
   constexpr bool kBf16 = sizeof(TW) == 2;
   const int batch = io.batch, L = io.L, E = io.E, Di = io.Di;
   const int rows = batch * L;
-  const BlockBwdScratch at = block_bwd_scratch(batch, L, E, Di, io.W, io.R, io.N);
+  const BlockBwdScratch at = block_bwd_scratch(batch, L, E, Di, io.W, io.R, io.N, io.chunk);
   TW* normed = (TW*)(io.scratch + at.normed);
   float* xz = io.scratch + at.xz;
   float* g_y = io.scratch + at.g_y;
@@ -151,8 +153,7 @@ cudaError_t block_bwd_t(const BlockBwdIO& io, cudaStream_t s) {
   if (err != cudaSuccess) return err;
 
   // g_y = g_out Wout: Wout is (E, Di) row-major, the NN tile's W.
-  err = gemm_nn<TW, TW, false>(g_out, E, out_w, Di, g_y, Di, nullptr, nullptr, rows,
-                               Di, E, s);
+  err = product_nn<kBf16>(g_out, E, out_w, Di, g_y, Di, nullptr, nullptr, rows, Di, E, s);
   if (err != cudaSuccess) return err;
 
   MixerBwdIO m{xz, 2LL * Di, xz + Di, 2LL * Di, io.conv_state, io.conv_w, io.conv_b,
@@ -160,18 +161,17 @@ cudaError_t block_bwd_t(const BlockBwdIO& io, cudaStream_t s) {
                g_y, Di, io.g_hlast, dxz, 2LL * Di, dxz + Di, 2LL * Di, y,
                io.dconv_w, io.dconv_b, io.dx_proj_w, io.ddt_proj_w, io.ddt_bias,
                io.dA, io.dD, io.dh0, io.dconv_state, io.scratch + at.mixer,
-               batch, L, Di, io.W, io.R, io.N};
+               batch, L, Di, io.W, io.R, io.N, io.chunk};
   err = mixer_bwd_t<float, TW, true>(m, s);
   if (err != cudaSuccess) return err;
 
   // dWout (E, Di) = g_out^T y;  dnormed = dxz Win;  dWin (2Di, E) = dxz^T normed.
-  err = gemm_tn<TW, float, kBf16>(g_out, E, y, Di, io.dWout, tn_part, E, Di, rows, s);
+  err = product_tn<kBf16>(g_out, E, y, Di, io.dWout, tn_part, E, Di, rows, s);
   if (err != cudaSuccess) return err;
-  err = gemm_nn<float, TW, kBf16>(dxz, 2 * Di, in_w, E, dnormed, E, nullptr, nullptr,
-                                  rows, E, 2 * Di, s);
+  err = product_nn<kBf16>(dxz, 2 * Di, in_w, E, dnormed, E, nullptr, nullptr, rows, E,
+                          2 * Di, s);
   if (err != cudaSuccess) return err;
-  err = gemm_tn<float, TW, kBf16>(dxz, 2 * Di, normed, E, io.dWin, tn_part, 2 * Di, E,
-                                  rows, s);
+  err = product_tn<kBf16>(dxz, 2 * Di, normed, E, io.dWin, tn_part, 2 * Di, E, rows, s);
   if (err != cudaSuccess) return err;
 
   // dres = norm backward at res_out + g_res; dnorm_w, dnorm_b (K8's rows).
@@ -183,9 +183,10 @@ cudaError_t block_bwd_t(const BlockBwdIO& io, cudaStream_t s) {
 }  // namespace
 
 // fp32 scratch the wrapper allocates for one call (in floats).
+// chunk: steps per chunk of the split reverse walk, a multiple of 16.
 extern "C" long long vmt_block_bwd_scratch_floats(int batch, int L, int E, int Di,
-                                                  int W, int R, int N) {
-  return block_bwd_scratch(batch, L, E, Di, W, R, N).total;
+                                                  int W, int R, int N, int chunk) {
+  return block_bwd_scratch(batch, L, E, Di, W, R, N, chunk).total;
 }
 
 // res_out (batch, L, E) fp32 = f32(hidden) + f32(residual); norm_w, norm_b
@@ -208,7 +209,7 @@ extern "C" int vmt_block_bwd(
     float* dWin, float* dWout, float* dconv_w, float* dconv_b, float* dx_proj_w,
     float* ddt_proj_w, float* ddt_bias, float* dA, float* dD, float* dh0,
     float* dconv_state, float* scratch, int w_bf16, int batch, int L, int E, int Di,
-    int W, int R, int N, float eps, int is_rms, int device, void* stream) {
+    int W, int R, int N, int chunk, float eps, int is_rms, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (W > 8) return (int)cudaErrorInvalidValue;
@@ -216,7 +217,7 @@ extern "C" int vmt_block_bwd(
                 dt_proj_w, dt_bias, A, Dskip, conv_state, ckpt, g_out, g_res, g_hlast,
                 dres, dnorm_w, dnorm_b, dWin, dWout, dconv_w, dconv_b, dx_proj_w,
                 ddt_proj_w, ddt_bias, dA, dD, dh0, dconv_state, scratch,
-                batch, L, E, Di, W, R, N, eps, is_rms};
+                batch, L, E, Di, W, R, N, chunk, eps, is_rms};
   const cudaStream_t s = (cudaStream_t)stream;
   using vmt::bf16;
   if (w_bf16) {

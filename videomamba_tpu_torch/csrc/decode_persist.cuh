@@ -217,12 +217,14 @@ __device__ __forceinline__ float rnd(float v) {
 // apart; rows from nb on are zeros): v[b][k] = src[b][k0 + k] for k < K (a
 // multiple of 4), rows b0 .. b0 + nb, src rows ld_src floats apart, by bulk
 // copy. res_out, when given, gets v at columns [e_lo, e_hi) of rows ld_src
-// apart. norm 1 (RMS) or 2 (LayerNorm) normalises each row over its K
-// columns with weight nw (and shift nb_), one warp a row; then the values
-// are rounded to TW, the weight dtype, as the product's input.
+// apart. norm 1 (RMS) or 2 (LayerNorm) normalises each row over its first
+// kn columns (the rest are zero lanes a padded width adds, which nw and nb_
+// keep at zero) with weight nw (and shift nb_), one warp a row; then the
+// values are rounded to TW, the weight dtype, as the product's input.
 template <typename TW>
 __device__ void stage_act(float* act, int lda, int BT, int b0, int nb, int K, const float* src,
-                          long long ld_src, int k0, int norm, const float* nw, const float* nb_,
+                          long long ld_src, int k0, int norm, int kn, const float* nw,
+                          const float* nb_,
                           float eps, float* stats, float* res_out, int e_lo, int e_hi,
                           uint64_t* bar, unsigned& parity) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -243,11 +245,11 @@ __device__ void stage_act(float* act, int lda, int BT, int b0, int nb, int K, co
     }
   }
   if (norm) {
-    const float inv_k = 1.f / (float)K;
+    const float inv_k = 1.f / (float)kn;
     for (int bb = warp; bb < nb; bb += kWarps) {
       const float* row = act + (long long)bb * lda;
       float s = 0.f;
-      for (int k = lane; k < K; k += 32) s += norm == 1 ? row[k] * row[k] : row[k];
+      for (int k = lane; k < kn; k += 32) s += norm == 1 ? row[k] * row[k] : row[k];
       s = warp_sum(s);
       float mean = 0.f, var;
       if (norm == 1) {
@@ -255,7 +257,7 @@ __device__ void stage_act(float* act, int lda, int BT, int b0, int nb, int K, co
       } else {
         mean = s * inv_k;
         float s2 = 0.f;
-        for (int k = lane; k < K; k += 32) s2 += (row[k] - mean) * (row[k] - mean);
+        for (int k = lane; k < kn; k += 32) s2 += (row[k] - mean) * (row[k] - mean);
         var = warp_sum(s2) * inv_k;
       }
       if (lane == 0) {

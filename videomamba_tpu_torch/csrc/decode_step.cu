@@ -169,7 +169,8 @@ __device__ __forceinline__ void in_epilogue(float acc, int j, long long b, int c
 // in_proj (in shared memory at wsm), then in_epilogue. Shared by K9 and K15.
 template <typename TW, int BT>
 __device__ void in_phase(Block& blk, const Plan& pl, TW* wsm, const TW* in_w, int lo, int hi,
-                         int B, int E, const float* src, float* res_out, const float* norm_w,
+                         int B, int E, int En, const float* src, float* res_out,
+                         const float* norm_w,
                          const float* norm_b, float eps, int is_rms, int conv_lo, int C, int W,
                          const TW* conv_w, const float* conv_b, void* conv_state, int s_bf16,
                          float* cy, int ld_cy, float* raw, int ld_raw, int raw_off) {
@@ -189,9 +190,9 @@ __device__ void in_phase(Block& blk, const Plan& pl, TW* wsm, const TW* in_w, in
     if (p0 > lo) load_piece(wsm, in_w + (long long)p0 * E, np, E);
     for (int b0 = 0; b0 < B; b0 += BT) {
       const int nb = min(BT, B - b0);
-      dec::stage_act<TW>(blk.act, pl.lda, BT, b0, nb, E, src, E, 0, is_rms ? 1 : 2, norm_w,
-                         norm_b, eps, blk.misc, p0 == lo ? res_out : nullptr, e_lo, e_hi,
-                         blk.bar, blk.parity);
+      dec::stage_act<TW>(blk.act, pl.lda, BT, b0, nb, E, src, E, 0, is_rms ? 1 : 2, En,
+                         norm_w, norm_b, eps, blk.misc, p0 == lo ? res_out : nullptr, e_lo,
+                         e_hi, blk.bar, blk.parity);
       wait_weights(blk);
       dec::gemv<TW, BT>(wsm, E + row_pad<TW>(), np, blk.act, pl.lda, E, pl.in_rb, pl.in_rw,
                         pl.in_mma, blk.red, blk.res);
@@ -218,8 +219,8 @@ __device__ void out_phase(Block& blk, const Plan& pl, TW* wsm, const TW* w, int 
     if (p0 > lo) load_piece(wsm, w + (long long)p0 * K, np, K);
     for (int b0 = 0; b0 < B; b0 += BT) {
       const int nb = min(BT, B - b0);
-      dec::stage_act<TW>(blk.act, pl.lda, BT, b0, nb, K, src, K, 0, nw ? 1 : 0, nw, nullptr,
-                         eps, blk.misc, nullptr, 0, 0, blk.bar, blk.parity);
+      dec::stage_act<TW>(blk.act, pl.lda, BT, b0, nb, K, src, K, 0, nw ? 1 : 0, K, nw,
+                         nullptr, eps, blk.misc, nullptr, 0, 0, blk.bar, blk.parity);
       wait_weights(blk);
       dec::gemv<TW, BT>(wsm, K + row_pad<TW>(), np, blk.act, pl.lda, K, pl.out_rb, pl.out_rw,
                         pl.out_mma, blk.red, blk.res);
@@ -261,6 +262,7 @@ struct DecodeIO {
   int K, B, E, Di, W, R, N;
   float eps;
   int is_rms, s_bf16;
+  int En;  // d_model the norm divides by: E less the zero lanes of a padded width
 };
 
 template <typename TW, int BT>
@@ -364,7 +366,7 @@ __global__ void __launch_bounds__(dec::kThreads, 1) decode_k9_kernel(const Decod
     blk.waited = false;
     if (ph == 0) {
       in_phase<TW, BT>(blk, pl, wsm, (const TW*)io.in_w + (long long)k * 2 * Di * E, in_lo,
-                       in_hi, B, E, k == 0 ? io.token : io.res[(k + 1) % 2],
+                       in_hi, B, E, io.En, k == 0 ? io.token : io.res[(k + 1) % 2],
                        k == 0 ? io.res[1] : nullptr, io.norm_w + (long long)k * E,
                        io.norm_b ? io.norm_b + (long long)k * E : nullptr, io.eps, io.is_rms, 0,
                        Di, W, (const TW*)io.conv_w + (long long)k * Di * W,
@@ -534,6 +536,7 @@ struct DecodeM2IO {
   int is_rms;
   float gate_eps;
   int c_bf16;
+  int En;  // d_model the norm divides by: E less the zero lanes of a padded width
 };
 
 constexpr int kM2Tasks = 8;  // state rows a warp walks together
@@ -625,7 +628,7 @@ __global__ void __launch_bounds__(dec::kThreads, 1) decode_k15_kernel(const Deco
     blk.waited = false;
     if (ph == 0) {
       in_phase<TW, BT>(blk, pl, wsm, (const TW*)io.in_w + (long long)k * M * E, in_lo, in_hi,
-                       B, E, k == 0 ? io.token : io.res[(k + 1) % 2],
+                       B, E, io.En, k == 0 ? io.token : io.res[(k + 1) % 2],
                        k == 0 ? io.res[1] : nullptr, io.norm_w + (long long)k * E,
                        io.norm_b ? io.norm_b + (long long)k * E : nullptr, io.eps, io.is_rms, Di,
                        CD, W, (const TW*)io.conv_w + (long long)k * CD * W,
@@ -799,22 +802,24 @@ static_assert(sizeof(Plan) == kPlanInts * sizeof(int), "Plan is kPlanInts ints")
 // dtype, advanced in place; scratch 3 B Di + xp_kp B up4(R + 2N) fp32; the
 // grid barrier (two uint32: the counter, its value at a launch's start; zero
 // before the first launch); the phase timer (K * 4 + 1 uint64) or null.
-// dims (11): w_bf16, s_bf16, K, B, E, Di, W, R, N, is_rms, grid. plan:
+// dims (12): w_bf16, s_bf16, K, B, E, Di, W, R, N, is_rms, grid, En. plan:
 // decode_plan's kPlanInts ints.
-// E and Di multiples of 8, weights on 16-byte boundaries, all contiguous.
+// E and Di multiples of 8 (a width that is not comes padded with zero
+// lanes: zero weight rows and columns, zero states; the norm divides by En,
+// the true d_model), weights on 16-byte boundaries, all contiguous.
 extern "C" int vmt_decode_stack(const void* const* ptrs, const int* dims, const int* plan,
                                 float eps, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int K = dims[2], B = dims[3], E = dims[4], Di = dims[5];
-  if (E % 8 || Di % 8) return (int)cudaErrorInvalidValue;
+  if (E % 8 || Di % 8 || dims[11] < 1 || dims[11] > E) return (int)cudaErrorInvalidValue;
   if (K == 0 || B == 0) return cudaSuccess;
   DecodeIO io{(const float*)ptrs[0], (float*)ptrs[1], {(float*)ptrs[2], (float*)ptrs[3]},
               (const float*)ptrs[4], (const float*)ptrs[5], ptrs[6], ptrs[7], ptrs[8],
               (const float*)ptrs[9], ptrs[10], ptrs[11], (const float*)ptrs[12],
               (const float*)ptrs[13], (const float*)ptrs[14], (void*)ptrs[15], (void*)ptrs[16],
               (float*)ptrs[17], (unsigned*)ptrs[18], (unsigned long long*)ptrs[19],
-              K, B, E, Di, dims[6], dims[7], dims[8], eps, dims[9], dims[1]};
+              K, B, E, Di, dims[6], dims[7], dims[8], eps, dims[9], dims[1], dims[11]};
   const Plan pl = read_plan(plan);
   const cudaStream_t s = (cudaStream_t)stream;
   err = dims[0] ? k9_bt<bf16>(io, pl, dims[10], device, s)
@@ -828,15 +833,17 @@ extern "C" int vmt_decode_stack(const void* const* ptrs, const int* dims, const 
 // (K, H), gate_w (K, Di) or null fp32; conv_states (K, B, CD, W) fp32 or
 // bf16 (c_bf16) and ssm_states (K, B, H, P, N) fp32, advanced in place;
 // scratch B (up4(2Di + 2GN + H) + up4(CD) + Di) fp32; the grid barrier as
-// vmt_decode_stack's; the phase timer (K * 3 + 1) or null. dims (12):
-// w_bf16, c_bf16, K, B, E, H, P, G, N, W, is_rms, grid.
-// E a multiple of 8, Di = H P a multiple of 8, G dividing H; contiguous.
+// vmt_decode_stack's; the phase timer (K * 3 + 1) or null. dims (13):
+// w_bf16, c_bf16, K, B, E, H, P, G, N, W, is_rms, grid, En.
+// E a multiple of 8 (padded as vmt_decode_stack's; the norm divides by En),
+// Di = H P a multiple of 8, G dividing H; contiguous.
 extern "C" int vmt_decode_stack_m2(const void* const* ptrs, const int* dims, const int* plan,
                                    float eps, float gate_eps, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int K = dims[2], B = dims[3], E = dims[4], H = dims[5], P = dims[6], G = dims[7];
-  if (E % 8 || (H * P) % 8 || G <= 0 || H % G) return (int)cudaErrorInvalidValue;
+  if (E % 8 || (H * P) % 8 || G <= 0 || H % G || dims[12] < 1 || dims[12] > E)
+    return (int)cudaErrorInvalidValue;
   if (K == 0 || B == 0) return cudaSuccess;
   DecodeM2IO io{(const float*)ptrs[0], (float*)ptrs[1], {(float*)ptrs[2], (float*)ptrs[3]},
                 (const float*)ptrs[4], (const float*)ptrs[5], ptrs[6], ptrs[7], ptrs[8],
@@ -844,7 +851,7 @@ extern "C" int vmt_decode_stack_m2(const void* const* ptrs, const int* dims, con
                 (const float*)ptrs[12], (const float*)ptrs[13], (void*)ptrs[14],
                 (float*)ptrs[15], (float*)ptrs[16], (unsigned*)ptrs[17],
                 (unsigned long long*)ptrs[18], K, B, E, H, P, G, dims[8], dims[9], eps,
-                dims[10], gate_eps, dims[1]};
+                dims[10], gate_eps, dims[1], dims[12]};
   const Plan pl = read_plan(plan);
   const cudaStream_t s = (cudaStream_t)stream;
   err = dims[0] ? k15_bt<bf16>(io, pl, dims[11], device, s)

@@ -3,22 +3,28 @@
 // product tiles both use. The math and the design are in mixer_bwd.cu's
 // header note; this file holds the device pieces:
 //
-// - gemm_nn: NN FMA tile, C = A W with W row-major (K, N), A fp32 or bf16,
-//   A rounded to bf16 while staged when kRound; its epilogue can form
-//   (add + acc) silu'(pre) (K6's dcpre).
-// - gemm_tn: TN FMA tile over contraction slices of kSplitRows rows, P^T Q
-//   with both operands read along their rows (coalesced), each rounded to
-//   bf16 while staged when kRound; slices summed in order by a second launch.
+// - gemm_nn / gemm_tn: fp32 FMA tiles, the fp32 path. NN: C = A W with W
+//   row-major (K, N); its epilogue can form (add + acc) silu'(pre) (K6's
+//   dcpre). TN: P^T Q over contraction slices of kSplitRows rows, both
+//   operands read along their rows (coalesced); slices summed in order by a
+//   second launch.
+// - mma_nn / mma_tn: the same two products on bf16 tensor cores, the
+//   bf16-weight path, on mixer_parts.cuh's mma_tile (the tile of the
+//   forward's NT product, with W and the TN operands staged transposed):
+//   each operand is rounded to bf16 while staged, where the TPU kernels
+//   round each product's inputs, so only the order of the fp32 sums differs
+//   from the FMA tiles.
 // - the conv backward (dx, dconv_state, dconv_w / dconv_b in ordered slices).
 // - mixer_bwd_t: the whole K6 span, with row strides for x, z, g, dx and dz
 //   so K7 can read x and z from its in_proj output and write dx and dz into
-//   its dxz buffer, and (kY) the reverse walk's y output.
+//   its dxz buffer, and (kY) the reverse walk's y output. Its reverse walk
+//   is the time-split walk of scan_walk_split_bwd.cuh.
 //
 // No floating-point atomics anywhere: repeated runs are bit-identical.
 #pragma once
 
 #include "mixer_parts.cuh"
-#include "scan_walk_bwd.cuh"
+#include "scan_walk_split_bwd.cuh"
 
 namespace {
 
@@ -26,25 +32,15 @@ using vmt::bf16;
 
 constexpr int kSplitRows = 256;  // contraction rows per weight-gradient slice
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <bool kRound>
-__device__ __forceinline__ float stage(float v) {
-  if constexpr (kRound) return round_bf16(v);
-  return v;
-}
-
 __device__ __forceinline__ float dsilu(float pre) {
   const float sig = 1.f / (1.f + expf(-pre));
   return sig * (1.f + pre * (1.f - sig));
 }
 
 // NN tile: C[m, n] = sum_k A[m, k] W[k, n], A (M, K) rows of lda, W (K, N)
-// rows of ldw; A rounded to bf16 while staged when kRound. With `add` and
-// `pre` (both (M, N), ld ldc) the epilogue writes (add + acc) silu'(pre).
-template <typename TA, typename TW, bool kRound>
+// rows of ldw. With `add` and `pre` (both (M, N), ld ldc) the epilogue
+// writes (add + acc) silu'(pre).
+template <typename TA, typename TW>
 __global__ void __launch_bounds__(256)
     gemm_nn_kernel(const TA* __restrict__ A, long long lda,
                    const TW* __restrict__ W, long long ldw,
@@ -64,7 +60,7 @@ __global__ void __launch_bounds__(256)
       const int kk = i % vmt::kTileK;
       const long long gm = m0 + r;
       const long long gk = k0 + kk;
-      As[kk][r] = (gm < M && gk < K) ? stage<kRound>(vmt::to_f32(A[gm * lda + gk])) : 0.f;
+      As[kk][r] = (gm < M && gk < K) ? vmt::to_f32(A[gm * lda + gk]) : 0.f;
       const int c = i % vmt::kTile;
       const int kw = i / vmt::kTile;
       const long long gn = n0 + c;
@@ -101,21 +97,20 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <typename TA, typename TW, bool kRound>
+template <typename TA, typename TW>
 cudaError_t gemm_nn(const TA* A, long long lda, const TW* W, long long ldw,
                     float* C, long long ldc, const float* add, const float* pre,
                     int M, int N, int K, cudaStream_t s) {
   const dim3 grid((N + vmt::kTile - 1) / vmt::kTile, (M + vmt::kTile - 1) / vmt::kTile);
-  gemm_nn_kernel<TA, TW, kRound><<<grid, 256, 0, s>>>(A, lda, W, ldw, C, ldc, add,
-                                                      pre, M, N, K);
+  gemm_nn_kernel<TA, TW><<<grid, 256, 0, s>>>(A, lda, W, ldw, C, ldc, add, pre, M, N, K);
   return cudaGetLastError();
 }
 
 // TN tile over one contraction slice: part[z][i, j] = sum over rows m of
-// slice z of P[m, i] Q[m, j]; P (K, I) rows of ldp, Q (K, J) rows of ldq,
-// both rounded to bf16 while staged when kRound. Both operands are read
-// along their rows, so every staging load is coalesced.
-template <typename TP, typename TQ, bool kRound>
+// slice z of P[m, i] Q[m, j]; P (K, I) rows of ldp, Q (K, J) rows of ldq.
+// Both operands are read along their rows, so every staging load is
+// coalesced.
+template <typename TP, typename TQ>
 __global__ void __launch_bounds__(256)
     gemm_tn_kernel(const TP* __restrict__ P, long long ldp,
                    const TQ* __restrict__ Q, long long ldq,
@@ -135,8 +130,8 @@ __global__ void __launch_bounds__(256)
       const int kk = e / vmt::kTile;
       const long long gk = k0 + kk;
       const bool in_k = gk < kend;
-      Ps[kk][c] = (in_k && i0 + c < I) ? stage<kRound>(vmt::to_f32(P[gk * ldp + i0 + c])) : 0.f;
-      Qs[kk][c] = (in_k && j0 + c < J) ? stage<kRound>(vmt::to_f32(Q[gk * ldq + j0 + c])) : 0.f;
+      Ps[kk][c] = (in_k && i0 + c < I) ? vmt::to_f32(P[gk * ldp + i0 + c]) : 0.f;
+      Qs[kk][c] = (in_k && j0 + c < J) ? vmt::to_f32(Q[gk * ldq + j0 + c]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -180,19 +175,116 @@ __global__ void sum_slices_kernel(const float* __restrict__ part, int slices,
 inline int tn_slices(long long K) { return (int)((K + kSplitRows - 1) / kSplitRows); }
 
 // out (I, J) = P^T Q over K rows; part holds tn_slices(K) * I * J floats.
-template <typename TP, typename TQ, bool kRound>
+template <typename TP, typename TQ>
 cudaError_t gemm_tn(const TP* P, long long ldp, const TQ* Q, long long ldq,
                     float* out, float* part, int I, int J, int K, cudaStream_t s) {
   const int slices = tn_slices(K);
   const dim3 grid((J + vmt::kTile - 1) / vmt::kTile, (I + vmt::kTile - 1) / vmt::kTile,
                   slices);
-  gemm_tn_kernel<TP, TQ, kRound><<<grid, 256, 0, s>>>(P, ldp, Q, ldq, part, I, J, K);
+  gemm_tn_kernel<TP, TQ><<<grid, 256, 0, s>>>(P, ldp, Q, ldq, part, I, J, K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long count = (long long)I * J;
   sum_slices_kernel<<<(unsigned)((count + 255) / 256), 256, 0, s>>>(part, slices,
                                                                     count, out);
   return cudaGetLastError();
+}
+
+// NN on tensor cores: gemm_nn's contract, A and W rounded to bf16.
+template <typename TA, typename TW, bool kVec>
+__global__ void __launch_bounds__(vmt::kMmaThreads)
+    mma_nn_kernel(const TA* __restrict__ A, long long lda, const TW* __restrict__ W,
+                  long long ldw, float* __restrict__ C, long long ldc,
+                  const float* __restrict__ add, const float* __restrict__ pre, int M, int N,
+                  int K) {
+  const long long m0 = (long long)blockIdx.y * vmt::kMmaBM;
+  const long long n0 = (long long)blockIdx.x * vmt::kMmaBN;
+  float acc[2][4][4] = {};
+  vmt::mma_tile<TA, TW, false, true, kVec>(A, lda, W, ldw, M, N, 0, K, m0, n0, acc);
+  vmt::mma_each(acc, m0, n0, [&](long long m, long long n, float v) {
+    if (m >= M || n >= N) return;
+    const long long o = m * ldc + n;
+    C[o] = add ? (add[o] + v) * dsilu(pre[o]) : v;
+  });
+}
+
+// TN on tensor cores over one contraction slice: gemm_tn_kernel's contract,
+// P and Q rounded to bf16.
+template <typename TP, typename TQ, bool kVec>
+__global__ void __launch_bounds__(vmt::kMmaThreads)
+    mma_tn_kernel(const TP* __restrict__ P, long long ldp, const TQ* __restrict__ Q,
+                  long long ldq, float* __restrict__ part, int I, int J, int K) {
+  const long long i0 = (long long)blockIdx.y * vmt::kMmaBM;
+  const long long j0 = (long long)blockIdx.x * vmt::kMmaBN;
+  const long long kbeg = (long long)blockIdx.z * kSplitRows;
+  const int kend = (int)min((long long)K, kbeg + kSplitRows);
+  float acc[2][4][4] = {};
+  vmt::mma_tile<TP, TQ, true, true, kVec>(P, ldp, Q, ldq, I, J, kbeg, kend, i0, j0, acc);
+  float* out = part + (long long)blockIdx.z * I * J;
+  vmt::mma_each(acc, i0, j0, [&](long long i, long long j, float v) {
+    if (i < I && j < J) out[i * J + j] = v;
+  });
+}
+
+// The 16-byte staging path needs 16-byte aligned bases and rows and each
+// contiguous extent a multiple of 8 elements; other shapes (dt_proj at some
+// widths) stage element by element.
+template <typename TA, typename TW>
+cudaError_t mma_nn(const TA* A, long long lda, const TW* W, long long ldw, float* C,
+                   long long ldc, const float* add, const float* pre, int M, int N, int K,
+                   cudaStream_t s) {
+  const dim3 grid((N + vmt::kMmaBN - 1) / vmt::kMmaBN, (M + vmt::kMmaBM - 1) / vmt::kMmaBM);
+  if (vmt::aligned16(A) && vmt::aligned16(W) && lda % 8 == 0 && ldw % 8 == 0 && K % 8 == 0 &&
+      N % 8 == 0) {
+    mma_nn_kernel<TA, TW, true><<<grid, vmt::kMmaThreads, 0, s>>>(A, lda, W, ldw, C, ldc, add,
+                                                                  pre, M, N, K);
+  } else {
+    mma_nn_kernel<TA, TW, false><<<grid, vmt::kMmaThreads, 0, s>>>(A, lda, W, ldw, C, ldc, add,
+                                                                   pre, M, N, K);
+  }
+  return cudaGetLastError();
+}
+
+template <typename TP, typename TQ>
+cudaError_t mma_tn(const TP* P, long long ldp, const TQ* Q, long long ldq, float* out,
+                   float* part, int I, int J, int K, cudaStream_t s) {
+  const int slices = tn_slices(K);
+  const dim3 grid((J + vmt::kMmaBN - 1) / vmt::kMmaBN, (I + vmt::kMmaBM - 1) / vmt::kMmaBM,
+                  slices);
+  if (vmt::aligned16(P) && vmt::aligned16(Q) && ldp % 8 == 0 && ldq % 8 == 0 && I % 8 == 0 &&
+      J % 8 == 0) {
+    mma_tn_kernel<TP, TQ, true><<<grid, vmt::kMmaThreads, 0, s>>>(P, ldp, Q, ldq, part, I, J, K);
+  } else {
+    mma_tn_kernel<TP, TQ, false><<<grid, vmt::kMmaThreads, 0, s>>>(P, ldp, Q, ldq, part, I, J, K);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long count = (long long)I * J;
+  sum_slices_kernel<<<(unsigned)((count + 255) / 256), 256, 0, s>>>(part, slices, count, out);
+  return cudaGetLastError();
+}
+
+// The backward spans' NN and TN products: tensor-core tiles at bf16
+// weights, fp32 FMA tiles otherwise.
+template <bool kBf16, typename TA, typename TW>
+cudaError_t product_nn(const TA* A, long long lda, const TW* W, long long ldw, float* C,
+                       long long ldc, const float* add, const float* pre, int M, int N, int K,
+                       cudaStream_t s) {
+  if constexpr (kBf16) {
+    return mma_nn(A, lda, W, ldw, C, ldc, add, pre, M, N, K, s);
+  } else {
+    return gemm_nn(A, lda, W, ldw, C, ldc, add, pre, M, N, K, s);
+  }
+}
+
+template <bool kBf16, typename TP, typename TQ>
+cudaError_t product_tn(const TP* P, long long ldp, const TQ* Q, long long ldq, float* out,
+                       float* part, int I, int J, int K, cudaStream_t s) {
+  if constexpr (kBf16) {
+    return mma_tn(P, ldp, Q, ldq, out, part, I, J, K, s);
+  } else {
+    return gemm_tn(P, ldp, Q, ldq, out, part, I, J, K, s);
+  }
 }
 
 // dx[b, t, d] = sum_m w[d, W-1-m] dcpre[b, t+m, d] over t + m < L; dx rows
@@ -318,20 +410,45 @@ struct MixerBwdIO {
   float* dD;
   float* dh0;
   float* dconv_state;
-  float* scratch;  // mixer_bwd_scratch_floats
+  float* scratch;  // mixer_bwd_scratch(...).total floats
   int batch, L, Di, W, R, N;
+  int chunk;  // steps per chunk of the split reverse walk
 };
 
-// fp32 scratch one call of mixer_bwd_t takes (in floats).
-inline long long mixer_bwd_scratch_floats(int batch, int L, int Di, int W, int R, int N) {
+inline long long align64(long long n) { return (n + 63) / 64 * 64; }
+
+// Where mixer_bwd_t's fp32 scratch regions start (in floats, each 64-float
+// aligned), and the total; chunk is the split reverse walk's.
+struct MixerBwdScratch {
+  long long carry, dtsum, act, x_dbl, dxdbl, bc_part, dA_part, dD_part, db_part, wpart, total;
+};
+
+inline MixerBwdScratch mixer_bwd_scratch(int batch, int L, int Di, int W, int R, int N,
+                                         int chunk) {
   const long long rows = (long long)batch * L;
-  const int P = R + 2 * N;
+  const long long P = R + 2 * N;
   const long long ncb = (Di + vmt::kBwdThreads - 1) / vmt::kBwdThreads;
   const long long slices = tn_slices(rows);
-  long long wpart = slices * (long long)P * Di;
-  wpart = wpart > slices * (long long)(W + 1) * Di ? wpart : slices * (long long)(W + 1) * Di;
-  return 6 * rows * Di + 2 * rows * P + batch * ncb * L * 2LL * N +
-         (long long)batch * Di * N + 2LL * batch * Di + wpart;
+  const long long nchunks = (L + chunk - 1) / chunk;
+  MixerBwdScratch s;
+  long long at = 0;
+  auto take = [&](long long floats) {
+    const long long o = at;
+    at += align64(floats);
+    return o;
+  };
+  s.carry = take(batch * (nchunks - 1) * Di * N);
+  s.dtsum = take(batch * (nchunks - 1) * Di);
+  s.act = take(6 * rows * Di);  // cy_pre, cy, delta, du, ddelta, dcpre
+  s.x_dbl = take(rows * P);
+  s.dxdbl = take(rows * P);
+  s.bc_part = take(batch * ncb * L * 2 * N);
+  s.dA_part = take(batch * nchunks * Di * N);
+  s.dD_part = take(batch * nchunks * Di);
+  s.db_part = take(batch * nchunks * Di);
+  s.wpart = take(slices * Di * (P > W + 1 ? P : W + 1));  // weight-gradient slices
+  s.total = at;
+  return s;
 }
 
 // The K6 span. TX: x and z (and dx, dz, g); TW: the conv and projection
@@ -343,21 +460,18 @@ cudaError_t mixer_bwd_t(const MixerBwdIO& io, cudaStream_t s) {
   const int P = R + 2 * N;
   const long long rows = (long long)batch * L;
   const long long rd = rows * Di;
-  const int ncb = (Di + vmt::kBwdThreads - 1) / vmt::kBwdThreads;
   const int slices = tn_slices(rows);
-  float* cy_pre = io.scratch;
+  const MixerBwdScratch at = mixer_bwd_scratch(batch, L, Di, W, R, N, io.chunk);
+  float* cy_pre = io.scratch + at.act;
   float* cy = cy_pre + rd;
   float* delta = cy + rd;
   float* du = delta + rd;
   float* ddelta = du + rd;
   float* dcpre = ddelta + rd;
-  float* x_dbl = dcpre + rd;
-  float* dxdbl = x_dbl + rows * P;
-  float* bc_part = dxdbl + rows * P;
-  float* dA_part = bc_part + (long long)batch * ncb * L * 2 * N;
-  float* dD_part = dA_part + (long long)batch * Di * N;
-  float* db_part = dD_part + (long long)batch * Di;
-  float* wpart = db_part + (long long)batch * Di;  // weight-gradient slices
+  float* x_dbl = io.scratch + at.x_dbl;
+  float* dxdbl = io.scratch + at.dxdbl;
+  float* bc_part = io.scratch + at.bc_part;
+  float* wpart = io.scratch + at.wpart;
 
   cudaError_t err = vmt::conv_silu<TX, TW>((const TX*)io.x, io.ld_x, io.conv_state,
                                            (const TW*)io.conv_w, (const TW*)io.conv_b,
@@ -403,28 +517,29 @@ cudaError_t mixer_bwd_t(const MixerBwdIO& io, cudaStream_t s) {
   a.dz = io.dz;
   a.ld_dz = io.ld_dz;
   a.bc_part = bc_part;
-  a.dA_part = dA_part;
-  a.dD_part = dD_part;
-  a.dbias_part = db_part;
+  a.dA_part = io.scratch + at.dA_part;
+  a.dD_part = io.scratch + at.dD_part;
+  a.dbias_part = io.scratch + at.db_part;
   a.dh0 = io.dh0;
   a.y = io.y;
   a.ld_y = Di;
   a.L = L;
   a.D = Di;
   a.softplus = 1;
-  err = vmt::launch_scan_bwd<float, TX, float, kY>(a, batch, N, io.dA, io.dD,
-                                                   io.ddt_bias, s);
+  const vmt::SplitBwdArgs sp{io.scratch + at.carry, io.scratch + at.dtsum, io.chunk};
+  err = vmt::launch_scan_bwd_split<float, TX, float, kY>(a, sp, batch, N, io.dA, io.dD,
+                                                         io.ddt_bias, s);
   if (err != cudaSuccess) return err;
   err = vmt::launch_reduce_bc<float>(bc_part, batch, Di, L, N, dxdbl + R, P,
                                      dxdbl + R + N, P, s);
   if (err != cudaSuccess) return err;
 
   // dxdbl[:, :R] = ddelta_raw Wdt;  dcpre = (du + dxdbl Wx) silu'(cy_pre).
-  err = gemm_nn<float, TW, kBf16W>(ddelta, Di, (const TW*)io.dt_proj_w, R, dxdbl, P,
-                                   nullptr, nullptr, (int)rows, R, Di, s);
+  err = product_nn<kBf16W>(ddelta, Di, (const TW*)io.dt_proj_w, R, dxdbl, P, nullptr,
+                           nullptr, (int)rows, R, Di, s);
   if (err != cudaSuccess) return err;
-  err = gemm_nn<float, TW, kBf16W>(dxdbl, P, (const TW*)io.x_proj_w, Di, dcpre, Di, du,
-                                   cy_pre, (int)rows, Di, P, s);
+  err = product_nn<kBf16W>(dxdbl, P, (const TW*)io.x_proj_w, Di, dcpre, Di, du, cy_pre,
+                           (int)rows, Di, P, s);
   if (err != cudaSuccess) return err;
 
   const dim3 grid_rows((unsigned)(((long long)L * Di + 255) / 256), batch);
@@ -442,11 +557,9 @@ cudaError_t mixer_bwd_t(const MixerBwdIO& io, cudaStream_t s) {
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // dWx (P, Di) = dxdbl^T cy;  dWdt (Di, R) = ddelta_raw^T x_dbl[:, :R].
-  err = gemm_tn<float, float, kBf16W>(dxdbl, P, cy, Di, io.dx_proj_w, wpart, P, Di,
-                                      (int)rows, s);
+  err = product_tn<kBf16W>(dxdbl, P, cy, Di, io.dx_proj_w, wpart, P, Di, (int)rows, s);
   if (err != cudaSuccess) return err;
-  return gemm_tn<float, float, kBf16W>(ddelta, Di, x_dbl, P, io.ddt_proj_w, wpart, Di,
-                                       R, (int)rows, s);
+  return product_tn<kBf16W>(ddelta, Di, x_dbl, P, io.ddt_proj_w, wpart, Di, R, (int)rows, s);
 }
 
 }  // namespace

@@ -12,10 +12,12 @@
 //   what preferred_element_type=f32 computes, up to the order of the sums.
 //
 // The fp32 tile is single-stage (load a K slice to shared memory, sync,
-// multiply). The bf16 tile double-buffers shared memory: each thread loads
-// the next K slice into registers (16-byte loads where the operands are
-// aligned) while the warps multiply the current one, so the loads' latency
-// is hidden behind the mma. A TMA / wgmma design is later work.
+// multiply). The bf16 tile (mma_tile, which the backward's NN and TN
+// products in mixer_bwd.cuh share, with their own operand layouts) double-
+// buffers shared memory: each thread loads the next K slice into registers
+// (16-byte loads where the operands are aligned) while the warps multiply
+// the current one, so the loads' latency is hidden behind the mma. A TMA /
+// wgmma design is later work.
 #pragma once
 
 #include <stdint.h>
@@ -133,8 +135,6 @@ constexpr int kMmaBN = 64;   // block tile columns (N)
 constexpr int kMmaBK = 32;   // contraction depth per shared-memory stage
 constexpr int kMmaPad = 8;   // row padding: fragment loads hit 32 banks
 constexpr int kMmaThreads = 128;  // 4 warps in 2 x 2, each a 32 x 32 tile
-constexpr int kChunk = 8;    // contraction elements a thread stages at once
-constexpr int kChunksPerThread = kMmaBM * kMmaBK / kChunk / kMmaThreads;  // 2
 
 __device__ __forceinline__ bf16 to_bf16(float v) { return __float2bfloat16_rn(v); }
 __device__ __forceinline__ bf16 to_bf16(bf16 v) { return v; }
@@ -196,59 +196,98 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// bf16 tile: each block a 64 x 64 output tile; each warp 32 x 32 of it as
-// 2 x 4 mma tiles of 16 x 8. Fragment layouts are those of the PTX ISA for
-// m16n8k16 (.bf16): with g = lane / 4 and t = lane % 4, A's registers hold
-// rows g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9; B's hold column g,
-// rows 2t, 2t + 1 and 2t + 8, 2t + 9; C's rows g and g + 8, columns 2t, 2t + 1.
-// Each thread stages two 8-element chunks of A and two of W per K slice:
-// chunk c = threadIdx.x + 128 i covers row c / 4, columns 8 (c % 4) + [0, 8).
-template <typename TA, typename TC, bool kVec>
-__global__ void __launch_bounds__(kMmaThreads)
-    gemm_nt_bf16_kernel(const TA* __restrict__ A, long long lda,
-                        const bf16* __restrict__ Wt, long long ldw,
-                        TC* __restrict__ C, long long ldc, int M, int N, int K) {
-  __shared__ __align__(16) bf16 As[2][kMmaBM][kMmaBK + kMmaPad];
-  __shared__ __align__(16) bf16 Ws[2][kMmaBN][kMmaBK + kMmaPad];
+// bf16 tile: each block a 64 x 64 output tile of 4 warps; each warp 32 x 32
+// of it as 2 x 4 mma tiles of 16 x 8, over 32-deep contraction slices
+// double-buffered through registers. Fragment layouts are those of the PTX
+// ISA for m16n8k16 (.bf16): with g = lane / 4 and t = lane % 4, A's
+// registers hold rows g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9;
+// B's hold column g, rows 2t, 2t + 1 and 2t + 8, 2t + 9; C's rows g and
+// g + 8, columns 2t, 2t + 1. An operand is staged in one of two shared
+// layouts:
+// - "k-major" (kT false): rows of the tile's output axis, contraction
+//   contiguous, read by 32-bit fragment loads (both operands of the
+//   forward's NT product);
+// - "transposed" (kT true): rows of the contraction, output axis
+//   contiguous, as it lies in memory for the backward's NN W and both of
+//   its TN operands; its fragments come from ldmatrix .trans, so no element
+//   is transposed by hand.
+// Each thread stages two 8-element chunks of each operand a slice, rounded
+// to bf16 (load_chunk): k-major chunk c covers output row c / 4,
+// contraction 8 (c % 4) + [0, 8); transposed chunk c covers contraction row
+// c / 8, output 8 (c % 8) + [0, 8).
+constexpr int kMmaRowK = kMmaBK + kMmaPad;  // bf16 a k-major row
+constexpr int kMmaRowT = kMmaBM + kMmaPad;  // bf16 a transposed row (16-byte multiple)
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+template <typename T, bool kT, bool kVec>
+__device__ __forceinline__ void mma_load(uint4 (&r)[2], const T* __restrict__ P, long long ld,
+                                         long long o0, int O, long long k0, int kend) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = threadIdx.x + i * kMmaThreads;
+    if constexpr (kT) {
+      r[i] = load_chunk<T, kVec>(P, ld, k0 + c / 8, kend, o0 + (c % 8) * 8, O);
+    } else {
+      r[i] = load_chunk<T, kVec>(P, ld, o0 + c / 4, O, k0 + (c % 4) * 8, kend);
+    }
+  }
+}
+
+template <bool kT>
+__device__ __forceinline__ void mma_store(bf16* S, const uint4 (&r)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = threadIdx.x + i * kMmaThreads;
+    bf16* p = kT ? S + (c / 8) * kMmaRowT + (c % 8) * 8 : S + (c / 4) * kMmaRowK + (c % 4) * 8;
+    *reinterpret_cast<uint4*>(p) = r[i];
+  }
+}
+
+// acc (2 x 4 mma tiles of 16 x 8 a warp) += A B over contraction rows
+// [kbeg, kend) for the block tile at (m0, n0): A (M x K) and B (K x N) as
+// kAT / kBT say (rows of lda / ldb).
+template <typename TA, typename TB, bool kAT, bool kBT, bool kVec>
+__device__ __forceinline__ void mma_tile(const TA* __restrict__ A, long long lda,
+                                         const TB* __restrict__ B, long long ldb, int M, int N,
+                                         long long kbeg, int kend, long long m0, long long n0,
+                                         float (&acc)[2][4][4]) {
+  constexpr int kARows = kAT ? kMmaBK : kMmaBM;
+  constexpr int kBRows = kBT ? kMmaBK : kMmaBN;
+  constexpr int kARow = kAT ? kMmaRowT : kMmaRowK;
+  constexpr int kBRow = kBT ? kMmaRowT : kMmaRowK;
+  __shared__ __align__(16) bf16 As[2][kARows * kARow];
+  __shared__ __align__(16) bf16 Bs[2][kBRows * kBRow];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int wm = (warp / 2) * 32;
   const int wn = (warp % 2) * 32;
   const int g = lane / 4;
   const int t = lane % 4;
-  const long long m0 = (long long)blockIdx.y * kMmaBM;
-  const long long n0 = (long long)blockIdx.x * kMmaBN;
 
-  uint4 ra[kChunksPerThread];
-  uint4 rw[kChunksPerThread];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < kChunksPerThread; ++i) {
-      const int c = threadIdx.x + i * kMmaThreads;
-      const int r = c / (kMmaBK / kChunk);
-      const long long k = k0 + (c % (kMmaBK / kChunk)) * kChunk;
-      ra[i] = load_chunk<TA, kVec>(A, lda, m0 + r, M, k, K);
-      rw[i] = load_chunk<bf16, kVec>(Wt, ldw, n0 + r, N, k, K);
-    }
+  uint4 ra[2];
+  uint4 rb[2];
+  auto load = [&](long long k0) {
+    mma_load<TA, kAT, kVec>(ra, A, lda, m0, M, k0, kend);
+    mma_load<TB, kBT, kVec>(rb, B, ldb, n0, N, k0, kend);
   };
   auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < kChunksPerThread; ++i) {
-      const int c = threadIdx.x + i * kMmaThreads;
-      const int r = c / (kMmaBK / kChunk);
-      const int kk = (c % (kMmaBK / kChunk)) * kChunk;
-      *reinterpret_cast<uint4*>(&As[buf][r][kk]) = ra[i];
-      *reinterpret_cast<uint4*>(&Ws[buf][r][kk]) = rw[i];
-    }
+    mma_store<kAT>(As[buf], ra);
+    mma_store<kBT>(Bs[buf], rb);
   };
 
-  float acc[2][4][4] = {};
-  load(0);
+  load(kbeg);
   store(0);
   __syncthreads();
   int buf = 0;
-  for (int k0 = 0; k0 < K; k0 += kMmaBK) {
-    const bool more = k0 + kMmaBK < K;
+  for (long long k0 = kbeg; k0 < kend; k0 += kMmaBK) {
+    const bool more = k0 + kMmaBK < kend;
     if (more) load(k0 + kMmaBK);  // in flight while this slice is multiplied
 #pragma unroll
     for (int ks = 0; ks < kMmaBK; ks += 16) {
@@ -256,43 +295,83 @@ __global__ void __launch_bounds__(kMmaThreads)
       uint32_t b[4][2];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm + mi * 16 + g;
-        a[mi][0] = ld_pair(&As[buf][r][ks + 2 * t]);
-        a[mi][1] = ld_pair(&As[buf][r + 8][ks + 2 * t]);
-        a[mi][2] = ld_pair(&As[buf][r][ks + 2 * t + 8]);
-        a[mi][3] = ld_pair(&As[buf][r + 8][ks + 2 * t + 8]);
+        if constexpr (kAT) {
+          // Matrices (rows m, columns k): [0, 8) x [0, 8), [8, 16) x [0, 8),
+          // [0, 8) x [8, 16), [8, 16) x [8, 16); lane l addresses row l % 8
+          // of matrix l / 8.
+          ldsm_x4_trans(a[mi], &As[buf][(ks + (lane / 16) * 8 + lane % 8) * kARow + wm +
+                                         mi * 16 + ((lane / 8) % 2) * 8]);
+        } else {
+          const bf16* r0 = &As[buf][(wm + mi * 16 + g) * kARow + ks + 2 * t];
+          a[mi][0] = ld_pair(r0);
+          a[mi][1] = ld_pair(r0 + 8 * kARow);
+          a[mi][2] = ld_pair(r0 + 8);
+          a[mi][3] = ld_pair(r0 + 8 * kARow + 8);
+        }
       }
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = wn + ni * 8 + g;
-        b[ni][0] = ld_pair(&Ws[buf][c][ks + 2 * t]);
-        b[ni][1] = ld_pair(&Ws[buf][c][ks + 2 * t + 8]);
+      for (int ni = 0; ni < 4; ni += 2) {
+        if constexpr (kBT) {
+          // Matrices (rows k, columns n): [0, 8) and [8, 16) of tile ni, then
+          // of tile ni + 1.
+          uint32_t r[4];
+          ldsm_x4_trans(r, &Bs[buf][(ks + ((lane / 8) % 2) * 8 + lane % 8) * kBRow + wn +
+                                    (ni + lane / 16) * 8]);
+          b[ni][0] = r[0];
+          b[ni][1] = r[1];
+          b[ni + 1][0] = r[2];
+          b[ni + 1][1] = r[3];
+        } else {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const bf16* c0 = &Bs[buf][(wn + (ni + j) * 8 + g) * kBRow + ks + 2 * t];
+            b[ni + j][0] = ld_pair(c0);
+            b[ni + j][1] = ld_pair(c0 + 8);
+          }
+        }
       }
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) mma_bf16_16816(acc[mi][ni], a[mi], b[ni]);
     }
-    // The other buffer was last read before the previous barrier, so it can
-    // be written now; one barrier per slice orders both directions.
+    // The other buffer was last read before the previous barrier.
     if (more) store(buf ^ 1);
     __syncthreads();
     buf ^= 1;
   }
+}
+
+// Calls f(row, col, value) for each of this thread's accumulators of the
+// block tile at (m0, n0).
+template <typename F>
+__device__ __forceinline__ void mma_each(const float (&acc)[2][4][4], long long m0,
+                                         long long n0, F f) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const long long col = n0 + wn + ni * 8 + 2 * t;
+    for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const long long row = m0 + wm + mi * 16 + g + half * 8;
-        if (row >= M) continue;
-        if (col < N) C[row * ldc + col] = from_f32<TC>(acc[mi][ni][2 * half]);
-        if (col + 1 < N) C[row * ldc + col + 1] = from_f32<TC>(acc[mi][ni][2 * half + 1]);
-      }
-    }
-  }
+      for (int e = 0; e < 4; ++e)
+        f(m0 + (warp / 2) * 32 + mi * 16 + lane / 4 + (e / 2) * 8,
+          n0 + (warp % 2) * 32 + ni * 8 + 2 * (lane % 4) + e % 2, acc[mi][ni][e]);
+}
+
+// NT on tensor cores: C = A Wt^T, A and Wt rounded to bf16.
+template <typename TA, typename TC, bool kVec>
+__global__ void __launch_bounds__(kMmaThreads)
+    gemm_nt_bf16_kernel(const TA* __restrict__ A, long long lda,
+                        const bf16* __restrict__ Wt, long long ldw,
+                        TC* __restrict__ C, long long ldc, int M, int N, int K) {
+  const long long m0 = (long long)blockIdx.y * kMmaBM;
+  const long long n0 = (long long)blockIdx.x * kMmaBN;
+  float acc[2][4][4] = {};
+  mma_tile<TA, bf16, false, false, kVec>(A, lda, Wt, ldw, M, N, 0, K, m0, n0, acc);
+  mma_each(acc, m0, n0, [&](long long row, long long col, float v) {
+    if (row < M && col < N) C[row * ldc + col] = from_f32<TC>(v);
+  });
 }
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }

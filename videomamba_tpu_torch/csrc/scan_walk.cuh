@@ -1,7 +1,8 @@
 // Selective-scan time walk of the selective-scan kernel (selective_scan.cu,
 // K1), and the operands (ScanArgs) and helpers every walk shares. The fused
 // mixer (K3) and the whole-block kernel (K4) walk with the time-split walk of
-// scan_walk_split.cuh; the reverse walks are in scan_walk_bwd.cuh.
+// scan_walk_split.cuh; the reverse walks are in scan_walk_bwd.cuh (K5) and
+// scan_walk_split_bwd.cuh (K6, K7).
 //
 // Recurrence per (batch b, channel d, state n), all in fp32:
 //   dt     = softplus(delta[t, d] + delta_bias[d])     (softplus optional)

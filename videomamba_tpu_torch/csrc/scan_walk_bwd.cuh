@@ -1,10 +1,8 @@
 // Reverse-time walk of the selective scan: every gradient of scan_walk.cuh's
-// recurrence, shared by the selective-scan backward (selective_scan_bwd.cu,
-// K5), the fused-mixer backward (mixer_bwd.cu, K6) and the whole-block
-// backward (block_bwd.cu, K7). With kY (K7 only, compile-time) the walk also
-// stores the forward's gated output y = (sum_n C_n h_n + u D) silu(z), which
-// it has in hand, for K7's out_proj weight gradient (JAX block_bwd.py:297-303):
-// no forward y is kept.
+// recurrence, the walk of the selective-scan backward (selective_scan_bwd.cu,
+// K5). The fused-mixer backward (K6) and the whole-block backward (K7) walk
+// with the time-split reverse walk of scan_walk_split_bwd.cuh, which shares
+// this file's operands (ScanBwdArgs), warp reduce-scatter and reductions.
 //
 // Math (videomamba_tpu/ops/pallas/scan.py:401-505), per (b, d), fp32, with
 // dt = softplus(delta + bias), a_n = exp(dt A_n), g2 = g silu(z):
@@ -80,7 +78,7 @@ struct ScanBwdArgs {
   float* dD_part;  // (batch, D)
   float* dbias_part;  // (batch, D)
   float* dh0;      // (batch, D, N)
-  float* y = nullptr;  // with kY: the forward's gated output, rows of ld_y
+  float* y = nullptr;  // the split walk's kY: the forward's gated output, rows of ld_y
   long long ld_y = 0;
   int L;
   int D;
@@ -127,7 +125,7 @@ constexpr size_t scan_bwd_smem_bytes() {
                           + 2 * bwd_sub<N>() * 2 * N);            // warp partials
 }
 
-template <int N, typename TU, typename TZ, typename TO, bool kY>
+template <int N, typename TU, typename TZ, typename TO>
 __global__ void __launch_bounds__(kBwdThreads) scan_bwd_kernel(ScanBwdArgs a) {
   extern __shared__ float smem[];
   constexpr int kSub = bwd_sub<N>();
@@ -265,7 +263,6 @@ __global__ void __launch_bounds__(kBwdThreads) scan_bwd_kernel(ScanBwdArgs a) {
             pre += uu * dskip;
             store_as(dz_b + (t0 + k) * a.ld_dz + d,
                      gg * pre * (sig * (1.f + zz * (1.f - sig))));
-            if constexpr (kY) a.y[(b * L + t0 + k) * a.ld_y + d] = pre * (zz * sig);
           }
         }
         warp_reduce_scatter<V, V, 16>(vals, lane);
@@ -345,41 +342,39 @@ static __global__ void reduce_batch_kernel(const float* __restrict__ dA_part,
   }
 }
 
-template <int N, typename TU, typename TZ, typename TO, bool kY>
+template <int N, typename TU, typename TZ, typename TO>
 cudaError_t launch_scan_bwd_n(const ScanBwdArgs& a, int batch, cudaStream_t s) {
   constexpr size_t smem = scan_bwd_smem_bytes<N>();
-  cudaError_t err = cudaFuncSetAttribute(scan_bwd_kernel<N, TU, TZ, TO, kY>,
+  cudaError_t err = cudaFuncSetAttribute(scan_bwd_kernel<N, TU, TZ, TO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.D + kBwdThreads - 1) / kBwdThreads, batch);
-  scan_bwd_kernel<N, TU, TZ, TO, kY><<<grid, kBwdThreads, smem, s>>>(a);
+  scan_bwd_kernel<N, TU, TZ, TO><<<grid, kBwdThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
 // The reverse walk and the dA / dD / dbias batch sum (dD, dbias may be
-// null). dB and dC stay in a.bc_part for launch_reduce_bc. kY needs z and
-// a.y.
-template <typename TU, typename TZ, typename TO, bool kY = false>
+// null). dB and dC stay in a.bc_part for launch_reduce_bc.
+template <typename TU, typename TZ, typename TO>
 cudaError_t launch_scan_bwd(const ScanBwdArgs& a, int batch, int n, float* dA,
                             float* dD, float* dbias, cudaStream_t s) {
-  if (kY && (a.y == nullptr || a.z == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err;
   switch (n) {
     case 8:
-      err = launch_scan_bwd_n<8, TU, TZ, TO, kY>(a, batch, s);
+      err = launch_scan_bwd_n<8, TU, TZ, TO>(a, batch, s);
       break;
     case 16:
-      err = launch_scan_bwd_n<16, TU, TZ, TO, kY>(a, batch, s);
+      err = launch_scan_bwd_n<16, TU, TZ, TO>(a, batch, s);
       break;
     case 32:
-      err = launch_scan_bwd_n<32, TU, TZ, TO, kY>(a, batch, s);
+      err = launch_scan_bwd_n<32, TU, TZ, TO>(a, batch, s);
       break;
     case 64:
-      err = launch_scan_bwd_n<64, TU, TZ, TO, kY>(a, batch, s);
+      err = launch_scan_bwd_n<64, TU, TZ, TO>(a, batch, s);
       break;
     case 128:
-      err = launch_scan_bwd_n<128, TU, TZ, TO, kY>(a, batch, s);
+      err = launch_scan_bwd_n<128, TU, TZ, TO>(a, batch, s);
       break;
     default:
       return cudaErrorInvalidValue;

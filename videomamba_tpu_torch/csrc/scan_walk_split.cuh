@@ -2,7 +2,8 @@
 // blocks: the walk of the fused mixer (mixer_fused.cu, K3) and the
 // whole-block kernel (block_fused.cu, K4). The selective-scan kernel
 // (selective_scan.cu, K1) still runs the one-block-per-channel-group walk of
-// scan_walk.cuh; the reverse walks are in scan_walk_bwd.cuh.
+// scan_walk.cuh; the reverse walks are in scan_walk_bwd.cuh (K5) and
+// scan_walk_split_bwd.cuh (K6, K7).
 //
 // The recurrence and the operands are scan_walk.cuh's (ScanArgs, same
 // meaning): per (batch b, channel d, state n), in fp32,

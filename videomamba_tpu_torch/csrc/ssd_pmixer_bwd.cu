@@ -54,11 +54,11 @@ cudaError_t pmixer_bwd(const void* hidden, const void* in_w, const void* out_w,
                  nullptr, nullptr, nullptr, const_cast<float*>(a.yd), nullptr,
                  a.B, a.L, a.Q, a.H, a.P, a.G, a.N, a.W, a.eps};
   if ((err = vmt::ssd_gate<T>(g, s)) != cudaSuccess) return err;
-  if ((err = gemm_tn<T, T, false>((const T*)dout, E, (const T*)gated, Di, dwout, part, E, Di,
-                                  rows, s)) != cudaSuccess)
+  if ((err = gemm_tn<T, T>((const T*)dout, E, (const T*)gated, Di, dwout, part, E, Di,
+                           rows, s)) != cudaSuccess)
     return err;
-  if ((err = gemm_nn<T, T, false>((const T*)dout, E, (const T*)out_w, Di, dgated, Di, nullptr,
-                                  nullptr, rows, Di, E, s)) != cudaSuccess)
+  if ((err = gemm_nn<T, T>((const T*)dout, E, (const T*)out_w, Di, dgated, Di, nullptr,
+                           nullptr, rows, Di, E, s)) != cudaSuccess)
     return err;
   a.zx = zx;
   a.ld_zx = ZX;
@@ -68,11 +68,10 @@ cudaError_t pmixer_bwd(const void* hidden, const void* in_w, const void* out_w,
   a.ld_dzx = ZX;
   a.zero_cols = 0;
   if ((err = vmt::ssd_mixer_bwd<T>(a, s)) != cudaSuccess) return err;
-  if ((err = gemm_nn<T, T, false>((const T*)dzx, ZX, (const T*)in_w, E, dhidden, E, nullptr,
-                                  nullptr, rows, E, ZX, s)) != cudaSuccess)
+  if ((err = gemm_nn<T, T>((const T*)dzx, ZX, (const T*)in_w, E, dhidden, E, nullptr,
+                           nullptr, rows, E, ZX, s)) != cudaSuccess)
     return err;
-  return gemm_tn<T, T, false>((const T*)dzx, ZX, (const T*)hidden, E, dwin, part, ZX, E, rows,
-                              s);
+  return gemm_tn<T, T>((const T*)dzx, ZX, (const T*)hidden, E, dwin, part, ZX, E, rows, s);
 }
 
 }  // namespace

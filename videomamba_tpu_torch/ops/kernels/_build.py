@@ -30,8 +30,8 @@ SOURCES = ("fused_add_norm.cu", "selective_scan.cu", "mixer_fused.cu",
            "decode_step.cu", "ssd_mixer.cu", "ssd_pmixer.cu", "ssd_core_bwd.cu",
            "ssd_mixer_bwd.cu", "ssd_pmixer_bwd.cu")
 HEADERS = ("add_norm.cuh", "add_norm_bwd.cuh", "decode_persist.cuh", "mixer_bwd.cuh",
-           "mixer_parts.cuh", "scan_walk.cuh", "scan_walk_bwd.cuh", "scan_walk_split.cuh", "ssd_core.cuh",
-           "ssd_core_bwd.cuh")
+           "mixer_parts.cuh", "scan_walk.cuh", "scan_walk_bwd.cuh", "scan_walk_split.cuh",
+           "scan_walk_split_bwd.cuh", "ssd_core.cuh", "ssd_core_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -61,12 +61,12 @@ SIGNATURES = {
         *(_P, _LL) * 6, *(_P,) * 18, *(_I,) * 7, _P,
     ),
     "vmt_mixer_bwd": (
-        _P, _LL, _P, _LL, *(_P,) * 23, *(_I,) * 9, _P,
+        _P, _LL, _P, _LL, *(_P,) * 23, *(_I,) * 10, _P,
     ),
     "vmt_fused_add_norm_bwd": (
         _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _P,
     ),
-    "vmt_block_bwd": (*(_P,) * 16, _I, *(_P,) * 16, *(_I,) * 8, _F, _I, _I, _P),
+    "vmt_block_bwd": (*(_P,) * 16, _I, *(_P,) * 16, *(_I,) * 9, _F, _I, _I, _P),
     "vmt_causal_conv": (*(_P,) * 5, *(_I,) * 7, _P),
     "vmt_decode_stack": (_P, _P, _P, _F, _I, _P),
     "vmt_decode_stack_m2": (_P, _P, _P, _F, _F, _I, _P),
@@ -79,9 +79,9 @@ SIGNATURES = {
 }
 # Entry points that return a size instead of a CUDA error code.
 SIZE_QUERIES = {
-    "vmt_mixer_bwd_scratch_floats": ((_I,) * 6, _LL),
+    "vmt_mixer_bwd_scratch_floats": ((_I,) * 7, _LL),
     "vmt_fused_add_norm_bwd_blocks": ((_LL,), _I),
-    "vmt_block_bwd_scratch_floats": ((_I,) * 7, _LL),
+    "vmt_block_bwd_scratch_floats": ((_I,) * 8, _LL),
 }
 
 

@@ -7,11 +7,12 @@ conv, x_proj, dt_proj, scan, gate, out_proj) from the forward's fp32 sum
 the cotangents of out, res_out and h_last. csrc/block_bwd.cu runs it as a
 sequence of launches on the current stream through fp32 scratch this wrapper
 allocates: the norm recompute (K2's row kernel), in_proj (K4's tiles), the
-out_proj cotangent product, K6's whole span (its reverse walk, K5's, also
-rebuilds the forward's gated output y for dWout: no forward y is kept), the
-dWout / dnormed / dWin products and K8's row backward with the res_out
-cotangent added. It is bound by the reverse walk (latency), then the
-products (about 30 GFLOP at Base, batch 1, mostly on fp32 FMA tiles).
+out_proj cotangent product, K6's whole span (its time-split reverse walk,
+csrc/scan_walk_split_bwd.cuh, also rebuilds the forward's gated output y for
+dWout: no forward y is kept), the dWout / dnormed / dWin products and K8's
+row backward with the res_out cotangent added. The products (about 30 GFLOP
+at Base, batch 1) run on bf16 tensor cores (mma.sync) at bf16 weights and on
+fp32 FMA tiles at fp32.
 
 Rounding at bf16 weights (block_bwd.py:161-206, 324-393): each product's
 input is rounded to bf16 and both inputs of each weight-gradient product;
@@ -35,7 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from videomamba_tpu_torch.ops import dispatch
-from videomamba_tpu_torch.ops.kernels import _build
+from videomamba_tpu_torch.ops.kernels import _build, scan
 from videomamba_tpu_torch.ops.kernels.fused_add_norm import MAX_D, fused_add_norm_bwd_plain
 from videomamba_tpu_torch.ops.kernels.mixer_bwd import _rnd, mixer_bwd_plain
 from videomamba_tpu_torch.ops.kernels.mixer_fused import mixer_fused_plain
@@ -195,8 +196,9 @@ def block_bwd(
     dh0 = torch.empty((bsz, di, n), **f32)
     dconv_state = torch.empty((bsz, di, width), **f32)
     lib = _build.library()
+    chunk = scan.walk_bwd_chunk(bsz, seqlen, di)
     scratch = torch.empty(
-        (lib.vmt_block_bwd_scratch_floats(bsz, seqlen, e, di, width, r, n),), **f32)
+        (lib.vmt_block_bwd_scratch_floats(bsz, seqlen, e, di, width, r, n, chunk),), **f32)
     cstate = conv_state.float().contiguous()
     err = lib.vmt_block_bwd(
         _build.ptr(res_out), _build.ptr(norm_w), _build.ptr(norm_b), _build.ptr(in_proj_w),
@@ -208,7 +210,7 @@ def block_bwd(
         _build.ptr(dout_proj_w), _build.ptr(dconv_w), _build.ptr(dconv_b),
         _build.ptr(dx_proj_w), _build.ptr(ddt_proj_w), _build.ptr(ddt_bias), _build.ptr(dA),
         _build.ptr(dD), _build.ptr(dh0), _build.ptr(dconv_state), _build.ptr(scratch),
-        _build.is_bf16(in_proj_w), bsz, seqlen, e, di, width, r, n, eps,
+        _build.is_bf16(in_proj_w), bsz, seqlen, e, di, width, r, n, chunk, eps,
         int(norm_type == "rms"), dev.index, _build.stream_of(res_out),
     )
     _build.check(err, "block_bwd")

@@ -29,6 +29,13 @@ interpret mode computes it): fp32 weights take fp32 products; bf16 weights
 round ``normed``, the conv output, ``x_dbl`` and ``y`` to bf16 before their
 products, with fp32 sums. The states are stored in their own dtype.
 
+Widths: the kernel's rows are 16-byte aligned, so a d_model or d_inner
+that is not a multiple of 8 runs at :func:`decode_width` (the next multiple
+of 8): the launch pads the weight stacks once with zero rows and columns,
+the token and the states with zero lanes, and the norm divides by the true
+d_model. A zero channel stays zero through the conv, the scan and the gate,
+so the padding is exact.
+
 Layouts (the contract's, stacked on depth; the TPU's lane-major state swap
 is not ported): norm_w, norm_b (K, E) fp32; in_proj_w (K, 2Di, E),
 out_proj_w (K, E, Di), conv_w (K, Di, W), x_proj_w (K, R + 2N, Di),
@@ -215,6 +222,31 @@ def decode_plan(batch: int, d_model: int, d_inner: int, w_bytes: int, grid: int,
     return plan
 
 
+def decode_width(n: int) -> int:
+    """The width K9 and K15 run a d_model or d_inner of ``n`` at: the next
+    multiple of 8 (16-byte weight rows); the lanes past ``n`` are zeros."""
+    return _up(n, 8)
+
+
+def _pad(t: Optional[Tensor], *sizes: int) -> Optional[Tensor]:
+    """t with its trailing ``len(sizes)`` axes zero-padded to ``sizes``."""
+    if t is None or tuple(t.shape[-len(sizes):]) == sizes:
+        return t
+    pad = []
+    for have, want in zip(reversed(t.shape[-len(sizes):]), reversed(sizes)):
+        pad += [0, want - have]
+    return F.pad(t, pad).contiguous()
+
+
+def pad_decode_states(conv_states: Tensor, ssm_states: Tensor,
+                      d_inner: int) -> Tuple[Tensor, Tensor]:
+    """K9's state stacks (K, B, d_inner, .) at :func:`decode_width`
+    (d_inner) channels, zero past d_inner (the tensors themselves when that
+    is d_inner)."""
+    dip = decode_width(d_inner)
+    return tuple(_pad(t, dip, t.shape[-1]) for t in (conv_states, ssm_states))
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(index: int) -> int:
     """SMs of CUDA card ``index``: the persistent grid (one block each)."""
@@ -223,31 +255,39 @@ def sm_count(index: int) -> int:
 
 def decode_stack_supported(d_model: int, d_inner: int, dt_rank: Optional[int] = None,
                            d_state: int = 16) -> bool:
-    """The port's own gate for K9: 16-byte weight rows (d_model and d_inner
-    multiples of 8) and a schedule that fits one block's shared memory on
-    the reference card with fp32 weights (the larger; a slice too large to
-    hold whole is taken in pieces, so only a single weight row or activation
-    row of about 100 KB fails). Any batch size. ``dt_rank`` defaults to the
+    """The port's own gate for K9: a schedule at the padded widths
+    (:func:`decode_width`) that fits one block's shared memory on the
+    reference card with fp32 weights (the larger; a slice too large to hold
+    whole is taken in pieces, so only a single weight row or activation row
+    of about 100 KB fails). Any batch size. ``dt_rank`` defaults to the
     model's ``ceil(d_model / 16)``."""
-    if d_model % 8 or d_inner % 8:
-        return False
     r = _cdiv(d_model, 16) if dt_rank is None else dt_rank
-    return decode_plan(1, d_model, d_inner, 4, REF_SMS, dt_rank=r, d_state=d_state) is not None
+    return decode_plan(1, decode_width(d_model), decode_width(d_inner), 4, REF_SMS, dt_rank=r,
+                       d_state=d_state) is not None
 
 
 class DecodeLaunch:
     """One validated K9 or K15 launch: the buffers the kernel writes
     (hidden, the two residual rows, scratch, the grid barrier and, for
     :func:`phase_ms`, a phase timer), the plan and the C entry's pointer,
-    dim and plan arrays. :meth:`run` submits a token with no further checks;
-    the states are the caller's, advanced in place."""
+    dim and plan arrays. :meth:`run` submits a token with no further checks.
+    ``states`` are the (conv, ssm) stacks the kernel advances in place, at
+    the model's widths: the caller's own, or trimmed views of the launch's
+    zero-padded storage where d_inner is not a multiple of 8, which a caller
+    that keeps the states adopts. ``e`` is the true d_model, the last of
+    ``dims``; at a padded width ``dims[4]`` the token goes through a
+    zero-padded buffer and the outputs come back trimmed."""
 
     def __init__(self, m2: bool, bsz: int, e: int, dev: torch.device, ops: list, dims: list,
-                 plan: dict, floats: tuple, timer: bool = False):
+                 plan: dict, floats: tuple, states: Tuple[Tensor, Tensor],
+                 timer: bool = False):
         f32 = dict(dtype=torch.float32, device=dev)
-        self.m2, self.plan, self.depth, self.dev = m2, plan, dims[2], dev
-        self.hidden = torch.empty((bsz, e), **f32)
-        self.res = (torch.empty((bsz, e), **f32), torch.empty((bsz, e), **f32))
+        self.m2, self.plan, self.depth, self.dev, self.e = m2, plan, dims[2], dev, e
+        self.states = states
+        ep = dims[4]
+        self.tok = torch.zeros((bsz, ep), **f32) if ep != e else None
+        self.hidden = torch.empty((bsz, ep), **f32)
+        self.res = (torch.empty((bsz, ep), **f32), torch.empty((bsz, ep), **f32))
         self.scratch = torch.empty((plan["scratch"],), **f32)
         # The grid barrier's counter and its value at a launch's start, both
         # kept on the card by the kernel (a replayed CUDA graph stays right).
@@ -267,12 +307,19 @@ class DecodeLaunch:
     def run(self, token: Tensor) -> Tuple[Tensor, Tensor]:
         """Submit one token (B, E) of any float dtype (read as fp32); returns
         (hidden, residual), this launch's buffers."""
-        tok = token.to(torch.float32).contiguous()
+        if self.tok is None:
+            tok = token.to(torch.float32).contiguous()
+        else:
+            tok = self.tok
+            tok[:, :self.e].copy_(token)
         self._ptrs[0] = tok.data_ptr()
         err = self._entry(*self._args, _build.stream_of(tok))
         _build.check(err, "decode_stack_m2" if self.m2 else "decode_stack")
         (decode_stack_m2 if self.m2 else decode_stack).launches += 1
-        return self.hidden, self.res[self.depth % 2]
+        hidden, residual = self.hidden, self.res[self.depth % 2]
+        if self.tok is None:
+            return hidden, residual
+        return hidden[:, :self.e].contiguous(), residual[:, :self.e].contiguous()
 
 
 def _card(device) -> torch.device:
@@ -321,9 +368,12 @@ def prepare_decode_stack(
     card), plan it and allocate its buffers: the launch
     :func:`decode_stack` makes for each call and ``DecodeSession`` once.
 
-    The five weight stacks in one dtype, fp32 or bf16, starting on 16-byte
-    boundaries; the two state stacks in one dtype, fp32 or bf16; everything
-    else fp32. All contiguous."""
+    The five weight stacks in one dtype, fp32 or bf16; the two state stacks
+    in one dtype, fp32 or bf16; everything else fp32. All contiguous (the
+    states need not be where d_inner is padded). At a width that is not a
+    multiple of 8 the weights are padded here, once, and at such a d_inner
+    the states are copied into zero-padded storage
+    (:func:`pad_decode_states`) that the launch's ``states`` view."""
     if norm_type not in ("rms", "layer"):
         raise ValueError(f"Unknown norm_type: {norm_type!r}")
     device = _card(device)
@@ -332,9 +382,7 @@ def prepare_decode_stack(
     width = conv_w.shape[2]
     r = dt_proj_w.shape[2]
     n = A.shape[2]
-    if e % 8 or di % 8:
-        raise ValueError(f"decode_stack kernel takes d_model and d_inner multiples of 8, got "
-                         f"d_model {e}, d_inner {di}")
+    ep, dip = decode_width(e), decode_width(di)
     norm_b = norm_b if norm_type == "layer" else None  # RMSNorm has no shift
     wdt, sdt = _build.one_dtype(in_proj_w), _build.one_dtype(conv_states)
     weights = {"in_proj_w": (in_proj_w, (depth, 2 * di, e)),
@@ -350,18 +398,31 @@ def prepare_decode_stack(
          "conv_states": (conv_states, (depth, bsz, di, width)),
          "ssm_states": (ssm_states, (depth, bsz, di, n))},
         contiguous=("norm_w", "norm_b", *weights, "conv_b", "dt_bias", "A", "D",
-                    "conv_states", "ssm_states"),
+                    *(("conv_states", "ssm_states") if dip == di else ())),
         dtypes={**{k: wdt for k in weights}, "conv_states": sdt, "ssm_states": sdt},
     )
-    _check_aligned("decode_stack", {k: v[0] for k, v in weights.items()})
-    plan = _plan_or_raise("decode_stack", device, batch=bsz, d_model=e, d_inner=di,
+    if (ep, dip) != (e, di):  # zero rows and columns: a zero channel stays zero
+        in_proj_w = torch.cat([_pad(in_proj_w[:, :di], dip, ep),
+                               _pad(in_proj_w[:, di:], dip, ep)], dim=1)
+        out_proj_w = _pad(out_proj_w, ep, dip)
+        norm_w, norm_b = _pad(norm_w, ep), _pad(norm_b, ep)
+        conv_w, x_proj_w = _pad(conv_w, dip, width), _pad(x_proj_w, r + 2 * n, dip)
+        dt_proj_w, A = _pad(dt_proj_w, dip, r), _pad(A, dip, n)
+        conv_b, dt_bias, D = _pad(conv_b, dip), _pad(dt_bias, dip), _pad(D, dip)
+    conv_states, ssm_states = pad_decode_states(conv_states, ssm_states, di)
+    states = (conv_states[:, :, :di], ssm_states[:, :, :di]) if dip != di else (
+        conv_states, ssm_states)
+    _check_aligned("decode_stack", {"in_proj_w": in_proj_w, "out_proj_w": out_proj_w,
+                                    "conv_w": conv_w, "x_proj_w": x_proj_w,
+                                    "dt_proj_w": dt_proj_w})
+    plan = _plan_or_raise("decode_stack", device, batch=bsz, d_model=ep, d_inner=dip,
                           w_bytes=in_proj_w.element_size(), dt_rank=r, d_state=n,
                           s_bytes=conv_states.element_size())
     ops = [norm_w, norm_b, in_proj_w, out_proj_w, conv_w, conv_b, x_proj_w, dt_proj_w,
            dt_bias, A, D, conv_states, ssm_states]
-    dims = [_build.is_bf16(in_proj_w), _build.is_bf16(conv_states), depth, bsz, e, di, width,
-            r, n, int(norm_type == "rms"), plan["grid"]]
-    return DecodeLaunch(False, bsz, e, device, ops, dims, plan, (eps,), timer)
+    dims = [_build.is_bf16(in_proj_w), _build.is_bf16(conv_states), depth, bsz, ep, dip, width,
+            r, n, int(norm_type == "rms"), plan["grid"], e]
+    return DecodeLaunch(False, bsz, e, device, ops, dims, plan, (eps,), states, timer)
 
 
 def decode_stack_plain(
@@ -445,8 +506,8 @@ def decode_stack(
     CUDA the states are advanced in place and returned.
 
     On CUDA the operands are those :func:`prepare_decode_stack` takes, the
-    token (B, E) any float dtype (read as fp32); every call validates,
-    plans and allocates anew (``DecodeSession`` does so once)."""
+    token (B, E) any float dtype (read as fp32); every call validates, plans
+    and allocates anew (``DecodeSession`` does so once)."""
     if dispatch.runs_plain(token):
         return decode_stack_plain(token, norm_w, norm_b, in_proj_w, out_proj_w, conv_w,
                                   conv_b, x_proj_w, dt_proj_w, dt_bias, A, D, conv_states,
@@ -458,6 +519,9 @@ def decode_stack(
                                   out_proj_w, conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias, A,
                                   D, conv_states, ssm_states, norm_type=norm_type, eps=eps)
     hidden, residual = launch.run(token)
+    if launch.states[0] is not conv_states:  # advanced in the launch's padded storage
+        conv_states.copy_(launch.states[0])
+        ssm_states.copy_(launch.states[1])
     return hidden, residual, conv_states, ssm_states
 
 
@@ -470,9 +534,9 @@ def phase_ms(kernel, token: Tensor, kw: dict, iters: int = 20) -> dict:
     ``token`` and the wrapper's keyword operands ``kw``, summed over the
     layers and averaged over ``iters`` tokens: block 0 stamps the global
     timer as each phase starts, so a phase's time holds the grid barrier
-    that closes it. Advances the states in ``kw``."""
-    m2 = kernel is decode_stack_m2
-    prep = prepare_decode_stack_m2 if m2 else prepare_decode_stack
+    that closes it. Advances the launch's states (those in ``kw`` unless
+    d_inner is padded)."""
+    prep = prepare_decode_stack_m2 if kernel is decode_stack_m2 else prepare_decode_stack
     launch = prep(token.shape[0], token.device, **kw, timer=True)
     names = tuple(launch.plan["slice_bytes"])
     sums = dict.fromkeys(names, 0.0)
@@ -513,14 +577,14 @@ def phase_ms(kernel, token: Tensor, kw: dict, iters: int = 20) -> dict:
 def decode_stack_m2_supported(d_model: int, d_inner: int, nheads: int, ngroups: int,
                               d_state: int) -> bool:
     """K15's gate: the JAX package's shape rule (decode_step.py:64-77: one
-    B/C group, d_inner a multiple of 128) and the card's (d_model a multiple
-    of 8 for 16-byte weight rows, a schedule that fits shared memory on the
+    B/C group, d_inner a multiple of 128) and the card's (a schedule at the
+    padded d_model, :func:`decode_width`, that fits shared memory on the
     reference card at fp32). Any batch size."""
-    if ngroups != 1 or d_inner % 128 or d_model % 8:
+    if ngroups != 1 or d_inner % 128:
         return False
     d_proj = 2 * d_inner + 2 * ngroups * d_state + nheads
-    return decode_plan(1, d_model, d_inner, 4, REF_SMS, d_proj=d_proj, nheads=nheads,
-                       d_state=d_state) is not None
+    return decode_plan(1, decode_width(d_model), d_inner, 4, REF_SMS, d_proj=d_proj,
+                       nheads=nheads, d_state=d_state) is not None
 
 
 def decode_stack_m2_plain(
@@ -615,9 +679,10 @@ def prepare_decode_stack_m2(
 ) -> DecodeLaunch:
     """Validate K15's operands for a batch of ``bsz`` on ``device``, plan
     it and allocate its buffers (:func:`prepare_decode_stack`'s role for
-    K15). The three weight stacks in one dtype, fp32 or bf16, on 16-byte
-    boundaries; the conv windows fp32 or bf16 and the SSD states fp32 (the
-    streaming contract's); everything else fp32. All contiguous."""
+    K15). The three weight stacks in one dtype, fp32 or bf16; the conv
+    windows fp32 or bf16 and the SSD states fp32 (the streaming contract's);
+    everything else fp32. All contiguous. A d_model that is not a multiple
+    of 8 is padded here, once (the weights; the token by the launch)."""
     if norm_type not in ("rms", "layer"):
         raise ValueError(f"Unknown norm_type: {norm_type!r}")
     device = _card(device)
@@ -627,8 +692,8 @@ def prepare_decode_stack_m2(
     width = conv_w.shape[2]
     if not decode_stack_m2_supported(e, di, nheads, ngroups, n):
         raise ValueError(
-            f"decode_stack_m2 kernel takes one group, d_inner a multiple of 128 and d_model "
-            f"a multiple of 8, got d_model {e}, d_inner {di}, {ngroups} groups")
+            f"decode_stack_m2 kernel takes one group and d_inner a multiple of 128, got "
+            f"d_model {e}, d_inner {di}, {ngroups} groups")
     norm_b = norm_b if norm_type == "layer" else None  # RMSNorm has no shift
     wdt = _build.one_dtype(in_proj_w)
     weights = {"in_proj_w": (in_proj_w, (depth, di + cd + nheads, e)),
@@ -646,15 +711,21 @@ def prepare_decode_stack_m2(
                     "conv_states", "ssm_states"),
         dtypes={**{k: wdt for k in weights}, "conv_states": _build.FP32_OR_BF16},
     )
-    _check_aligned("decode_stack_m2", {k: v[0] for k, v in weights.items()})
-    plan = _plan_or_raise("decode_stack_m2", device, batch=bsz, d_model=e, d_inner=di,
+    ep = decode_width(e)
+    if ep != e:  # zero columns of in_proj, zero rows of out_proj and zero norm lanes
+        in_proj_w, out_proj_w = _pad(in_proj_w, di + cd + nheads, ep), _pad(out_proj_w, ep, di)
+        norm_w, norm_b = _pad(norm_w, ep), _pad(norm_b, ep)
+    _check_aligned("decode_stack_m2", {"in_proj_w": in_proj_w, "out_proj_w": out_proj_w,
+                                       "conv_w": conv_w})
+    plan = _plan_or_raise("decode_stack_m2", device, batch=bsz, d_model=ep, d_inner=di,
                           w_bytes=in_proj_w.element_size(), d_proj=di + cd + nheads,
                           nheads=nheads, d_state=n)
     ops = [norm_w, norm_b, in_proj_w, out_proj_w, conv_w, conv_b, A, D, dt_bias, gate_w,
            conv_states, ssm_states]
-    dims = [_build.is_bf16(in_proj_w), _build.is_bf16(conv_states), depth, bsz, e, nheads,
-            hdim, ngroups, n, width, int(norm_type == "rms"), plan["grid"]]
-    return DecodeLaunch(True, bsz, e, device, ops, dims, plan, (eps, gate_eps), timer)
+    dims = [_build.is_bf16(in_proj_w), _build.is_bf16(conv_states), depth, bsz, ep, nheads,
+            hdim, ngroups, n, width, int(norm_type == "rms"), plan["grid"], e]
+    return DecodeLaunch(True, bsz, e, device, ops, dims, plan, (eps, gate_eps),
+                        (conv_states, ssm_states), timer)
 
 
 def decode_stack_m2(

@@ -5,12 +5,14 @@ Replaces videomamba_tpu/ops/pallas/mixer_bwd.py (mixer_bwd_pallas,
 dt_proj, selective scan, D skip, silu(z) gate) from the forward's inputs and
 its segment checkpoints. csrc/mixer_bwd.cu runs it as a sequence of launches
 on the current stream through fp32 scratch this wrapper allocates: the
-recompute of the conv and both products (K3's tiles), the reverse walk of
-K5 (csrc/scan_walk_bwd.cuh) with the conv output as u, the two products of
-the cotangents with the projection weights (its epilogue forms silu'), the
-conv backward, and the two weight-gradient products, split over time slices
-and summed in a fixed order. It is bound by the reverse walk (latency), then
-the products (about 2.3 GFLOP at Base, batch 1, fp32 FMA tiles).
+recompute of the conv and both products (K3's tiles), the time-split reverse
+walk (csrc/scan_walk_split_bwd.cuh: chunk cotangents, a reverse pass over
+the chunks, the output walk; the chunk from ``scan.walk_bwd_chunk``) with
+the conv output as u, the two products of the cotangents with the projection
+weights (its epilogue forms silu'), the conv backward, and the two
+weight-gradient products, split over time slices and summed in a fixed
+order. The products run on bf16 tensor cores (mma.sync) at bf16 weights and
+on fp32 FMA tiles at fp32 (about 2.3 GFLOP at Base, batch 1).
 
 Rounding at bf16 weights (mixer_bwd.py, highest=False): the conv output
 before x_proj, x_dbl's dt columns before dt_proj, ddelta_raw before its
@@ -32,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from videomamba_tpu_torch.ops import dispatch
-from videomamba_tpu_torch.ops.kernels import _build
+from videomamba_tpu_torch.ops.kernels import _build, scan
 from videomamba_tpu_torch.ops.kernels.scan import (
     check_x_proj,
     pad_state,
@@ -193,8 +195,9 @@ def mixer_bwd(
     dh0 = torch.empty((bsz, di, n), **f32)
     dconv_state = torch.empty((bsz, di, width), **f32)
     lib = _build.library()
+    chunk = scan.walk_bwd_chunk(bsz, seqlen, di)
     scratch = torch.empty(
-        (lib.vmt_mixer_bwd_scratch_floats(bsz, seqlen, di, width, r, n),), **f32)
+        (lib.vmt_mixer_bwd_scratch_floats(bsz, seqlen, di, width, r, n, chunk),), **f32)
     cstate = conv_state.float().contiguous()
     err = lib.vmt_mixer_bwd(
         _build.ptr(x), _build.row_stride(x, "x"), _build.ptr(z), _build.row_stride(z, "z"),
@@ -205,7 +208,7 @@ def mixer_bwd(
         _build.ptr(dx_proj_w), _build.ptr(ddt_proj_w), _build.ptr(ddt_bias),
         _build.ptr(dA), _build.ptr(dD), _build.ptr(dh0), _build.ptr(dconv_state),
         _build.ptr(scratch), _build.is_bf16(x), _build.is_bf16(x_proj_w),
-        bsz, seqlen, di, width, r, n, dev.index, _build.stream_of(x),
+        bsz, seqlen, di, width, r, n, chunk, dev.index, _build.stream_of(x),
     )
     _build.check(err, "mixer_bwd")
     mixer_bwd.launches += 1

@@ -17,7 +17,9 @@ also returns the state at the start of every 16-step segment, fp32, laid out
 K5 replaces scan.py (scan_bwd_pallas, ``_scan_bwd_kernel``): every gradient
 of K1 from those checkpoints, in csrc/selective_scan_bwd.cu over the reverse
 walk in csrc/scan_walk_bwd.cuh (design and bound in its header note). It is
-latency-bound like the forward: two serial chains per step.
+latency-bound like the forward: two serial chains per step. K6 and K7 walk
+back with the time-split reverse walk of csrc/scan_walk_split_bwd.cuh, whose
+chunk :func:`walk_bwd_chunk` chooses.
 
 State sizes: the walks are compiled for N in :data:`STATE_SIZES`; every
 Mamba-1 wrapper (K1, K3-K7) pads a smaller N with zero lanes (zero B and C
@@ -46,6 +48,9 @@ SEGMENT = 16  # steps per checkpoint (csrc/scan_walk.cuh kScanTile)
 WALK_CHANNELS = 128  # channels a block of the forward walks (kScanThreads)
 WALK_CHUNKS = (128, 64, 32, SEGMENT)  # steps a chunk of the split walk may take
 WALK_MIN_BLOCKS = 528  # four blocks a streaming multiprocessor of an H100 (132)
+WALK_BWD_CHANNELS = 64  # channels a block of the reverse walks (kBwdThreads)
+WALK_BWD_CHUNKS = (64, 32, SEGMENT)  # steps a chunk of the split reverse walk may take
+WALK_BWD_MIN_BLOCKS = 1056  # eight blocks an SM: two waves of the four that fit at N = 16
 
 
 def walk_state(n: int, kernel: str) -> int:
@@ -106,6 +111,20 @@ def walk_chunk(batch: int, seqlen: int, d: int) -> int:
     groups = batch * -(-d // WALK_CHANNELS)
     return next((chunk for chunk in WALK_CHUNKS
                  if groups * (-(-seqlen // chunk) - 1) >= WALK_MIN_BLOCKS), WALK_CHUNKS[-1])
+
+
+def walk_bwd_chunk(batch: int, seqlen: int, d: int) -> int:
+    """Steps per time chunk of K6's and K7's split reverse walk
+    (csrc/scan_walk_split_bwd.cuh): the longest of WALK_BWD_CHUNKS at which
+    its chunk-cotangent launch, batch x ceil(d / 64) channel groups x
+    (ceil(seqlen / chunk) - 1) chunks, holds WALK_BWD_MIN_BLOCKS blocks, else
+    the shortest; the output walk holds one chunk more. Measured on an H100
+    at Base (PERF.md): chunks of 128 were 4-10 % slower than 32 or 64 at
+    batch 1 and 4, and 64 slower than 32 at batch 1."""
+    groups = batch * -(-d // WALK_BWD_CHANNELS)
+    return next((chunk for chunk in WALK_BWD_CHUNKS
+                 if groups * (-(-seqlen // chunk) - 1) >= WALK_BWD_MIN_BLOCKS),
+                WALK_BWD_CHUNKS[-1])
 
 
 def walk_scratch(batch: int, seqlen: int, d: int, n: int, device) -> Tuple[int, Tensor, Tensor]:

@@ -151,6 +151,9 @@ class DecodeSession:
         self.launch = prepare(self.batch_size, self.ssm_states.device, **self.stacked,
                               conv_states=self.conv_states, ssm_states=self.ssm_states,
                               **self.kernel_kw)
+        # The stacks the kernel advances (views of its padded storage where
+        # d_inner is not a multiple of 8).
+        self.conv_states, self.ssm_states = self.launch.states
 
     def _kernel_ok(self, use_kernel: Optional[bool]) -> bool:
         """The decode kernel's eligibility (JAX runtime.py:128-168), forced
@@ -175,9 +178,9 @@ class DecodeSession:
         if use_kernel and not compatible:
             raise ValueError(
                 "use_kernel=True but the decode kernel does not support this model "
-                "(needs bias-free projections, rms/layer norm, d_model and d_inner "
-                "multiples of 8 and a schedule that fits shared memory, and for Mamba-2 "
-                "one B/C group and d_inner a multiple of 128)."
+                "(needs bias-free projections, rms/layer norm, a schedule that fits "
+                "shared memory, and for Mamba-2 one B/C group and d_inner a multiple of "
+                "128)."
             )
         return compatible
 
