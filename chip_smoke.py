@@ -108,7 +108,10 @@ failure, so the script exits nonzero:
     (SSD mixer core) and K14 (projected mixer) against their plain versions,
     fp32 (1e-5) and bf16 (1e-2), K12 with two groups at Di 512, and both
     at upstream Mamba-2's chunk 256 and d_state 128 (fp32 and bf16); each
-    timed beside its plain version.
+    timed beside its plain version. K14's launches at Base m2, fp32 and
+    bf16, split in the order they run into in_proj, the span and out_proj
+    (device ms under the profiler), and ``torch.matmul`` (TF32 off) at its
+    two product shapes as their yardstick (event ms, TFLOP/s).
 18. m2 fp32 serving: ``videomamba_base_m2`` with seeded weights, full clip:
     K2 25, K14 24, K12 0 launches, against the same weights on the plain
     add-norm and the plain chunked SSD (VIDEOMAMBA_SSD_METHOD=chunked),
@@ -135,8 +138,9 @@ failure, so the script exits nonzero:
     SSD scan) forward and backward, K13 (the mixer backward) and K14's
     backward against their plain versions, fp32 within 2e-5 and bf16
     within 2e-2, the backward kernels twice bit-identical, each timed
-    beside its plain version; then all five at head dim 256 and at d_state
-    256 (fp32).
+    beside its plain version; K13's launches at fp32 and bf16, B=1 and 4,
+    summed into the parts of its span (device ms under the profiler); then
+    all five at head dim 256 and at d_state 256 (fp32).
 22. m2 training, ``make_train_step`` on ``videomamba_base_m2`` with the
     bench recipe (AdamW lr 1e-4, weight decay 0.05): at fp32 and bf16
     compute over fp32 masters one B=2 step on the default ("mixer") train
@@ -166,9 +170,12 @@ launch (kernels) or host time around a synchronised call (forward, chunk,
 step, token), on the card named in the output. Each kernel's bound is
 computed from the inputs it was timed on: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the peak rate of their type
-(989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32). No single PyTorch call
-computes any kernel's function (K10's carries its window and applies
-SiLU), so ``library_ms`` is null. The kernels line reports K7 at bf16 Base,
+(989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32). One PyTorch call computes
+K10's function without its SiLU and with a zero window,
+``F.conv1d(..., groups=D)`` on the channels-first layout, so phase 12 also
+times K10 that way and the K10 row's ``library_ms`` is that call's time; no
+single PyTorch call computes any other kernel's function, so their
+``library_ms`` is null. The kernels line reports K7 at bf16 Base,
 K9 at fp32 B=1 (one launch is one token through the stack: one persistent
 CUDA launch of 4 x depth phases) and K10 at fp32 B=1. The last stdout line is the contract JSON;
 the line before it lists the kernels (17 rows: K12 and K14 at fp32 Base
@@ -894,12 +901,9 @@ def phase_train_bf16(device, sd0, fp32_grads, batch, depth):
     print(f"bf16 vs fp32 train-step gradients: max rel {worst:.3e}, mean rel {mean:.3e}")
     return model
 
-def device_ms(fn, iters: int, label: str = "", top: int = 0):
-    """(host wall ms, device kernel ms) per call of ``fn`` over ``iters``
-    calls under torch.profiler; the kernel time is the sum of the device
-    kernels' own intervals (one stream: they do not overlap). None for the
-    device time when the profiler saw no device kernel. With ``top``, prints
-    the ``top`` kernels by device time per call."""
+def kernel_ms_by_name(fn, iters: int):
+    """(host wall ms, {device activity name: ms}) per call of ``fn`` over
+    ``iters`` calls under torch.profiler."""
     from torch.autograd import DeviceType
 
     fn()
@@ -914,11 +918,99 @@ def device_ms(fn, iters: int, label: str = "", top: int = 0):
     by_name = {}
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
-        print(f"  {label}: {us / 1e3 / iters:.4f} ms a call in {name[:90]}")
-    kernel_us = sum(by_name.values())
-    return wall, (kernel_us / 1e3 / iters if kernel_us > 0 else None)
+            ms = evt.time_range.elapsed_us() / 1e3 / iters
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + ms
+    return wall, by_name
+
+
+def device_ms(fn, iters: int, label: str = "", top: int = 0):
+    """(host wall ms, device kernel ms) per call of ``fn`` over ``iters``
+    calls under torch.profiler; the kernel time is the sum of the device
+    kernels' own intervals (one stream: they do not overlap). None for the
+    device time when the profiler saw no device kernel. With ``top``, prints
+    the ``top`` kernels by device time per call."""
+    wall, by_name = kernel_ms_by_name(fn, iters)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {label}: {ms:.4f} ms a call in {name[:90]}")
+    kernel_ms = sum(by_name.values())
+    return wall, (kernel_ms if kernel_ms > 0 else None)
+
+
+def print_parts(label, parts):
+    print(f"{label}: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+          + f" (device ms a call; total {sum(parts.values()):.4f})")
+
+
+# K14's product tile kernels: the first launch of one in a call is in_proj,
+# the second out_proj.
+PRODUCT_TILES = ("gemm_nt_kernel", "gemm_nt_bf16_kernel", "gemm_nt_wide_kernel")
+
+
+def pmixer_split(label, kw, iters: int = 10):
+    """K14's forward by launch under torch.profiler, device ms a call:
+    in_proj (a product tile launch after torch's ops), the span (K12's
+    launches), out_proj (a product tile launch after the span) and torch's
+    own ops (the dt columns, the decay cumsum). The profiler can lose a
+    launch's record, so each product is averaged over the launches it saw."""
+    from torch.autograd import DeviceType
+
+    fn = lambda: k14.ssd_pmixer(**kw)  # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evts = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: e.time_range.start)
+    ms, seen, last = {}, {}, "torch ops"
+    for e in evts:
+        if any(t in e.name for t in PRODUCT_TILES):
+            part = "out_proj" if last == "span" else "in_proj"
+        elif "ssd_" in e.name or "conv_silu" in e.name:
+            part = "span"
+        else:
+            part = "torch ops"
+        ms[part] = ms.get(part, 0.0) + e.time_range.elapsed_us() / 1e3
+        seen[part] = seen.get(part, 0) + 1
+        last = part
+    print_parts(label, {p: v / (seen[p] if p.endswith("_proj") else iters)
+                        for p, v in ms.items()})
+
+
+def matmul_yardstick(cfg, device):
+    """torch.matmul (TF32 off) at K14's two product shapes: event ms and
+    TFLOP/s, the yardstick of its product tiles."""
+    rows = cfg["batch"] * cfg["seqlen"]
+    di = cfg["nheads"] * cfg["hdim"]
+    zx = 2 * di + 2 * cfg["ngroups"] * cfg["d_state"]
+    g = torch.Generator().manual_seed(5)
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for name, (m, k, n) in (("in_proj", (rows, cfg["embed"], zx)),
+                                ("out_proj", (rows, di, cfg["embed"]))):
+            a = randn((m, k), g, device).to(dtype)
+            w = randn((n, k), g, device).to(dtype)
+            ms = event_ms(lambda: torch.matmul(a, w.t()), 50)
+            print(f"torch.matmul {name} {tag} ({m} x {k} by {k} x {n}): {ms:.4f} ms, "
+                  f"{2 * m * n * k / ms / 1e9:.1f} TFLOP/s (K14's yardstick)")
+
+
+# Parts of K13's span, by kernel-name fragment (first match wins).
+K13_PARTS = (("conv_silu", "conv recompute"), ("epilogue_bwd", "epilogue"),
+             ("ssd_cb", "C B^T tiles"), ("dhin", "dh_in"), ("state_pass", "reverse pass"),
+             ("kside", "k-side tiles"), ("qside", "q-side tiles"),
+             ("group_sum", "group sum"), ("dsilu", "dsilu"), ("conv_", "conv backward"))
+
+
+def mixer_bwd_split(label, kw):
+    """K13's launches summed into the parts of its span."""
+    parts = {}
+    for name, ms in kernel_ms_by_name(lambda: k13.ssd_mixer_bwd(**kw), iters=5)[1].items():
+        part = next((p for frag, p in K13_PARTS if frag in name), "torch ops and memsets")
+        parts[part] = parts.get(part, 0.0) + ms
+    print_parts(label, parts)
 
 
 def block_bwd_inputs(cfg, device, dtype, seed=7):
@@ -986,8 +1078,31 @@ def phase_conv_kernels(device):
                                label=f"causal_conv {label} B={bsz}", top=4)
             print(f"kernel causal_conv {label} B={bsz}: device "
                   f"{'not measured' if dev is None else f'{dev:.4f} ms'} a call (profiler)")
-            result = result or res
+            if result is None:
+                res["library_ms"] = conv_library_ms(kw)
+                result = res
     return result
+
+
+def conv_library_ms(kw):
+    """K10 without its SiLU and with a zero window against the one PyTorch
+    call that computes that function, ``F.conv1d(..., groups=D)`` on the
+    channels-first copy of x (left-padded by W - 1; its first L outputs):
+    outputs compared (1e-5), then both timed. Returns the call's ms."""
+    F = torch.nn.functional
+    x, w, b = kw["x"], kw["weight"], kw["bias"]
+    width, d = w.shape
+    zero = dict(kw, conv_state=torch.zeros_like(kw["conv_state"]), activation=None)
+    xt = x.transpose(1, 2).contiguous()
+    wt = w.t().contiguous().unsqueeze(1)
+    lib = lambda: F.conv1d(xt, wt, b, padding=width - 1, groups=d)  # noqa: E731
+    got = k10.causal_conv(**zero)
+    want = lib()[..., :x.shape[1]].transpose(1, 2)
+    check_close("causal_conv no SiLU, zero window vs F.conv1d", got, want, KERNEL_TOL)
+    ms, lib_ms = event_ms(lambda: k10.causal_conv(**zero), 50), event_ms(lib, 50)
+    print(f"kernel causal_conv no SiLU, zero window: {ms:.4f} ms; F.conv1d(groups={d}) "
+          f"{lib_ms:.4f} ms")
+    return lib_ms
 
 
 def phase_conv_path(device):
@@ -1335,6 +1450,8 @@ def phase_ssd_kernels(device):
                                         ssd_flops(BASE_M2, dtype, projected))
             if dtype == torch.float32:
                 entries[name] = result
+        pmixer_split(f"ssd_pmixer {tag} Base m2 by launch", pmixer)
+    matmul_yardstick(BASE_M2, device)
     small = dict(BASE_M2, embed=256, nheads=8, ngroups=2)
     time_against_plain("ssd_mixer fp32 two groups (Di 512)", k12.ssd_mixer,
                        k12.ssd_mixer_plain, ssd_inputs(small, device, torch.float32)[0],
@@ -1479,12 +1596,12 @@ def ssd_bwd_flops(cfg, dtype, kind):
     return {tag: products, "fp32": (products if tag == "fp32" else 0) + fp32}
 
 
-def ssd_train_checks(cfg, device, dtype, label, iters):
+def ssd_train_checks(cfg, device, dtype, label, iters, split=False):
     """K12 with checkpoints, K11 forward and backward, K13 and K14's
     backward against their plain versions on one set of Base-m2-shaped
     inputs (fp32 2e-5, bf16 2e-2), each timed beside its plain version;
-    the backward kernels twice bit-identical. Returns the kernels-line
-    entries."""
+    the backward kernels twice bit-identical; with ``split``, K13's parts.
+    Returns the kernels-line entries."""
     tol = GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL
     tag = f"{'fp32' if dtype == torch.float32 else 'bf16'} {label}"
     mixer, pmixer = ssd_inputs(cfg, device, dtype)
@@ -1527,6 +1644,8 @@ def ssd_train_checks(cfg, device, dtype, label, iters):
     out["ssd_mixer_bwd"] = time_against_plain(
         f"ssd_mixer_bwd {tag}", k13.ssd_mixer_bwd, k13.ssd_mixer_bwd_plain, mixer_bwd, tol,
         ssd_bwd_flops(cfg, dtype, "mixer"), iters=iters, repeat_identical=True)
+    if split:
+        mixer_bwd_split(f"ssd_mixer_bwd {tag} by part", mixer_bwd)
     dt_p = k14.dt_projection(pmixer["hidden"], pmixer["in_proj_w"], h, pmixer["dt_bias"])
     pw = {k: pmixer[k] for k in ("A", "in_proj_w", "out_proj_w", "conv_weight", "conv_bias",
                                  "D")}
@@ -1552,7 +1671,8 @@ def phase_ssd_train_kernels(device):
     for batch in (1, 4):
         for dtype in (torch.float32, torch.bfloat16):
             res = ssd_train_checks(dict(BASE_M2, batch=batch), device, dtype,
-                                   f"Base m2 B={batch}", iters=10 if batch == 1 else 3)
+                                   f"Base m2 B={batch}", iters=10 if batch == 1 else 3,
+                                   split=True)
             if batch == 1 and dtype == torch.float32:
                 entries = {k: v for k, v in res.items() if k != "ssd_mixer"}
     for label, cfg in (("head dim 256", dict(BASE_M2, nheads=6, hdim=256)),

@@ -1,6 +1,6 @@
 """Serving times of one checkout of the port, for same-card comparisons.
 
-    python3 scripts/compare_m2_serving.py [--model m2|m1|m1bwd|decode] [--root DIR]
+    python3 scripts/compare_m2_serving.py [--model m2|m2bwd|m1|m1bwd|decode] [--root DIR]
                                           [--label NAME] [--out FILE] [--walk-blocks N]
                                           [--bwd-chunk N]
 
@@ -14,12 +14,24 @@ P = N = 64, chunk 128):
 * K12 (``ssd_mixer``) and K14's forward (``ssd_pmixer``), fp32 and bf16: the
   mean CUDA-event time of one call over 50 back-to-back calls, taken 5
   times (median and range), and under ``torch.profiler`` each of their
-  launches' device time a call;
+  launches' device time a call; K14's launches also split, in the order they
+  run, into in_proj (the first product tile launch), the span (K12's
+  launches) and out_proj (the second), and torch's own ops (the dt columns);
+* ``torch.matmul`` (TF32 off) at K14's two product shapes, fp32 and bf16,
+  event ms and TFLOP/s: the yardstick for K14's product tiles;
 * the full Base-m2 clip (1, 3, 8, 224, 224), fp32 and cast for bf16 serving,
   under ``torch.inference_mode``: the median host time of 20 synchronised
   calls, then the device kernel time, idle share and top kernels under the
   profiler, then the host time again (a profiler session can slow a
   process's later host-bound calls).
+
+``--model m2bwd``, K13 (``ssd_mixer_bwd``) at VideoMamba-Base-m2 shapes, fp32
+and bf16, B = 1 and 4, nonzero h0, conv state and every cotangent (the
+gated rows' and h_last's), checkpoints from K12's training forward: event
+times and each launch's device time a call, as above, the launches also
+summed into the parts of the span (conv recompute, epilogue, C B^T tiles,
+dh_in, reverse pass, k-side tiles, q-side tiles, group sum, dsilu, conv
+backward, torch ops and memsets).
 
 ``--model m1``, at VideoMamba-Base shapes (B = 1, L = 1569, Di = 1536,
 N = 16, R = 48; Small for K4 at fp32):
@@ -130,10 +142,10 @@ def profile(fn, iters: int, top: int):
     return wall, sum(by_name.values()) / 1e3 / iters, kernels
 
 
-def ssd_inputs(device, dtype, seed=13):
-    """K12's and K14's keyword operands at Base-m2 shapes (nonzero h0 and
-    conv window), activations and weights in ``dtype``."""
-    c = BASE_M2
+def ssd_inputs(device, dtype, seed=13, cfg=None):
+    """K12's and K14's keyword operands at Base-m2 shapes (or ``cfg``'s;
+    nonzero h0 and conv window), activations and weights in ``dtype``."""
+    c = cfg or BASE_M2
     g = torch.Generator().manual_seed(seed)
 
     def rnd(shape, scale=1.0):
@@ -212,6 +224,70 @@ def time_serving(result, label, tag, calls):
             print(f"    {v:.4f} ms  {k}")
 
 
+def launch_sequence(fn, iters: int = 10):
+    """[(kernel name, device ms a call)] of one call's CUDA activities in the
+    order they run, each position averaged over ``iters`` calls under the
+    profiler."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evts = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: e.time_range.start)
+    n = len(evts) // iters
+    assert n * iters == len(evts), "calls ran different launches"
+    seq = [[evts[i].name, 0.0] for i in range(n)]
+    for j, e in enumerate(evts):
+        seq[j % n][1] += e.time_range.elapsed_us() / 1e3 / iters
+    return seq
+
+
+# K14's own product tile kernels (any version of the port): the first launch
+# of one in a call is in_proj, the second out_proj.
+PRODUCT_TILES = ("gemm_nt_kernel", "gemm_nt_bf16_kernel", "gemm_nt_wide_kernel")
+
+
+def pmixer_split(seq) -> dict:
+    """K14's launches as in_proj, span (K12's launches), out_proj and torch's
+    own ops (the dt columns' product and the decay cumsum)."""
+    parts, products = {}, 0
+    for name, ms in seq:
+        if any(t in name for t in PRODUCT_TILES):
+            part = ("in_proj", "out_proj")[min(products, 1)]
+            products += 1
+        elif "ssd_" in name or "conv_silu" in name:
+            part = "span"
+        else:
+            part = "torch ops"
+        parts[part] = parts.get(part, 0.0) + ms
+    return parts
+
+
+def matmul_yardstick(result, label, device):
+    """torch.matmul (TF32 off) at K14's two product shapes, B = 1: event ms
+    (median of 5 x 50) and TFLOP/s."""
+    c = BASE_M2
+    rows = c["batch"] * c["seqlen"]
+    di = c["nheads"] * c["hdim"]
+    zx = 2 * di + 2 * c["ngroups"] * c["d_state"]
+    g = torch.Generator().manual_seed(5)
+    result["matmul"] = {}
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for name, (m, k, n) in (("in_proj", (rows, c["embed"], zx)),
+                                ("out_proj", (rows, di, c["embed"]))):
+            a = torch.randn((m, k), generator=g).to(device).to(dtype)
+            w = torch.randn((n, k), generator=g).to(device).to(dtype)
+            ms = statistics.median(event_ms(lambda: torch.matmul(a, w.t())) for _ in range(5))
+            tf = 2 * m * n * k / ms / 1e9
+            result["matmul"][f"{name} {tag}"] = {"ms": ms, "tflops": tf, "mnk": [m, n, k]}
+            print(f"{label} torch.matmul {name} {tag} ({m} x {k} by {k} x {n}): {ms:.4f} ms, "
+                  f"{tf:.1f} TFLOP/s")
+
+
 def measure_m2(result, label, device):
     from videomamba_tpu_torch.models.presets import videomamba_base_m2
     from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12
@@ -221,8 +297,15 @@ def measure_m2(result, label, device):
     for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
         mixer, pmixer = ssd_inputs(device, dtype)
         time_kernel(result, label, f"ssd_mixer {tag}", k12.ssd_mixer, mixer)
-        time_kernel(result, label, f"ssd_pmixer {tag}", k14.ssd_pmixer, pmixer)
+        name = f"ssd_pmixer {tag}"
+        time_kernel(result, label, name, k14.ssd_pmixer, pmixer)
+        seq = launch_sequence(lambda: k14.ssd_pmixer(**pmixer))
+        entry = result["kernels"][name]
+        entry["parts_ms"] = pmixer_split(seq)
+        entry["sequence_ms"] = [[n[:60], ms] for n, ms in seq]
+        print("    parts: " + ", ".join(f"{k} {v:.4f}" for k, v in entry["parts_ms"].items()))
         del mixer, pmixer
+    matmul_yardstick(result, label, device)
 
     g = torch.Generator().manual_seed(0)
     m2 = videomamba_base_m2(pool_type="avg", device=device, generator=g).eval()
@@ -259,6 +342,52 @@ def measure_m1(result, label, device):
             ("clip", lambda: model(clip)),
             ("first_chunk",
              lambda: StreamingSession(model, batch_size=1).process(clip[:, :, :4]))])
+
+
+# Parts of K13's span, by kernel-name fragment (first match wins).
+K13_PARTS = (("conv_silu", "conv recompute"), ("epilogue_bwd", "epilogue"),
+             ("ssd_cb", "C B^T tiles"), ("dhin", "dh_in"), ("state_pass", "reverse pass"),
+             ("kside", "k-side tiles"), ("qside", "q-side tiles"),
+             ("group_sum", "group sum"), ("dsilu", "dsilu"), ("conv_", "conv backward"))
+
+
+def measure_m2bwd(result, label, device):
+    from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12
+    from videomamba_tpu_torch.ops.kernels import ssd_mixer_bwd as k13
+    from videomamba_tpu_torch.ops.ssd import _prepare_dt
+
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for bsz in (1, 4):
+            cfg = dict(BASE_M2, batch=bsz)
+            mixer, _ = ssd_inputs(device, dtype, cfg=cfg)
+            h, p, gr, n = cfg["nheads"], cfg["hdim"], cfg["ngroups"], cfg["d_state"]
+            di, cd = h * p, h * p + 2 * gr * n
+            zx = mixer["zxbcdt"]
+            shape = dict(chunk_size=cfg["chunk"], nheads=h, hdim=p, ngroups=gr, d_state=n)
+            core = dict(zx=zx, dt_p=_prepare_dt(zx[..., di + cd:], mixer["dt_bias"], True),
+                        A=mixer["A"], conv_weight=mixer["conv_weight"],
+                        conv_bias=mixer["conv_bias"], D=mixer["D"],
+                        initial_state=mixer["initial_state"], conv_state=mixer["conv_state"],
+                        norm_weight=mixer["norm_weight"], norm_eps=1e-5, **shape)
+            *_, hins, yd = k12.ssd_mixer_core(**core, checkpoints=True)
+            g = torch.Generator().manual_seed(29)
+            kw = dict(core, hins=hins, yd=yd,
+                      dout=torch.randn((bsz, cfg["seqlen"], di), generator=g).to(device)
+                      .to(dtype),
+                      dhlast=0.5 * torch.randn((bsz, h, p, n), generator=g).to(device))
+            del kw["initial_state"]
+            name = f"ssd_mixer_bwd {tag} B={bsz}"
+            time_kernel(result, label, name, k13.ssd_mixer_bwd, kw)
+            entry = result["kernels"][name]
+            parts = {}
+            for lname, ms in entry["launches_ms"].items():
+                part = next((pt for frag, pt in K13_PARTS if frag in lname),
+                            "torch ops and memsets")
+                parts[part] = parts.get(part, 0.0) + ms
+            entry["parts_ms"] = parts
+            print("    parts: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+            del mixer, core, kw, hins, yd
+            torch.cuda.empty_cache()
 
 
 # Parts of K6's and K7's span, by kernel-name fragment (first match wins).
@@ -453,7 +582,7 @@ def mma_crossover(result, label, model, k9, batches=(4, 8, 16, 32, 80)):
 def main() -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("m2", "m1", "m1bwd", "decode"), default="m2")
+    ap.add_argument("--model", choices=("m2", "m2bwd", "m1", "m1bwd", "decode"), default="m2")
     ap.add_argument("--root", default=here, help="checkout to import the port from")
     ap.add_argument("--label", default="this")
     ap.add_argument("--out", default=None, help="file for the JSON object")
@@ -495,7 +624,7 @@ def main() -> int:
 
     with torch.inference_mode():
         measure = {"m1": measure_m1, "m1bwd": measure_m1bwd, "m2": measure_m2,
-                   "decode": measure_decode}[args.model]
+                   "m2bwd": measure_m2bwd, "decode": measure_decode}[args.model]
         measure(result, args.label, device)
     line = json.dumps(result)
     if args.out:

@@ -37,6 +37,7 @@ GROUPS = (
     ("ssd_bwd_qside", "SSD reverse walk, output-row tiles (K13 / K11)"),
     ("ssd_bwd_", "SSD reverse walk, chunk dh, pass, group sums (K13 / K11)"),
     ("ssd_epilogue_bwd", "SSD gate and norm backward (K13)"),
+    ("ssd_cb_kernel", "SSD C B^T tiles, once a group (K12 / K13)"),
     ("ssd_chunk_out", "SSD chunk outputs (K12)"),
     ("ssd_chunk_state", "SSD chunk states and pass (K12)"),
     ("ssd_state_pass", "SSD chunk states and pass (K12)"),
@@ -46,6 +47,7 @@ GROUPS = (
     ("scan_bwd_kernel", "reverse walk (K5)"),
     ("split_", "forward walk, split over time (K3 / K4)"),
     ("scan_walk_kernel", "forward walk (K1)"),
+    ("gemm_nt_wide", "K14 fp32 product tiles"),
     ("gemm_nt", "K3/K6 recompute product tiles"),
     ("gemm_nn", "K6/K7 cotangent product tiles"),
     ("mma_nn", "K6/K7 cotangent product tiles"),

@@ -911,6 +911,17 @@ SSD_CASES = {
     "p256_fp32": (torch.float32, 1, 300, 6, 256, 1, 64, 128, 256, True, True),
     "n256_bf16": (torch.bfloat16, 1, 300, 8, 64, 1, 256, 128, 256, True, True),
     "p256_n256_fp32": (torch.float32, 1, 200, 4, 256, 1, 256, 128, 256, True, True),
+    # Base widths with 4 groups (C B^T shared by 6 heads each), Base m2 at
+    # B = 4; rows, head dim and in_proj / E widths that are no multiples of
+    # the wide fp32 product tile (64 x 64) or of the 64-wide slabs,
+    # and an E that is no multiple of 4 (its in_proj takes gemm_nt)
+    "base_g4_fp32": (torch.float32, 1, 1569, 24, 64, 4, 64, 128, 768, True, True),
+    "base_g4_bf16": (torch.bfloat16, 1, 1569, 24, 64, 4, 64, 128, 768, True, True),
+    "base_m2_b4_fp32": (torch.float32, 4, 1569, 24, 64, 1, 64, 128, 768, True, True),
+    "base_m2_b4_bf16": (torch.bfloat16, 4, 1569, 24, 64, 1, 64, 128, 768, True, True),
+    "ragged_tiles_fp32": (torch.float32, 1, 300, 6, 20, 1, 16, 64, 200, True, True),
+    "ragged_tiles_bf16": (torch.bfloat16, 1, 300, 6, 20, 1, 16, 64, 200, True, True),
+    "odd_width_fp32": (torch.float32, 2, 77, 4, 12, 2, 8, 24, 130, True, True),
 }
 
 
@@ -918,7 +929,8 @@ SSD_CASES = {
 @pytest.mark.parametrize("kind", ["ssd_mixer", "ssd_pmixer"])
 def test_ssd_kernels_match_plain(dev, kind, case):
     """K12 and K14 against their plain versions: the output (the input
-    dtype) and h_last (fp32), each launch counted."""
+    dtype) and h_last (fp32), each launch counted; a second call gives
+    bit-identical results."""
     from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12
     from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14
 
@@ -935,8 +947,10 @@ def test_ssd_kernels_match_plain(dev, kind, case):
         kw.update(hidden=hidden, in_proj_w=in_w, out_proj_w=out_w)
     before = fn.launches
     out, h_last = fn(**kw)
+    again = fn(**kw)
     torch.cuda.synchronize()
-    assert fn.launches == before + 1
+    assert fn.launches == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(h_last, again[1])
     ref, ref_h = plain(**kw)
     tol = TOL if dtype == torch.float32 else BF16_TOL
     assert out.dtype == ref.dtype == dtype and h_last.dtype == torch.float32
@@ -1155,7 +1169,8 @@ BWD_BF16_TOL = 2e-2
 SSD_BWD_CASES = {k: SSD_CASES[k] for k in (
     "base_m2_fp32", "base_m2_bf16", "ragged_two_groups", "no_norm_no_state_bf16",
     "one_token", "base_chunk256_fp32", "base_dstate128_bf16", "chunk100_two_groups",
-    "p256_n256_fp32")}
+    "p256_n256_fp32", "base_g4_fp32", "base_g4_bf16", "base_m2_b4_fp32", "base_m2_b4_bf16",
+    "ragged_tiles_fp32", "ragged_tiles_bf16", "odd_width_fp32")}
 
 
 def _close(got, want, tol, names):

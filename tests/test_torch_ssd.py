@@ -272,3 +272,46 @@ def test_kernel_shape_gate():
         h = 2 * e // 64
         assert k14.pmixer_route_ok(e, h, 64, 1, 64, 4) == ok
         assert k14.pmixer_route_ok(e, h, 64, 1, 64, 2) == ok
+
+
+@pytest.mark.parametrize("bsz,ngroups,chunk,seqlen", [
+    (1, 1, 128, 1569), (4, 1, 128, 1569), (1, 4, 128, 1569), (2, 2, 100, 250), (1, 1, 256, 300)])
+def test_cb_scratch_and_chunk_smem(bsz, ngroups, chunk, seqlen):
+    """The C B^T scratch (B, nc, G, Q, Q) fp32 that K12's and K13's tile
+    launches share, allocated by the wrappers (3.4 MB at Base m2, B = 4),
+    and the chunk kernels' shared-memory gate: K13's tile block at fp32,
+    83,968 + 8 Q bytes, which takes every chunk below 18,560."""
+    lp = -(-seqlen // chunk) * chunk
+    elems = k12.cb_scratch_elems(bsz, lp, chunk, ngroups)
+    assert elems == bsz * (lp // chunk) * ngroups * chunk * chunk
+    if (bsz, ngroups, chunk) == (4, 1, 128):
+        assert elems * 4 == 3_407_872
+    zx = torch.zeros((bsz, seqlen, 2 * 64 + 2 * ngroups * 16 + 4))
+    ops = k12.core_operands("ssd_mixer", zx, torch.full((bsz, seqlen, 4), 0.1),
+                            -torch.ones(4), torch.zeros((64 + 2 * ngroups * 16, 4)), None,
+                            torch.ones(4), None, None, None, chunk, 4, 16, ngroups, 16, seqlen)
+    assert ops["cb"].numel() == elems and ops["cb"].dtype == torch.float32
+    assert k12.chunk_smem_bytes(chunk) == 83_968 + 8 * chunk
+    assert k12.ssd_kernel_supported(24, 64, 1, 64, 18_560)
+    assert not k12.ssd_kernel_supported(24, 64, 1, 64, 18_561)
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 128, 256, 512])
+def test_kernel_gates_take_every_jax_shape(chunk, monkeypatch):
+    """Every shape the JAX package's kernels take (pallas_ssd_supported in
+    interpret mode, the CPU tests' mode, which takes more chunks than the
+    TPU) passes the Hopper chunk kernels' gate, and the projected-mixer
+    route agrees with the JAX package's ssd_pmixer_supported at both weight
+    widths."""
+    from videomamba_tpu.ops.pallas.ssd_block import ssd_pmixer_supported
+    from videomamba_tpu.ops.pallas.ssd_scan import pallas_ssd_supported
+
+    monkeypatch.setenv("VIDEOMAMBA_PALLAS_INTERPRET", "1")
+    for h, p, g, n in ((24, 64, 1, 64), (24, 64, 4, 64), (8, 256, 1, 256), (6, 256, 2, 128),
+                       (8, 32, 2, 16), (16, 8, 8, 8), (12, 512, 3, 512)):
+        assert pallas_ssd_supported(h, p, g, n, chunk)
+        assert k12.ssd_kernel_supported(h, p, g, n, chunk)
+        for e in (256, 384, 768, 192, 576):
+            for wb in (2, 4):
+                if ssd_pmixer_supported(e, h, p, g, n, chunk, wb):
+                    assert k14.pmixer_route_ok(e, h, p, g, n, wb)

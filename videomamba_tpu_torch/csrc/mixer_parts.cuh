@@ -12,12 +12,14 @@
 //   what preferred_element_type=f32 computes, up to the order of the sums.
 //
 // The fp32 tile is single-stage (load a K slice to shared memory, sync,
-// multiply). The bf16 tile (mma_tile, which the backward's NN and TN
-// products in mixer_bwd.cuh share, with their own operand layouts) double-
-// buffers shared memory: each thread loads the next K slice into registers
-// (16-byte loads where the operands are aligned) while the warps multiply
-// the current one, so the loads' latency is hidden behind the mma. A TMA /
-// wgmma design is later work.
+// multiply); K14's long products take gemm_nt_wide's outer-product tile,
+// its K slices double-buffered through registers. The bf16 tile (mma_tile,
+// which the backward's NN and TN products in mixer_bwd.cuh and the SSD
+// slab product in ssd_core.cuh share through mma_frag_a / mma_frag_b, with
+// their own operand layouts) double-buffers shared memory: each thread
+// loads the next K slice into registers (16-byte loads where the operands
+// are aligned) while the warps multiply the current one, so the loads'
+// latency is hidden behind the mma. A TMA / wgmma design is later work.
 #pragma once
 
 #include <stdint.h>
@@ -130,6 +132,130 @@ inline cudaError_t gemm_nt(const float* A, long long lda, const float* Wt,
   return cudaGetLastError();
 }
 
+// The wide fp32 NT tile, for the long products gemm_nt's 64 x 64
+// single-stage tile runs at about a third of the FMA rate (K14's in_proj
+// and out_proj): a 64 x 64 block tile of 128 threads as 8 x 16, each 8 x 4
+// outputs, rows 4 ty + [0, 4) and 32 + 4 ty + [0, 4), columns 4 tx + [0, 4).
+// K slices of kWideBK are staged contraction-major (As[k][m], Ws[k][n],
+// rows padded by 4 floats), double-buffered through registers: each
+// thread's 16-byte loads of the next slice are in flight while the block
+// multiplies the current one (cp.async cannot transpose a row-major operand
+// into this layout). A step of k is an outer product: three float4 shared
+// loads (A's a broadcast, W's conflict-free) for 32 independent FMAs, where
+// gemm_nt issues eight scalar loads for 16. Four blocks an SM (at most 128
+// registers a thread); at VideoMamba-Base-m2, B = 1, in_proj launches 25 x
+// 50 blocks and out_proj 25 x 12. Every output sums over k in order, as
+// gemm_nt's do, so the two tiles give bit-identical results.
+constexpr int kWideBM = 64;
+constexpr int kWideBN = 64;
+constexpr int kWideBK = 16;
+constexpr int kWideThreads = 128;
+
+static __global__ void __launch_bounds__(kWideThreads, 4)
+    gemm_nt_wide_kernel(const float* __restrict__ A, long long lda,
+                        const float* __restrict__ Wt, long long ldw,
+                        float* __restrict__ C, long long ldc, int M, int N, int K) {
+  constexpr int LA = kWideBM + 4, LW = kWideBN + 4;
+  __shared__ __align__(16) float As[2][kWideBK * LA];  // [k][m]
+  __shared__ __align__(16) float Ws[2][kWideBK * LW];  // [k][n]
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const long long m0 = (long long)blockIdx.y * kWideBM;
+  const long long n0 = (long long)blockIdx.x * kWideBN;
+  // Each thread loads 4 consecutive k of rows r0 and r0 + 32 of A and of Wt
+  // a slice; rows past M or N, and k past K, are zero.
+  const int r0 = threadIdx.x / 4, kc = (threadIdx.x % 4) * 4;
+  const float* pa[2];
+  const float* pw[2];
+  bool oka[2], okw[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long m = m0 + r0 + 32 * h, n = n0 + r0 + 32 * h;
+    oka[h] = m < M;
+    okw[h] = n < N;
+    pa[h] = A + (oka[h] ? m : 0) * lda + kc;
+    pw[h] = Wt + (okw[h] ? n : 0) * ldw + kc;
+  }
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 ra[2], rw[2];
+  auto load = [&](int k0) {
+    const bool kin = k0 + kc < K;  // K % 4 == 0: a float4 is all in or all out
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ra[h] = oka[h] && kin ? __ldg(reinterpret_cast<const float4*>(pa[h] + k0)) : zero;
+      rw[h] = okw[h] && kin ? __ldg(reinterpret_cast<const float4*>(pw[h] + k0)) : zero;
+    }
+  };
+  auto store = [&](int buf) {
+    float* as = As[buf] + kc * LA + r0;
+    float* ws = Ws[buf] + kc * LW + r0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      as[32 * h] = ra[h].x;
+      as[LA + 32 * h] = ra[h].y;
+      as[2 * LA + 32 * h] = ra[h].z;
+      as[3 * LA + 32 * h] = ra[h].w;
+      ws[32 * h] = rw[h].x;
+      ws[LW + 32 * h] = rw[h].y;
+      ws[2 * LW + 32 * h] = rw[h].z;
+      ws[3 * LW + 32 * h] = rw[h].w;
+    }
+  };
+  float acc[8][4] = {};
+  load(0);
+  store(0);
+  __syncthreads();
+  int buf = 0;
+  for (int k0 = 0; k0 < K; k0 += kWideBK) {
+    const bool more = k0 + kWideBK < K;
+    if (more) load(k0 + kWideBK);  // in flight while this slice is multiplied
+    const float* as = As[buf];
+    const float* ws = Ws[buf];
+#pragma unroll
+    for (int kk = 0; kk < kWideBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + kk * LA + 4 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + kk * LA + 32 + 4 * ty);
+      const float4 w4 = *reinterpret_cast<const float4*>(ws + kk * LW + 4 * tx);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * wv[j];
+    }
+    // The other buffer was last read before the previous barrier.
+    if (more) store(buf ^ 1);
+    __syncthreads();
+    buf ^= 1;
+  }
+  const long long n = n0 + 4 * tx;
+  const bool vec = ldc % 4 == 0 && ((uintptr_t)C & 15u) == 0 && n + 3 < N;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const long long m = m0 + (i / 4) * 32 + 4 * ty + i % 4;
+    if (m >= M) continue;
+    float* c = C + m * ldc + n;
+    if (vec) {
+      *reinterpret_cast<float4*>(c) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n + j < N) c[j] = acc[i][j];
+    }
+  }
+}
+
+// C = A Wt^T: on the wide tile where its 16-byte loads can run (A and Wt
+// 16-byte aligned, lda, ldw and K multiples of 4), else on gemm_nt.
+inline cudaError_t gemm_nt_wide(const float* A, long long lda, const float* Wt, long long ldw,
+                                float* C, long long ldc, int M, int N, int K,
+                                cudaStream_t stream) {
+  if (lda % 4 || ldw % 4 || K % 4 || ((uintptr_t)A & 15u) || ((uintptr_t)Wt & 15u))
+    return gemm_nt(A, lda, Wt, ldw, C, ldc, M, N, K, stream);
+  const dim3 grid((N + kWideBN - 1) / kWideBN, (M + kWideBM - 1) / kWideBM);
+  gemm_nt_wide_kernel<<<grid, kWideThreads, 0, stream>>>(A, lda, Wt, ldw, C, ldc, M, N, K);
+  return cudaGetLastError();
+}
+
 constexpr int kMmaBM = 64;   // block tile rows (M)
 constexpr int kMmaBN = 64;   // block tile columns (N)
 constexpr int kMmaBK = 32;   // contraction depth per shared-memory stage
@@ -226,6 +352,51 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
                : "memory");
 }
 
+// A's fragment of the 16 x 16 tile at rows [m, m + 16), contraction [ks, ks +
+// 16), from shared memory staged with rows of ld bf16: transposed (kAT,
+// rows of the contraction) through ldmatrix .trans, else k-major.
+template <bool kAT>
+__device__ __forceinline__ void mma_frag_a(uint32_t (&a)[4], const bf16* S, int ld, int ks,
+                                           int m) {
+  const int lane = threadIdx.x % 32;
+  if constexpr (kAT) {
+    // Matrices (rows m, columns k): [0, 8) x [0, 8), [8, 16) x [0, 8),
+    // [0, 8) x [8, 16), [8, 16) x [8, 16); lane l addresses row l % 8
+    // of matrix l / 8.
+    ldsm_x4_trans(a, S + (ks + (lane / 16) * 8 + lane % 8) * ld + m + ((lane / 8) % 2) * 8);
+  } else {
+    const bf16* r0 = S + (m + lane / 4) * ld + ks + 2 * (lane % 4);
+    a[0] = ld_pair(r0);
+    a[1] = ld_pair(r0 + 8 * ld);
+    a[2] = ld_pair(r0 + 8);
+    a[3] = ld_pair(r0 + 8 * ld + 8);
+  }
+}
+
+// B's fragments of the two 16 x 8 tiles at columns [n, n + 8) and [n + 8,
+// n + 16), contraction [ks, ks + 16), staged as kBT says (as mma_frag_a).
+template <bool kBT>
+__device__ __forceinline__ void mma_frag_b(uint32_t (&b0)[2], uint32_t (&b1)[2], const bf16* S,
+                                           int ld, int ks, int n) {
+  const int lane = threadIdx.x % 32;
+  if constexpr (kBT) {
+    // Matrices (rows k, columns n): [0, 8) and [8, 16) of tile n, then of
+    // tile n + 8.
+    uint32_t r[4];
+    ldsm_x4_trans(r, S + (ks + ((lane / 8) % 2) * 8 + lane % 8) * ld + n + (lane / 16) * 8);
+    b0[0] = r[0];
+    b0[1] = r[1];
+    b1[0] = r[2];
+    b1[1] = r[3];
+  } else {
+    const bf16* c0 = S + (n + lane / 4) * ld + ks + 2 * (lane % 4);
+    b0[0] = ld_pair(c0);
+    b0[1] = ld_pair(c0 + 8);
+    b1[0] = ld_pair(c0 + 8 * ld);
+    b1[1] = ld_pair(c0 + 8 * ld + 8);
+  }
+}
+
 template <typename T, bool kT, bool kVec>
 __device__ __forceinline__ void mma_load(uint4 (&r)[2], const T* __restrict__ P, long long ld,
                                          long long o0, int O, long long k0, int kend) {
@@ -265,11 +436,8 @@ __device__ __forceinline__ void mma_tile(const TA* __restrict__ A, long long lda
   __shared__ __align__(16) bf16 As[2][kARows * kARow];
   __shared__ __align__(16) bf16 Bs[2][kBRows * kBRow];
   const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
   const int wm = (warp / 2) * 32;
   const int wn = (warp % 2) * 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
 
   uint4 ra[2];
   uint4 rb[2];
@@ -294,42 +462,10 @@ __device__ __forceinline__ void mma_tile(const TA* __restrict__ A, long long lda
       uint32_t a[2][4];
       uint32_t b[4][2];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        if constexpr (kAT) {
-          // Matrices (rows m, columns k): [0, 8) x [0, 8), [8, 16) x [0, 8),
-          // [0, 8) x [8, 16), [8, 16) x [8, 16); lane l addresses row l % 8
-          // of matrix l / 8.
-          ldsm_x4_trans(a[mi], &As[buf][(ks + (lane / 16) * 8 + lane % 8) * kARow + wm +
-                                         mi * 16 + ((lane / 8) % 2) * 8]);
-        } else {
-          const bf16* r0 = &As[buf][(wm + mi * 16 + g) * kARow + ks + 2 * t];
-          a[mi][0] = ld_pair(r0);
-          a[mi][1] = ld_pair(r0 + 8 * kARow);
-          a[mi][2] = ld_pair(r0 + 8);
-          a[mi][3] = ld_pair(r0 + 8 * kARow + 8);
-        }
-      }
+      for (int mi = 0; mi < 2; ++mi) mma_frag_a<kAT>(a[mi], As[buf], kARow, ks, wm + mi * 16);
 #pragma unroll
-      for (int ni = 0; ni < 4; ni += 2) {
-        if constexpr (kBT) {
-          // Matrices (rows k, columns n): [0, 8) and [8, 16) of tile ni, then
-          // of tile ni + 1.
-          uint32_t r[4];
-          ldsm_x4_trans(r, &Bs[buf][(ks + ((lane / 8) % 2) * 8 + lane % 8) * kBRow + wn +
-                                    (ni + lane / 16) * 8]);
-          b[ni][0] = r[0];
-          b[ni][1] = r[1];
-          b[ni + 1][0] = r[2];
-          b[ni + 1][1] = r[3];
-        } else {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const bf16* c0 = &Bs[buf][(wn + (ni + j) * 8 + g) * kBRow + ks + 2 * t];
-            b[ni + j][0] = ld_pair(c0);
-            b[ni + j][1] = ld_pair(c0 + 8);
-          }
-        }
-      }
+      for (int ni = 0; ni < 4; ni += 2)
+        mma_frag_b<kBT>(b[ni], b[ni + 1], Bs[buf], kBRow, ks, wn + ni * 8);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll

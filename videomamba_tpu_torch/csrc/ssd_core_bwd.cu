@@ -27,39 +27,52 @@
 //
 // Design. The TPU walks the chunks in reverse with g in VMEM. The walk is
 // split by state passing, as the forward is:
-//   1. per (chunk, head, batch): the chunk's own dh_in = rnd(dy)^T rnd(rnd(C)
+//   1. per (causal 64 x 64 tile pair of a chunk, group, batch): C B^T into
+//      scratch (cb), K12's launch 4 (ssd_mixer.cu). It depends on the group
+//      only, so the H / G heads of a group share it (24 heads at
+//      VideoMamba-Base-m2), and it sums over n in the order the per-head
+//      tiles did, so at fp32 its values are theirs;
+//   2. per (chunk, head, batch): the chunk's own dh_in = rnd(dy)^T rnd(rnd(C)
 //      e^s), which does not depend on g;
-//   2. per (head, batch, 256 state elements): the short reverse pass
+//   3. per (head, batch, 256 state elements): the short reverse pass
 //      g_{c-1} = dh_in,c + e^s_last,c g_c, leaving each chunk's g in place of
 //      its dh_in, and dh0;
-//   3. per (64 input rows k of a chunk, head, batch): dx, the head's dB, ddt
+//   4. per (64 input rows k of a chunk, head, batch): dx, the head's dB, ddt
 //      and the k-indexed ds, walking the 64-row output slabs q >= k;
-//   4. per (64 output rows q, head, batch): the head's dC and the q-indexed
+//   5. per (64 output rows q, head, batch): the head's dC and the q-indexed
 //      ds, walking the input slabs k <= q;
-//   5. per (row, group, state): dB and dC summed over the group's heads.
-// Launches 3 and 4 both rebuild the causal tiles C B^T and dM, so no block
-// sums into another's rows: there are no atomics, and repeated runs give
-// bit-identical gradients. Every tile is 64 x 64, staged from the P and N
-// axes 64 at a time, so shared memory (82 KB a block) does not grow with
-// the chunk, the head dim or the state.
+//   6. per (row, group, state): dB and dC summed over the group's heads.
+// Launches 4 and 5 both build dM (per head: it is cheaper to rebuild on the
+// slab product than to store, (B, nc, H, Q, Q) fp32 is 82 MB at Base-m2 B =
+// 4) and read C B^T from cb, so no block sums into another's rows: there
+// are no atomics, and repeated runs give bit-identical gradients. Every
+// product is ssd_core.cuh's 64 x 64 slab product, staged from the P and N
+// axes 64 at a time, so shared memory (83 KB a block at fp32, 56 KB at
+// bf16, chunk 128) grows with neither the head dim nor the state: fp32 FMA
+// at fp32 (no TF32: the JAX package's HIGHEST), bf16 mma.sync with fp32
+// sums at bf16 (every operand is already rounded to bf16, so the products
+// are exact and only the order of the fp32 sums is the tile's).
 //
-// What bounds it on the H100: operations, about 4x the forward's tile
-// products (C B^T and dM twice, M^T dy, dcb B, dcb^T C, the state terms):
-// about 4-5 GFLOP at VideoMamba-Base-m2, B = 1, on fp32 FMA tiles.
+// What bounds it on the H100: operations, about 3.5x the forward's tile
+// products (dM twice, M^T dy, dcb B, dcb^T C, the state terms; C B^T once a
+// group): about 3.5 GFLOP at VideoMamba-Base-m2, B = 1.
 #include "ssd_core_bwd.cuh"
 
 namespace {
 
 using vmt::bf16;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = vmt::kSlabThreads;  // the slab product's 256
 constexpr int kS = vmt::kSsdSlab;  // rows of a slab; width of a P or N tile
 constexpr int kT = kS * kS;
-constexpr int kGrp = kS / 4 + 1;  // row stride of the per-row partial sums
 
-using vmt::fma4x4;
-using vmt::ld4;
+using vmt::AsIs;
+using vmt::kSlabOut;
 using vmt::rnd;
+using vmt::slab_each;
+using vmt::slab_mma;
+using vmt::slab_stage;
+using vmt::to_slab;
 
 // The block's chunk, head and batch row, and the offsets every launch uses.
 struct Chunk {
@@ -82,60 +95,61 @@ struct Chunk {
     xb = a.xbc + ((long long)b * a.L + t0) * CD;
     dyb = a.dy + ((long long)b * a.L + t0) * Di;
   }
-  __device__ float x(int t, int p, int P) const { return xb[(long long)t * CD + h * P + p]; }
-  __device__ float B(int t, int n, int N) const { return xb[(long long)t * CD + Di + g * N + n]; }
-  __device__ float C(int t, int n, int N) const {
-    return xb[(long long)t * CD + Di + GN + g * N + n];
+  // Row t's x (head-dim column p), B and C (state n) and dy, for staging.
+  __device__ const float* x(int t, int p, int P) const {
+    return xb + (long long)t * CD + h * P + p;
   }
-  __device__ float dy(int t, int p, int P) const { return dyb[(long long)t * Di + h * P + p]; }
+  __device__ const float* B(int t, int n, int N) const {
+    return xb + (long long)t * CD + Di + g * N + n;
+  }
+  __device__ const float* C(int t, int n, int N) const {
+    return xb + (long long)t * CD + Di + GN + g * N + n;
+  }
+  __device__ const float* dy(int t, int p, int P) const {
+    return dyb + (long long)t * Di + h * P + p;
+  }
   __device__ long long scal(int t, int H) const { return ((long long)b * Lp + t0 + t) * H + h; }
+  // The chunk's C B^T (Q, Q) for the head's group.
+  __device__ const float* cb(const vmt::SsdBwdArgs& a) const {
+    return a.cb + (((long long)b * nc + c) * a.G + g) * a.Q * a.Q;
+  }
 };
 
-// Launch 1: g[b, c, h] = sum_q rnd(dy_q)^T rnd(rnd(C_q) e^s_q), grid (nc, H,
-// B), one 64 x 64 (P, N) tile at a time, one 4 x 4 tile a thread.
+// Launch 2: g[b, c, h] = sum_q rnd(dy_q)^T rnd(rnd(C_q) e^s_q), grid (nc, H,
+// B), one 64 x 64 (P, N) tile at a time, the chunk's rows 64 at a time.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ssd_bwd_dhin_kernel(vmt::SsdBwdArgs a) {
-  __shared__ __align__(16) float dys[kT];  // [q][p]
-  __shared__ __align__(16) float cws[kT];  // [q][n]
+  using St = vmt::SlabT<T>;
+  __shared__ __align__(16) St dys[vmt::slab_elems<T>()];  // [q][p]
+  __shared__ __align__(16) St cws[vmt::slab_elems<T>()];  // [q][n]
+  __shared__ float es[kS];                                // [q] e^s
   const Chunk k(a, blockIdx.x, gridDim.x);
   const int P = a.P, N = a.N;
   float* G = a.g + (((long long)k.b * k.nc + k.c) * a.H + k.h) * P * N;
-  const int p0 = (threadIdx.x / 16) * 4, n0 = (threadIdx.x % 16) * 4;
   for (int p_lo = 0; p_lo < P; p_lo += kS) {
     const int pw = min(kS, P - p_lo);
     for (int n_lo = 0; n_lo < N; n_lo += kS) {
       const int nw = min(kS, N - n_lo);
-      float acc[4][4] = {};
+      float acc[kSlabOut] = {};
       for (int q_lo = 0; q_lo < k.valid; q_lo += kS) {
         const int qn = min(kS, k.valid - q_lo);
-        for (int i = threadIdx.x; i < kT; i += kThreads) {
-          const int q = i / kS, j = i % kS;
-          float dv = 0.f, cv = 0.f;
-          if (q < qn) {
-            const int t = q_lo + q;
-            if (j < pw) dv = rnd<T>(k.dy(t, p_lo + j, P));
-            if (j < nw) cv = rnd<T>(rnd<T>(k.C(t, n_lo + j, N)) * expf(a.s[k.scal(t, a.H)]));
-          }
-          dys[i] = dv;
-          cws[i] = cv;
-        }
+        if (threadIdx.x < qn) es[threadIdx.x] = expf(a.s[k.scal(q_lo + threadIdx.x, a.H)]);
         __syncthreads();
-        if (p0 < pw && n0 < nw)
-          for (int q = 0; q < qn; ++q)
-            fma4x4(acc, ld4(dys + q * kS + p0), ld4(cws + q * kS + n0));
+        slab_stage<T, false>(dys, k.dy(q_lo, p_lo, P), k.Di, qn, pw, AsIs());
+        slab_stage<T, false>(cws, k.C(q_lo, n_lo, N), k.CD, qn, nw,
+                             [&](int r, int, float v) { return rnd<T>(v) * es[r]; });
+        __syncthreads();
+        slab_mma<T>(acc, dys, cws, qn);
         __syncthreads();
       }
-      if (p0 < pw && n0 < nw) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) G[(long long)(p_lo + p0 + i) * N + n_lo + n0 + j] = acc[i][j];
-      }
+      slab_each<T>([&](int i, int p, int n) {
+        if (p < pw && n < nw) G[(long long)(p_lo + p) * N + n_lo + n] = acc[i];
+      });
     }
   }
 }
 
-// Launch 2: the reverse pass over chunks, one thread per state element of
+// Launch 3: the reverse pass over chunks, one thread per state element of
 // a (head, batch), grid (H, B, ceil(P N / kThreads)).
 __global__ void __launch_bounds__(kThreads) ssd_bwd_state_pass_kernel(vmt::SsdBwdArgs a,
                                                                       int nc) {
@@ -155,64 +169,42 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_state_pass_kernel(vmt::SsdBw
   a.dh0[((long long)b * H + h) * PN + i] = gr;
 }
 
-// C B^T and dM = rnd(dy) rnd(x)^T for output rows [q_lo, q_lo + 64) and input
-// rows [k_lo, k_lo + 64) of a chunk: this thread's 4 x 4 tile (q0, k0) of
-// each, summed over the N and P axes 64 at a time through s0 and s1.
+// dM = rnd(dy) rnd(x)^T for output rows [q_lo, q_lo + qn) and input rows
+// [k_lo, k_lo + kn) of a chunk, summed over the P axis 64 at a time through
+// the staging tiles sA and sB (left free on return).
 template <typename T>
-__device__ __forceinline__ void causal_tiles(const vmt::SsdBwdArgs& a, const Chunk& k,
-                                             int q_lo, int qn, int k_lo, int kn, int q0,
-                                             int k0, bool live, float* s0, float* s1,
-                                             float (&cb)[4][4], float (&dm)[4][4]) {
-  const int P = a.P, N = a.N;
-  for (int n_lo = 0; n_lo < N; n_lo += kS) {
-    const int nw = min(kS, N - n_lo);
-    for (int i = threadIdx.x; i < kT; i += kThreads) {
-      const int r = i / kS, n = i % kS;
-      s0[n * kS + r] = r < qn && n < nw ? rnd<T>(k.C(q_lo + r, n_lo + n, N)) : 0.f;
-      s1[n * kS + r] = r < kn && n < nw ? rnd<T>(k.B(k_lo + r, n_lo + n, N)) : 0.f;
-    }
+__device__ __forceinline__ void slab_dm(const vmt::SsdBwdArgs& a, const Chunk& k, int q_lo,
+                                        int qn, int k_lo, int kn, vmt::SlabT<T>* sA,
+                                        vmt::SlabT<T>* sB, float (&dm)[kSlabOut]) {
+  for (int p_lo = 0; p_lo < a.P; p_lo += kS) {
+    const int pw = min(kS, a.P - p_lo);
+    slab_stage<T, true>(sA, k.dy(q_lo, p_lo, a.P), k.Di, qn, pw, AsIs());  // [p][q]
+    slab_stage<T, true>(sB, k.x(k_lo, p_lo, a.P), k.CD, kn, pw, AsIs());   // [p][k]
     __syncthreads();
-    if (live)
-      for (int n = 0; n < nw; ++n) fma4x4(cb, ld4(s0 + n * kS + q0), ld4(s1 + n * kS + k0));
-    __syncthreads();
-  }
-  for (int p_lo = 0; p_lo < P; p_lo += kS) {
-    const int pw = min(kS, P - p_lo);
-    for (int i = threadIdx.x; i < kT; i += kThreads) {
-      const int r = i / kS, p = i % kS;
-      s0[p * kS + r] = r < qn && p < pw ? rnd<T>(k.dy(q_lo + r, p_lo + p, P)) : 0.f;
-      s1[p * kS + r] = r < kn && p < pw ? rnd<T>(k.x(k_lo + r, p_lo + p, P)) : 0.f;
-    }
-    __syncthreads();
-    if (live)
-      for (int p = 0; p < pw; ++p) fma4x4(dm, ld4(s0 + p * kS + q0), ld4(s1 + p * kS + k0));
+    slab_mma<T>(dm, sA, sB, pw);
     __syncthreads();
   }
 }
 
-// Shared memory of launches 3 and 4: five 64 x 64 tiles, s and dt of the
-// chunk, and the per-row sums.
-inline size_t side_smem_bytes(int Q) {
-  return sizeof(float) * (5 * (size_t)kT + 2 * (size_t)Q + 4 * kS + (size_t)kS * kGrp);
-}
-
-// Launch 3: per 64 input rows k of a chunk, grid (nc * nks, H, B): dx, the
+// Launch 4: per 64 input rows k of a chunk, grid (nc * nks, H, B): dx, the
 // head's dB, ddt, the k-indexed ds and the slab's part of the last-row ds.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) ssd_bwd_kside_kernel(vmt::SsdBwdArgs a, int nks) {
-  extern __shared__ __align__(16) float sm[];
-  float* s0 = sm;            // staging
-  float* s1 = s0 + kT;       // staging
-  float* Mq = s1 + kT;       // [q][k] M
-  float* Dq = Mq + kT;       // [q][k] dcb
-  float* Tq = Dq + kT;       // [q][k] T
-  float* ss = Tq + kT;       // [Q] s
-  float* dts = ss + a.Q;     // [Q] dt
-  float* colT = dts + a.Q;   // [kS] sum_q T[q, k]
-  float* dwa = colT + kS;    // [kS] dw
-  float* wk = dwa + kS;      // [kS] w
-  float* part = wk + kS;     // [kS][kGrp] per-row partial sums
-  float* red = part + kS * kGrp;  // [kS] dw w
+__global__ void __launch_bounds__(kThreads, 2) ssd_bwd_kside_kernel(vmt::SsdBwdArgs a, int nks) {
+  using St = vmt::SlabT<T>;
+  constexpr int E = vmt::slab_elems<T>(), sld = vmt::slab_ld<T>();
+  extern __shared__ __align__(16) unsigned char smraw[];
+  St* sA = reinterpret_cast<St*>(smraw);  // staging
+  St* sB = sA + E;                        // staging
+  St* Mq = sB + E;                        // [q][k] M
+  St* Dq = Mq + E;                        // [q][k] dcb
+  float* Tq = reinterpret_cast<float*>(Dq + E);  // [q][k] T; then [k][p] rnd(x) R
+  float* ss = Tq + kT;                    // [Q] s
+  float* dts = ss + a.Q;                  // [Q] dt
+  float* colT = dts + a.Q;                // [kS] sum_q T[q, k]
+  float* dwa = colT + kS;                 // [kS] dw
+  float* wk = dwa + kS;                   // [kS] w
+  float* red = wk + kS;                   // [kS] dw w
+  float* ghs = red + kS;                  // [kThreads] partial sums of g h_in
   const Chunk k(a, blockIdx.x / nks, gridDim.x / nks);
   const int ks = blockIdx.x % nks;
   const int P = a.P, N = a.N, H = a.H, Q = a.Q;
@@ -234,28 +226,23 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kside_kernel(vmt::SsdBwdArgs
     wk[threadIdx.x] = threadIdx.x < kn ? dts[t] * expf(s_last - ss[t]) : 0.f;
   }
   const long long row0 = (long long)k.b * a.L + k.t0;  // the chunk's first row
-  const int mq0 = (threadIdx.x % 16) * 4, mk0 = (threadIdx.x / 16) * 4;
+  const float* cbb = k.cb(a);
 
   for (int q_lo = k_lo; q_lo < k.valid; q_lo += kS) {
     const int qn = min(kS, k.valid - q_lo);
     const bool first = q_lo == k_lo;
-    const bool live = q_lo + mq0 + 3 >= k_lo + mk0;
-    float cb[4][4] = {}, dm[4][4] = {};
-    causal_tiles<T>(a, k, q_lo, qn, k_lo, kn, mq0, mk0, live, s0, s1, cb, dm);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int q = q_lo + mq0 + i, kk = k_lo + mk0 + j;
-        const bool ok = kk <= q && q < k.valid && kk < k.valid;
-        const float E = ok ? expf(ss[q] - ss[kk]) : 0.f;
-        const float dtk = ok ? dts[kk] : 0.f;
-        const int o = (mq0 + i) * kS + mk0 + j;
-        Mq[o] = rnd<T>(cb[i][j] * E * dtk);
-        Dq[o] = rnd<T>(dm[i][j] * E * dtk);
-        Tq[o] = dm[i][j] * cb[i][j] * E;
-      }
-    }
+    float dm[kSlabOut] = {};
+    slab_dm<T>(a, k, q_lo, qn, k_lo, kn, sA, sB, dm);
+    slab_each<T>([&](int i, int qq, int kk) {
+      const int q = q_lo + qq, kx = k_lo + kk;
+      const bool ok = kx <= q && q < k.valid && kx < k.valid;
+      const float E_ = ok ? expf(ss[q] - ss[kx]) : 0.f;
+      const float dtk = ok ? dts[kx] : 0.f;
+      const float cbv = ok ? cbb[(long long)q * Q + kx] : 0.f;
+      Mq[qq * sld + kk] = to_slab<St>(cbv * E_ * dtk);
+      Dq[qq * sld + kk] = to_slab<St>(dm[i] * E_ * dtk);
+      Tq[qq * kS + kk] = dm[i] * cbv * E_;
+    });
     __syncthreads();
     if (threadIdx.x < kS) {
       float acc = colT[threadIdx.x];
@@ -265,47 +252,29 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kside_kernel(vmt::SsdBwdArgs
     // dx[k, p] += sum_q M[q, k] rnd(dy[q, p]), one P tile at a time.
     for (int p_lo = 0; p_lo < P; p_lo += kS) {
       const int pw = min(kS, P - p_lo);
-      for (int i = threadIdx.x; i < kT; i += kThreads) {
-        const int q = i / kS, p = i % kS;
-        s0[i] = q < qn && p < pw ? rnd<T>(k.dy(q_lo + q, p_lo + p, P)) : 0.f;
-      }
+      slab_stage<T, false>(sA, k.dy(q_lo, p_lo, P), k.Di, qn, pw, AsIs());  // [q][p]
       __syncthreads();
-      const int tp = pw / 4;
-      if (threadIdx.x < 16 * tp) {
-        const int k0 = (threadIdx.x / tp) * 4, p0 = (threadIdx.x % tp) * 4;
-        float acc[4][4] = {};
-        for (int q = 0; q < qn; ++q) fma4x4(acc, ld4(Mq + q * kS + k0), ld4(s0 + q * kS + p0));
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (k0 + i >= kn) continue;
-          float* o = a.dxbc + (row0 + k_lo + k0 + i) * k.CD + k.h * P + p_lo + p0;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) o[j] = first ? acc[i][j] : o[j] + acc[i][j];
-        }
-      }
+      float acc[kSlabOut] = {};
+      slab_mma<T>(acc, Mq, sA, qn);
+      slab_each<T>([&](int i, int kk, int p) {
+        if (kk >= kn || p >= pw) return;
+        float* o = a.dxbc + (row0 + k_lo + kk) * k.CD + k.h * P + p_lo + p;
+        *o = first ? acc[i] : *o + acc[i];
+      });
       __syncthreads();
     }
     // The head's dB[k, n] += sum_q dcb[q, k] rnd(C[q, n]), one N tile at a time.
     for (int n_lo = 0; n_lo < N; n_lo += kS) {
       const int nw = min(kS, N - n_lo);
-      for (int i = threadIdx.x; i < kT; i += kThreads) {
-        const int q = i / kS, n = i % kS;
-        s0[i] = q < qn && n < nw ? rnd<T>(k.C(q_lo + q, n_lo + n, N)) : 0.f;
-      }
+      slab_stage<T, false>(sA, k.C(q_lo, n_lo, N), k.CD, qn, nw, AsIs());  // [q][n]
       __syncthreads();
-      const int tn = nw / 4;
-      if (threadIdx.x < 16 * tn) {
-        const int k0 = (threadIdx.x / tn) * 4, n0 = (threadIdx.x % tn) * 4;
-        float acc[4][4] = {};
-        for (int q = 0; q < qn; ++q) fma4x4(acc, ld4(Dq + q * kS + k0), ld4(s0 + q * kS + n0));
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (k0 + i >= kn) continue;
-          float* o = a.dbh + ((row0 + k_lo + k0 + i) * H + k.h) * N + n_lo + n0;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) o[j] = first ? acc[i][j] : o[j] + acc[i][j];
-        }
-      }
+      float acc[kSlabOut] = {};
+      slab_mma<T>(acc, Dq, sA, qn);
+      slab_each<T>([&](int i, int kk, int n) {
+        if (kk >= kn || n >= nw) return;
+        float* o = a.dbh + ((row0 + k_lo + kk) * H + k.h) * N + n_lo + n;
+        *o = first ? acc[i] : *o + acc[i];
+      });
       __syncthreads();
     }
   }
@@ -315,44 +284,29 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kside_kernel(vmt::SsdBwdArgs
   const float dsk = a.Dskip ? a.Dskip[k.h] : 0.f;
   for (int p_lo = 0; p_lo < P; p_lo += kS) {
     const int pw = min(kS, P - p_lo);
-    const int tp = pw / 4;
-    const bool mine = threadIdx.x < 16 * tp;
-    const int k0 = mine ? (threadIdx.x / tp) * 4 : 0, p0 = mine ? (threadIdx.x % tp) * 4 : 0;
-    float racc[4][4] = {};
+    float racc[kSlabOut] = {};
     for (int n_lo = 0; n_lo < N; n_lo += kS) {
       const int nw = min(kS, N - n_lo);
-      for (int i = threadIdx.x; i < kT; i += kThreads) {
-        const int r = i / kS, n = i % kS;
-        s0[n * kS + r] = r < kn && n < nw ? rnd<T>(k.B(k_lo + r, n_lo + n, N)) : 0.f;
-        s1[n * kS + r] = r < pw && n < nw ? rnd<T>(G[(long long)(p_lo + r) * N + n_lo + n]) : 0.f;
-      }
+      slab_stage<T, true>(sA, k.B(k_lo, n_lo, N), k.CD, kn, nw, AsIs());        // [n][k]
+      slab_stage<T, true>(sB, G + (long long)p_lo * N + n_lo, N, pw, nw, AsIs());  // [n][p]
       __syncthreads();
-      if (mine)
-        for (int n = 0; n < nw; ++n) fma4x4(racc, ld4(s0 + n * kS + k0), ld4(s1 + n * kS + p0));
+      slab_mma<T>(racc, sA, sB, nw);
       __syncthreads();
     }
-    if (mine) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kk = k0 + i;
-        float acc = 0.f;
-        if (kk < kn) {
-          const long long row = row0 + k_lo + kk;
-          float* o = a.dxbc + row * k.CD + k.h * P + p_lo + p0;
-          const float* dyr = a.dy + row * k.Di + k.h * P + p_lo + p0;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            o[j] = o[j] + wk[kk] * racc[i][j] + dsk * dyr[j];
-            acc += rnd<T>(k.x(k_lo + kk, p_lo + p0 + j, P)) * racc[i][j];
-          }
-        }
-        part[kk * kGrp + p0 / 4] = acc;
+    slab_each<T>([&](int i, int kk, int p) {
+      float v = 0.f;
+      if (kk < kn && p < pw) {
+        const long long row = row0 + k_lo + kk;
+        float* o = a.dxbc + row * k.CD + k.h * P + p_lo + p;
+        *o = *o + wk[kk] * racc[i] + dsk * a.dy[row * k.Di + k.h * P + p_lo + p];
+        v = rnd<T>(*k.x(k_lo + kk, p_lo + p, P)) * racc[i];
       }
-    }
+      Tq[kk * kS + p] = v;
+    });
     __syncthreads();
-    if (threadIdx.x < kS) {
+    if (threadIdx.x < kS) {  // dw's sum over p, in order
       float acc = dwa[threadIdx.x];
-      for (int grp = 0; grp < tp; ++grp) acc += part[threadIdx.x * kGrp + grp];
+      for (int p = 0; p < pw; ++p) acc += Tq[threadIdx.x * kS + p];
       dwa[threadIdx.x] = acc;
     }
     __syncthreads();
@@ -360,32 +314,19 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kside_kernel(vmt::SsdBwdArgs
   // The head's dB[k, n] += sum_p rnd(rnd(x) w)[k, p] rnd(g)[p, n].
   for (int n_lo = 0; n_lo < N; n_lo += kS) {
     const int nw = min(kS, N - n_lo);
-    const int tn = nw / 4;
-    const bool mine = threadIdx.x < 16 * tn;
-    const int k0 = mine ? (threadIdx.x / tn) * 4 : 0, n0 = mine ? (threadIdx.x % tn) * 4 : 0;
-    float bacc[4][4] = {};
+    float bacc[kSlabOut] = {};
     for (int p_lo = 0; p_lo < P; p_lo += kS) {
       const int pw = min(kS, P - p_lo);
-      for (int i = threadIdx.x; i < kT; i += kThreads) {
-        const int r = i / kS, c = i % kS;  // s0[p][k]: r = p; s1[p][n]: r = p
-        s0[c * kS + r] = r < kn && c < pw
-            ? rnd<T>(rnd<T>(k.x(k_lo + r, p_lo + c, P)) * wk[r]) : 0.f;
-        s1[r * kS + c] = r < pw && c < nw ? rnd<T>(G[(long long)(p_lo + r) * N + n_lo + c]) : 0.f;
-      }
+      slab_stage<T, true>(sA, k.x(k_lo, p_lo, P), k.CD, kn, pw,
+                          [&](int r, int, float v) { return rnd<T>(v) * wk[r]; });  // [p][k]
+      slab_stage<T, false>(sB, G + (long long)p_lo * N + n_lo, N, pw, nw, AsIs());  // [p][n]
       __syncthreads();
-      if (mine)
-        for (int p = 0; p < pw; ++p) fma4x4(bacc, ld4(s0 + p * kS + k0), ld4(s1 + p * kS + n0));
+      slab_mma<T>(bacc, sA, sB, pw);
       __syncthreads();
     }
-    if (mine) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (k0 + i >= kn) continue;
-        float* o = a.dbh + ((row0 + k_lo + k0 + i) * H + k.h) * N + n_lo + n0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[j] += bacc[i][j];
-      }
-    }
+    slab_each<T>([&](int i, int kk, int n) {
+      if (kk < kn && n < nw) a.dbh[((row0 + k_lo + kk) * H + k.h) * N + n_lo + n] += bacc[i];
+    });
   }
   // Per row: ddt and the k-indexed ds; the slab's part of the last-row ds.
   if (threadIdx.x < kS) {
@@ -400,7 +341,6 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kside_kernel(vmt::SsdBwdArgs
     }
     red[r] = v;
   }
-  __shared__ float ghs[kThreads];
   float gh = 0.f;
   if (ks == 0) {  // e^s_last sum(g h_in), once a chunk
     const float* hin = a.hins + (((long long)k.b * k.nc + k.c) * H + k.h) * P * N;
@@ -420,20 +360,21 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_kside_kernel(vmt::SsdBwdArgs
   }
 }
 
-// Launch 4: per 64 output rows q of a chunk, grid (nc * nqs, H, B): the
+// Launch 5: per 64 output rows q of a chunk, grid (nc * nqs, H, B): the
 // head's dC and the q-indexed ds.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ssd_bwd_qside_kernel(vmt::SsdBwdArgs a, int nqs) {
-  extern __shared__ __align__(16) float sm[];
-  float* s0 = sm;            // staging
-  float* s1 = s0 + kT;       // staging
-  float* Dk = s1 + kT;       // [k][q] dcb
-  float* Uq = Dk + kT;       // [q][k] U = T dt_k
-  float* ss = Uq + 2 * kT;   // [Q] s (one tile left unused)
-  float* dts = ss + a.Q;     // [Q] dt
-  float* rowU = dts + a.Q;   // [kS] sum_k U[q, k]
-  float* rowI = rowU + kS;   // [kS] e^s sum_n dCw C
-  float* part = rowI + kS;   // [kS][kGrp]
+  using St = vmt::SlabT<T>;
+  constexpr int E = vmt::slab_elems<T>(), sld = vmt::slab_ld<T>();
+  extern __shared__ __align__(16) unsigned char smraw[];
+  St* sA = reinterpret_cast<St*>(smraw);  // staging
+  St* sB = sA + E;                        // staging
+  St* Dk = sB + E;                        // [k][q] dcb (one staging tile left unused)
+  float* Uq = reinterpret_cast<float*>(Dk + 2 * E);  // [q][k] U = T dt_k; then [q][n]
+  float* ss = Uq + kT;                    // [Q] s
+  float* dts = ss + a.Q;                  // [Q] dt
+  float* rowU = dts + a.Q;                // [kS] sum_k U[q, k]
+  float* rowI = rowU + kS;                // [kS] e^s sum_n dCw C
   const Chunk k(a, blockIdx.x / nqs, gridDim.x / nqs);
   const int qs = blockIdx.x % nqs;
   const int P = a.P, N = a.N, H = a.H, Q = a.Q;
@@ -450,26 +391,22 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_qside_kernel(vmt::SsdBwdArgs
   }
   __syncthreads();
   const long long row0 = (long long)k.b * a.L + k.t0;
-  const int mq0 = (threadIdx.x % 16) * 4, mk0 = (threadIdx.x / 16) * 4;
+  const float* cbb = k.cb(a);
 
   for (int k_lo = 0; k_lo < q_lo + qn; k_lo += kS) {
     const int kn = min(kS, k.valid - k_lo);
     const bool first = k_lo == 0;
-    const bool live = q_lo + mq0 + 3 >= k_lo + mk0;
-    float cb[4][4] = {}, dm[4][4] = {};
-    causal_tiles<T>(a, k, q_lo, qn, k_lo, kn, mq0, mk0, live, s0, s1, cb, dm);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int q = q_lo + mq0 + i, kk = k_lo + mk0 + j;
-        const bool ok = kk <= q && q < k.valid && kk < k.valid;
-        const float E = ok ? expf(ss[q] - ss[kk]) : 0.f;
-        const float dtk = ok ? dts[kk] : 0.f;
-        Dk[(mk0 + j) * kS + mq0 + i] = rnd<T>(dm[i][j] * E * dtk);
-        Uq[(mq0 + i) * kS + mk0 + j] = dm[i][j] * cb[i][j] * E * dtk;
-      }
-    }
+    float dm[kSlabOut] = {};
+    slab_dm<T>(a, k, q_lo, qn, k_lo, kn, sA, sB, dm);
+    slab_each<T>([&](int i, int qq, int kk) {
+      const int q = q_lo + qq, kx = k_lo + kk;
+      const bool ok = kx <= q && q < k.valid && kx < k.valid;
+      const float E_ = ok ? expf(ss[q] - ss[kx]) : 0.f;
+      const float dtk = ok ? dts[kx] : 0.f;
+      const float cbv = ok ? cbb[(long long)q * Q + kx] : 0.f;
+      Dk[kk * sld + qq] = to_slab<St>(dm[i] * E_ * dtk);
+      Uq[qq * kS + kk] = dm[i] * cbv * E_ * dtk;
+    });
     __syncthreads();
     if (threadIdx.x < kS) {
       float acc = rowU[threadIdx.x];
@@ -479,25 +416,15 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_qside_kernel(vmt::SsdBwdArgs
     // The head's dC[q, n] += sum_k dcb[q, k] rnd(B[k, n]), one N tile at a time.
     for (int n_lo = 0; n_lo < N; n_lo += kS) {
       const int nw = min(kS, N - n_lo);
-      for (int i = threadIdx.x; i < kT; i += kThreads) {
-        const int r = i / kS, n = i % kS;
-        s0[i] = r < kn && n < nw ? rnd<T>(k.B(k_lo + r, n_lo + n, N)) : 0.f;
-      }
+      slab_stage<T, false>(sA, k.B(k_lo, n_lo, N), k.CD, kn, nw, AsIs());  // [k][n]
       __syncthreads();
-      const int tn = nw / 4;
-      if (threadIdx.x < 16 * tn) {
-        const int q0 = (threadIdx.x / tn) * 4, n0 = (threadIdx.x % tn) * 4;
-        float acc[4][4] = {};
-        for (int kk = 0; kk < kn; ++kk)
-          fma4x4(acc, ld4(Dk + kk * kS + q0), ld4(s0 + kk * kS + n0));
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (q0 + i >= qn) continue;
-          float* o = a.dch + ((row0 + q_lo + q0 + i) * H + k.h) * N + n_lo + n0;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) o[j] = first ? acc[i][j] : o[j] + acc[i][j];
-        }
-      }
+      float acc[kSlabOut] = {};
+      slab_mma<T>(acc, Dk, sA, kn);
+      slab_each<T>([&](int i, int qq, int n) {
+        if (qq >= qn || n >= nw) return;
+        float* o = a.dch + ((row0 + q_lo + qq) * H + k.h) * N + n_lo + n;
+        *o = first ? acc[i] : *o + acc[i];
+      });
       __syncthreads();
     }
   }
@@ -506,44 +433,30 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_qside_kernel(vmt::SsdBwdArgs
   const float* hin = a.hins + (((long long)k.b * k.nc + k.c) * H + k.h) * P * N;
   for (int n_lo = 0; n_lo < N; n_lo += kS) {
     const int nw = min(kS, N - n_lo);
-    const int tn = nw / 4;
-    const bool mine = threadIdx.x < 16 * tn;
-    const int q0 = mine ? (threadIdx.x / tn) * 4 : 0, n0 = mine ? (threadIdx.x % tn) * 4 : 0;
-    float acc[4][4] = {};
+    float acc[kSlabOut] = {};
     for (int p_lo = 0; p_lo < P; p_lo += kS) {
       const int pw = min(kS, P - p_lo);
-      for (int i = threadIdx.x; i < kT; i += kThreads) {
-        const int r = i / kS, c = i % kS;  // s0[p][q]: c = p; s1[p][n]: r = p
-        s0[c * kS + r] = r < qn && c < pw ? rnd<T>(k.dy(q_lo + r, p_lo + c, P)) : 0.f;
-        s1[r * kS + c] = r < pw && c < nw ? rnd<T>(hin[(long long)(p_lo + r) * N + n_lo + c]) : 0.f;
-      }
+      slab_stage<T, true>(sA, k.dy(q_lo, p_lo, P), k.Di, qn, pw, AsIs());            // [p][q]
+      slab_stage<T, false>(sB, hin + (long long)p_lo * N + n_lo, N, pw, nw, AsIs());  // [p][n]
       __syncthreads();
-      if (mine)
-        for (int p = 0; p < pw; ++p) fma4x4(acc, ld4(s0 + p * kS + q0), ld4(s1 + p * kS + n0));
+      slab_mma<T>(acc, sA, sB, pw);
       __syncthreads();
     }
-    if (mine) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q = q0 + i;
-        float pacc = 0.f;
-        if (q < qn) {
-          const float es = expf(ss[q_lo + q]);
-          float* o = a.dch + ((row0 + q_lo + q) * H + k.h) * N + n_lo + n0;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            o[j] += acc[i][j] * es;
-            pacc += acc[i][j] * (rnd<T>(k.C(q_lo + q, n_lo + n0 + j, N)) * es);
-          }
-        }
-        part[q * kGrp + n0 / 4] = pacc;
+    slab_each<T>([&](int i, int qq, int n) {
+      float v = 0.f;
+      if (qq < qn && n < nw) {
+        const float es = expf(ss[q_lo + qq]);
+        float* o = a.dch + ((row0 + q_lo + qq) * H + k.h) * N + n_lo + n;
+        *o += acc[i] * es;
+        v = acc[i] * (rnd<T>(*k.C(q_lo + qq, n_lo + n, N)) * es);
       }
-    }
+      Uq[qq * kS + n] = v;
+    });
     __syncthreads();
-    if (threadIdx.x < kS) {
-      float s = rowI[threadIdx.x];
-      for (int grp = 0; grp < tn; ++grp) s += part[threadIdx.x * kGrp + grp];
-      rowI[threadIdx.x] = s;
+    if (threadIdx.x < kS) {  // the row's sum over n, in order
+      float acc2 = rowI[threadIdx.x];
+      for (int n = 0; n < nw; ++n) acc2 += Uq[threadIdx.x * kS + n];
+      rowI[threadIdx.x] = acc2;
     }
     __syncthreads();
   }
@@ -553,7 +466,7 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_qside_kernel(vmt::SsdBwdArgs
   }
 }
 
-// Launch 5: dB and dC of each group, its heads summed in order, into dxbc.
+// Launch 6: dB and dC of each group, its heads summed in order, into dxbc.
 __global__ void ssd_bwd_group_sum_kernel(vmt::SsdBwdArgs a) {
   const int GN = a.G * a.N, Di = a.H * a.P, CD = Di + 2 * GN, hpg = a.H / a.G;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -581,8 +494,7 @@ namespace vmt {
 
 template <typename T>
 cudaError_t ssd_bwd_core(const SsdBwdArgs& a, cudaStream_t s) {
-  if (a.P % 4 || a.N % 4 || a.Q <= 0 || a.G <= 0 || a.H % a.G ||
-      side_smem_bytes(a.Q) > 232448)
+  if (a.P % 4 || a.N % 4 || a.Q <= 0 || a.G <= 0 || a.H % a.G || ssd_smem_bytes(a.Q) > 232448)
     return cudaErrorInvalidValue;
   const int nc = (a.L + a.Q - 1) / a.Q, nks = ssd_bwd_slabs(a.Q);
   const size_t per_step = sizeof(float) * (size_t)a.B * nc * a.Q * a.H;
@@ -594,12 +506,14 @@ cudaError_t ssd_bwd_core(const SsdBwdArgs& a, cudaStream_t s) {
   if ((err = cudaMemsetAsync(a.dslast, 0, sizeof(float) * (size_t)a.B * nc * nks * a.H, s)) !=
       cudaSuccess)
     return err;
+  if ((err = ssd_cb<T>(a.xbc, a.cb, a.B, a.L, a.Q, a.H, a.P, a.G, a.N, s)) != cudaSuccess)
+    return err;
   ssd_bwd_dhin_kernel<T><<<dim3(nc, a.H, a.B), kThreads, 0, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const unsigned pn_blocks = (unsigned)((a.P * a.N + kThreads - 1) / kThreads);
   ssd_bwd_state_pass_kernel<<<dim3(a.H, a.B, pn_blocks), kThreads, 0, s>>>(a, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t smem = side_smem_bytes(a.Q);
+  const size_t smem = ssd_side_smem_bytes<T>(a.Q);
   if ((err = set_smem(ssd_bwd_kside_kernel<T>, smem)) != cudaSuccess) return err;
   ssd_bwd_kside_kernel<T><<<dim3(nc * nks, a.H, a.B), kThreads, smem, s>>>(a, nks);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -621,17 +535,17 @@ template cudaError_t ssd_bwd_core<bf16>(const SsdBwdArgs&, cudaStream_t);
 // H), hins (B, nc, H, P, N), dhlast (B, H, P, N) or null: fp32, contiguous.
 // Writes dxbc (B * L, H P + 2 G N) [dx | dB | dC], dsq, dsk and ddt (B, Lp,
 // H), dslast (B, nc, ceil(Q / 64), H) and dh0 (B, H, P, N). Scratch (fp32):
-// g B nc H P N, dbh and dch B L H N.
+// g B nc H P N, dbh and dch B L H N, cb B nc G Q Q.
 extern "C" int vmt_ssd_scan_bwd(const float* xbc, const float* dy, const float* s,
                                 const float* dt, const float* hins, const float* dhlast,
                                 float* g, float* dxbc, float* dbh, float* dch, float* dsq,
-                                float* dsk, float* ddt, float* dslast, float* dh0, int B,
-                                int L, int Q, int H, int P, int G, int N, int is_bf16,
+                                float* dsk, float* ddt, float* dslast, float* dh0, float* cb,
+                                int B, int L, int Q, int H, int P, int G, int N, int is_bf16,
                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const vmt::SsdBwdArgs a{xbc, dy, s, dt, hins, dhlast, nullptr, g, dxbc, dbh, dch,
-                          dsq, dsk, ddt, dslast, dh0, B, L, Q, H, P, G, N};
+                          dsq, dsk, ddt, dslast, dh0, cb, B, L, Q, H, P, G, N};
   const cudaStream_t st = (cudaStream_t)stream;
   return (int)(is_bf16 ? vmt::ssd_bwd_core<bf16>(a, st) : vmt::ssd_bwd_core<float>(a, st));
 }

@@ -28,6 +28,7 @@ struct SsdBwdArgs {
   float* ddt;           // (B, Lp, H): the cotangent of dt
   float* dslast;        // (B, nc, nks, H): per 64-row slab, the chunk's last-row ds
   float* dh0;           // (B, H, P, N)
+  float* cb;            // scratch (B, nc, G, Q, Q): each chunk's causal C B^T tiles
   int B, L, Q, H, P, G, N;
 };
 
@@ -78,6 +79,7 @@ struct SsdMixerBwdArgs {
   float* ddt;
   float* dslast;
   float* conv_part;        // scratch (ceil(B L / 256), W + 1, CD)
+  float* cb;               // scratch, as SsdBwdArgs
   int B, L, Q, H, P, G, N, W;
   float eps;
 };

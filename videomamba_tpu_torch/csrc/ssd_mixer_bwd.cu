@@ -25,16 +25,17 @@
 //   2. the epilogue backward, a block for 16 rows (every head of a row, the
 //      norm's sums across the block), with the dnorm and dD sums of its rows
 //      as per-block partials;
-//   3. the reverse chunk walk (ssd_core_bwd.cu, five launches);
+//   3. the reverse chunk walk (ssd_core_bwd.cu, six launches: C B^T once a
+//      group, then the per-head tiles on the slab product, mma.sync at bf16);
 //   4. silu' of the conv, then the conv backward (K6's conv kernels,
 //      mixer_bwd.cuh): draw, the window's gradient, and the taps' and bias'
 //      gradients in ordered 256-row slices.
 // The caller sums the per-block partials with torch in a fixed order: no
 // atomics, so repeated runs give bit-identical gradients.
 //
-// What bounds it on the H100: the reverse walk's tile products (operations,
-// fp32 FMA), then the row passes' bytes (about 0.4 GB at VideoMamba-Base-m2,
-// B = 4).
+// What bounds it on the H100: the reverse walk's tile products (operations:
+// fp32 FMA at fp32, bf16 tensor cores at bf16), then the row passes' bytes
+// (about 0.4 GB at VideoMamba-Base-m2, B = 4).
 #include "mixer_bwd.cuh"
 #include "ssd_core_bwd.cuh"
 
@@ -146,7 +147,7 @@ cudaError_t ssd_mixer_bwd(const SsdMixerBwdArgs& a, cudaStream_t s) {
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const SsdBwdArgs core{a.cy, a.dyd, a.s, a.dt, a.hins, a.dhlast, a.Dskip, a.g, a.dxbc,
-                        a.dbh, a.dch, a.dsq, a.dsk, a.ddt, a.dslast, a.dh0,
+                        a.dbh, a.dch, a.dsq, a.dsk, a.ddt, a.dslast, a.dh0, a.cb,
                         a.B, a.L, a.Q, a.H, a.P, a.G, a.N};
   if ((err = ssd_bwd_core<T>(core, s)) != cudaSuccess) return err;
   const long long count = rows * CD;
@@ -182,7 +183,7 @@ template cudaError_t ssd_mixer_bwd<bf16>(const SsdMixerBwdArgs&, cudaStream_t);
 // dnorm_w and of dyd x (ceil(B L / 16), H P), and the scan's dsq, dsk, ddt
 // (B, Lp, H) and dslast (B, nc, ceil(Q / 64), H). Scratch (fp32): cy, cpre
 // and dxbc B L CD, dyd B L H P, g B nc H P N, dbh and dch B L H N, conv_part
-// ceil(B L / 256) (W + 1) CD.
+// ceil(B L / 256) (W + 1) CD, cb B nc G Q Q.
 extern "C" int vmt_ssd_mixer_bwd(
     const void* zx, long long ld_zx, const void* dout, void* dzx, long long ld_dzx,
     const float* conv_state, const float* conv_w, const float* conv_b, const float* s,
@@ -190,14 +191,14 @@ extern "C" int vmt_ssd_mixer_bwd(
     const float* yd, const float* dhlast, float* dh0, float* dconv_state, float* dconv_w,
     float* dconv_b, float* part_nw, float* part_dD, float* cy, float* cpre, float* dyd,
     float* dxbc, float* g, float* dbh, float* dch, float* dsq, float* dsk, float* ddt,
-    float* dslast, float* conv_part, int B, int L, int Q, int H, int P, int G, int N, int W,
-    float eps, int is_bf16, int device, void* stream) {
+    float* dslast, float* conv_part, float* cb, int B, int L, int Q, int H, int P, int G,
+    int N, int W, float eps, int is_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const vmt::SsdMixerBwdArgs a{zx, ld_zx, dout, 0, dzx, ld_dzx, H, conv_state, conv_w, conv_b,
                                s, dt, Dskip, norm_w, hins, yd, dhlast, dh0, dconv_state,
                                dconv_w, dconv_b, part_nw, part_dD, cy, cpre, dyd, dxbc, g,
-                               dbh, dch, dsq, dsk, ddt, dslast, conv_part,
+                               dbh, dch, dsq, dsk, ddt, dslast, conv_part, cb,
                                B, L, Q, H, P, G, N, W, eps};
   const cudaStream_t st = (cudaStream_t)stream;
   return (int)(is_bf16 ? vmt::ssd_mixer_bwd<vmt::bf16>(a, st)

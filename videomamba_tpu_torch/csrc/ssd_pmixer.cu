@@ -15,14 +15,18 @@
 // Design. The TPU kernel holds Win and Wout in VMEM (about 10 MB at
 // VideoMamba-Base-m2 fp32) and feeds its idle MXU slots with the two
 // products. A Hopper block has 227 KB of shared memory, so the span runs as
-// seven launches on one stream through scratch the caller allocates: the
-// products on K4's hand-written tiles (mixer_parts.cuh: bf16 mma.sync with
-// fp32 accumulators, or fp32 FMA), K12's five launches between them.
+// eight launches on one stream through scratch the caller allocates: the two
+// products, K12's six launches between them. At bf16 the products run on
+// K4's tensor-core tile (mixer_parts.cuh gemm_nt_bf16: mma.sync, fp32
+// accumulators). At fp32 they run on the wide FMA tile (gemm_nt_wide: a
+// 64 x 64 block tile of 128 threads, 8 x 4 outputs a thread as an outer
+// product from contraction-major shared tiles, K slices double-buffered
+// through registers; 1,250 and 300 blocks at Base, B = 1). It sums over k
+// in order, as gemm_nt does, so the fp32 results are gemm_nt's.
 //
 // What bounds it on the H100: operations. At Base, B = 1, L = 1569 in_proj
-// is 7.7 GFLOP and out_proj 3.7, about 0.2 ms at fp32's 67 TFLOP/s and
-// 0.012 ms on bf16 tensor cores; the single-stage tiles and the chunk walk's
-// FMA tiles run well below those rates.
+// is 7.7 GFLOP and out_proj 3.7, about 0.17 ms at fp32's 67 TFLOP/s and
+// 0.012 ms on bf16 tensor cores.
 #include <type_traits>
 
 #include "mixer_parts.cuh"
@@ -42,7 +46,8 @@ cudaError_t pmixer(const void* hidden, const void* in_w, const void* out_w, void
     err = vmt::gemm_nt_bf16<T, T>((const T*)hidden, E, (const T*)in_w, E, (T*)zx, ZX, rows,
                                   ZX, E, s);
   } else {
-    err = vmt::gemm_nt((const T*)hidden, E, (const T*)in_w, E, (T*)zx, ZX, rows, ZX, E, s);
+    err = vmt::gemm_nt_wide((const T*)hidden, E, (const T*)in_w, E, (T*)zx, ZX, rows, ZX, E,
+                            s);
   }
   if (err != cudaSuccess) return err;
   a.zx = zx;
@@ -53,8 +58,8 @@ cudaError_t pmixer(const void* hidden, const void* in_w, const void* out_w, void
     return vmt::gemm_nt_bf16<T, T>((const T*)gated, Di, (const T*)out_w, Di, (T*)out, E,
                                    rows, E, Di, s);
   } else {
-    return vmt::gemm_nt((const T*)gated, Di, (const T*)out_w, Di, (T*)out, E, rows, E, Di,
-                        s);
+    return vmt::gemm_nt_wide((const T*)gated, Di, (const T*)out_w, Di, (T*)out, E, rows, E,
+                             Di, s);
   }
 }
 
@@ -69,13 +74,13 @@ extern "C" int vmt_ssd_pmixer(const void* hidden, const void* in_w, const void* 
                               const float* conv_state, const float* conv_w,
                               const float* conv_b, const float* s, const float* dt,
                               const float* Dskip, const float* norm_w, const float* h0,
-                              float* h_last, float* cy, float* y, float* hin, int B, int L,
-                              int Q, int H, int P, int G, int N, int W, float eps,
+                              float* h_last, float* cy, float* y, float* hin, float* cb, int B,
+                              int L, int Q, int H, int P, int G, int N, int W, float eps,
                               int is_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const vmt::SsdArgs a{nullptr, 0, nullptr, conv_state, conv_w, conv_b, s, dt, Dskip,
-                       norm_w, h0, h_last, cy, y, hin, B, L, Q, H, P, G, N, W, eps};
+                       norm_w, h0, h_last, cy, y, hin, cb, B, L, Q, H, P, G, N, W, eps};
   const cudaStream_t st = (cudaStream_t)stream;
   return (int)(is_bf16 ? pmixer<true>(hidden, in_w, out_w, out, zx, gated, E, a, st)
                        : pmixer<false>(hidden, in_w, out_w, out, zx, gated, E, a, st));

@@ -18,9 +18,9 @@
 //
 // Design. The TPU kernel keeps both weights and their fp32 gradients in
 // VMEM and accumulates the weight gradients over the chunks. Here the span
-// is launches on one stream: in_proj on K4's tiles (bf16 mma.sync or fp32
-// FMA, mixer_parts.cuh), K12's gate launch for gated, out_proj's two
-// gradients and in_proj's two on K6/K7's FMA tiles (mixer_bwd.cuh: NN
+// is launches on one stream: in_proj on K4's bf16 mma.sync tile or K14's
+// wide fp32 tile (mixer_parts.cuh), K12's gate launch for gated, out_proj's
+// two gradients and in_proj's two on K6/K7's FMA tiles (mixer_bwd.cuh: NN
 // products, and TN products over 256-row slices summed in order), and K13's
 // span between them.
 //
@@ -47,11 +47,12 @@ cudaError_t pmixer_bwd(const void* hidden, const void* in_w, const void* out_w,
     err = vmt::gemm_nt_bf16<T, T>((const T*)hidden, E, (const T*)in_w, E, (T*)zx, ZX, rows,
                                   ZX, E, s);
   } else {
-    err = vmt::gemm_nt((const T*)hidden, E, (const T*)in_w, E, (T*)zx, ZX, rows, ZX, E, s);
+    err = vmt::gemm_nt_wide((const T*)hidden, E, (const T*)in_w, E, (T*)zx, ZX, rows, ZX, E,
+                            s);
   }
   if (err != cudaSuccess) return err;
   vmt::SsdArgs g{zx, ZX, gated, nullptr, nullptr, nullptr, a.s, a.dt, nullptr, a.norm_w,
-                 nullptr, nullptr, nullptr, const_cast<float*>(a.yd), nullptr,
+                 nullptr, nullptr, nullptr, const_cast<float*>(a.yd), nullptr, nullptr,
                  a.B, a.L, a.Q, a.H, a.P, a.G, a.N, a.W, a.eps};
   if ((err = vmt::ssd_gate<T>(g, s)) != cudaSuccess) return err;
   if ((err = gemm_tn<T, T>((const T*)dout, E, (const T*)gated, Di, dwout, part, E, Di,
@@ -91,14 +92,14 @@ extern "C" int vmt_ssd_pmixer_bwd(
     const float* hins, const float* yd, const float* dhlast, float* dh0, float* dconv_state,
     float* dconv_w, float* dconv_b, float* part_nw, float* part_dD, float* cy, float* cpre,
     float* dyd, float* dxbc, float* g, float* dbh, float* dch, float* dsq, float* dsk,
-    float* ddt, float* dslast, float* conv_part, int B, int L, int Q, int H, int P, int G,
-    int N, int W, float eps, int is_bf16, int device, void* stream) {
+    float* ddt, float* dslast, float* conv_part, float* cb, int B, int L, int Q, int H, int P,
+    int G, int N, int W, float eps, int is_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const vmt::SsdMixerBwdArgs a{nullptr, 0, nullptr, 1, nullptr, 0, 0, conv_state, conv_w,
                                conv_b, s, dt, Dskip, norm_w, hins, yd, dhlast, dh0,
                                dconv_state, dconv_w, dconv_b, part_nw, part_dD, cy, cpre, dyd,
-                               dxbc, g, dbh, dch, dsq, dsk, ddt, dslast, conv_part,
+                               dxbc, g, dbh, dch, dsq, dsk, ddt, dslast, conv_part, cb,
                                B, L, Q, H, P, G, N, W, eps};
   const cudaStream_t st = (cudaStream_t)stream;
   return (int)(is_bf16 ? pmixer_bwd<true>(hidden, in_w, out_w, dout, zx, gated, dgated, dzx,

@@ -70,12 +70,12 @@ SIGNATURES = {
     "vmt_causal_conv": (*(_P,) * 5, *(_I,) * 7, _P),
     "vmt_decode_stack": (_P, _P, _P, _F, _I, _P),
     "vmt_decode_stack_m2": (_P, _P, _P, _F, _F, _I, _P),
-    "vmt_ssd_mixer": (_P, _LL, *(_P,) * 13, *(_I,) * 8, _F, _I, _I, _P),
-    "vmt_ssd_pmixer": (*(_P,) * 6, _I, *(_P,) * 12, *(_I,) * 8, _F, _I, _I, _P),
-    "vmt_ssd_scan": (*(_P,) * 7, *(_I,) * 9, _P),
-    "vmt_ssd_scan_bwd": (*(_P,) * 15, *(_I,) * 9, _P),
-    "vmt_ssd_mixer_bwd": (_P, _LL, _P, _P, _LL, *(_P,) * 28, *(_I,) * 8, _F, _I, _I, _P),
-    "vmt_ssd_pmixer_bwd": (*(_P,) * 12, _I, *(_P,) * 28, *(_I,) * 8, _F, _I, _I, _P),
+    "vmt_ssd_mixer": (_P, _LL, *(_P,) * 14, *(_I,) * 8, _F, _I, _I, _P),
+    "vmt_ssd_pmixer": (*(_P,) * 6, _I, *(_P,) * 13, *(_I,) * 8, _F, _I, _I, _P),
+    "vmt_ssd_scan": (*(_P,) * 8, *(_I,) * 9, _P),
+    "vmt_ssd_scan_bwd": (*(_P,) * 16, *(_I,) * 9, _P),
+    "vmt_ssd_mixer_bwd": (_P, _LL, _P, _P, _LL, *(_P,) * 29, *(_I,) * 8, _F, _I, _I, _P),
+    "vmt_ssd_pmixer_bwd": (*(_P,) * 12, _I, *(_P,) * 29, *(_I,) * 8, _F, _I, _I, _P),
 }
 # Entry points that return a size instead of a CUDA error code.
 SIZE_QUERIES = {

@@ -9,7 +9,7 @@ H, P) fp32, h_last (B, H, P, N) fp32), with no D skip and no gate: the core
 that ``ssd_chunked(method="pallas")`` wraps (ops/ssd.py) and that the
 composite mixer backward runs (``VIDEOMAMBA_SSD_BWD=composite``).
 
-The forward is K12's chunk walk without the conv and the gate: launches 2-4
+The forward is K12's chunk walk without the conv and the gate: launches 2-5
 of csrc/ssd_mixer.cu (``vmt_ssd_scan``) over x, B and C given as fp32 rows,
 which leaves each chunk's entry state (``hins``) behind for the backward.
 The backward is csrc/ssd_core_bwd.cu (``vmt_ssd_scan_bwd``): the reverse
@@ -23,7 +23,8 @@ Rounding: x, B and C enter in the compute dtype (x's, fp32 or bf16); the
 forward rounds as K12 does (the merged arm), the backward as the per-head
 arm does; every sum and the state are fp32. The cotangents come back in
 the primal dtypes (ssd_scan.py:436-437). What bounds it on the H100:
-operations (the tile products, fp32 FMA at both dtypes).
+operations (the tile products: fp32 FMA at fp32, bf16 ``mma.sync`` at
+bf16).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from videomamba_tpu_torch.ops.kernels import _build
 from videomamba_tpu_torch.ops.kernels.mixer_bwd import _rnd
 from videomamba_tpu_torch.ops.kernels.ssd_mixer import (
     SLAB,
+    cb_scratch_elems,
     decay_cumsum,
     ssd_kernel_supported,
     to_chunks,
@@ -151,6 +153,7 @@ def bwd_buffers(bsz: int, seqlen: int, lp: int, chunk: int, nheads: int, hdim: i
     cd = nheads * hdim + 2 * ngroups * d_state
     f32 = dict(dtype=torch.float32, device=device)
     return dict(
+        cb=torch.empty((cb_scratch_elems(bsz, lp, chunk, ngroups),), **f32),
         g=torch.empty((bsz, nc, nheads, hdim, d_state), **f32),
         dxbc=torch.empty((bsz * seqlen, cd), **f32),
         dbh=torch.empty((bsz * seqlen, nheads, d_state), **f32),
@@ -167,7 +170,7 @@ def walk_bwd_args(buf: dict) -> tuple:
     """The reverse walk's buffers in the C entries' order."""
     p = _build.ptr
     return tuple(p(buf[k]) for k in ("g", "dxbc", "dbh", "dch", "dsq", "dsk", "ddt",
-                                     "dslast", "dh0"))
+                                     "dslast", "dh0", "cb"))
 
 
 def walk_ds(buf: dict, chunk: int) -> Tensor:
@@ -228,13 +231,15 @@ def ssd_scan(x4: Tensor, dt_p: Tensor, A: Tensor, B4: Tensor, C4: Tensor,
     y = torch.empty((bsz, seqlen, nheads, hdim), **f32)
     h_last = torch.empty((bsz, nheads, hdim, d_state), **f32)
     hins = torch.empty((bsz, nc, nheads, hdim, d_state), **f32)
+    cb = torch.empty((cb_scratch_elems(bsz, dtf.shape[1], int(chunk_size), ngroups),), **f32)
     if bsz == 0 or seqlen == 0:
         h_last.copy_(h0f)
     else:
         err = _build.library().vmt_ssd_scan(
             xbc.data_ptr(), y.data_ptr(), s.data_ptr(), dtf.data_ptr(), h0f.data_ptr(),
-            h_last.data_ptr(), hins.data_ptr(), bsz, seqlen, int(chunk_size), nheads, hdim,
-            ngroups, d_state, _build.is_bf16(x4), dev.index, _build.stream_of(x4))
+            h_last.data_ptr(), hins.data_ptr(), cb.data_ptr(), bsz, seqlen, int(chunk_size),
+            nheads, hdim, ngroups, d_state, _build.is_bf16(x4), dev.index,
+            _build.stream_of(x4))
         _build.check(err, "ssd_scan")
         ssd_scan.launches += 1
     return (y, h_last, hins) if checkpoints else (y, h_last)

@@ -10,14 +10,16 @@ zxbcdt's dtype, h_last (B, H, P, N) fp32).
 
 The TPU grid is (B, L / Q) with the chunk axis sequential and the state in
 VMEM scratch: on Hopper that is one block per batch row. csrc/ssd_mixer.cu
-splits the walk by state passing instead, five launches on the current
+splits the walk by state passing instead, six launches on the current
 stream: the conv (K3's ``conv_silu`` over the slab, left context from the
 window); per (chunk, head, batch) block the chunk's own state (x w)^T B; a
 short sequential pass per (head, batch) that turns those into each chunk's
-entry state and h_last; per (64 rows of a chunk, 64 head-dim columns,
-head, batch) block the intra-chunk (C B^T * decay * dt) x over the causal
-64-row slabs, the inter-chunk (C h_entry^T) e^s and D x; then a row pass
-for the gate and the norm, which spans every head of a row. That is 26 x
+entry state and h_last; per (causal 64 x 64 tile pair, group, batch)
+block C B^T, built once for the group's heads into a scratch the wrapper
+allocates (:func:`cb_scratch_elems`); per (64 rows of a chunk, 64 head-dim
+columns, head, batch) block the intra-chunk (C B^T * decay * dt) x over
+the causal 64-row slabs, the inter-chunk (C h_entry^T) e^s and D x; then a
+row pass for the gate and the norm, which spans every head of a row. That is 26 x
 24 = 624 blocks at VideoMamba-Base-m2, B = 1, and shared memory that grows
 with neither the head dim nor the state (both staged 64 wide), only by the
 chunk's s and dt, so chunk 256, d_state 128 and P = N = 256 run too. The dt softplus and the
@@ -26,8 +28,9 @@ JAX package (``_prepare_dt``, ``_decay_tensors``).
 
 What bounds it on the H100: operations. At Base, B = 1, the products need
 about 1.0 GFLOP (0.015 ms at fp32's 67 TFLOP/s) against about 30 MB of
-inputs and outputs (0.009 ms). The chunk tiles are fp32 FMA on operands
-already rounded to the compute dtype, at both dtypes.
+inputs and outputs (0.009 ms). The chunk products are fp32 FMA at fp32 and
+bf16 ``mma.sync`` with fp32 sums at bf16 (csrc/ssd_core.cuh's slab
+product), on operands already rounded to the compute dtype.
 
 Rounding (the merged arm, the JAX default, _merged_scan_fwd_core): the conv,
 its SiLU and x_f are fp32; x, B, C, the decay-weighted tile m = C B^T e^(s_q
@@ -69,11 +72,20 @@ MAX_SMEM_BYTES = 232448  # one Hopper block's shared memory (227 KB)
 SLAB = 64  # chunk rows, head-dim columns and states the chunk kernels stage at a time
 
 
-def chunk_out_smem_bytes(chunk: int) -> int:
-    """Shared memory of the chunk-output kernel: six (SLAB, SLAB) tiles (C
-    and B slabs of an N tile, m, an x slab of a P tile, an entry-state tile
-    and the rows' sums), s and dt (Q,)."""
-    return 4 * (6 * SLAB * SLAB + 2 * chunk)
+def chunk_smem_bytes(chunk: int) -> int:
+    """Shared memory of the largest chunk-kernel block at fp32, the gate of
+    every chunk kernel (csrc/ssd_core.cuh ``ssd_smem_bytes``): the reverse
+    walk's tile launches, four staging and one fp32 (SLAB, SLAB) tile, s and
+    dt (Q,), four per-row vectors and one per-thread vector (256). The
+    forward's chunk-output block (three tiles, s and dt) is smaller."""
+    return 4 * (5 * SLAB * SLAB + 2 * chunk + 4 * SLAB + 256)
+
+
+def cb_scratch_elems(bsz: int, lp: int, chunk: int, ngroups: int) -> int:
+    """fp32 elements of the C B^T scratch (B, nc, G, Q, Q): each chunk's
+    causal tiles, built once a group (csrc/ssd_mixer.cu launch 4) for the
+    forward's chunk outputs and the backward's tile launches."""
+    return bsz * (lp // chunk) * ngroups * chunk * chunk
 
 
 def ssd_kernel_supported(nheads: int, hdim: int, ngroups: int, d_state: int,
@@ -81,7 +93,7 @@ def ssd_kernel_supported(nheads: int, hdim: int, ngroups: int, d_state: int,
     """The Hopper kernels' shape gate (K11-K14 share the chunk walk)."""
     return (hdim % 4 == 0 and d_state % 4 == 0 and chunk_size > 0 and ngroups > 0
             and nheads % ngroups == 0
-            and chunk_out_smem_bytes(chunk_size) <= MAX_SMEM_BYTES)
+            and chunk_smem_bytes(chunk_size) <= MAX_SMEM_BYTES)
 
 
 def decay_cumsum(dt_p: Tensor, A: Tensor, chunk: int) -> Tuple[Tensor, Tensor]:
@@ -106,7 +118,7 @@ def to_chunks(t: Tensor, lp: int, chunk: int) -> Tensor:
 def walk_plain(x_f: Tensor, Bm: Tensor, Cm: Tensor, dtf: Tensor, s: Tensor,
                h0: Optional[Tensor], D: Optional[Tensor], cdt: torch.dtype,
                chunk: int) -> Tuple[Tensor, Tensor, Tensor]:
-    """The chunk walk (launches 2-4 of csrc/ssd_mixer.cu) in plain PyTorch,
+    """The chunk walk (launches 2-5 of csrc/ssd_mixer.cu) in plain PyTorch,
     with its rounding points. x_f (B, L, H, P), Bm and Cm (B, L, G, N),
     fp32; dtf and s (B, Lp, H) from :func:`decay_cumsum`; h0 (B, H, P, N)
     or None; D (H,) or None. Returns (y (B, L, H, P) fp32 with the D skip,
@@ -233,7 +245,7 @@ def core_operands(kernel: str, zx: Tensor, dt_p: Tensor, A: Tensor, conv_weight:
         raise ValueError(
             f"{kernel} kernel: head dim {hdim} and d_state {d_state} must be multiples "
             f"of 4, chunk {chunk_size} positive, {ngroups} groups must divide {nheads} "
-            f"heads and {chunk_out_smem_bytes(chunk_size)} <= "
+            f"heads and {chunk_smem_bytes(chunk_size)} <= "
             f"{MAX_SMEM_BYTES} bytes of chunk tiles")
     dev, cdt = zx.device, zx.dtype
     bsz = zx.shape[0]
@@ -268,6 +280,7 @@ def core_operands(kernel: str, zx: Tensor, dt_p: Tensor, A: Tensor, conv_weight:
         cy=torch.empty((bsz * seqlen * cd,), **f32),
         y=torch.empty((bsz * seqlen * di,), **f32),
         hin=torch.empty((bsz * nc * nheads * hdim * d_state,), **f32),
+        cb=torch.empty((cb_scratch_elems(bsz, s.shape[1], chunk_size, ngroups),), **f32),
     )
     return ops
 
@@ -278,8 +291,8 @@ def core_args(ops: dict, chunk_size: int, nheads: int, hdim: int, ngroups: int,
     p = _build.ptr
     return (p(ops["conv_state"]), p(ops["conv_w"]), p(ops["conv_b"]), p(ops["s"]),
             p(ops["dt"]), p(ops["D"]), p(ops["norm_w"]), p(ops["h0"]), p(ops["h_last"]),
-            p(ops["cy"]), p(ops["y"]), p(ops["hin"]), bsz, seqlen, chunk_size, nheads, hdim,
-            ngroups, d_state, ops["conv_w"].shape[1], norm_eps)
+            p(ops["cy"]), p(ops["y"]), p(ops["hin"]), p(ops["cb"]), bsz, seqlen, chunk_size,
+            nheads, hdim, ngroups, d_state, ops["conv_w"].shape[1], norm_eps)
 
 
 def ssd_mixer_core(zx: Tensor, dt_p: Tensor, A: Tensor, conv_weight: Tensor,

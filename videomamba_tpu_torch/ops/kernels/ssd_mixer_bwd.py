@@ -200,7 +200,7 @@ def bwd_args(ops: dict, chunk_size: int, nheads: int, hdim: int, ngroups: int,
     names = ("conv_state", "conv_w", "conv_b", "s", "dt", "D", "norm_w", "hins", "yd",
              "dhlast", "dh0", "dconv_state", "dconv_w", "dconv_b", "part_nw", "part_dD",
              "cy", "cpre", "dyd", "dxbc", "g", "dbh", "dch", "dsq", "dsk", "ddt", "dslast",
-             "conv_part")
+             "conv_part", "cb")
     return (*(p(ops[k]) for k in names), bsz, seqlen, int(chunk_size), nheads, hdim, ngroups,
             d_state, ops["conv_w"].shape[1], norm_eps)
 

@@ -11,19 +11,21 @@ dtype, h_last (B, H, P, N) fp32).
 The TPU kernel keeps both weights in VMEM (about 10 MB at Base fp32) and
 runs the two products on its idle MXU slots. A Hopper block has 227 KB of
 shared memory, so csrc/ssd_pmixer.cu runs the span as launches on one
-stream: in_proj on K4's product tiles (bf16 ``mma.sync`` with fp32 sums at
-bf16, fp32 FMA tiles at fp32) into a zx buffer in the input dtype, K12's
-five launches (csrc/ssd_mixer.cu) writing the gated rows in the input
-dtype, and out_proj on the same tiles. The products are written by hand
-because the TPU kernel computes them in its body (ssd_block.py:285-286,
-323-324). The dt columns' product ``hidden @ Win[-H:]^T`` and its softplus
-run outside the kernel in the JAX package too (ssd_block.py:1619) and stay
+stream: in_proj into a zx buffer in the input dtype, K12's six launches
+(csrc/ssd_mixer.cu) writing the gated rows in the input dtype, and
+out_proj. The products run on K4's bf16 ``mma.sync`` tile (fp32 sums) at
+bf16 and on the wide fp32 FMA tile at fp32 (csrc/mixer_parts.cuh
+``gemm_nt_wide``: a 64 x 64 block tile, an outer product from
+contraction-major shared tiles, K slices double-buffered through
+registers). The products are written by hand because the TPU kernel
+computes them in its body (ssd_block.py:285-286, 323-324). The dt
+columns' product ``hidden @ Win[-H:]^T`` and its softplus run outside the
+kernel in the JAX package too (ssd_block.py:1619) and stay
 ``torch.matmul`` here.
 
 What bounds it on the H100: operations. At VideoMamba-Base-m2, B = 1, L =
 1569 the two products are 7.7 and 3.7 GFLOP and the chunk walk 1.3: about
-0.2 ms at fp32's 67 TFLOP/s and 0.014 ms on bf16 tensor cores; the
-single-stage FMA tiles and the chunk walk's FMA tiles run far below that.
+0.2 ms at fp32's 67 TFLOP/s and 0.014 ms on bf16 tensor cores.
 
 Rounding (ssd_block.py:286, 323): zx is rounded to the input dtype after
 in_proj, the gated rows before out_proj, and out once; in between, K12's.
