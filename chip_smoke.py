@@ -10,8 +10,9 @@ failure, so the script exits nonzero:
    mixer) against their plain PyTorch versions on the card at
    VideoMamba-Base shapes (B=1, L=1569, E=768, Di=1536, N=16, R=48), fp32,
    rel_err <= 1e-5, two runs bit-identical; each timed beside its plain
-   version; K3's launches' device time a call under torch.profiler (conv,
-   products, and the time-split walk's chunk states, pass and output walk).
+   version; K1's and K3's launches' device time a call under torch.profiler
+   (K3's conv and products, and the time-split walk's chunk states, pass and
+   output walk).
 2. forward: VideoMamba-Base fp32 (depth 24, pool 'avg', weights from a
    seeded torch.Generator), full clip (1, 3, 8, 224, 224), kernels on,
    against the plain path on the card (rel_err <= 1e-4: 24 layers of
@@ -44,12 +45,13 @@ failure, so the script exits nonzero:
    gradients) and K8 (add-norm backward) against
    their plain versions, fp32 within 2e-5 (K8 1e-5) and bf16 within 2e-2
    (K8 bf16 x with an fp32 residual, 1e-2); K6 also at B=4 (the split
-   reverse walk at its other chunk; L 1569 is no multiple of either); K5,
-   K6 and K8 run twice on the same inputs and must be bit-identical; each
-   timed beside its plain version; each of K6's launches' device time a call
-   (the split reverse walk's chunk cotangents, pass and output walk, the
-   product tiles, the conv backward) and K8's and K2's under
-   torch.profiler.
+   reverse walk at its other chunk; L 1569 is no multiple of either); K1,
+   K5, K6 and K8 run twice on the same inputs and must be bit-identical;
+   each timed beside its plain version; each of K5's and K6's launches'
+   device time a call (the split reverse walk's chunk cotangents, pass and
+   output walk, the partial sums, K6's product tiles and conv backward) and
+   K8's and K2's under torch.profiler. K1 (with checkpoints) and K5 at B=4,
+   fp32 and bf16, twice bit-identical, each launch's device time a call.
 9. fp32 train step, Base depth 24, B=2, clip (2,3,8,224,224) and a noise
    target (a zero target leaves only cancellation noise below the final
    RMSNorm to compare), one step of ``make_train_step``'s default loss
@@ -158,13 +160,22 @@ failure, so the script exits nonzero:
     beyond 8/16/32/64, at Base widths: K1 and K5 at d_state 24, 128 and
     256 (two slices of 128), K3 and K6 (fp32), K4 and K7 (bf16) at 24 and
     128, each against its plain version.
+25. shapes the JAX package's gates take that the port once refused or ran
+    past its arrays: K13 at conv width 9 (Base-m2, fp32, 2e-5) and K6 at
+    width 9 (Base, fp32, 2e-5), each twice bit-identical; K2 and K8 at
+    D = 3200 (1e-5 / 2e-5); the train step of a Mamba(768, d_conv=9) layer
+    (K3 1, K6 1) and of a Mamba2(768, d_conv=9) layer (K12 1, K13 1) at
+    B=1, L=1569 against the same layer on plain versions on the card
+    (output 1e-5, parameter gradients 1e-4: each sums a kernel output over
+    all rows); ``causal_conv1d(use_kernel=True)`` at width 5 (K10 1, 1e-5).
 
 The launch counters are zeroed just before each main path and read just
 after: phases 2-4 (fp32 serving), 6-7 (bf16 serving), 9 (fp32 training),
 10 (bf16 training), 13 (eval backward), 14 (whole-block training), 15
 (decode, per dtype), 16 (the conv route), 18 (m2 fp32 serving, both
 routes), 19 (m2 bf16 serving), 20 (m2 decode, per dtype), 22 (m2
-training, every route) and 23 (K11's route); the kernels line sums them.
+training, every route), 23 (K11's route) and 25 (the layer steps and the
+conv route at widened gates); the kernels line sums them.
 TF32 is off for matmuls and cuDNN throughout. Times are CUDA-event times per
 launch (kernels) or host time around a synchronised call (forward, chunk,
 step, token), on the card named in the output. Each kernel's bound is
@@ -417,10 +428,11 @@ def time_against_plain(name, fn, plain, kw, tol, flops, iters=20, plain_iters=3,
         check(o.dtype == p.dtype, f"{name}[{i}]: dtype {o.dtype} != plain {p.dtype}")
         errs.append(check_close(f"kernel {name}[{i}]", o, p, tol))
     ms = event_ms(lambda: fn(**kw), iters)
-    plain_ms = event_ms(lambda: plain(**kw), plain_iters, warmup=1)
+    plain_ms = event_ms(lambda: plain(**kw), plain_iters, warmup=1) if plain_iters else None
     result = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
               **bound(nbytes(*kw.values(), *out), flops), "library_ms": None}
-    print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    plain_txt = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
+    print(f"kernel {name}: {ms:.4f} ms, plain {plain_txt}, "
           f"bound {result['bound_ms']:.4f} ms ({result['bound_by']})")
     return result
 
@@ -441,13 +453,16 @@ def phase_kernels(cfg, device):
                                            flops[name], repeat_identical=True)
         if name == "mixer_fused":
             launch_split("mixer_fused fp32 Base", WRAPPERS[name], kw)
+        if name == "selective_scan":
+            launch_split(f"selective_scan fp32 Base B={b} (chunk {k1.walk_chunk(b, L, di)})",
+                         WRAPPERS[name], kw)
     return results
 
 
 def launch_split(label, fn, kw, top=10):
-    """Each launch's device time a call of a multi-launch kernel (K3, K4, K6,
-    K7: the split walks' chunk launches, pass and output walk, the product
-    tiles), the ``top`` longest."""
+    """Each launch's device time a call of a multi-launch kernel (K1, K3-K7:
+    the split walks' chunk launches, pass and output walk, the reductions,
+    the product tiles), the ``top`` longest."""
     _, dev = device_ms(lambda: fn(**kw), iters=10, label=label, top=top)
     print(f"{label}: " + ("device time not measured" if dev is None
                           else f"{dev:.4f} ms of device kernels a call"))
@@ -641,7 +656,10 @@ def phase_bwd_kernels(device):
         sk = {k: (v.to(dtype) if k in ("u", "delta", "z", "B", "C") else v)
               for k, v in inputs["selective_scan"].items()}
         y, h, ckpt = k1.selective_scan(**sk, checkpoints=True)
+        again = k1.selective_scan(**sk, checkpoints=True)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, c) for a, c in zip((y, h, ckpt), again)),
+              f"K1 {label}: two runs on the same inputs differ")
         want = k1.selective_scan_plain(**sk, checkpoints=True)
         for name, got, ref in zip(("y", "h_last", "checkpoints"), (y, h, ckpt), want):
             check_close(f"K1 {label} {name}", got, ref, tol if name == "y" else KERNEL_TOL)
@@ -651,8 +669,11 @@ def phase_bwd_kernels(device):
         res = time_against_plain(f"selective_scan_bwd {label}", k1.selective_scan_bwd,
                                  k1.selective_scan_bwd_plain, kw, gtol,
                                  scan_flops(b, L, di, n, 26), plain_iters=1, repeat_identical=True)
+        launch_split(f"selective_scan_bwd {label} B={b} (chunk {k1.walk_bwd_chunk(b, L, di)})",
+                     k1.selective_scan_bwd, kw, top=8)
         if dtype == torch.float32:
             results["selective_scan_bwd"] = res
+        scan_batch4(device, dtype, label, tol, gtol)
         # The route without D, z and delta_bias: softplus off, so delta is the
         # (positive) step itself; checkpoints from the matching forward.
         bare = dict(sk, D=None, z=None, delta_bias=None, softplus_delta=False,
@@ -719,6 +740,30 @@ def phase_bwd_kernels(device):
         k2.fused_add_norm_bwd_plain, dict(kw, x=kw["x"].bfloat16(), g_out=kw["g_out"].bfloat16()),
         BF16_TOL, {"fp32": 12 * b * L * e}, repeat_identical=True)
     return results
+
+
+def scan_batch4(device, dtype, label, tol, gtol):
+    """K1 (with checkpoints) and K5 at Base widths, batch 4, against their
+    plain versions (not timed), each twice bit-identical and timed, with
+    each launch's device time a call."""
+    b, L, di, n = 4, BASE["seqlen"], BASE["d_inner"], BASE["d_state"]
+    sk = {k: (v.to(dtype) if k in ("u", "delta", "z", "B", "C") else v)
+          for k, v in kernel_inputs(dict(BASE, batch=b), device, seed=6)["selective_scan"].items()}
+    time_against_plain(f"selective_scan {label} B=4", k1.selective_scan, k1.selective_scan_plain,
+                       dict(sk, checkpoints=True), tol, scan_flops(b, L, di, n), iters=10,
+                       plain_iters=0, repeat_identical=True)
+    launch_split(f"selective_scan {label} B=4 (chunk {k1.walk_chunk(b, L, di)})",
+                 k1.selective_scan, dict(sk, checkpoints=True), top=8)
+    *_, ckpt = k1.selective_scan(**sk, checkpoints=True)
+    g = torch.Generator().manual_seed(12)
+    kw = dict({k: v for k, v in sk.items() if k != "h0"}, ckpt=ckpt,
+              g_out=randn((b, L, di), g, device).to(dtype),
+              g_hlast=randn((b, di, n), g, device, 0.3))
+    time_against_plain(f"selective_scan_bwd {label} B=4", k1.selective_scan_bwd,
+                       k1.selective_scan_bwd_plain, kw, gtol, scan_flops(b, L, di, n, 26),
+                       iters=10, plain_iters=0, repeat_identical=True)
+    launch_split(f"selective_scan_bwd {label} B=4 (chunk {k1.walk_bwd_chunk(b, L, di)})",
+                 k1.selective_scan_bwd, kw, top=8)
 
 
 def train_batch(batch, device, seed=2, zero_target=True):
@@ -1866,6 +1911,107 @@ def phase_state_sizes(device):
                            iters=3, plain_iters=1)
 
 
+def layer_step(layer, x, plain):
+    """Output and every parameter's gradient of one loss through ``layer``
+    on the card, on its kernels or (``plain``) with every wrapper taking
+    its plain version on card tensors."""
+    layer.zero_grad()
+    with all_plain() if plain else contextlib.nullcontext():
+        out = layer(x)
+        g = torch.Generator().manual_seed(47)
+        (out * randn(out.shape, g, x.device)).sum().backward()
+    torch.cuda.synchronize()
+    return out.detach(), {k: p.grad.clone() for k, p in layer.named_parameters()}
+
+
+def phase_repaired_gates(device):
+    """Shapes the JAX package's gates take that the port's kernels once
+    refused or ran past their arrays: K13 at conv width 9 (Base-m2 shapes,
+    fp32, from K12's checkpoints) and K6 at width 9 (Base shapes) against
+    their plain versions (2e-5), twice bit-identical; K2 and K8 at D = 3200
+    (1e-5 / 2e-5); the train step of a Mamba(768, d_conv=9) layer (K3, K6)
+    and of a Mamba2(768, d_conv=9) layer (K12, K13) at B = 1, L = 1569
+    against the same layer on plain versions on the card (output 1e-5,
+    parameter gradients 1e-4, sums over all rows of the kernels'
+    outputs); ``causal_conv1d(use_kernel=True)`` at width 5 (K10).
+    Returns the launches of the layer steps and the conv route."""
+    cfg = dict(BASE_M2, width=9)
+    mixer, _ = ssd_inputs(cfg, device, torch.float32)
+    g = torch.Generator().manual_seed(45)
+    b, L = cfg["batch"], cfg["seqlen"]
+    h, p, n, q = cfg["nheads"], cfg["hdim"], cfg["d_state"], cfg["chunk"]
+    di = h * p
+    shape = dict(chunk_size=q, nheads=h, hdim=p, ngroups=cfg["ngroups"], d_state=n)
+    core = dict(zx=mixer["zxbcdt"],
+                dt_p=_prepare_dt(mixer["zxbcdt"][..., 2 * di + 2 * n:], mixer["dt_bias"], True),
+                **{k: mixer[k] for k in ("A", "conv_weight", "conv_bias", "D", "initial_state",
+                                         "conv_state", "norm_weight")}, norm_eps=1e-5, **shape)
+    *_, hins, yd = k12.ssd_mixer_core(**core, checkpoints=True)
+    mbwd = dict(core, hins=hins, yd=yd, dout=randn((b, L, di), g, device),
+                dhlast=randn((b, h, p, n), g, device, 0.5))
+    del mbwd["initial_state"]
+    time_against_plain("ssd_mixer_bwd fp32 Base-m2 d_conv 9", k13.ssd_mixer_bwd,
+                       k13.ssd_mixer_bwd_plain, mbwd, GRAD_TOL,
+                       ssd_bwd_flops(cfg, torch.float32, "mixer"), iters=5, plain_iters=0,
+                       repeat_identical=True)
+    m1 = dict(BASE, width=9)
+    mk = kernel_inputs(m1, device, seed=9)["mixer_fused"]
+    *_, ckpt = k3.mixer_fused(**mk, checkpoints=True)
+    kw = dict({k: v for k, v in mk.items() if k != "h0"}, ckpt=ckpt,
+              g_y=randn(mk["x"].shape, g, device), g_hlast=randn(mk["h0"].shape, g, device, 0.3))
+    time_against_plain("mixer_bwd fp32 Base d_conv 9", k6.mixer_bwd, k6.mixer_bwd_plain, kw,
+                       GRAD_TOL, mixer_flops(1, L, m1["d_inner"], m1["d_state"], m1["dt_rank"],
+                                             9, torch.float32, backward=True),
+                       iters=5, plain_iters=0, repeat_identical=True)
+    e = 3200
+    nk = dict(x=randn((b, L, e), g, device), weight=1 + randn((e,), g, device, 0.1), bias=None,
+              residual=randn((b, L, e), g, device), prenorm=True, residual_in_fp32=True,
+              norm_type="rms")
+    time_against_plain("fused_add_norm fp32 D=3200", k2.fused_add_norm, k2.fused_add_norm_plain,
+                       nk, KERNEL_TOL, {"fp32": 8 * b * L * e}, plain_iters=0,
+                       repeat_identical=True)
+    time_against_plain("fused_add_norm_bwd fp32 D=3200", k2.fused_add_norm_bwd,
+                       k2.fused_add_norm_bwd_plain,
+                       dict(x=nk["x"], weight=nk["weight"], residual=nk["residual"],
+                            g_out=randn((b, L, e), g, device),
+                            g_resout=randn((b, L, e), g, device), prenorm=True,
+                            norm_type="rms"), GRAD_TOL, {"fp32": 12 * b * L * e}, plain_iters=0,
+                       repeat_identical=True)
+
+    counts = {name: 0 for name in WRAPPERS}
+    x = randn((b, L, BASE["embed"]), g, device)
+    for label, layer, want in (
+            ("Mamba(d_conv=9)", Mamba(BASE["embed"], d_conv=9, device=device,
+                                      generator=torch.Generator().manual_seed(3)),
+             dict(mixer_fused=1, mixer_bwd=1)),
+            ("Mamba2(d_conv=9)", mamba2_mod.Mamba2(BASE["embed"], d_state=64, d_conv=9,
+                                                   headdim=64, chunk_size=128, device=device,
+                                                   generator=torch.Generator().manual_seed(4)),
+             dict(ssd_mixer=1, ssd_mixer_bwd=1))):
+        before = launches()
+        out, grads = layer_step(layer, x, plain=False)
+        used = delta(launches(), before)
+        expect_launches(f"{label} train step", used, **want)
+        counts = {k: counts[k] + used[k] for k in counts}
+        ref, want_grads = layer_step(layer, x, plain=True)
+        check_close(f"{label} output vs plain", out, ref, KERNEL_TOL)
+        # A parameter's gradient sums a kernel output over all B L rows in
+        # torch (dt_bias: 1569 rows of K13's ddt, itself within 4e-7), so it
+        # is held to the train-step bar; the kernels above hold 2e-5.
+        for name, grad in grads.items():
+            check_close(f"{label} d{name} vs plain", grad, want_grads[name], STEP_GRAD_TOL)
+    w5 = [randn((1, L, BASE["d_inner"]), g, device), randn((5, BASE["d_inner"]), g, device, 0.5),
+          randn((BASE["d_inner"],), g, device, 0.1)]
+    before = launches()
+    y = causal_conv1d(*w5, use_kernel=True)
+    used = delta(launches(), before)
+    expect_launches("causal_conv1d width 5", used, causal_conv=1)
+    counts = {k: counts[k] + used[k] for k in counts}
+    check_close("causal_conv1d width 5 vs plain composition", y, causal_conv1d(*w5),
+                KERNEL_TOL)
+    return counts
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2055,10 +2201,13 @@ def main() -> int:
     with torch.inference_mode():
         phase_state_sizes(device)
     torch.cuda.empty_cache()
+    zero_launches()
+    gate_counts = phase_repaired_gates(device)
+    torch.cuda.empty_cache()
 
     paths = (fp32_counts, bf16_counts, train32_counts, train16_counts, eval_counts,
              block_route_counts, decode_counts, conv_counts, m2_fp32_counts, m2_bf16_counts,
-             m2_decode_counts, m2_train_counts, ssd_path_counts)
+             m2_decode_counts, m2_train_counts, ssd_path_counts, gate_counts)
     counts = {name: sum(c[name] for c in paths) for name in WRAPPERS}
 
     rows = [

@@ -1,6 +1,6 @@
 """Serving times of one checkout of the port, for same-card comparisons.
 
-    python3 scripts/compare_m2_serving.py [--model m2|m2bwd|m1|m1bwd|decode] [--root DIR]
+    python3 scripts/compare_m2_serving.py [--model m2|m2bwd|m1|m1bwd|scan|decode] [--root DIR]
                                           [--label NAME] [--out FILE] [--walk-blocks N]
                                           [--bwd-chunk N]
 
@@ -52,6 +52,15 @@ launch's device time a call, as above, the launches also summed into the
 parts of the span (reverse walk, product tiles, conv backward, ordered
 sums, norm and recompute).
 
+``--model scan``, the selective scan K1 (``selective_scan``, with
+checkpoints, as the composite training route calls it) and its backward K5
+(``selective_scan_bwd``, from those checkpoints, with every cotangent) at
+VideoMamba-Base shapes (L = 1569, Di = 1536, N = 16, with D, the gate and
+the delta bias), fp32 and bf16, B = 1 and 4: event times and each launch's
+device time a call, as above, the launches also summed into the parts of
+the walk (chunk states or cotangents, pass, output walk, ordered sums; a
+walk over all of time on a checkout from before the split).
+
 ``--model decode``, token decode at VideoMamba-Base and Base-m2 widths
 (depth 24, seeded weights), fp32 and cast for bf16 serving, at B = 1, 8 and
 80: K9 (``decode_stack``) and K15 (``decode_stack_m2``) event ms a token
@@ -64,10 +73,10 @@ ms and its profiled device ms and idle share; where the module has
 ``MMA_MIN_BATCH``, K9 bf16 at B = 4 to 80 with and without its tensor-core
 products.
 
-``--walk-blocks N`` sets the least grid of the split forward walk (K3's
-and K4's, ``ops/kernels/scan.py WALK_MIN_BLOCKS``) on a checkout that has
+``--walk-blocks N`` sets the least grid of the split forward walk (K1's,
+K3's and K4's, ``ops/kernels/scan.py WALK_MIN_BLOCKS``) on a checkout that has
 one, to compare chunk lengths. ``--bwd-chunk N`` fixes the chunk of the
-split reverse walk (K6's and K7's, ``ops/kernels/scan.py walk_bwd_chunk``)
+split reverse walk (K5's, K6's and K7's, ``ops/kernels/scan.py walk_bwd_chunk``)
 at N steps on a checkout that has one.
 
 Only entry points that every version of the port since Mamba-2 serving has
@@ -407,6 +416,54 @@ def bwd_parts(launches: dict) -> dict:
     return parts
 
 
+# Launch parts of K1 and K5, by kernel name, first match wins.
+SCAN_PARTS = (("split_chunk_states", "chunk states"), ("split_bwd_chunk", "chunk cotangents"),
+              ("split_bwd_pass", "pass"), ("split_pass", "pass"),
+              ("split_bwd_output", "output walk"), ("split_output", "output walk"),
+              ("scan_walk_kernel", "walk over all of time"),
+              ("scan_bwd_kernel", "walk over all of time"), ("reduce_", "ordered sums"))
+
+
+def measure_scan(result, label, device):
+    from videomamba_tpu_torch.ops.kernels import scan as k1
+
+    cfg = BASE
+    for bsz in (1, 4):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(9)
+
+            def rnd(shape, scale=1.0):
+                return (torch.randn(shape, generator=g) * scale).to(device)
+
+            L, di, n, r = cfg["seqlen"], cfg["d_inner"], cfg["d_state"], cfg["dt_rank"]
+            xz, xdbl = rnd((bsz, L, 2 * di)), rnd((bsz, L, r + 2 * n))
+            act = dict(u=rnd((bsz, L, di)), delta=rnd((bsz, L, di), 0.5), z=xz[..., di:],
+                       B=xdbl[..., r:r + n], C=xdbl[..., r + n:])
+            fwd = dict({k: v.to(dtype) for k, v in act.items()},
+                       A=-torch.arange(1, n + 1, dtype=torch.float32).expand(di, n)
+                       .contiguous().to(device),
+                       D=torch.ones(di, device=device),
+                       delta_bias=torch.linspace(-6.9, -2.3, di).to(device),
+                       h0=rnd((bsz, di, n), 0.1), checkpoints=True)
+            *_, ckpt = k1.selective_scan(**fwd)
+            bwd = dict({k: v for k, v in fwd.items() if k not in ("h0", "checkpoints")},
+                       ckpt=ckpt, g_out=rnd((bsz, L, di)).to(dtype),
+                       g_hlast=rnd((bsz, di, n), 0.3))
+            tag = f"{'fp32' if dtype == torch.float32 else 'bf16'} B={bsz}"
+            for name, fn, kw in ((f"selective_scan {tag}", k1.selective_scan, fwd),
+                                 (f"selective_scan_bwd {tag}", k1.selective_scan_bwd, bwd)):
+                time_kernel(result, label, name, fn, kw)
+                entry = result["kernels"][name]
+                parts = {}
+                for kname, ms in entry["launches_ms"].items():
+                    part = next((p for frag, p in SCAN_PARTS if frag in kname), "other")
+                    parts[part] = parts.get(part, 0.0) + ms
+                entry["parts_ms"] = parts
+                print("    parts: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+            del fwd, bwd, ckpt
+            torch.cuda.empty_cache()
+
+
 def measure_m1bwd(result, label, device):
     from videomamba_tpu_torch.ops.kernels import block_bwd as k7
     from videomamba_tpu_torch.ops.kernels import block_fused as k4
@@ -582,7 +639,8 @@ def mma_crossover(result, label, model, k9, batches=(4, 8, 16, 32, 80)):
 def main() -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("m2", "m2bwd", "m1", "m1bwd", "decode"), default="m2")
+    ap.add_argument("--model", choices=("m2", "m2bwd", "m1", "m1bwd", "scan", "decode"),
+                    default="m2")
     ap.add_argument("--root", default=here, help="checkout to import the port from")
     ap.add_argument("--label", default="this")
     ap.add_argument("--out", default=None, help="file for the JSON object")
@@ -624,7 +682,8 @@ def main() -> int:
 
     with torch.inference_mode():
         measure = {"m1": measure_m1, "m1bwd": measure_m1bwd, "m2": measure_m2,
-                   "m2bwd": measure_m2bwd, "decode": measure_decode}[args.model]
+                   "m2bwd": measure_m2bwd, "scan": measure_scan,
+                   "decode": measure_decode}[args.model]
         measure(result, args.label, device)
     line = json.dumps(result)
     if args.out:

@@ -43,10 +43,10 @@ GROUPS = (
     ("ssd_state_pass", "SSD chunk states and pass (K12)"),
     ("ssd_gate", "SSD gate and norm (K12)"),
     ("dsilu_kernel", "conv kernels (K3/K6, K12/K13)"),
-    ("split_bwd", "reverse walk, split over time (K6 / K7)"),
-    ("scan_bwd_kernel", "reverse walk (K5)"),
-    ("split_", "forward walk, split over time (K3 / K4)"),
-    ("scan_walk_kernel", "forward walk (K1)"),
+    ("split_bwd", "reverse walk, split over time (K5 / K6 / K7)"),
+    ("scan_bwd_kernel", "reverse walk over all of time (K5 before the split)"),
+    ("split_", "forward walk, split over time (K1 / K3 / K4)"),
+    ("scan_walk_kernel", "forward walk over all of time (K1 before the split)"),
     ("gemm_nt_wide", "K14 fp32 product tiles"),
     ("gemm_nt", "K3/K6 recompute product tiles"),
     ("gemm_nn", "K6/K7 cotangent product tiles"),

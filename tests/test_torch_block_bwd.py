@@ -203,6 +203,43 @@ def test_block_fused_fn_grads_match_jax(monkeypatch, backend, dtype):
         assert rel_err(g, jg) <= GRAD_TOL[dtype], (k, rel_err(g, jg))
 
 
+@pytest.mark.parametrize("width", [9, 12])
+def test_block_bwd_plain_matches_jax_at_wide_convs(monkeypatch, width):
+    """A whole-block Block with d_conv 9 or 12: backward through
+    BlockFusedFn (K7's plain version, its conv weight gradient at any width)
+    against jax.grad through the JAX package's ``_block_fused``, fp32. The
+    JAX package's whole-block backward kernel keeps 8 rows of conv-tap sums
+    (block_bwd.py:100), so its gradients come from its composite route."""
+    p = block_inputs(seed=70 + width, L=20, w=width)
+    names = ("hidden", "residual", "norm_w", "norm_b", "win", "wout", "conv_w", "conv_b",
+             "wx", "wdt", "dt_bias", "A", "D", "h0", "conv_state")
+    j = [jnp.asarray(p[k]) for k in names]
+    go, gr, gh = (jnp.asarray(p[k]) for k in ("g_out", "g_res", "g_hlast"))
+
+    def jloss(*args):
+        out, res, h = _block_fused(*args, True, 1e-5, True)
+        return jnp.sum(out * go) + jnp.sum(res * gr) + jnp.sum(h * gh)
+
+    monkeypatch.setenv("VIDEOMAMBA_BLOCK_BWD", "composite")
+    jgrads = jax.grad(jloss, argnums=tuple(range(len(names))))(*j)
+    monkeypatch.setenv("VIDEOMAMBA_BLOCK_BWD", "fused")
+    t = {k: torch.from_numpy(np.ascontiguousarray(p[k])).requires_grad_() for k in names}
+    w = torch_weights(t)
+    out, res, h = BlockFusedFn.apply(
+        t["hidden"], t["residual"], t["norm_w"], None, w["in_proj_w"],
+        w["out_proj_w"], w["conv_w"], w["conv_b"], w["x_proj_w"], w["dt_proj_w"],
+        w["dt_bias"], w["A"], w["D"], t["h0"], t["conv_state"], "rms", 1e-5, True)
+    before = block_bwd.launches
+    tgo, tgr, tgh = (torch.from_numpy(p[k]) for k in ("g_out", "g_res", "g_hlast"))
+    ((out * tgo).sum() + (res * tgr).sum() + (h * tgh).sum()).backward()
+    assert block_bwd.launches == before  # the plain version on the CPU
+    assert t["conv_w"].grad.shape == (width, 128)
+    for k, jg in zip(names, jgrads):
+        if k == "norm_b":
+            continue  # RMSNorm has no shift
+        assert rel_err(t[k].grad, jg) <= GRAD_TOL["fp32"], (k, rel_err(t[k].grad, jg))
+
+
 GEOM = dict(img_size=16, patch_size=8, depth=2, embed_dim=64, channels=3,
             kernel_size=1, num_frames=4, add_pool_norm=False)
 

@@ -92,8 +92,15 @@ def test_gradients_match_jax():
 
 
 def test_width_outside_the_gate_takes_the_plain_composition():
-    x, w, b, st = inputs(5, w=5)
-    assert not k10.causal_conv_supported(5) and k10.causal_conv_supported(4)
+    """The gate is the JAX package's (pallas_conv_supported) without its
+    128-lane rule: any width up to the sequence length. Width 5 is inside
+    it; a width above L (5 over 4 steps) takes the plain composition, as in
+    the JAX package."""
+    x, w, b, st = inputs(5, L=4, w=5)
+    assert k10.causal_conv_supported(5, 24) and k10.causal_conv_supported(4, 4)
+    assert not k10.causal_conv_supported(5, 4)
     args = [torch.from_numpy(a) for a in (x, w, b)]
+    before = k10.causal_conv.launches
     y = t_conv(*args, initial_state=torch.from_numpy(st), use_kernel=True)
+    assert k10.causal_conv.launches == before
     assert torch.equal(y, t_conv(*args, initial_state=torch.from_numpy(st)))

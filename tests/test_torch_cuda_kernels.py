@@ -45,9 +45,11 @@ def randn(*shape, dev, scale=1.0, seed=0):
     return (scale * torch.randn(*shape, generator=g)).to(dev)
 
 
-@pytest.mark.parametrize("n", [8, 16, 32, 64])
+@pytest.mark.parametrize("n", list(k1.STATE_SIZES))
 @pytest.mark.parametrize("full", [True, False])
 def test_scan_kernel_matches_plain(dev, n, full):
+    """K1 on the time-split walk at every built state size, with and
+    without the gate, softplus, D and the delta bias; twice bit-identical."""
     b, L, d = 2, 37, 200
     u = randn(b, L, d, dev=dev, seed=1)
     delta = randn(b, L, d, dev=dev, scale=0.5, seed=2)
@@ -60,10 +62,50 @@ def test_scan_kernel_matches_plain(dev, n, full):
     h0 = randn(b, d, n, dev=dev, scale=0.2, seed=8)
     before = k1.selective_scan.launches
     y, h = k1.selective_scan(u, delta, A, Bm, Cm, D, z, bias, h0, softplus_delta=full)
+    y2, h2 = k1.selective_scan(u, delta, A, Bm, Cm, D, z, bias, h0, softplus_delta=full)
     torch.cuda.synchronize()
-    assert k1.selective_scan.launches == before + 1
+    assert k1.selective_scan.launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(h, h2)
     py, ph = k1.selective_scan_plain(u, delta, A, Bm, Cm, D, z, bias, h0, full)
     assert rel_err(y, py) <= TOL and rel_err(h, ph) <= TOL
+
+
+def _scan_operands(dev, dtype, b, L, d, n, with_d=True, with_z=True, with_bias=True,
+                   softplus=True):
+    u = randn(b, L, d, dev=dev, seed=1).to(dtype)
+    delta = randn(b, L, d, dev=dev, scale=0.5, seed=2)
+    if not softplus:  # a positive step, as the callers pass it
+        delta = torch.nn.functional.softplus(delta - 1.0)
+    A = -torch.exp(randn(d, n, dev=dev, scale=0.3, seed=3))
+    xdbl = randn(b, L, 5 + 2 * n, dev=dev, seed=4).to(dtype)
+    return dict(u=u, delta=delta.to(dtype), A=A, B=xdbl[..., 5:5 + n], C=xdbl[..., 5 + n:],
+                D=randn(d, dev=dev, seed=5) if with_d else None,
+                z=randn(b, L, d, dev=dev, seed=6).to(dtype) if with_z else None,
+                delta_bias=randn(d, dev=dev, scale=0.2, seed=7).abs() if with_bias else None,
+                h0=randn(b, d, n, dev=dev, scale=0.2, seed=8))
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("full", [True, False])
+def test_scan_kernel_at_batch_4_and_each_walk_chunk(dev, monkeypatch, chunk, dtype, full):
+    """K1 at batch 4 and L 300 (no multiple of any chunk) with the split
+    walk's chunk fixed at each length the rule picks from: y, h_last and the
+    checkpoints against the plain version, twice bit-identical."""
+    monkeypatch.setattr(k1, "walk_chunk", lambda *_: chunk)
+    kw = _scan_operands(dev, dtype, 4, 300, 200, 16, full, full, full, full)
+    _same_twice_and_plain(k1.selective_scan, k1.selective_scan_plain,
+                          dict(kw, softplus_delta=full, checkpoints=True),
+                          TOL if dtype == torch.float32 else BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernel_at_base_batch_4(dev, dtype):
+    """K1 at VideoMamba-Base widths, batch 4 (the split walk's chunks of
+    128), with checkpoints, against the plain version; twice bit-identical."""
+    kw = _scan_operands(dev, dtype, 4, 1569, 1536, 16)
+    _same_twice_and_plain(k1.selective_scan, k1.selective_scan_plain,
+                          dict(kw, checkpoints=True), TOL if dtype == torch.float32 else BF16_TOL)
 
 
 @pytest.mark.parametrize("d", [128, 200, 768])
@@ -217,6 +259,11 @@ BLOCK_CASES = {
     "fp32_L16": (torch.float32, dict(L=16), TOL),
     "bf16_L17": (torch.bfloat16, dict(L=17), BF16_TOL),
     "fp32_L300": (torch.float32, dict(L=300), TOL),
+    # a d_model above 3072 (the add-norm rows opt into more shared memory)
+    # and conv widths above 8
+    "fp32_e3200": (torch.float32, dict(e=3200), TOL),
+    "fp32_w9": (torch.float32, dict(w=9), TOL),
+    "bf16_w12": (torch.bfloat16, dict(w=12, L=300), BF16_TOL),
 }
 
 
@@ -357,6 +404,61 @@ def test_scan_bwd_kernel_matches_plain(dev, dtype, full):
             assert a.dtype == w.dtype and rel_err(a, w) <= GRAD_TOL[dtype]
 
 
+# (with D, with z, with delta_bias, softplus): each operand optional on its own
+SCAN_BWD_VARIANTS = [(True, True, True, False), (False, True, True, True),
+                     (True, False, True, True), (True, True, False, True),
+                     (False, False, False, False), (False, False, False, True),
+                     (True, False, False, False), (False, True, False, False)]
+
+
+@pytest.mark.parametrize("variant", SCAN_BWD_VARIANTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_bwd_kernel_with_each_operand_optional(dev, dtype, variant):
+    """K5 with and without D, z and delta_bias, with and without softplus
+    (the split reverse walk's kZ and kSoftplus), from K1's checkpoints:
+    every gradient against the plain version, two runs bit-identical."""
+    with_d, with_z, with_bias, softplus = variant
+    kw = _scan_operands(dev, dtype, 2, 300, 200, 16, with_d, with_z, with_bias, softplus)
+    *_, ckpt = k1.selective_scan(**kw, softplus_delta=softplus, checkpoints=True)
+    args = dict({k: v for k, v in kw.items() if k != "h0"}, ckpt=ckpt,
+                g_out=randn(2, 300, 200, dev=dev, seed=9).to(dtype),
+                g_hlast=randn(2, 200, 16, dev=dev, seed=10), softplus_delta=softplus)
+    before = k1.selective_scan_bwd.launches
+    got = k1.selective_scan_bwd(**args)
+    again = k1.selective_scan_bwd(**args)
+    torch.cuda.synchronize()
+    assert k1.selective_scan_bwd.launches == before + 2 and _same(got, again)
+    for a, w in zip(got, k1.selective_scan_bwd_plain(**args)):
+        assert (a is None) == (w is None)
+        if a is not None:
+            assert a.dtype == w.dtype and rel_err(a, w) <= GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_bwd_kernel_at_batch_4_and_each_reverse_walk_chunk(dev, monkeypatch, dtype, chunk):
+    """K5 at batch 4 and L 300 with the split reverse walk's chunk fixed at
+    each length the rule picks from, and at Base widths (L 1569, D 1536,
+    batch 4) on the rule's own chunk: against the plain version, twice
+    bit-identical."""
+    for b, L, d in ((4, 300, 200), (4, 1569, 1536)):
+        with monkeypatch.context() as m:
+            if d == 200:
+                m.setattr(k1, "walk_bwd_chunk", lambda *_: chunk)
+            kw = _scan_operands(dev, dtype, b, L, d, 16)
+            *_, ckpt = k1.selective_scan(**kw, checkpoints=True)
+            args = dict({k: v for k, v in kw.items() if k != "h0"}, ckpt=ckpt,
+                        g_out=randn(b, L, d, dev=dev, seed=9).to(dtype),
+                        g_hlast=randn(b, d, 16, dev=dev, seed=10))
+            got, again = k1.selective_scan_bwd(**args), k1.selective_scan_bwd(**args)
+            torch.cuda.synchronize()
+            assert _same(got, again)
+            for a, w in zip(got, k1.selective_scan_bwd_plain(**args)):
+                assert a.dtype == w.dtype and rel_err(a, w) <= GRAD_TOL[dtype]
+        if chunk != 32:
+            break  # Base once
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L", [1, 37, 300])
 def test_mixer_bwd_kernel_matches_plain(dev, dtype, L):
@@ -421,6 +523,37 @@ def test_mixer_and_block_bwd_at_each_reverse_walk_chunk(dev, monkeypatch, dtype,
             assert a.dtype == w.dtype and rel_err(a, w) <= GRAD_TOL[dtype], i
 
 
+@pytest.mark.parametrize("d", [3200, 8192, 16384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("norm_type", ["rms", "layer"])
+def test_add_norm_kernels_at_wide_rows(dev, d, dtype, norm_type):
+    """K2 and K8 at D above 3072: 4 rows a block in more than 48 KB of
+    shared memory (K2 at 3200 to 16384, K8 at 3200), fewer rows a block (K8
+    at 8192), a streamed row (K8 at 16384); against the plain versions
+    (fp32 1e-5 / 2e-5, bf16 1e-2 / 2e-2), K8 twice bit-identical."""
+    x = randn(3, 41, d, dev=dev, seed=1).to(dtype)
+    res = randn(3, 41, d, dev=dev, seed=2)
+    w = 1 + randn(d, dev=dev, scale=0.1, seed=3)
+    bias = randn(d, dev=dev, scale=0.1, seed=4) if norm_type == "layer" else None
+    kw = dict(residual=res, prenorm=True, residual_in_fp32=True, norm_type=norm_type)
+    before = k2.fused_add_norm.launches, k2.fused_add_norm_bwd.launches
+    out = k2.fused_add_norm(x, w, bias, **kw)
+    ref = k2.fused_add_norm_plain(x, w, bias, **kw)
+    tol = TOL if dtype == torch.float32 else BF16_TOL
+    for a, b in zip(out, ref):
+        assert a.dtype == b.dtype and rel_err(a, b) <= tol
+    g, gr = randn(3, 41, d, dev=dev, seed=5).to(dtype), randn(3, 41, d, dev=dev, seed=6)
+    bkw = dict(prenorm=True, norm_type=norm_type)
+    got = k2.fused_add_norm_bwd(x, w, res, g, gr, **bkw)
+    again = k2.fused_add_norm_bwd(x, w, res, g, gr, **bkw)
+    torch.cuda.synchronize()
+    assert (k2.fused_add_norm.launches - before[0],
+            k2.fused_add_norm_bwd.launches - before[1]) == (1, 2)
+    assert _same(got, again)
+    for a, b in zip(got, k2.fused_add_norm_bwd_plain(x, w, res, g, gr, **bkw)):
+        assert a.dtype == b.dtype and rel_err(a, b) <= GRAD_TOL[dtype]
+
+
 @pytest.mark.parametrize("d", [200, 768])
 @pytest.mark.parametrize("norm_type", ["rms", "layer"])
 @pytest.mark.parametrize("x_dtype,res_dtype,prenorm", [
@@ -475,6 +608,11 @@ BLOCK_BWD_CASES = {
     "bf16_ragged_rms": (torch.bfloat16, dict(L=300), "rms"),
     "bf16_bf16_residual": (torch.bfloat16, dict(L=5, residual_fp32=False), "rms"),
     "fp32_one_step": (torch.float32, dict(L=1), "layer"),
+    # conv widths above 8 (the conv weight gradient in groups of 8 taps)
+    # and a d_model above 3072
+    "fp32_w9": (torch.float32, dict(w=9, L=300), "rms"),
+    "bf16_w12": (torch.bfloat16, dict(w=12), "layer"),
+    "fp32_e3200": (torch.float32, dict(e=3200), "layer"),
 }
 
 
@@ -748,7 +886,8 @@ def test_decode_session_step_replays_in_a_cuda_graph(dev, m2):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("w,L", [(4, 130), (3, 37), (2, 1)])
+@pytest.mark.parametrize("w,L", [(4, 130), (3, 37), (2, 1), (1, 37), (5, 130), (8, 70),
+                                 (9, 130), (9, 9)])
 def test_causal_conv_kernel_matches_plain(dev, dtype, w, L):
     from videomamba_tpu_torch.ops.kernels import causal_conv as k10
 
@@ -764,6 +903,135 @@ def test_causal_conv_kernel_matches_plain(dev, dtype, w, L):
         torch.cuda.synchronize()
         assert y.dtype == ref.dtype == dtype and rel_err(y, ref) <= tol
     assert k10.causal_conv.launches == before + 2
+
+
+def test_causal_conv_route_takes_width_5(dev):
+    """``causal_conv1d(use_kernel=True)`` at width 5 (inside the JAX gate)
+    launches K10, forward and backward agree with the plain composition."""
+    from videomamba_tpu_torch.ops.causal_conv1d import causal_conv1d
+    from videomamba_tpu_torch.ops.kernels import causal_conv as k10
+
+    x = randn(2, 24, 128, dev=dev, seed=1).requires_grad_()
+    w = randn(5, 128, dev=dev, scale=0.5, seed=2).requires_grad_()
+    b = randn(128, dev=dev, scale=0.1, seed=3)
+    st = randn(2, 128, 5, dev=dev, seed=4)
+    before = k10.causal_conv.launches
+    y = causal_conv1d(x, w, b, initial_state=st, use_kernel=True)
+    assert k10.causal_conv.launches == before + 1
+    ref = causal_conv1d(x, w, b, initial_state=st)
+    assert rel_err(y, ref) <= TOL
+    gx, gw = torch.autograd.grad(y.square().sum(), (x, w))
+    rx, rw = torch.autograd.grad(ref.square().sum(), (x, w))
+    assert rel_err(gx, rx) <= TOL and rel_err(gw, rw) <= TOL
+
+
+# ------------------------------------------- conv widths above 8 (K6, K7, K13)
+
+@pytest.mark.parametrize("w", [9, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixer_bwd_kernel_at_wide_convs(dev, dtype, w):
+    """K3's checkpoints and K6 at conv widths 9 and 12 (the conv weight
+    gradient in groups of 8 taps): every gradient against the plain
+    version, twice bit-identical."""
+    kw = _mixer_inputs(dev, L=300, w=w)
+    if dtype == torch.bfloat16:
+        kw = {k: v.to(dtype) if k in MIXER_BF16 else v for k, v in kw.items()}
+    y, h, ckpt = k3.mixer_fused(**kw, checkpoints=True)
+    args = dict({k: v for k, v in kw.items() if k != "h0"}, ckpt=ckpt,
+                g_y=randn(*y.shape, dev=dev, seed=12).to(dtype),
+                g_hlast=randn(*h.shape, dev=dev, scale=0.3, seed=13))
+    before = k6.mixer_bwd.launches
+    got, again = k6.mixer_bwd(**args), k6.mixer_bwd(**args)
+    torch.cuda.synchronize()
+    assert k6.mixer_bwd.launches == before + 2 and _same(got, again)
+    assert got[2].shape == (256, w) and got[10].shape == (2, 256, w)
+    for a, b in zip(got, k6.mixer_bwd_plain(**args)):
+        assert a.dtype == b.dtype and rel_err(a, b) <= GRAD_TOL[dtype]
+
+
+def _layer_grads(layer, x, plain):
+    """A loss's gradients through ``layer`` on the card, on its kernels or
+    (``plain``) with every wrapper taking its plain version on card
+    tensors."""
+    from videomamba_tpu_torch.ops import dispatch
+
+    layer.zero_grad()
+    saved = dispatch.runs_plain
+    if plain:
+        dispatch.runs_plain = lambda t: True
+    try:
+        out = layer(x)
+        (out * randn(*out.shape, dev=x.device, seed=21)).sum().backward()
+    finally:
+        dispatch.runs_plain = saved
+    torch.cuda.synchronize()
+    return out.detach(), {k: p.grad.clone() for k, p in layer.named_parameters()}
+
+
+def test_mamba_layer_trains_at_conv_width_9(dev):
+    """A Mamba(d_conv=9) layer's train step on the card takes K3 forward and
+    K6 backward and matches the same layer on plain versions on the card:
+    output 1e-5, every gradient 2e-5."""
+    from videomamba_tpu_torch.models.mamba import Mamba
+
+    layer = Mamba(128, d_conv=9, device=dev, generator=torch.Generator().manual_seed(0))
+    x = randn(2, 70, 128, dev=dev, seed=17)
+    before = k3.mixer_fused.launches, k6.mixer_bwd.launches
+    out, grads = _layer_grads(layer, x, plain=False)
+    assert (k3.mixer_fused.launches - before[0], k6.mixer_bwd.launches - before[1]) == (1, 1)
+    ref, want = _layer_grads(layer, x, plain=True)
+    assert rel_err(out, ref) <= TOL
+    for k, g in grads.items():
+        assert rel_err(g, want[k]) <= GRAD_TOL[torch.float32], k
+
+
+@pytest.mark.parametrize("w", [9, 12])
+def test_ssd_mixer_bwd_kernel_at_wide_convs(dev, w):
+    """K13 at conv widths 9 and 12 from K12's checkpointed forward: every
+    gradient against the plain version (fp32 2e-5), twice bit-identical."""
+    from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12
+    from videomamba_tpu_torch.ops.kernels import ssd_mixer_bwd as k13
+    from videomamba_tpu_torch.ops.ssd import _prepare_dt
+
+    b, L, h, p, g, n, q = 2, 250, 8, 32, 2, 16, 64
+    kw = _ssd_inputs(dev, torch.float32, b, L, h, p, g, n, q, w=w)
+    di, cd = h * p, h * p + 2 * g * n
+    dt_p = _prepare_dt(kw["zxbcdt"][..., di + cd:], kw["dt_bias"], True)
+    _, _, hins, yd = k12.ssd_mixer_core(
+        kw["zxbcdt"], dt_p, kw["A"], kw["conv_weight"], kw["conv_bias"], kw["D"],
+        kw["initial_state"], kw["conv_state"], kw["norm_weight"], 1e-5, q, h, p, g, n,
+        checkpoints=True)
+    args = (kw["zxbcdt"], dt_p, kw["A"], kw["conv_weight"], kw["conv_bias"], kw["D"],
+            kw["conv_state"], kw["norm_weight"], 1e-5, hins, yd,
+            randn(b, L, di, dev=dev, seed=21), randn(b, h, p, n, dev=dev, seed=22, scale=0.5),
+            q, h, p, g, n)
+    before = k13.ssd_mixer_bwd.launches
+    got, again = k13.ssd_mixer_bwd(*args), k13.ssd_mixer_bwd(*args)
+    torch.cuda.synchronize()
+    assert k13.ssd_mixer_bwd.launches == before + 2
+    assert all(a is None or torch.equal(a, c) for a, c in zip(got, again))
+    assert got[4].shape == (cd, w)
+    _close(got, k13.ssd_mixer_bwd_plain(*args), BWD_TOL,
+           ("dzx", "ddt", "dA", "dconv_state", "dconv_w", "dconv_b", "dh0", "dD", "dnorm"))
+
+
+def test_mamba2_layer_trains_at_conv_width_9(dev):
+    """A Mamba2(d_conv=9) layer's train step on the card runs K12 with
+    checkpoints and K13 and matches the same layer on plain versions on the
+    card: output 1e-5, every gradient 2e-5."""
+    from videomamba_tpu_torch.models.mamba2 import Mamba2
+    from videomamba_tpu_torch.ops.kernels import ssd_mixer_bwd as k13
+
+    layer = Mamba2(128, d_state=16, d_conv=9, headdim=32, chunk_size=64, device=dev,
+                   generator=torch.Generator().manual_seed(0))
+    x = randn(2, 150, 128, dev=dev, seed=18)
+    before = k13.ssd_mixer_bwd.launches
+    out, grads = _layer_grads(layer, x, plain=False)
+    assert k13.ssd_mixer_bwd.launches == before + 1
+    ref, want = _layer_grads(layer, x, plain=True)
+    assert rel_err(out, ref) <= TOL
+    for k, g in grads.items():
+        assert rel_err(g, want[k]) <= BWD_TOL, k
 
 
 # --------------------------------- Mamba-1 at any state size the JAX package takes

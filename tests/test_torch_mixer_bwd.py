@@ -115,6 +115,25 @@ def test_mixer_fused_fn_matches_jax(dtype, seqlen, monkeypatch):
         assert rel_err(a, b) <= TOL[dtype], name
 
 
+@pytest.mark.parametrize("width", [9, 12])
+def test_mixer_fused_fn_matches_jax_at_wide_convs(width, monkeypatch):
+    """A Mamba(d_conv=9 or 12) layer's mixer: K6's plain version (its conv
+    weight gradient at any width) against jax.grad through the JAX package's
+    mixer, fp32, all 11 gradients. The JAX package's own mixer-backward
+    kernel keeps 8 rows of conv-tap sums (mixer_bwd.py:107), so its
+    gradients here come from its composite route (K3's forward, then
+    autodiff of the recompute around its scan backward)."""
+    p, gy, ghl = mixer_inputs(seed=60 + width, L=40, w=width)
+    monkeypatch.setenv("VIDEOMAMBA_MIXER_BWD", "composite")
+    jy, jg = jax_grads(p, gy, ghl, "fp32")
+    monkeypatch.setenv("VIDEOMAMBA_MIXER_BWD", "fused")
+    ty, tg = port_grads(p, gy, ghl, torch.float32)
+    assert tg[2].shape == (width, 128) and tg[10].shape == (1, 128, width)
+    assert rel_err(ty, jy) <= 1e-5
+    for name, a, b in zip(NAMES, tg, jg):
+        assert rel_err(a, b) <= TOL["fp32"], name
+
+
 def test_composite_route_matches_fused(monkeypatch):
     p, gy, ghl = mixer_inputs(seed=3, L=40)
     grads = {}

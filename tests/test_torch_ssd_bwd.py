@@ -125,7 +125,7 @@ def test_k11_forward_and_backward_match_jax(monkeypatch, ngroups, dtype, with_h0
 # ---------------------------------------------------------- K13 / K14
 
 
-def mixer_inputs(seed, g, dtype, with_state, seqlen=35, b=2, e=32):
+def mixer_inputs(seed, g, dtype, with_state, seqlen=35, b=2, e=32, w=W):
     rng = np.random.default_rng(seed)
     f = np.float32
     di = H * P
@@ -136,13 +136,13 @@ def mixer_inputs(seed, g, dtype, with_state, seqlen=35, b=2, e=32):
         hidden=rounded(rng.standard_normal((b, seqlen, e)), dtype),
         in_w=rounded(rng.standard_normal((dpj, e)) * e ** -0.5, dtype),
         out_w=rounded(rng.standard_normal((e, di)) * di ** -0.5, dtype),
-        cw=rounded(0.3 * rng.standard_normal((cd, W)), dtype),
+        cw=rounded(0.3 * rng.standard_normal((cd, w)), dtype),
         cb=rounded(0.1 * rng.standard_normal(cd), dtype),
         D=(0.5 * rng.standard_normal(H)).astype(f),
         dtb=(0.1 * rng.standard_normal(H)).astype(f),
         nw=(1 + 0.1 * rng.standard_normal(di)).astype(f),
         h0=(0.2 * rng.standard_normal((b, H, P, N))).astype(f) if with_state else None,
-        cst=rounded(0.2 * rng.standard_normal((b, cd, W)), dtype) if with_state else None,
+        cst=rounded(0.2 * rng.standard_normal((b, cd, w)), dtype) if with_state else None,
         A=-np.exp(0.2 * rng.standard_normal(H)).astype(f),
     )
 
@@ -210,6 +210,28 @@ def test_k13_matches_both_jax_arms(monkeypatch, fwd, bwd, ngroups, dtype, use_no
     for name, g_ in zip(names, got):
         assert g_.dtype == t[name].dtype, name
     assert_close(got, want, TOL[dtype], names)
+    assert k13.ssd_mixer_bwd.launches == before  # plain on the CPU
+
+
+@pytest.mark.parametrize("width", [9, 12])
+def test_k13_matches_jax_at_wide_convs(monkeypatch, width):
+    """A Mamba2(d_conv=9 or 12) layer's mixer: K13's plain version (its
+    conv weight gradient at any width) against jax.grad through JAX
+    ssd_mixer_pallas, fp32, every gradient. Both arms of the JAX package's
+    fused mixer backward keep 8 rows of conv-tap sums (``dcw_scr``,
+    ssd_scan.py:951-980 loops over the taps into it), so the JAX gradients
+    come from its composite backward (autodiff of the conv and gate around
+    its chunk-scan backward)."""
+    monkeypatch.setenv("VIDEOMAMBA_PALLAS_INTERPRET", "1")
+    a = mixer_inputs(80 + width, 1, "fp32", True, w=width)
+    t, j = pair({k: a[k] for k in MIXER_NAMES}, "fp32", CAST)
+    monkeypatch.setenv("VIDEOMAMBA_SSD_BWD", "composite")
+    names, want = j_mixer_grads(j, 1, True)
+    monkeypatch.setenv("VIDEOMAMBA_SSD_BWD", "fused")
+    before = k13.ssd_mixer_bwd.launches
+    got = t_mixer_grads(t, 1, True, names)
+    assert t["cw"].grad.shape == (H * P + 2 * N, width)
+    assert_close(got, want, TOL["fp32"], names)
     assert k13.ssd_mixer_bwd.launches == before  # plain on the CPU
 
 

@@ -1,4 +1,4 @@
-"""The time-split forward walk of K3 and K4 (csrc/scan_walk_split.cuh), on the CPU.
+"""The time-split forward walk of K1, K3 and K4 (csrc/scan_walk_split.cuh), on the CPU.
 
 The kernel's three passes are written here in numpy at fp32, with the chunk
 length and scratch shapes the wrappers pass (``walk_scratch``): (a) each
@@ -9,8 +9,11 @@ its start, writing y, the 16-step checkpoints and h_last. They are held
 against the port's sequential ``selective_scan_plain`` and the JAX package's
 sequential oracle, ``selective_scan_bld(..., method="ref")``, within 1e-6
 (rel_err = max|a - b| / max|b|): splitting only reassociates the recurrence,
-a few fp32 ulps. The geometry rule is held to two blocks per SM of an H100
-at VideoMamba-Base, batch 1.
+a few fp32 ulps. K1's contract also takes no gate (z None), a raw dt
+(softplus off), no D skip and no delta bias: the walk's kZ and kSoftplus
+template arguments and a null D or bias, held here the same way. The
+geometry rule is held to two blocks per SM of an H100 at VideoMamba-Base,
+batch 1, and K1's scratch at batch 1 and 4.
 """
 
 import numpy as np
@@ -47,11 +50,15 @@ def scan_inputs(seed, b, L, d, n):
     )
 
 
-def split_walk(u, delta, A, B, C, D, z, delta_bias, h0, chunk, states, dtsum):
+def split_walk(u, delta, A, B, C, D, z, delta_bias, h0, chunk, states, dtsum,
+               softplus=True):
     """The kernel's three passes at fp32; ``states`` and ``dtsum`` are the
-    wrapper's scratch, written as the kernel writes them."""
+    wrapper's scratch, written as the kernel writes them. D, z and
+    delta_bias may be None (no skip, no gate, a zero bias)."""
     bsz, L, d = u.shape
-    dt = np.logaddexp(delta + delta_bias, F32(0)).astype(F32)  # softplus
+    dt = delta + delta_bias if delta_bias is not None else delta
+    if softplus:
+        dt = np.logaddexp(dt, F32(0)).astype(F32)
     du = dt * u
     nchunks = -(-L // chunk)
 
@@ -71,14 +78,17 @@ def split_walk(u, delta, A, B, C, D, z, delta_bias, h0, chunk, states, dtsum):
         states[:, c] = h
     y = np.empty_like(u)
     ckpt = []
-    gate = z / (F32(1) + np.exp(-z))
     for c in range(nchunks):  # (c) the output walk from each chunk's start
         h = h0 if c == 0 else states[:, c - 1]
         for t in range(c * chunk, min(L, (c + 1) * chunk)):
             if t % k1.SEGMENT == 0:
                 ckpt.append(h)
             h = step(h, t)
-            y[:, t] = ((C[:, t, None, :] * h).sum(-1) + D * u[:, t]) * gate[:, t]
+            y[:, t] = (C[:, t, None, :] * h).sum(-1)
+            if D is not None:
+                y[:, t] += D * u[:, t]
+            if z is not None:
+                y[:, t] *= z[:, t] / (F32(1) + np.exp(-z[:, t]))
     return y, h, np.stack(ckpt, axis=1)
 
 
@@ -122,6 +132,63 @@ def test_split_walk_matches_the_sequential_walks(case):
         return_last_state=True, method="ref")
     assert rel_err(y, jy) <= TOL
     assert rel_err(h_last, jh) <= TOL
+
+
+# K1's operand variants: (softplus, with D, with z, with delta_bias), each at
+# a K1 geometry (batch, L, d, n, the channel count whose chunk the wrapper picks).
+K1_CASES = {
+    "no_gate": (True, True, False, True, (2, 37, 32, 8, 32)),
+    "raw_dt": (False, True, True, False, (1, 100, 24, 16, 1536)),
+    "bare": (False, False, False, False, (4, 1569, 8, 8, 1536)),
+    "no_skip_no_bias": (True, False, True, False, (1, 1569, 16, 16, 1536)),
+    "bare_b4_short": (False, False, False, False, (4, 10, 32, 16, 32)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_split_walk_takes_k1_contract(case):
+    """The walk without the gate, softplus, D skip or delta bias (K1's
+    ``full=False`` contract) against both sequential walks; delta is a
+    positive step where softplus is off, as the callers pass it."""
+    softplus, with_d, with_z, with_bias, (bsz, L, d, n, d_rule) = K1_CASES[case]
+    kw = scan_inputs(40 + sorted(K1_CASES).index(case), bsz, L, d, n)
+    if not softplus:
+        kw["delta"] = np.logaddexp(kw["delta"] + kw["delta_bias"], F32(0)).astype(F32)
+    for key, keep in (("D", with_d), ("z", with_z), ("delta_bias", with_bias)):
+        if not keep:
+            kw[key] = None
+    chunk, states, dtsum = k1.walk_scratch(bsz, L, d_rule, n, "cpu")
+    stored = -(-L // chunk) - 1
+    y, h_last, ckpt = split_walk(**kw, chunk=chunk, states=np.zeros((bsz, stored, d, n), F32),
+                                 dtsum=np.zeros((bsz, stored, d), F32), softplus=softplus)
+
+    t = {k: None if v is None else torch.from_numpy(v) for k, v in kw.items()}
+    py, ph, pckpt = k1.selective_scan_plain(
+        t["u"], t["delta"], t["A"], t["B"], t["C"], t["D"], t["z"], t["delta_bias"], t["h0"],
+        softplus_delta=softplus, checkpoints=True)
+    assert rel_err(y, py) <= TOL
+    assert rel_err(h_last, ph) <= TOL
+    assert rel_err(ckpt, pckpt) <= TOL
+
+    j = {k: None if v is None else jnp.asarray(v) for k, v in kw.items()}
+    jy, jh = selective_scan_bld(
+        j["u"], j["delta"], j["A"], j["B"], j["C"], D=j["D"], z=j["z"],
+        delta_bias=j["delta_bias"], delta_softplus=softplus, initial_state=j["h0"],
+        return_last_state=True, method="ref")
+    assert rel_err(y, jy) <= TOL
+    assert rel_err(h_last, jh) <= TOL
+
+
+@pytest.mark.parametrize("batch,chunk,stored", [(1, 32, 49), (4, 128, 12), (2, 64, 24)])
+def test_k1_scratch_at_base(batch, chunk, stored):
+    """K1 at VideoMamba-Base widths (L 1569, Di 1536, N 16) takes the
+    mixers' chunk rule: its scratch holds one state row and one dt sum per
+    chunk but the last."""
+    got, states, dtsum = k1.walk_scratch(batch, 1569, 1536, 16, "cpu")
+    assert got == chunk == k1.walk_chunk(batch, 1569, 1536)
+    assert tuple(states.shape) == (batch, stored, 1536, 16)
+    assert tuple(dtsum.shape) == (batch, stored, 1536)
+    assert states.dtype == dtsum.dtype == torch.float32
 
 
 @pytest.mark.parametrize("seqlen", [1569, 785, 784])

@@ -1,4 +1,4 @@
-"""The time-split reverse walk of K6 and K7 (csrc/scan_walk_split_bwd.cuh), on the CPU.
+"""The time-split reverse walk of K5, K6 and K7 (csrc/scan_walk_split_bwd.cuh), on the CPU.
 
 The kernel's three passes are written here in numpy at fp32, with the chunk
 length the wrappers pass (``walk_bwd_chunk``) and the scratch shapes the
@@ -24,8 +24,11 @@ sequential fp32 reference sums dA over all L steps in fp32, and at L = 1569
 that sum alone is up to 1.7e-6 away from exact arithmetic, so each fp32
 reference is first held within 2e-6 of the float64 walk, and the split walk
 is then held within 1e-6 beyond that reference's own measured distance.
-The chunk rule is held to eight blocks per SM of an H100 at
-VideoMamba-Base, batch 1.
+K5's contract also takes no gate, a raw dt (softplus off), no D skip and
+no delta bias (the walk's kZ and kSoftplus template arguments, a null D or
+bias): those cases are held the same way. The chunk rule is held to eight
+blocks per SM of an H100 at VideoMamba-Base, batch 1, and K5's scratch at
+batch 1 and 4.
 """
 
 import numpy as np
@@ -50,7 +53,10 @@ def rel_err(a, b) -> float:
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-8))
 
 
-def scan_inputs(seed, b, L, d, n, with_z, with_hlast):
+def scan_inputs(seed, b, L, d, n, with_z, with_hlast, softplus=True, with_d=True,
+                with_bias=True):
+    """Operands, cotangent g and g_hlast; without softplus delta (and
+    delta + delta_bias) is a positive step, as the callers pass it."""
     rng = np.random.default_rng(seed)
     p = dict(
         u=rng.standard_normal((b, L, d)).astype(F32),
@@ -66,17 +72,29 @@ def scan_inputs(seed, b, L, d, n, with_z, with_hlast):
     )
     g = rng.standard_normal((b, L, d)).astype(F32)
     g_hlast = (0.3 * rng.standard_normal((b, d, n))).astype(F32) if with_hlast else None
+    if not softplus:  # a positive step, and a small positive bias on it
+        p["delta"] = np.logaddexp(p["delta"] + p["delta_bias"], F32(0)).astype(F32)
+        p["delta_bias"] = np.linspace(0.0, 0.2, d).astype(F32)
+    if not with_d:
+        p["D"] = None
+    if not with_bias:
+        p["delta_bias"] = None
     return p, g, g_hlast
 
 
-def split_walk_bwd(u, delta, A, B, C, D, z, delta_bias, ckpt, g, g_hlast, chunk):
+def split_walk_bwd(u, delta, A, B, C, D, z, delta_bias, ckpt, g, g_hlast, chunk,
+                   softplus=True):
     """The kernel's three passes in the inputs' dtype (fp32, or float64 for
     the exact reference). Returns the gradients in NAMES order (dz None
-    without z) and the chunk scratch (carry, dtsum) as pass (b) leaves it."""
+    without z, dD None without D, dbias None without delta_bias) and the
+    chunk scratch (carry, dtsum) as pass (b) leaves it."""
     F32 = u.dtype.type
     bsz, L, d = u.shape
     n = A.shape[1]
-    dt = np.logaddexp(delta + delta_bias, F32(0)).astype(F32)  # softplus
+    dt = delta + delta_bias if delta_bias is not None else delta
+    if softplus:
+        dt = np.logaddexp(dt, F32(0)).astype(F32)
+    dskip = D if D is not None else F32(0)
     du_t = dt * u
     if z is not None:
         sig = F32(1) / (F32(1) + np.exp(-z))
@@ -129,11 +147,13 @@ def split_walk_bwd(u, delta, A, B, C, D, z, delta_bias, ckpt, g, g_hlast, chunk)
                 daa = dh * hp * a
                 dA_part[:, c] += daa * dt[:, t, :, None]
                 sB = (dh * B[:, t, None, :]).sum(-1)
-                ddelta[:, t] = ((daa * A).sum(-1) + u[:, t] * sB) * (F32(1) - np.exp(-dt[:, t]))
-                du[:, t] = dt[:, t] * sB + g2[:, t] * D
+                ddelta[:, t] = (daa * A).sum(-1) + u[:, t] * sB
+                if softplus:
+                    ddelta[:, t] *= F32(1) - np.exp(-dt[:, t])
+                du[:, t] = dt[:, t] * sB + g2[:, t] * dskip
                 dB[:, t] = (dh * du_t[:, t, :, None]).sum(1)
                 dC[:, t] = (hn * g2[:, t, :, None]).sum(1)
-                pre[:, t] = (hn * C[:, t, None, :]).sum(-1) + u[:, t] * D
+                pre[:, t] = (hn * C[:, t, None, :]).sum(-1) + u[:, t] * dskip
                 dD_part[:, c] += g2[:, t] * u[:, t]
                 db_part[:, c] += ddelta[:, t]
         if c == 0:
@@ -143,18 +163,24 @@ def split_walk_bwd(u, delta, A, B, C, D, z, delta_bias, ckpt, g, g_hlast, chunk)
         for c in range(nchunks):
             dA, dD, dbias = dA + dA_part[b, c], dD + dD_part[b, c], dbias + db_part[b, c]
     dz = None if z is None else pre * gz
+    dD = None if D is None else dD
+    dbias = None if delta_bias is None else dbias
     return (du, ddelta, dA, dB, dC, dD, dz, dbias, dh0), (carry, dtsum)
 
 
-def sequential64(p, ckpt, g, g_hlast):
+def sequential64(p, ckpt, g, g_hlast, softplus=True):
     """The port's sequential reverse walk (``scan_bwd_core``) in float64 on
-    the same inputs and checkpoints, gradients in NAMES order."""
+    the same inputs and checkpoints, gradients in NAMES order (dD and dbias
+    None where their primal is)."""
     w = {k: None if v is None else torch.from_numpy(v.astype(np.float64))
          for k, v in dict(p, ckpt=ckpt, g=g, g_hlast=g_hlast).items()}
-    dt = k1.softplus(w["delta"] + w["delta_bias"])
+    dt = w["delta"] + w["delta_bias"] if w["delta_bias"] is not None else w["delta"]
+    dt = k1.softplus(dt) if softplus else dt
     du, ddelta, dz, dB, dC, dA, dD, dbias, dh0 = k1.scan_bwd_core(
         w["u"], dt, w["A"], w["B"], w["C"], w["D"], w["z"], w["g"], w["ckpt"], w["g_hlast"],
-        True)
+        softplus)
+    dD = None if w["D"] is None else dD
+    dbias = None if w["delta_bias"] is None else dbias
     got = (du, ddelta, dA, dB, dC, dD, dz, dbias, dh0)
     assert all(v is None or v.dtype == torch.float64 for v in got)
     return dict(zip(NAMES, got))
@@ -172,26 +198,25 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_split_walk_bwd_matches_the_sequential_walks(case):
-    bsz, L, d, n, d_rule, with_z, with_hlast = CASES[case]
-    p, g, g_hlast = scan_inputs(sorted(CASES).index(case), bsz, L, d, n, with_z, with_hlast)
+def check_split_walk_bwd(p, g, g_hlast, bsz, L, d, n, d_rule, softplus=True):
+    """The split reverse walk against the float64 sequential walk, the
+    port's plain K5 and jax.vjp of the JAX package's sequential oracle."""
     t = {k: None if v is None else torch.from_numpy(v) for k, v in p.items()}
     _, _, ckpt = k1.selective_scan_plain(
         t["u"], t["delta"], t["A"], t["B"], t["C"], t["D"], t["z"], t["delta_bias"], t["h0"],
-        softplus_delta=True, checkpoints=True)
+        softplus_delta=softplus, checkpoints=True)
     chunk = k1.walk_bwd_chunk(bsz, L, d_rule)
     assert chunk % k1.SEGMENT == 0 and chunk <= 64
     operands = [p[k] for k in ("u", "delta", "A", "B", "C", "D", "z", "delta_bias")]
     operands += [ckpt.numpy(), g, g_hlast]
-    got, (carry, dtsum) = split_walk_bwd(*operands, chunk)
+    got, (carry, dtsum) = split_walk_bwd(*operands, chunk, softplus=softplus)
     stored = -(-L // chunk) - 1
     assert carry.shape == (bsz, stored, d, n) and dtsum.shape == (bsz, stored, d)
     exact, _ = split_walk_bwd(*(None if v is None else v.astype(np.float64) for v in operands),
-                              chunk)
+                              chunk, softplus=softplus)
     exact = dict(zip(NAMES, exact))
     mine = dict(zip(NAMES, got))
-    seq = sequential64(p, operands[8], g, g_hlast)
+    seq = sequential64(p, operands[8], g, g_hlast, softplus)
     for name in NAMES:
         assert (exact[name] is None) == (seq[name] is None), name
         if seq[name] is not None:
@@ -209,7 +234,7 @@ def test_split_walk_bwd_matches_the_sequential_walks(case):
 
     plain = k1.selective_scan_bwd_plain(
         *(t[k] for k in ("u", "delta", "A", "B", "C", "D", "z", "delta_bias")), ckpt,
-        torch.from_numpy(g), None if g_hlast is None else torch.from_numpy(g_hlast), True)
+        torch.from_numpy(g), None if g_hlast is None else torch.from_numpy(g_hlast), softplus)
     for name, b in zip(NAMES, plain):
         assert (mine[name] is None) == (b is None), name
         if b is not None:
@@ -221,8 +246,8 @@ def test_split_walk_bwd_matches_the_sequential_walks(case):
     def fwd(*args):
         kw = dict(zip([k for k in keys if p[k] is not None], args))
         return selective_scan_bld(
-            kw["u"], kw["delta"], kw["A"], kw["B"], kw["C"], D=kw["D"], z=kw.get("z"),
-            delta_bias=kw["delta_bias"], delta_softplus=True, initial_state=kw["h0"],
+            kw["u"], kw["delta"], kw["A"], kw["B"], kw["C"], D=kw.get("D"), z=kw.get("z"),
+            delta_bias=kw.get("delta_bias"), delta_softplus=softplus, initial_state=kw["h0"],
             return_last_state=True, method="ref")
 
     (_, h_last), vjp = jax.vjp(fwd, *j.values())
@@ -232,6 +257,51 @@ def test_split_walk_bwd_matches_the_sequential_walks(case):
                       ("dD", "D"), ("dz", "z"), ("dbias", "delta_bias"), ("dh0", "h0")):
         if key in jgrads:
             close(name, np.asarray(jgrads[key]))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_split_walk_bwd_matches_the_sequential_walks(case):
+    bsz, L, d, n, d_rule, with_z, with_hlast = CASES[case]
+    p, g, g_hlast = scan_inputs(sorted(CASES).index(case), bsz, L, d, n, with_z, with_hlast)
+    check_split_walk_bwd(p, g, g_hlast, bsz, L, d, n, d_rule)
+
+
+# K5's operand variants: (softplus, with D, with z, with delta_bias, g_hlast),
+# each at a K5 geometry (batch, L, d, n, the channel count whose chunk the
+# wrapper picks).
+K5_CASES = {
+    "raw_dt": (False, True, True, True, True, (2, 100, 24, 16, 1536)),
+    "no_skip_no_bias": (True, False, True, False, True, (1, 785, 16, 8, 768)),
+    "bare": (False, False, False, False, False, (2, 37, 32, 8, 32)),
+    "bare_b4": (False, False, False, False, True, (4, 1569, 8, 8, 1536)),
+    "no_gate_no_bias": (True, True, False, False, True, (1, 1569, 16, 16, 1536)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+def test_split_walk_bwd_takes_k5_contract(case):
+    """The reverse walk without the gate, softplus, D skip or delta bias
+    (K5's ``full=False`` contract), held as the mixers' case is."""
+    softplus, with_d, with_z, with_bias, with_hlast, geom = K5_CASES[case]
+    bsz, L, d, n, d_rule = geom
+    p, g, g_hlast = scan_inputs(50 + sorted(K5_CASES).index(case), bsz, L, d, n, with_z,
+                                with_hlast, softplus=softplus, with_d=with_d,
+                                with_bias=with_bias)
+    check_split_walk_bwd(p, g, g_hlast, bsz, L, d, n, d_rule, softplus=softplus)
+
+
+@pytest.mark.parametrize("batch,chunk,nchunks", [(1, 32, 50), (4, 64, 25), (2, 64, 25)])
+def test_k5_scratch_at_base(batch, chunk, nchunks):
+    """K5 at VideoMamba-Base widths (L 1569, Di 1536, N 16) takes the
+    mixer backward's chunk rule: a carry and a dt sum per chunk but the
+    first, a dA, dD and dbias partial row per (batch, chunk)."""
+    got, carry, dtsum, dA_part, dD_part, db_part = k1.walk_bwd_scratch(batch, 1569, 1536, 16,
+                                                                       "cpu")
+    assert got == chunk == k1.walk_bwd_chunk(batch, 1569, 1536)
+    assert tuple(carry.shape) == (batch, nchunks - 1, 1536, 16)
+    assert tuple(dtsum.shape) == (batch, nchunks - 1, 1536)
+    assert tuple(dA_part.shape) == (batch, nchunks, 1536, 16)
+    assert tuple(dD_part.shape) == tuple(db_part.shape) == (batch, nchunks, 1536)
 
 
 @pytest.mark.parametrize("seqlen", [1569, 785, 784])

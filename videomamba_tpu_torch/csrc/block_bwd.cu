@@ -135,13 +135,9 @@ cudaError_t block_bwd_t(const BlockBwdIO& io, cudaStream_t s) {
   const TW* g_out = (const TW*)io.g_out;
 
   // normed = norm(res_out), rounded to the weight dtype (K2's row kernel).
-  const size_t norm_smem = (size_t)vmt::kNormWarps * E * sizeof(float);
-  if (norm_smem > 48 * 1024) return cudaErrorInvalidValue;
-  vmt::add_norm_kernel<float, float, float, TW>
-      <<<(rows + vmt::kNormWarps - 1) / vmt::kNormWarps, vmt::kNormWarps * 32, norm_smem, s>>>(
-          io.res_out, nullptr, io.norm_w, io.norm_b, normed, nullptr, rows, E, io.eps,
-          io.is_rms);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = vmt::launch_add_norm_rows<float, float, float, TW>(
+      io.res_out, nullptr, io.norm_w, io.norm_b, normed, (float*)nullptr, rows, E, io.eps,
+      io.is_rms, s);
   if (err != cudaSuccess) return err;
 
   // xz = normed Win^T (K4's tiles).
@@ -212,7 +208,6 @@ extern "C" int vmt_block_bwd(
     int W, int R, int N, int chunk, float eps, int is_rms, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (W > 8) return (int)cudaErrorInvalidValue;
   BlockBwdIO io{res_out, norm_w, norm_b, in_w, out_w, conv_w, conv_b, x_proj_w,
                 dt_proj_w, dt_bias, A, Dskip, conv_state, ckpt, g_out, g_res, g_hlast,
                 dres, dnorm_w, dnorm_b, dWin, dWout, dconv_w, dconv_b, dx_proj_w,

@@ -14,7 +14,11 @@
 // registers: the halo rows before the tile come from the previous tile's
 // rows (or conv_state for the first tile), read once, and every load and
 // store is coalesced across the warp's neighbouring channels. The taps and
-// the bias sit in registers for the whole tile.
+// the bias sit in registers for the whole tile. Widths 1 to 4 are compiled
+// as such (causal_conv_kernel); any other width runs causal_conv_any_kernel,
+// whose taps loop at run time over inputs read from device memory (the
+// W - 1 rows before a step come from L1 and L2), in the same summation
+// order.
 //
 // What bounds it on the H100: device memory. One read of x and one write of
 // y (plus (W - 1) / kConvTile extra halo reads), against 2W + 5 operations
@@ -63,6 +67,37 @@ __global__ void __launch_bounds__(kConvThreads)
   }
 }
 
+// Any width W: thread (t, d) of the tile sums its W taps in order from x (or
+// conv_state before the start).
+template <typename TX>
+__global__ void __launch_bounds__(kConvThreads)
+    causal_conv_any_kernel(const TX* __restrict__ x, const float* __restrict__ conv_state,
+                           const float* __restrict__ weight, const float* __restrict__ bias,
+                           TX* __restrict__ y, int L, int D, int W, int silu) {
+  const int d = blockIdx.x * kConvThreads + threadIdx.x;
+  if (d >= D) return;
+  const long long b = blockIdx.z;
+  const long long t0 = (long long)blockIdx.y * kConvTile;
+  const int steps = (int)min((long long)kConvTile, (long long)L - t0);
+  const float bv = bias ? bias[d] : 0.f;
+  const TX* xb = x + b * L * D;
+  TX* yb = y + b * L * D;
+  const float* st = conv_state + (b * D + d) * W;
+  for (int k = 0; k < steps; ++k) {
+    const long long t = t0 + k;
+    float acc = 0.f;
+    for (int j = 0; j < W; ++j) {
+      const long long s = t - (W - 1) + j;
+      const float v = s >= 0 ? vmt::to_f32(xb[s * D + d]) : st[W + s];
+      const float p = weight[(long long)j * D + d] * v;
+      acc = j == 0 ? p : acc + p;
+    }
+    acc += bv;
+    if (silu) acc *= 1.f / (1.f + expf(-acc));
+    yb[t * D + d] = vmt::from_f32<TX>(acc);
+  }
+}
+
 template <typename TX>
 cudaError_t causal_conv_t(const TX* x, const float* conv_state, const float* weight,
                           const float* bias, TX* y, int batch, int L, int D, int W,
@@ -70,6 +105,10 @@ cudaError_t causal_conv_t(const TX* x, const float* conv_state, const float* wei
   const dim3 grid((D + kConvThreads - 1) / kConvThreads, (L + kConvTile - 1) / kConvTile,
                   batch);
   switch (W) {
+    case 1:
+      causal_conv_kernel<TX, 1><<<grid, kConvThreads, 0, s>>>(x, conv_state, weight, bias,
+                                                              y, L, D, silu);
+      break;
     case 2:
       causal_conv_kernel<TX, 2><<<grid, kConvThreads, 0, s>>>(x, conv_state, weight, bias,
                                                               y, L, D, silu);
@@ -83,7 +122,8 @@ cudaError_t causal_conv_t(const TX* x, const float* conv_state, const float* wei
                                                               y, L, D, silu);
       break;
     default:
-      return cudaErrorInvalidValue;
+      causal_conv_any_kernel<TX><<<grid, kConvThreads, 0, s>>>(x, conv_state, weight, bias, y,
+                                                               L, D, W, silu);
   }
   return cudaGetLastError();
 }
@@ -91,8 +131,8 @@ cudaError_t causal_conv_t(const TX* x, const float* conv_state, const float* wei
 }  // namespace
 
 // x, y: (batch, L, D) contiguous, fp32 or bf16 (x_bf16); conv_state
-// (batch, D, W), weight (W, D) and bias (D,) (may be null): fp32. W in
-// {2, 3, 4}; silu: apply SiLU.
+// (batch, D, W), weight (W, D) and bias (D,) (may be null): fp32. Any W >= 1;
+// silu: apply SiLU.
 extern "C" int vmt_causal_conv(const void* x, const float* conv_state,
                                const float* weight, const float* bias, void* y,
                                int x_bf16, int batch, int L, int D, int W, int silu,
@@ -100,6 +140,7 @@ extern "C" int vmt_causal_conv(const void* x, const float* conv_state,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (batch == 0 || L == 0 || D == 0) return cudaSuccess;
+  if (W < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   using vmt::bf16;
   return (int)(x_bf16 ? causal_conv_t<bf16>((const bf16*)x, conv_state, weight, bias,

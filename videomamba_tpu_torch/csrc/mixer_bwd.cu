@@ -75,7 +75,6 @@ extern "C" int vmt_mixer_bwd(
     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (W > 8) return (int)cudaErrorInvalidValue;
   MixerBwdIO io{x, ld_x, z, ld_z, conv_state, conv_w, conv_b, x_proj_w,
                 dt_proj_w, dt_bias, A, Dskip, ckpt, g, Di, g_hlast, dx, Di, dz,
                 Di, nullptr, dconv_w, dconv_b, dx_proj_w, ddt_proj_w, ddt_bias,

@@ -329,35 +329,53 @@ __global__ void conv_dstate_kernel(const float* __restrict__ dcpre,
   }
 }
 
-// Per slice of kSplitRows rows (b, t flattened): part[z][k][d] = sum of
-// dcpre[m, d] ctx(m, k, d) for the W taps, part[z][W][d] = sum of dcpre
-// (the bias), with ctx the forward conv's input window.
-template <typename TX>
+constexpr int kDwTaps = 8;  // taps a block of the general conv_dw_kernel sums in registers
+
+// Per slice of kSplitRows rows (b, t flattened): part[y][k][d] = sum of
+// dcpre[m, d] ctx(m, k, d) for the W taps, part[y][W][d] = sum of dcpre
+// (the bias), with ctx the forward conv's input window. kW is the conv width
+// where it is fixed at compile time (4, every preset's); kW = 0 takes any
+// width, kDwTaps taps a block from tap blockIdx.z * kDwTaps, so the sums
+// stay in registers at any W. Each tap's sum runs over the rows in order in
+// both forms, so repeats are bit-identical.
+template <typename TX, int kW>
 __global__ void conv_dw_kernel(const float* __restrict__ dcpre,
                                const TX* __restrict__ x, long long ld_x,
                                const float* __restrict__ conv_state,
                                float* __restrict__ part, int batch, int L,
                                int D, int W) {
+  constexpr int kSlots = kW > 0 ? kW : kDwTaps;
+  const int width = kW > 0 ? kW : W;
+  const int k0 = kW > 0 ? 0 : blockIdx.z * kDwTaps;
   const int d = blockIdx.x * blockDim.x + threadIdx.x;
   if (d >= D) return;
   const long long rows = (long long)batch * L;
   const long long mbeg = (long long)blockIdx.y * kSplitRows;
   const long long mend = min(rows, mbeg + kSplitRows);
-  float acc[9] = {};  // W <= 8 taps + bias
+  float acc[kSlots + 1] = {};  // the taps k0 .. k0 + kSlots - 1, then the bias
   for (long long m = mbeg; m < mend; ++m) {
     const long long b = m / L;
     const long long t = m - b * L;
     const float g = dcpre[m * D + d];
     const TX* xb = x + b * L * ld_x;
-    const float* st = conv_state + (b * D + d) * W;
-    for (int k = 0; k < W; ++k) {
-      const long long s = t + k - (W - 1);
-      const float v = s >= 0 ? vmt::to_f32(xb[s * ld_x + d]) : st[W + s];
-      acc[k] += g * v;
+    const float* st = conv_state + (b * D + d) * width;
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      const int k = k0 + j;
+      if (kW > 0 || k < width) {
+        const long long s = t + k - (width - 1);
+        const float v = s >= 0 ? vmt::to_f32(xb[s * ld_x + d]) : st[width + s];
+        acc[j] += g * v;
+      }
     }
-    acc[W] += g;
+    acc[kSlots] += g;
   }
-  for (int k = 0; k <= W; ++k) part[((long long)blockIdx.y * (W + 1) + k) * D + d] = acc[k];
+  float* out = part + (long long)blockIdx.y * (width + 1) * D + d;
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    if (kW > 0 || k0 + j < width) out[(long long)(k0 + j) * D] = acc[j];
+  }
+  if (k0 == 0) out[(long long)width * D] = acc[kSlots];
 }
 
 // Sums the conv slices in order into dconv_w (D, W) and dconv_b (D,).
@@ -375,6 +393,29 @@ __global__ void conv_dw_sum_kernel(const float* __restrict__ part, int slices,
   } else {
     db[d] = acc;
   }
+}
+
+// dconv_w (D, W) and dconv_b (D,) from dcpre (batch * L rows of D fp32), the
+// conv's input x (rows of ld_x) and conv_state (batch, D, W) fp32; part holds
+// tn_slices(batch * L) * (W + 1) * D floats. Any W >= 1.
+template <typename TX>
+cudaError_t launch_conv_dw(const float* dcpre, const TX* x, long long ld_x,
+                           const float* conv_state, float* part, int batch, int L, int D,
+                           int W, int threads, float* dw, float* db, cudaStream_t s) {
+  const int slices = tn_slices((long long)batch * L);
+  const unsigned cols = (unsigned)((D + threads - 1) / threads);
+  if (W == 4) {
+    conv_dw_kernel<TX, 4><<<dim3(cols, slices), threads, 0, s>>>(dcpre, x, ld_x, conv_state,
+                                                                 part, batch, L, D, W);
+  } else {
+    conv_dw_kernel<TX, 0><<<dim3(cols, slices, (W + kDwTaps - 1) / kDwTaps), threads, 0, s>>>(
+        dcpre, x, ld_x, conv_state, part, batch, L, D, W);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  conv_dw_sum_kernel<<<(unsigned)(((long long)(W + 1) * D + 255) / 256), 256, 0, s>>>(
+      part, slices, D, W, dw, db);
+  return cudaGetLastError();
 }
 
 // The span's operands; each (batch, L, .) operand is rows with the stride
@@ -460,7 +501,6 @@ cudaError_t mixer_bwd_t(const MixerBwdIO& io, cudaStream_t s) {
   const int P = R + 2 * N;
   const long long rows = (long long)batch * L;
   const long long rd = rows * Di;
-  const int slices = tn_slices(rows);
   const MixerBwdScratch at = mixer_bwd_scratch(batch, L, Di, W, R, N, io.chunk);
   float* cy_pre = io.scratch + at.act;
   float* cy = cy_pre + rd;
@@ -549,12 +589,9 @@ cudaError_t mixer_bwd_t(const MixerBwdIO& io, cudaStream_t s) {
   conv_dstate_kernel<TW><<<(unsigned)(((long long)batch * Di + 255) / 256), 256, 0, s>>>(
       dcpre, (const TW*)io.conv_w, io.dconv_state, batch, L, Di, W);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  conv_dw_kernel<TX><<<dim3((Di + 127) / 128, slices), 128, 0, s>>>(
-      dcpre, (const TX*)io.x, io.ld_x, io.conv_state, wpart, batch, L, Di, W);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  conv_dw_sum_kernel<<<(unsigned)(((long long)(W + 1) * Di + 255) / 256), 256, 0, s>>>(
-      wpart, slices, Di, W, io.dconv_w, io.dconv_b);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_conv_dw<TX>(dcpre, (const TX*)io.x, io.ld_x, io.conv_state, wpart, batch, L,
+                           Di, W, 128, io.dconv_w, io.dconv_b, s);
+  if (err != cudaSuccess) return err;
 
   // dWx (P, Di) = dxdbl^T cy;  dWdt (Di, R) = ddelta_raw^T x_dbl[:, :R].
   err = product_tn<kBf16W>(dxdbl, P, cy, Di, io.dx_proj_w, wpart, P, Di, (int)rows, s);

@@ -1,18 +1,20 @@
 // Selective-scan forward walk for Hopper that splits the time axis across
-// blocks: the walk of the fused mixer (mixer_fused.cu, K3) and the
-// whole-block kernel (block_fused.cu, K4). The selective-scan kernel
-// (selective_scan.cu, K1) still runs the one-block-per-channel-group walk of
-// scan_walk.cuh; the reverse walks are in scan_walk_bwd.cuh (K5) and
-// scan_walk_split_bwd.cuh (K6, K7).
+// blocks: the walk of the selective-scan kernel (selective_scan.cu, K1), the
+// fused mixer (mixer_fused.cu, K3) and the whole-block kernel
+// (block_fused.cu, K4). The reverse walk is scan_walk_split_bwd.cuh (K5, K6,
+// K7).
 //
 // The recurrence and the operands are scan_walk.cuh's (ScanArgs, same
 // meaning): per (batch b, channel d, state n), in fp32,
-//   dt     = softplus(delta[t, d] + delta_bias[d])
+//   dt     = softplus(delta[t, d] + delta_bias[d])    (softplus: kSoftplus)
 //   h[n]   = exp(dt * A[d, n]) * h[n] + dt * u[t, d] * B[t, n]
 //   y[t,d] = (sum_n C[t, n] * h[n] + Dskip[d] * u[t, d]) * silu(z[t, d])
-// with z rounded to bf16 first under round_z (K4's bf16 path), h_last, and
-// with ckpt the state at the start of every kScanTile-step segment,
-// ckpt[b][t / kScanTile][d][n], the residual the reverse walks rebuild from.
+// (the gate: kZ), with z rounded to bf16 first under round_z (K4's bf16
+// path), h_last, and with ckpt the state at the start of every
+// kScanTile-step segment, ckpt[b][t / kScanTile][d][n], the residual the
+// reverse walks rebuild from. The mixers walk with both kZ and kSoftplus;
+// K1's contract also takes no gate and a raw dt, and a null Dskip or
+// delta_bias reads as zeros.
 //
 // Why split: the TPU kernels walk time in order inside VMEM because the
 // TPU's grid runs in order. One block of 128 channels walking all L steps
@@ -34,7 +36,7 @@
 //   (c) output: each (b, 128 channels, chunk) walks its chunk again from its
 //       start state (h0 for chunk 0) and writes y, the checkpoints (chunk
 //       starts are segment starts) and, in the last chunk, h_last.
-// Phases (a) and (c) are the old walk's loop on a chunk: one thread a
+// Phases (a) and (c) are one walk's loop on a chunk: one thread a
 // channel, its N states in registers, 16-step tiles staged in shared
 // memory. What is per (t, d) and off the state chain (softplus of dt, the
 // gate silu(z)) is computed while staging, and y's sum over n runs in four
@@ -49,10 +51,10 @@
 // delta a second time, which L2 (50 MB) mostly holds. Then the exps: two
 // walks of B L Di N = 38.6 M expf each on the MUFU units. The chunks put
 // 600 blocks (50 chunks of 32 steps x 12 channel groups) on the card where
-// the old walk had 12. Measured (H100, PERF.md): the walk then waits on the
-// latency of each step's chain more than on the exps (a faster __expf saved
-// 8 %, unrolling two steps 16 %), so more warps or more steps in flight are
-// what would move it next.
+// a walk over all of time has 12. Measured (H100, PERF.md): the walk then
+// waits on the latency of each step's chain more than on the exps (a faster
+// __expf saved 8 %, unrolling two steps 16 %), so more warps or more steps
+// in flight are what would move it next.
 #pragma once
 
 #include "scan_walk.cuh"
@@ -79,15 +81,18 @@ __device__ __forceinline__ void store_state(float* p, const float (&h)[N]) {
 
 // Phase (a) (kOut false) or (c) (kOut true) on chunk blockIdx.y of batch row
 // blockIdx.z, channels blockIdx.x * kScanThreads + [0, 128). Must be called
-// by all kScanThreads threads of the block (it synchronises). kRoundZ and
-// kCkpt are template arguments: a runtime test in the old walk's staging
-// loop slowed the fp32 walk by 29% at VideoMamba-Base (H100).
-template <int N, typename TU, typename TZ, typename TY, bool kRoundZ, bool kCkpt, bool kOut>
+// by all kScanThreads threads of the block (it synchronises). kRoundZ,
+// kCkpt, kZ (a z gate) and kSoftplus (dt through softplus) are template
+// arguments: a runtime test in an older walk's staging loop slowed the fp32
+// walk by 29% at VideoMamba-Base (H100).
+template <int N, typename TU, typename TZ, typename TY, bool kRoundZ, bool kCkpt, bool kOut,
+          bool kZ, bool kSoftplus>
 __device__ __forceinline__ void split_walk(const ScanArgs& a, const SplitArgs& s) {
   static_assert(N % 4 == 0, "states move as float4");
+  constexpr bool kGate = kOut && kZ;
   __shared__ float sDt[kScanTile][kScanThreads];
   __shared__ float sU[kScanTile][kScanThreads];
-  __shared__ float sG[kOut ? kScanTile : 1][kScanThreads];
+  __shared__ float sG[kGate ? kScanTile : 1][kScanThreads];
   __shared__ float sB[kScanTile][N];
   __shared__ float sC[kOut ? kScanTile : 1][N];
 
@@ -126,7 +131,7 @@ __device__ __forceinline__ void split_walk(const ScanArgs& a, const SplitArgs& s
 
   const TU* u_b = (const TU*)a.u + b * L * a.ld_u;
   const TU* dt_b = (const TU*)a.delta + b * L * a.ld_delta;
-  const TZ* z_b = (const TZ*)a.z + b * L * a.ld_z;
+  const TZ* z_b = kGate ? (const TZ*)a.z + b * L * a.ld_z : nullptr;
   const TU* B_b = (const TU*)a.B + b * L * a.ld_B;
   const TU* C_b = (const TU*)a.C + b * L * a.ld_C;
   TY* y_b = (TY*)a.y + b * L * a.ld_y;
@@ -149,14 +154,18 @@ __device__ __forceinline__ void split_walk(const ScanArgs& a, const SplitArgs& s
           const long long t = t0 + k;
           sDt[k][tid] = load_f32(dt_b + t * a.ld_delta + d);
           sU[k][tid] = load_f32(u_b + t * a.ld_u + d);
-          if constexpr (kOut) sG[k][tid] = load_f32(z_b + t * a.ld_z + d);
+          if constexpr (kGate) sG[k][tid] = load_f32(z_b + t * a.ld_z + d);
         }
       }
 #pragma unroll
       for (int k = 0; k < kScanTile; ++k) {
         if (k < steps) {
-          sDt[k][tid] = softplus_f(sDt[k][tid] + dbias);
-          if constexpr (kOut) {
+          if constexpr (kSoftplus) {
+            sDt[k][tid] = softplus_f(sDt[k][tid] + dbias);
+          } else {
+            sDt[k][tid] += dbias;
+          }
+          if constexpr (kGate) {
             float zz = sG[k][tid];
             if constexpr (kRoundZ) zz = __bfloat162float(__float2bfloat16_rn(zz));
             sG[k][tid] = zz * (1.f / (1.f + expf(-zz)));
@@ -187,7 +196,8 @@ __device__ __forceinline__ void split_walk(const ScanArgs& a, const SplitArgs& s
           h[n] = expf(dt * A[n]) * h[n] + du * sB[k][n];
           acc[n & 3] += sC[k][n] * h[n];
         }
-        const float yv = ((acc[0] + acc[1]) + (acc[2] + acc[3]) + uu * dskip) * sG[k][tid];
+        float yv = (acc[0] + acc[1]) + (acc[2] + acc[3]) + uu * dskip;
+        if constexpr (kZ) yv *= sG[k][tid];
         store_as(y_b + (t0 + k) * a.ld_y + d, yv);
       } else {
         dtsum += dt;
@@ -206,15 +216,16 @@ __device__ __forceinline__ void split_walk(const ScanArgs& a, const SplitArgs& s
   }
 }
 
-template <int N, typename TU>
+template <int N, typename TU, bool kSoftplus>
 __global__ void __launch_bounds__(kScanThreads)
     split_chunk_states_kernel(ScanArgs a, SplitArgs s) {
-  split_walk<N, TU, float, float, false, false, false>(a, s);
+  split_walk<N, TU, float, float, false, false, false, false, kSoftplus>(a, s);
 }
 
-template <int N, typename TU, typename TZ, typename TY, bool kRoundZ, bool kCkpt>
+template <int N, typename TU, typename TZ, typename TY, bool kRoundZ, bool kCkpt, bool kZ,
+          bool kSoftplus>
 __global__ void __launch_bounds__(kScanThreads) split_output_kernel(ScanArgs a, SplitArgs s) {
-  split_walk<N, TU, TZ, TY, kRoundZ, kCkpt, true>(a, s);
+  split_walk<N, TU, TZ, TY, kRoundZ, kCkpt, true, kZ, kSoftplus>(a, s);
 }
 
 constexpr int kPassThreads = 256;
@@ -255,14 +266,15 @@ static __global__ void __launch_bounds__(kPassThreads)
   }
 }
 
-template <int N, typename TU, typename TZ, typename TY, bool kRoundZOk>
+template <int N, typename TU, typename TZ, typename TY, bool kRoundZOk, bool kZ,
+          bool kSoftplus>
 cudaError_t launch_split_n(const ScanArgs& a, const SplitArgs& s, int batch,
                            cudaStream_t stream) {
   const int nchunks = (a.L + s.chunk - 1) / s.chunk;
   const unsigned groups = (a.D + kScanThreads - 1) / kScanThreads;
   cudaError_t err;
   if (nchunks > 1) {
-    split_chunk_states_kernel<N, TU>
+    split_chunk_states_kernel<N, TU, kSoftplus>
         <<<dim3(groups, nchunks - 1, batch), kScanThreads, 0, stream>>>(a, s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -276,48 +288,70 @@ cudaError_t launch_split_n(const ScanArgs& a, const SplitArgs& s, int batch,
   if constexpr (kRoundZOk) {
     if (a.round_z) {
       if (a.ckpt) {
-        split_output_kernel<N, TU, TZ, TY, true, true><<<grid, kScanThreads, 0, stream>>>(a, s);
+        split_output_kernel<N, TU, TZ, TY, true, true, kZ, kSoftplus>
+            <<<grid, kScanThreads, 0, stream>>>(a, s);
       } else {
-        split_output_kernel<N, TU, TZ, TY, true, false><<<grid, kScanThreads, 0, stream>>>(a, s);
+        split_output_kernel<N, TU, TZ, TY, true, false, kZ, kSoftplus>
+            <<<grid, kScanThreads, 0, stream>>>(a, s);
       }
       return cudaGetLastError();
     }
   }
   if (a.ckpt) {
-    split_output_kernel<N, TU, TZ, TY, false, true><<<grid, kScanThreads, 0, stream>>>(a, s);
+    split_output_kernel<N, TU, TZ, TY, false, true, kZ, kSoftplus>
+        <<<grid, kScanThreads, 0, stream>>>(a, s);
   } else {
-    split_output_kernel<N, TU, TZ, TY, false, false><<<grid, kScanThreads, 0, stream>>>(a, s);
+    split_output_kernel<N, TU, TZ, TY, false, false, kZ, kSoftplus>
+        <<<grid, kScanThreads, 0, stream>>>(a, s);
   }
   return cudaGetLastError();
 }
 
 // Launches phases (a), (b) and (c) (only (c) when L fits one chunk) for the
 // state sizes the library is built for (N in {8, 16, 32, 64, 128}; the
-// wrappers pad other sizes with zero lanes). The walk is built for the
-// mixers: dt through softplus, a z gate; round_z (K4's bf16 gate) only where
-// kRoundZOk.
-template <typename TU, typename TZ, typename TY, bool kRoundZOk = false>
+// wrappers pad other sizes with zero lanes). kZ and kSoftplus must match
+// a.z and a.softplus (the mixers walk with both, K1 with any of the four);
+// round_z (K4's bf16 gate) only where kRoundZOk.
+template <typename TU, typename TZ, typename TY, bool kRoundZOk = false, bool kZ = true,
+          bool kSoftplus = true>
 cudaError_t launch_scan_walk_split(const ScanArgs& a, const SplitArgs& s, int batch, int n,
                                    cudaStream_t stream) {
-  if ((a.round_z && !kRoundZOk) || !a.softplus || !a.z || a.L < 1 || s.chunk < kScanTile ||
+  if ((a.round_z && (!kRoundZOk || !kZ)) || (a.softplus != 0) != kSoftplus ||
+      (a.z != nullptr) != kZ || a.L < 1 || s.chunk < kScanTile ||
       s.chunk % kScanTile != 0 || (a.L > s.chunk && (!s.states || !s.dtsum)) ||
       (a.L + s.chunk - 1) / s.chunk > 65535 || batch > 65535) {
     return cudaErrorInvalidValue;
   }
   switch (n) {
     case 8:
-      return launch_split_n<8, TU, TZ, TY, kRoundZOk>(a, s, batch, stream);
+      return launch_split_n<8, TU, TZ, TY, kRoundZOk, kZ, kSoftplus>(a, s, batch, stream);
     case 16:
-      return launch_split_n<16, TU, TZ, TY, kRoundZOk>(a, s, batch, stream);
+      return launch_split_n<16, TU, TZ, TY, kRoundZOk, kZ, kSoftplus>(a, s, batch, stream);
     case 32:
-      return launch_split_n<32, TU, TZ, TY, kRoundZOk>(a, s, batch, stream);
+      return launch_split_n<32, TU, TZ, TY, kRoundZOk, kZ, kSoftplus>(a, s, batch, stream);
     case 64:
-      return launch_split_n<64, TU, TZ, TY, kRoundZOk>(a, s, batch, stream);
+      return launch_split_n<64, TU, TZ, TY, kRoundZOk, kZ, kSoftplus>(a, s, batch, stream);
     case 128:
-      return launch_split_n<128, TU, TZ, TY, kRoundZOk>(a, s, batch, stream);
+      return launch_split_n<128, TU, TZ, TY, kRoundZOk, kZ, kSoftplus>(a, s, batch, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// K1's walk (selective_scan.cu) at operand type T (u, delta, z, B, C and y)
+// for each gate and softplus choice. selective_scan.cu instantiates it for
+// fp32 and selective_scan_bf16.cu for bf16, so the two compile in parallel.
+template <typename T>
+cudaError_t selective_scan_walk(const ScanArgs& a, const SplitArgs& s, int batch, int n,
+                                cudaStream_t stream) {
+  if (a.z) {
+    return a.softplus ? launch_scan_walk_split<T, T, T, false, true, true>(a, s, batch, n, stream)
+                      : launch_scan_walk_split<T, T, T, false, true, false>(a, s, batch, n,
+                                                                             stream);
+  }
+  return a.softplus ? launch_scan_walk_split<T, T, T, false, false, true>(a, s, batch, n, stream)
+                    : launch_scan_walk_split<T, T, T, false, false, false>(a, s, batch, n,
+                                                                            stream);
 }
 
 }  // namespace vmt

@@ -1,14 +1,17 @@
 // Reverse-time walk of the selective scan for Hopper that splits the time
-// axis across blocks: the walk of the fused-mixer backward (mixer_bwd.cu, K6)
-// and the whole-block backward (block_bwd.cu, K7). The selective-scan
-// backward (selective_scan_bwd.cu, K5) still runs the one-block-per-channel-
-// group walk of scan_walk_bwd.cuh, whose math, operands (ScanBwdArgs) and
-// reductions this walk shares; the forward split walk is scan_walk_split.cuh.
+// axis across blocks: the walk of the selective-scan backward
+// (selective_scan_bwd.cu, K5), the fused-mixer backward (mixer_bwd.cu, K6)
+// and the whole-block backward (block_bwd.cu, K7). The math, the operands
+// (ScanBwdArgs) and the reductions are scan_walk_bwd.cuh's; the forward
+// split walk is scan_walk_split.cuh. The mixers walk with a z gate and dt
+// through softplus; K5's contract also takes no gate and a raw dt (kZ and
+// kSoftplus, template arguments), and a null Dskip or delta_bias reads as
+// zeros.
 //
-// Why split: scan_walk_bwd.cuh gives one block 64 channels and walks all L
-// steps from the last segment down to the first: ceil(Di / 64) x batch
-// blocks, 24 at VideoMamba-Base, batch 1, on a 132-SM card, each step waiting
-// out two dependent chains 1569 times. Of those chains only one crosses a
+// Why split: one block of 64 channels walking all L steps from the last
+// segment down to the first gives ceil(Di / 64) x batch blocks, 24 at
+// VideoMamba-Base, batch 1, on a 132-SM card, each step waiting out two
+// dependent chains 1569 times. Of those chains only one crosses a
 // segment: the rebuild of the pre-update states starts at each 16-step
 // checkpoint, but the cotangent chain
 //   dh_n = C_n g2 + s_n,   s_n <- a_n dh_n        (a_n = exp(dt A_n))
@@ -44,9 +47,9 @@
 // per-channel-block dB / dC partials), 0.015 ms at 3.35 TB/s; the exps are
 // about 3.5 B L Di N (rebuild 1.5, reverse 1, chunk cotangents 1) on the
 // MUFU units. The chunks put ceil(Di / 64) x nchunks blocks on the card
-// where the serial walk had 24, so the walk becomes a matter of throughput
-// and occupancy (the output walk's rebuilt states take 32 KB of shared
-// memory a block at N = 16).
+// where a walk over all of time has 24, so the walk becomes a matter of
+// throughput and occupancy (the output walk's rebuilt states take 32 KB of
+// shared memory a block at N = 16).
 #pragma once
 
 #include "scan_walk_bwd.cuh"
@@ -68,7 +71,7 @@ struct SplitBwdArgs {
 // blockIdx.x * kBwdThreads + [0, 64): the chunk's carry-out from a zero
 // carry, and the sum of its dt. Chunk 0 has none: its carry-out is dh0,
 // which the output walk ends on.
-template <int N, typename TU, typename TZ>
+template <int N, typename TU, typename TZ, bool kZ, bool kSoftplus>
 __global__ void __launch_bounds__(kBwdThreads) split_bwd_chunk_kernel(ScanBwdArgs a,
                                                                        SplitBwdArgs sp) {
   __shared__ float sDt[kScanTile][kBwdThreads];
@@ -96,7 +99,7 @@ __global__ void __launch_bounds__(kBwdThreads) split_bwd_chunk_kernel(ScanBwdArg
   if (active && a.delta_bias) dbias = a.delta_bias[d];
 
   const TU* dt_b = (const TU*)a.delta + b * L * a.ld_delta;
-  const TZ* z_b = (const TZ*)a.z + b * L * a.ld_z;
+  const TZ* z_b = kZ ? (const TZ*)a.z + b * L * a.ld_z : nullptr;
   const TZ* g_b = (const TZ*)a.g + b * L * a.ld_g;
   const TU* C_b = (const TU*)a.C + b * L * a.ld_C;
 
@@ -111,16 +114,24 @@ __global__ void __launch_bounds__(kBwdThreads) split_bwd_chunk_kernel(ScanBwdArg
         if (k < steps) {
           const long long t = t0 + k;
           sDt[k][tid] = load_f32(dt_b + t * a.ld_delta + d);
-          sG2[k][tid] = load_f32(z_b + t * a.ld_z + d);
+          if constexpr (kZ) sG2[k][tid] = load_f32(z_b + t * a.ld_z + d);
           gr[k] = load_f32(g_b + t * a.ld_g + d);
         }
       }
 #pragma unroll
       for (int k = 0; k < kScanTile; ++k) {
         if (k < steps) {
-          sDt[k][tid] = softplus_f(sDt[k][tid] + dbias);
-          const float zz = sG2[k][tid];
-          sG2[k][tid] = gr[k] * (zz * (1.f / (1.f + expf(-zz))));
+          if constexpr (kSoftplus) {
+            sDt[k][tid] = softplus_f(sDt[k][tid] + dbias);
+          } else {
+            sDt[k][tid] += dbias;
+          }
+          if constexpr (kZ) {
+            const float zz = sG2[k][tid];
+            sG2[k][tid] = gr[k] * (zz * (1.f / (1.f + expf(-zz))));
+          } else {
+            sG2[k][tid] = gr[k];
+          }
         }
       }
     }
@@ -194,11 +205,13 @@ constexpr size_t split_bwd_smem_bytes() {
 }
 
 // Phase (c) on chunk blockIdx.y of batch row blockIdx.z, channels
-// blockIdx.x * kBwdThreads + [0, 64): scan_walk_bwd.cuh's segment walk over
-// the chunk's segments, from the chunk's incoming carry.
-template <int N, typename TU, typename TZ, typename TO, bool kY>
+// blockIdx.x * kBwdThreads + [0, 64): the segment walk of scan_walk_bwd.cuh's
+// layout (rebuild, then the cotangent back) over the chunk's segments, from
+// the chunk's incoming carry. kY needs kZ.
+template <int N, typename TU, typename TZ, typename TO, bool kY, bool kZ, bool kSoftplus>
 __global__ void __launch_bounds__(kBwdThreads) split_bwd_output_kernel(ScanBwdArgs a,
                                                                         SplitBwdArgs sp) {
+  static_assert(kZ || !kY, "the gated output needs the gate");
   extern __shared__ float smem[];
   constexpr int kSub = bwd_sub<N>();
   constexpr int T = kScanTile * kBwdThreads;
@@ -245,13 +258,13 @@ __global__ void __launch_bounds__(kBwdThreads) split_bwd_output_kernel(ScanBwdAr
 
   const TU* u_b = (const TU*)a.u + b * L * a.ld_u;
   const TU* dt_b = (const TU*)a.delta + b * L * a.ld_delta;
-  const TZ* z_b = (const TZ*)a.z + b * L * a.ld_z;
+  const TZ* z_b = kZ ? (const TZ*)a.z + b * L * a.ld_z : nullptr;
   const TZ* g_b = (const TZ*)a.g + b * L * a.ld_g;
   const TU* B_b = (const TU*)a.B + b * L * a.ld_B;
   const TU* C_b = (const TU*)a.C + b * L * a.ld_C;
   TO* du_b = (TO*)a.du + b * L * a.ld_du;
   TO* dd_b = (TO*)a.ddelta + b * L * a.ld_ddelta;
-  TZ* dz_b = (TZ*)a.dz + b * L * a.ld_dz;
+  TZ* dz_b = kZ ? (TZ*)a.dz + b * L * a.ld_dz : nullptr;
   float* part_b = a.bc_part + (b * ncb + blockIdx.x) * L * V;
 
   for (long long seg = (t_end - 1) / kScanTile; seg >= t_begin / kScanTile; --seg) {
@@ -268,7 +281,7 @@ __global__ void __launch_bounds__(kBwdThreads) split_bwd_output_kernel(ScanBwdAr
           const long long t = t0 + k;
           sDt[k * kBwdThreads + tid] = load_f32(dt_b + t * a.ld_delta + d);
           sU[k * kBwdThreads + tid] = load_f32(u_b + t * a.ld_u + d);
-          zr[k] = load_f32(z_b + t * a.ld_z + d);
+          if constexpr (kZ) zr[k] = load_f32(z_b + t * a.ld_z + d);
           gr[k] = load_f32(g_b + t * a.ld_g + d);
         }
       }
@@ -276,12 +289,20 @@ __global__ void __launch_bounds__(kBwdThreads) split_bwd_output_kernel(ScanBwdAr
       for (int k = 0; k < kScanTile; ++k) {
         if (k < steps) {
           const int o = k * kBwdThreads + tid;
-          sDt[o] = softplus_f(sDt[o] + dbias);
-          const float zz = zr[k];
-          const float sig = 1.f / (1.f + expf(-zz));
-          sG2[o] = gr[k] * (zz * sig);
-          sGz[o] = gr[k] * (sig * (1.f + zz * (1.f - sig)));
-          if constexpr (kY) sYz[o] = zz * sig;
+          if constexpr (kSoftplus) {
+            sDt[o] = softplus_f(sDt[o] + dbias);
+          } else {
+            sDt[o] += dbias;
+          }
+          if constexpr (kZ) {
+            const float zz = zr[k];
+            const float sig = 1.f / (1.f + expf(-zz));
+            sG2[o] = gr[k] * (zz * sig);
+            sGz[o] = gr[k] * (sig * (1.f + zz * (1.f - sig)));
+            if constexpr (kY) sYz[o] = zz * sig;
+          } else {
+            sG2[o] = gr[k];
+          }
         }
       }
     } else {
@@ -346,16 +367,19 @@ __global__ void __launch_bounds__(kBwdThreads) split_bwd_output_kernel(ScanBwdAr
           vals[n] = dh * du;
           vals[N + n] = hn * g2;
         }
-        const float ddr = (term1 + uu * sBv) * (1.f - expf(-dt));
+        float ddr = term1 + uu * sBv;
+        if constexpr (kSoftplus) ddr *= 1.f - expf(-dt);
         dbacc += ddr;
         dDacc += g2 * uu;
         if (active) {
           const long long t = t0 + k;
           store_as(du_b + t * a.ld_du + d, dt * sBv + g2 * dskip);
           store_as(dd_b + t * a.ld_ddelta + d, ddr);
-          pre += uu * dskip;
-          store_as(dz_b + t * a.ld_dz + d, pre * sGz[o]);
-          if constexpr (kY) a.y[(b * L + t) * a.ld_y + d] = pre * sYz[o];
+          if constexpr (kZ) {
+            pre += uu * dskip;
+            store_as(dz_b + t * a.ld_dz + d, pre * sGz[o]);
+            if constexpr (kY) a.y[(b * L + t) * a.ld_y + d] = pre * sYz[o];
+          }
         }
         warp_reduce_scatter<V, V, 16>(vals, lane);
         constexpr int R = V >= 32 ? V / 32 : 1;
@@ -388,14 +412,14 @@ __global__ void __launch_bounds__(kBwdThreads) split_bwd_output_kernel(ScanBwdAr
   }
 }
 
-template <int N, typename TU, typename TZ, typename TO, bool kY>
+template <int N, typename TU, typename TZ, typename TO, bool kY, bool kZ, bool kSoftplus>
 cudaError_t launch_split_bwd_n(const ScanBwdArgs& a, const SplitBwdArgs& sp, int batch,
                                cudaStream_t stream) {
   const int nchunks = (a.L + sp.chunk - 1) / sp.chunk;
   const unsigned groups = (a.D + kBwdThreads - 1) / kBwdThreads;
   cudaError_t err;
   if (nchunks > 1) {
-    split_bwd_chunk_kernel<N, TU, TZ>
+    split_bwd_chunk_kernel<N, TU, TZ, kZ, kSoftplus>
         <<<dim3(groups, nchunks - 1, batch), kBwdThreads, 0, stream>>>(a, sp);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const long long total = (long long)batch * a.D * N;
@@ -405,10 +429,10 @@ cudaError_t launch_split_bwd_n(const ScanBwdArgs& a, const SplitBwdArgs& sp, int
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   constexpr size_t smem = split_bwd_smem_bytes<N, kY>();
-  err = cudaFuncSetAttribute(split_bwd_output_kernel<N, TU, TZ, TO, kY>,
+  err = cudaFuncSetAttribute(split_bwd_output_kernel<N, TU, TZ, TO, kY, kZ, kSoftplus>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  split_bwd_output_kernel<N, TU, TZ, TO, kY>
+  split_bwd_output_kernel<N, TU, TZ, TO, kY, kZ, kSoftplus>
       <<<dim3(groups, nchunks, batch), kBwdThreads, smem, stream>>>(a, sp);
   return cudaGetLastError();
 }
@@ -416,13 +440,16 @@ cudaError_t launch_split_bwd_n(const ScanBwdArgs& a, const SplitBwdArgs& sp, int
 // The three launches (only (c) when L fits one chunk) and the dA / dD /
 // dbias sum over chunks and batch (dD, dbias may be null) for the state
 // sizes the library is built for (N in {8, 16, 32, 64, 128}). dB and dC stay
-// in a.bc_part for launch_reduce_bc. The walk is built for the mixers: dt
-// through softplus, a z gate; kY needs a.y.
-template <typename TU, typename TZ, typename TO, bool kY = false>
+// in a.bc_part for launch_reduce_bc. kZ (a.z and a.dz) and kSoftplus
+// (a.softplus) must match the operands: the mixers walk with both, K5 with
+// any of the four; kY needs a.y.
+template <typename TU, typename TZ, typename TO, bool kY = false, bool kZ = true,
+          bool kSoftplus = true>
 cudaError_t launch_scan_bwd_split(const ScanBwdArgs& a, const SplitBwdArgs& sp, int batch,
                                   int n, float* dA, float* dD, float* dbias,
                                   cudaStream_t stream) {
-  if (!a.z || !a.dz || !a.softplus || (kY && !a.y) || a.L < 1 || sp.chunk < kScanTile ||
+  if ((a.z != nullptr) != kZ || (a.dz != nullptr) != kZ || (a.softplus != 0) != kSoftplus ||
+      (kY && !a.y) || a.L < 1 || sp.chunk < kScanTile ||
       sp.chunk % kScanTile != 0 || (a.L > sp.chunk && (!sp.carry || !sp.dtsum)) ||
       (a.L + sp.chunk - 1) / sp.chunk > 65535 || batch > 65535) {
     return cudaErrorInvalidValue;
@@ -430,19 +457,19 @@ cudaError_t launch_scan_bwd_split(const ScanBwdArgs& a, const SplitBwdArgs& sp, 
   cudaError_t err;
   switch (n) {
     case 8:
-      err = launch_split_bwd_n<8, TU, TZ, TO, kY>(a, sp, batch, stream);
+      err = launch_split_bwd_n<8, TU, TZ, TO, kY, kZ, kSoftplus>(a, sp, batch, stream);
       break;
     case 16:
-      err = launch_split_bwd_n<16, TU, TZ, TO, kY>(a, sp, batch, stream);
+      err = launch_split_bwd_n<16, TU, TZ, TO, kY, kZ, kSoftplus>(a, sp, batch, stream);
       break;
     case 32:
-      err = launch_split_bwd_n<32, TU, TZ, TO, kY>(a, sp, batch, stream);
+      err = launch_split_bwd_n<32, TU, TZ, TO, kY, kZ, kSoftplus>(a, sp, batch, stream);
       break;
     case 64:
-      err = launch_split_bwd_n<64, TU, TZ, TO, kY>(a, sp, batch, stream);
+      err = launch_split_bwd_n<64, TU, TZ, TO, kY, kZ, kSoftplus>(a, sp, batch, stream);
       break;
     case 128:
-      err = launch_split_bwd_n<128, TU, TZ, TO, kY>(a, sp, batch, stream);
+      err = launch_split_bwd_n<128, TU, TZ, TO, kY, kZ, kSoftplus>(a, sp, batch, stream);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -453,6 +480,32 @@ cudaError_t launch_scan_bwd_split(const ScanBwdArgs& a, const SplitBwdArgs& sp, 
   reduce_batch_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
       a.dA_part, a.dD_part, a.dbias_part, rows, a.D, n, dA, dD, dbias);
   return cudaGetLastError();
+}
+
+// K5's walk and sums (selective_scan_bwd.cu) at operand type T (u, delta,
+// z, B, C, g and their gradients) for each gate and softplus choice: the
+// split reverse walk, the dA / dD / dbias sums, then the channel-block sum
+// of dB / dC. selective_scan_bwd.cu instantiates it for fp32 and
+// selective_scan_bwd_bf16.cu for bf16, so the two compile in parallel.
+template <typename T>
+cudaError_t selective_scan_bwd_walk(const ScanBwdArgs& a, const SplitBwdArgs& sp, int batch,
+                                    int n, float* dA, float* dD, float* dbias, T* dB, T* dC,
+                                    cudaStream_t s) {
+  cudaError_t err;
+  if (a.z) {
+    err = a.softplus
+              ? launch_scan_bwd_split<T, T, T, false, true, true>(a, sp, batch, n, dA, dD, dbias, s)
+              : launch_scan_bwd_split<T, T, T, false, true, false>(a, sp, batch, n, dA, dD, dbias,
+                                                                   s);
+  } else {
+    err = a.softplus
+              ? launch_scan_bwd_split<T, T, T, false, false, true>(a, sp, batch, n, dA, dD, dbias,
+                                                                   s)
+              : launch_scan_bwd_split<T, T, T, false, false, false>(a, sp, batch, n, dA, dD,
+                                                                    dbias, s);
+  }
+  if (err != cudaSuccess) return err;
+  return launch_reduce_bc<T>(a.bc_part, batch, a.D, a.L, n, dB, n, dC, n, s);
 }
 
 }  // namespace vmt

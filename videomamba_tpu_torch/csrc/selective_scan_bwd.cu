@@ -3,16 +3,40 @@
 // Replaces the Pallas kernel videomamba_tpu/ops/pallas/scan.py
 // (scan_bwd_pallas -> _scan_bwd_kernel): every gradient of the selective
 // scan (du, ddelta, dA, dB, dC, dD, dz, dbias, dh0), rebuilt from the
-// forward's segment checkpoints (selective_scan.cu with ckpt). Three launches
-// on one stream: the reverse walk (scan_walk_bwd.cuh, which holds the math,
-// the design and what bounds it), the channel-block sum of dB / dC, and the
-// batch sum of dA / dD / dbias. No floating-point atomics: the sums run in a
-// fixed order, so repeated runs are bit-identical.
+// forward's segment checkpoints (selective_scan.cu with ckpt). The walk is
+// the time-split reverse walk of scan_walk_split_bwd.cuh, which K6 and K7
+// share (the math and the reductions are scan_walk_bwd.cuh's), with the gate
+// and softplus of dt as template arguments: chunk cotangents, a reverse pass
+// over the chunks, the output walk, the sum of the dA / dD / dbias partial
+// rows, then the channel-block sum of dB / dC. No floating-point atomics:
+// the sums run in a fixed order, so repeated runs are bit-identical.
+//
+// What bounds it on the H100 (Base, batch 1, L 1569, Di 1536, N 16, fp32):
+// bytes, about 78 MB (u, delta, z, g read; du, ddelta, dz written; the
+// checkpoints and the per-channel-block dB / dC partials), 0.0233 ms at
+// 3.35 TB/s. A walk over all of time runs ceil(D / 64) x batch blocks (24
+// at Base, batch 1), each step waiting out two dependent chains L times;
+// chunks of time (ops/kernels/scan.py walk_bwd_chunk) put ceil(D / 64) x
+// nchunks blocks on the card, and the walk then waits on its exps (about
+// 3.5 B L D N: rebuild 1.5, reverse 1, chunk cotangents 1) and occupancy.
 //
 // u, delta, z, B, C, g and du, ddelta, dz, dB, dC share one dtype (fp32, or
-// bf16: inputs widened on load, gradients rounded once on store); A, D,
-// delta_bias, the checkpoints, g_hlast, dA, dD, dbias and dh0 are fp32.
-#include "scan_walk_bwd.cuh"
+// bf16: inputs widened on load, gradients rounded once on store; the bf16
+// walk is compiled in selective_scan_bwd_bf16.cu); A, D, delta_bias, the
+// checkpoints, g_hlast, dA, dD, dbias, dh0 and the scratch are fp32. carry
+// (batch, nchunks - 1, D, N) and dtsum (batch, nchunks - 1, D) are the split
+// walk's scratch (SplitBwdArgs); dA_part (batch, nchunks, D, N), dD_part and
+// dbias_part (batch, nchunks, D) its partial rows.
+#include "scan_walk_split_bwd.cuh"
+
+// bf16 is instantiated in selective_scan_bwd_bf16.cu.
+extern template cudaError_t vmt::selective_scan_bwd_walk<vmt::bf16>(
+    const vmt::ScanBwdArgs&, const vmt::SplitBwdArgs&, int, int, float*, float*, float*,
+    vmt::bf16*, vmt::bf16*, cudaStream_t);
+template cudaError_t vmt::selective_scan_bwd_walk<float>(const vmt::ScanBwdArgs&,
+                                                         const vmt::SplitBwdArgs&, int, int,
+                                                         float*, float*, float*, float*, float*,
+                                                         cudaStream_t);
 
 extern "C" int vmt_selective_scan_bwd(
     const void* u, long long ld_u, const void* delta, long long ld_delta,
@@ -22,8 +46,8 @@ extern "C" int vmt_selective_scan_bwd(
     const float* ckpt, const float* g_hlast, void* du, void* ddelta, void* dz,
     void* dB, void* dC, float* dA, float* dD, float* dbias, float* dh0,
     float* bc_part, float* dA_part, float* dD_part, float* dbias_part,
-    int batch, int L, int D, int N, int softplus, int is_bf16, int device,
-    void* stream) {
+    float* carry, float* dtsum, int chunk, int batch, int L, int D, int N, int softplus,
+    int is_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   vmt::ScanBwdArgs a;
@@ -58,16 +82,10 @@ extern "C" int vmt_selective_scan_bwd(
   a.L = L;
   a.D = D;
   a.softplus = softplus;
+  const vmt::SplitBwdArgs sp{carry, dtsum, chunk};
   const cudaStream_t s = (cudaStream_t)stream;
-  using bf = vmt::bf16;
-  if (is_bf16) {
-    err = vmt::launch_scan_bwd<bf, bf, bf>(a, batch, N, dA, dD, dbias, s);
-    if (err != cudaSuccess) return (int)err;
-    return (int)vmt::launch_reduce_bc<bf>(bc_part, batch, D, L, N, (bf*)dB, N,
-                                          (bf*)dC, N, s);
-  }
-  err = vmt::launch_scan_bwd<float, float, float>(a, batch, N, dA, dD, dbias, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)vmt::launch_reduce_bc<float>(bc_part, batch, D, L, N, (float*)dB,
-                                           N, (float*)dC, N, s);
+  return (int)(is_bf16 ? vmt::selective_scan_bwd_walk<vmt::bf16>(
+                             a, sp, batch, N, dA, dD, dbias, (vmt::bf16*)dB, (vmt::bf16*)dC, s)
+                       : vmt::selective_scan_bwd_walk<float>(a, sp, batch, N, dA, dD, dbias,
+                                                             (float*)dB, (float*)dC, s));
 }

@@ -160,13 +160,8 @@ cudaError_t ssd_mixer_bwd(const SsdMixerBwdArgs& a, cudaStream_t s) {
   conv_dstate_kernel<float><<<(unsigned)(((long long)a.B * CD + 255) / 256), 256, 0, s>>>(
       a.dxbc, a.conv_w, a.dconv_state, a.B, a.L, CD, a.W);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int slices = tn_slices(rows);
-  conv_dw_kernel<T><<<dim3((CD + 255) / 256, slices), 256, 0, s>>>(
-      a.dxbc, (const T*)a.zx + Di, a.ld_zx, a.conv_state, a.conv_part, a.B, a.L, CD, a.W);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  conv_dw_sum_kernel<<<(unsigned)(((long long)(a.W + 1) * CD + 255) / 256), 256, 0, s>>>(
-      a.conv_part, slices, CD, a.W, a.dconv_w, a.dconv_b);
-  return cudaGetLastError();
+  return launch_conv_dw<T>(a.dxbc, (const T*)a.zx + Di, a.ld_zx, a.conv_state, a.conv_part,
+                           a.B, a.L, CD, a.W, 256, a.dconv_w, a.dconv_b, s);
 }
 
 template cudaError_t ssd_mixer_bwd<float>(const SsdMixerBwdArgs&, cudaStream_t);

@@ -69,7 +69,7 @@ def causal_conv1d(
         # this function.
         from videomamba_tpu_torch.ops.kernels import causal_conv as k10
 
-        if k10.causal_conv_supported(w):
+        if k10.causal_conv_supported(w, seqlen):
             state_in = (initial_state if initial_state is not None
                         else x.new_zeros((x.shape[0], x.shape[2], w)))
             args = (x, weight, bias, state_in)

@@ -24,8 +24,9 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "videomamba_tpu_torch"
-SOURCES = ("fused_add_norm.cu", "selective_scan.cu", "mixer_fused.cu",
-           "block_fused.cu", "selective_scan_bwd.cu", "mixer_bwd.cu",
+SOURCES = ("fused_add_norm.cu", "selective_scan.cu", "selective_scan_bf16.cu",
+           "mixer_fused.cu", "block_fused.cu", "selective_scan_bwd.cu",
+           "selective_scan_bwd_bf16.cu", "mixer_bwd.cu",
            "fused_add_norm_bwd.cu", "block_bwd.cu", "causal_conv.cu",
            "decode_step.cu", "ssd_mixer.cu", "ssd_pmixer.cu", "ssd_core_bwd.cu",
            "ssd_mixer_bwd.cu", "ssd_pmixer_bwd.cu")
@@ -48,7 +49,7 @@ SIGNATURES = {
     "vmt_fused_add_norm": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
     "vmt_selective_scan": (
         _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _LL,
-        _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, *(_I,) * 8, _P,
     ),
     "vmt_mixer_fused": (
         _P, _LL, _P, _LL, *(_P,) * 17, *(_I,) * 10, _P,
@@ -58,7 +59,7 @@ SIGNATURES = {
         _P, _I, *(_P,) * 10, *(_I,) * 9, _F, _I, _I, _P,
     ),
     "vmt_selective_scan_bwd": (
-        *(_P, _LL) * 6, *(_P,) * 18, *(_I,) * 7, _P,
+        *(_P, _LL) * 6, *(_P,) * 20, *(_I,) * 8, _P,
     ),
     "vmt_mixer_bwd": (
         _P, _LL, _P, _LL, *(_P,) * 23, *(_I,) * 10, _P,

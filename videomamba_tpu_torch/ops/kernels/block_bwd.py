@@ -37,7 +37,7 @@ import torch
 
 from videomamba_tpu_torch.ops import dispatch
 from videomamba_tpu_torch.ops.kernels import _build, scan
-from videomamba_tpu_torch.ops.kernels.fused_add_norm import MAX_D, fused_add_norm_bwd_plain
+from videomamba_tpu_torch.ops.kernels.fused_add_norm import fused_add_norm_bwd_plain
 from videomamba_tpu_torch.ops.kernels.mixer_bwd import _rnd, mixer_bwd_plain
 from videomamba_tpu_torch.ops.kernels.mixer_fused import mixer_fused_plain
 from videomamba_tpu_torch.ops.kernels.scan import (
@@ -153,10 +153,6 @@ def block_bwd(
         out[7] = unpad_x_proj(out[7], r, n, npad)
         out[10], out[12] = unpad(out[10], n), unpad(out[12], n)
         return tuple(out)
-    if e > MAX_D:
-        raise ValueError(f"block_bwd kernel takes d_model <= {MAX_D}, got {e}")
-    if width > 8:
-        raise ValueError(f"block_bwd kernel takes d_conv <= 8, got {width}")
     if bsz == 0 or seqlen == 0:
         raise ValueError("block_bwd kernel: empty batch or sequence")
     wdt = _build.one_dtype(in_proj_w)

@@ -43,7 +43,6 @@ import torch
 from videomamba_tpu_torch.ops import dispatch
 from videomamba_tpu_torch.ops.causal_conv1d import causal_conv1d
 from videomamba_tpu_torch.ops.kernels import _build
-from videomamba_tpu_torch.ops.kernels.fused_add_norm import MAX_D
 from videomamba_tpu_torch.ops.kernels.scan import (
     check_x_proj,
     pad_state,
@@ -208,8 +207,6 @@ def block_fused(
                           norm_type=norm_type, eps=eps, residual_fp32=residual_fp32,
                           checkpoints=checkpoints)
         return (*out[:2], *(unpad(t, n) for t in out[2:]))
-    if e > MAX_D:
-        raise ValueError(f"block_fused kernel takes d_model <= {MAX_D}, got {e}")
     wdt = hidden.dtype
     norm_b = norm_b if norm_type == "layer" else None  # RMSNorm has no shift
     weights = {"in_proj_w": (in_proj_w, (2 * di, e)), "out_proj_w": (out_proj_w, (e, di)),

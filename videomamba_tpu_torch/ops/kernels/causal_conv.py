@@ -5,14 +5,16 @@ Replaces videomamba_tpu/ops/pallas/causal_conv.py (causal_conv1d_pallas,
 ``y[b, t, d] = act(bias[d] + sum_k w[k, d] ctx[b, t + k, d])`` over (B, L,
 D), ctx being x preceded by the last W - 1 raw inputs of ``conv_state``
 (B, D, W). csrc/causal_conv.cu gives each thread one channel and a tile of
-64 time steps, walked in order with the last W - 1 inputs in registers; the
-halo before the tile comes from x (or conv_state for the first tile). It is
-bound by device memory: one read of x and one write of y. The taps, bias and
-state are read as fp32 and the sum is fp32; y comes back in x's dtype (fp32
-or bf16).
+64 time steps, walked in order with the last W - 1 inputs in registers
+(widths 1 to 4, compiled as such; any other width loops over its taps at run
+time); the halo before the tile comes from x (or conv_state for the first
+tile). It is bound by device memory: one read of x and one write of y. The
+taps, bias and state are read as fp32 and the sum is fp32; y comes back in
+x's dtype (fp32 or bf16).
 
-The port's own shape gate replaces the JAX package's 128-lane rule
-(``pallas_conv_supported``): any D and L, widths 2 to 4 (:data:`WIDTHS`).
+The gate (:func:`causal_conv_supported`) is the JAX package's
+``pallas_conv_supported`` without its 128-lane rule: any D, any width W
+with seqlen >= W.
 """
 
 from __future__ import annotations
@@ -27,11 +29,10 @@ from videomamba_tpu_torch.ops.kernels import _build
 
 Tensor = torch.Tensor
 
-WIDTHS = (2, 3, 4)  # conv widths the kernel is built for
-
-
-def causal_conv_supported(width: int) -> bool:
-    return width in WIDTHS
+def causal_conv_supported(width: int, seqlen: int) -> bool:
+    """The shapes ``causal_conv1d(use_kernel=True)`` runs K10 at: any width
+    up to the sequence length, at any channel count."""
+    return 1 <= width <= seqlen
 
 
 def causal_conv_plain(x: Tensor, weight: Tensor, bias: Optional[Tensor],
@@ -47,15 +48,15 @@ def causal_conv(x: Tensor, weight: Tensor, bias: Optional[Tensor], conv_state: T
     """Kernel wrapper with the contract of :func:`causal_conv_plain`.
 
     On CUDA: x fp32 or bf16 (read contiguous); weight, bias and conv_state
-    of any float dtype, read as fp32; W in :data:`WIDTHS`."""
+    of any float dtype, read as fp32; any W >= 1."""
     if dispatch.runs_plain(x):
         return causal_conv_plain(x, weight, bias, conv_state, activation)
     if activation not in (None, "silu", "swish"):
         raise NotImplementedError(f"activation {activation!r} is not supported")
     bsz, seqlen, d = x.shape
     width = weight.shape[0]
-    if not causal_conv_supported(width):
-        raise ValueError(f"causal_conv kernel takes widths {WIDTHS}, got {width}")
+    if width < 1:
+        raise ValueError(f"causal_conv kernel takes a width of at least 1, got {width}")
     x = x.contiguous()
     w32 = weight.float().contiguous()
     b32 = bias.float().contiguous() if bias is not None else None

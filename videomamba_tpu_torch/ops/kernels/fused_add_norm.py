@@ -6,10 +6,12 @@ kept in shared memory between its single read and its writes, statistics in
 fp32 with warp shuffles (the row kernel is csrc/add_norm.cuh, which K4's
 first launch shares). It is bound by device memory (two rows read, two
 written, a few flops per element), which is why it reads and writes each
-element once. x (and so normed) is fp32 or bf16, and so is the residual, on
-its own: at bf16 the final norm gets a bf16 x and an fp32 residual. The
-returned residual is fp32 under ``residual_in_fp32``, else x's dtype, as in
-the JAX package. Any other dtype on CUDA raises.
+element once. Any row width D: a block holds four rows in shared memory,
+fewer where they do not fit, and a row too wide for shared memory is read
+again for each pass. x (and so normed) is fp32 or bf16, and so is the
+residual, on its own: at bf16 the final norm gets a bf16 x and an fp32
+residual. The returned residual is fp32 under ``residual_in_fp32``, else
+x's dtype, as in the JAX package. Any other dtype on CUDA raises.
 
 K8 replaces fused_add_norm.py (fused_add_norm_bwd_pallas, ``_bwd_kernel``):
 dx, dresidual, dweight and dbias in one pass, csrc/fused_add_norm_bwd.cu.
@@ -29,9 +31,6 @@ from videomamba_tpu_torch.ops.kernels import _build
 from videomamba_tpu_torch.ops.norm import layer_norm, rms_norm
 
 Tensor = torch.Tensor
-
-MAX_D = 3072  # 4 rows of D fp32 per block in 48 KB of shared memory
-
 
 def fused_add_norm_plain(
     x: Tensor,
@@ -85,8 +84,6 @@ def fused_add_norm(
     if norm_type not in ("rms", "layer"):
         raise ValueError(f"Unknown norm_type: {norm_type!r}")
     d = x.shape[-1]
-    if d > MAX_D:
-        raise ValueError(f"fused_add_norm kernel takes D <= {MAX_D}, got {d}")
     bias = bias if norm_type == "layer" else None  # RMSNorm has no shift
     _build.check_operands(
         "fused_add_norm", x.device,
@@ -176,8 +173,6 @@ def fused_add_norm_bwd(
     if norm_type not in ("rms", "layer"):
         raise ValueError(f"Unknown norm_type: {norm_type!r}")
     d = x.shape[-1]
-    if d > MAX_D:
-        raise ValueError(f"fused_add_norm_bwd kernel takes D <= {MAX_D}, got {d}")
     g = g_out.to(x.dtype).contiguous()
     g_r = g_resout.contiguous() if (prenorm and g_resout is not None) else None
     _build.check_operands(

@@ -161,8 +161,6 @@ def mixer_bwd(
             pad_state(g_hlast, npad))
         return (dx, dz, dcw, dcb, unpad_x_proj(dxp, r, n, npad), ddtp, ddtb, unpad(dA, n),
                 dD, unpad(dh0, n), dcst)
-    if width > 8:
-        raise ValueError(f"mixer_bwd kernel takes d_conv <= 8, got {width}")
     if bsz == 0 or seqlen == 0:
         raise ValueError("mixer_bwd kernel: empty batch or sequence")
     g = g_y.to(x.dtype).contiguous()

@@ -1,25 +1,27 @@
 """K1: selective scan (Mamba-1 S6) and K5: its backward, hand-written CUDA.
 
 K1 replaces videomamba_tpu/ops/pallas/scan.py (scan_chunked_pallas,
-``_scan_kernel``). The kernel is csrc/selective_scan.cu over the walk in
-csrc/scan_walk.cuh: one thread per (batch, channel) keeps its N fp32 states
-in registers and walks L in order; a block of 128 channels stages each tile
-of B_t/C_t, shared by all its channels, in shared memory. delta bias and
-softplus, the D skip and the silu(z) gate run inside the walk. The walk is a
-serial chain, so at batch 1 the kernel is latency-bound with only
-ceil(D/128) blocks in flight; it keeps the state out of device memory and
-the loads of a tile in flight together. u, delta, z, B and C are fp32 or
-bf16 (widened on load); y comes back in u's dtype. ``checkpoints=True``
-also returns the state at the start of every 16-step segment, fp32, laid out
-(B, ceil(L / 16), D, N): the port's own layout (the TPU kernel's 8-step
-``hckpt`` is internal to it), written at the walk's tile boundary.
+``_scan_kernel``). The kernel is csrc/selective_scan.cu over the time-split
+walk of csrc/scan_walk_split.cuh, which K3 and K4 share: time is cut into
+chunks (:func:`walk_chunk`), each chunk's end state is walked from zero, a
+pass over the chunks turns them into start states, and the output walk runs
+every chunk again from its start. One thread per (batch, channel, chunk)
+keeps its N fp32 states in registers; delta bias and softplus, the D skip
+and the silu(z) gate run inside the walk (the gate and softplus as template
+arguments, so K1 also takes no gate and a raw dt). u, delta, z, B and C are
+fp32 or bf16 (widened on load); y comes back in u's dtype.
+``checkpoints=True`` also returns the state at the start of every 16-step
+segment, fp32, laid out (B, ceil(L / 16), D, N): the port's own layout (the
+TPU kernel's 8-step ``hckpt`` is internal to it). The scratch of the split
+walk comes from :func:`walk_scratch`.
 
 K5 replaces scan.py (scan_bwd_pallas, ``_scan_bwd_kernel``): every gradient
-of K1 from those checkpoints, in csrc/selective_scan_bwd.cu over the reverse
-walk in csrc/scan_walk_bwd.cuh (design and bound in its header note). It is
-latency-bound like the forward: two serial chains per step. K6 and K7 walk
-back with the time-split reverse walk of csrc/scan_walk_split_bwd.cuh, whose
-chunk :func:`walk_bwd_chunk` chooses.
+of K1 from those checkpoints, in csrc/selective_scan_bwd.cu over the
+time-split reverse walk of csrc/scan_walk_split_bwd.cuh, which K6 and K7
+share (math and reductions in csrc/scan_walk_bwd.cuh): chunk cotangents, a
+reverse pass over the chunks, the output walk, then fixed-order sums of the
+per-(batch, chunk) partial rows, so two runs are bit-identical. Its chunk and
+scratch come from :func:`walk_bwd_scratch`.
 
 State sizes: the walks are compiled for N in :data:`STATE_SIZES`; every
 Mamba-1 wrapper (K1, K3-K7) pads a smaller N with zero lanes (zero B and C
@@ -102,7 +104,7 @@ def num_segments(seqlen: int) -> int:
 
 
 def walk_chunk(batch: int, seqlen: int, d: int) -> int:
-    """Steps per time chunk of K3's and K4's split walk
+    """Steps per time chunk of K1's, K3's and K4's split walk
     (csrc/scan_walk_split.cuh): the longest of WALK_CHUNKS at which both of
     its walking launches hold WALK_MIN_BLOCKS blocks, else the shortest. The
     chunk-state launch's grid is batch x ceil(d / 128) channel groups x
@@ -114,7 +116,7 @@ def walk_chunk(batch: int, seqlen: int, d: int) -> int:
 
 
 def walk_bwd_chunk(batch: int, seqlen: int, d: int) -> int:
-    """Steps per time chunk of K6's and K7's split reverse walk
+    """Steps per time chunk of K5's, K6's and K7's split reverse walk
     (csrc/scan_walk_split_bwd.cuh): the longest of WALK_BWD_CHUNKS at which
     its chunk-cotangent launch, batch x ceil(d / 64) channel groups x
     (ceil(seqlen / chunk) - 1) chunks, holds WALK_BWD_MIN_BLOCKS blocks, else
@@ -136,6 +138,20 @@ def walk_scratch(batch: int, seqlen: int, d: int, n: int, device) -> Tuple[int, 
     f32 = dict(dtype=torch.float32, device=device)
     return (chunk, torch.empty((batch, stored, d, n), **f32),
             torch.empty((batch, stored, d), **f32))
+
+
+def walk_bwd_scratch(batch: int, seqlen: int, d: int, n: int, device) -> Tuple:
+    """K5's split reverse walk: its chunk length, the chunks' carries
+    (batch, nchunks - 1, d, n) and dt sums (batch, nchunks - 1, d), and the
+    per-(batch, chunk) partial rows of dA (batch, nchunks, d, n), dD and
+    dbias (batch, nchunks, d), all fp32."""
+    chunk = walk_bwd_chunk(batch, seqlen, d)
+    nchunks = -(-seqlen // chunk)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (chunk, torch.empty((batch, nchunks - 1, d, n), **f32),
+            torch.empty((batch, nchunks - 1, d), **f32),
+            torch.empty((batch, nchunks, d, n), **f32),
+            torch.empty((batch, nchunks, d), **f32), torch.empty((batch, nchunks, d), **f32))
 
 
 def softplus(x: Tensor) -> Tensor:
@@ -251,6 +267,7 @@ def selective_scan(
     if bsz == 0 or d == 0 or seqlen == 0:
         h_last.copy_(h0)
         return (y, h_last, ckpt) if checkpoints else (y, h_last)
+    chunk, states, dtsum = walk_scratch(bsz, seqlen, d, n, dev)
     err = _build.library().vmt_selective_scan(
         _build.ptr(u), _build.row_stride(u, "u"),
         _build.ptr(delta), _build.row_stride(delta, "delta"),
@@ -258,8 +275,9 @@ def selective_scan(
         _build.ptr(B), _build.row_stride(B, "B"),
         _build.ptr(C), _build.row_stride(C, "C"),
         _build.ptr(A), _build.ptr(D), _build.ptr(delta_bias), _build.ptr(h0),
-        _build.ptr(y), d, _build.ptr(h_last), _build.ptr(ckpt),
-        bsz, seqlen, d, n, int(softplus_delta), _build.is_bf16(u), dev.index,
+        _build.ptr(y), d, _build.ptr(h_last), _build.ptr(ckpt), _build.ptr(states),
+        _build.ptr(dtsum), chunk, bsz, seqlen, d, n, int(softplus_delta), _build.is_bf16(u),
+        dev.index,
         _build.stream_of(u),
     )
     _build.check(err, "selective_scan")
@@ -456,11 +474,10 @@ def selective_scan_bwd(
                 t.zero_()
         dh0.copy_(g_hlast if g_hlast is not None else torch.zeros_like(dh0))
     else:
-        ncb = -(-d // 64)
+        ncb = -(-d // WALK_BWD_CHANNELS)
         bc_part = torch.empty((bsz, ncb, seqlen, 2 * n), **f32)
-        dA_part = torch.empty((bsz, d, n), **f32)
-        dD_part = torch.empty((bsz, d), **f32)
-        dbias_part = torch.empty((bsz, d), **f32)
+        chunk, carry, dtsum, dA_part, dD_part, dbias_part = walk_bwd_scratch(
+            bsz, seqlen, d, n, dev)
         err = _build.library().vmt_selective_scan_bwd(
             _build.ptr(cu), _build.row_stride(cu, "u"),
             _build.ptr(cdelta), _build.row_stride(cdelta, "delta"),
@@ -474,7 +491,7 @@ def selective_scan_bwd(
             _build.ptr(dC), _build.ptr(dA), _build.ptr(dD), _build.ptr(dbias),
             _build.ptr(dh0), _build.ptr(bc_part),
             _build.ptr(dA_part), _build.ptr(dD_part), _build.ptr(dbias_part),
-            bsz, seqlen, d, n, int(softplus_delta), int(dtype == torch.bfloat16),
+            _build.ptr(carry), _build.ptr(dtsum), chunk, bsz, seqlen, d, n, int(softplus_delta), int(dtype == torch.bfloat16),
             dev.index, _build.stream_of(u),
         )
         _build.check(err, "selective_scan_bwd")
