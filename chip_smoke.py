@@ -141,8 +141,14 @@ failure, so the script exits nonzero:
     backward against their plain versions, fp32 within 2e-5 and bf16
     within 2e-2, the backward kernels twice bit-identical, each timed
     beside its plain version; K13's launches at fp32 and bf16, B=1 and 4,
-    summed into the parts of its span (device ms under the profiler); then
-    all five at head dim 256 and at d_state 256 (fp32).
+    summed into the parts of its span, and K14's backward's into its
+    products, gate, K13's span and ordered sums (device ms under the
+    profiler); then all five at head dim 256 and at d_state 256 (fp32).
+    Before them, K14's backward product tile alone (``projection_product``:
+    wgmma fed by TMA, fp32 as three TF32 products) at its three layouts
+    and both dtypes, at B L = 1, 1569 and 6276 rows and at row strides TMA
+    cannot describe (its staging variant), against a float64 product (fp32
+    2e-5, bf16 2e-2), twice bit-identical.
 22. m2 training, ``make_train_step`` on ``videomamba_base_m2`` with the
     bench recipe (AdamW lr 1e-4, weight decay 0.05): at fp32 and bf16
     compute over fp32 masters one B=2 step on the default ("mixer") train
@@ -152,7 +158,8 @@ failure, so the script exits nonzero:
     (median host ms, peak memory). At fp32 one step each under
     VIDEOMAMBA_SSD_TRAIN_ROUTE=pmixer (K14 24, its backward 24) and
     VIDEOMAMBA_SSD_BWD=composite (K12 24, K11's backward 24), gradients
-    within 1e-4 of the default route; checkpoint_num=24 with
+    within 1e-4 of the default route; at bf16 one pmixer-route step against
+    the same step on plain versions (5e-2); checkpoint_num=24 with
     drop_path_rate=0.1 against no remat (1e-6).
 23. K11's route, ``ssd_chunked(method="pallas")`` at Base-m2 shapes (B=2),
     forward and backward against ``method="chunked"`` (1e-4).
@@ -181,7 +188,9 @@ launch (kernels) or host time around a synchronised call (forward, chunk,
 step, token), on the card named in the output. Each kernel's bound is
 computed from the inputs it was timed on: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the peak rate of their type
-(989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32). One PyTorch call computes
+(989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32; K14's backward runs its
+fp32 projection products as three TF32 products, so they count three times
+at 495 TFLOP/s, and the FMA bound is printed beside). One PyTorch call computes
 K10's function without its SiLU and with a zero window,
 ``F.conv1d(..., groups=D)`` on the channels-first layout, so phase 12 also
 times K10 that way and the K10 row's ``library_ms`` is that call's time; no
@@ -247,7 +256,7 @@ BF16_GRAD_TOL = 2e-2  # its bf16 gradient bar (tests/test_block_bwd.py:115)
 STEP_GRAD_TOL = 1e-4  # 24 layers of reordered fp32 sums, twice
 BF16_STEP_TOL = 5e-2  # bf16 flips carried through 24 layers, forward and back
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12}
 WRAPPERS = {"selective_scan": k1.selective_scan,
             "fused_add_norm": k2.fused_add_norm,
             "mixer_fused": k3.mixer_fused,
@@ -1049,6 +1058,61 @@ K13_PARTS = (("conv_silu", "conv recompute"), ("epilogue_bwd", "epilogue"),
              ("group_sum", "group sum"), ("dsilu", "dsilu"), ("conv_", "conv backward"))
 
 
+# K14's backward's products in the order they run.
+PMIXER_BWD_ORDER = ("in_proj recompute", "dWout", "dgated", "dhidden", "dWin")
+
+
+def pmixer_bwd_split(label, kw, cfg, iters: int = 5):
+    """K14's backward launches, device ms a call under the profiler, by part:
+    in_proj's recompute (the product before the gate), dWout and dgated
+    (the products after it), K13's span, dhidden and dWin (the products
+    after the span), the ordered sums of split contractions, memsets and
+    torch's own ops; each product's TFLOP/s. The profiler can lose a
+    launch's record, so each product is averaged over the launches it saw."""
+    from torch.autograd import DeviceType
+
+    fn = lambda: k14.ssd_pmixer_bwd(**kw)  # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evts = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: e.time_range.start)
+    ms, seen = {}, {}
+    pos = 0  # the next product's place in PMIXER_BWD_ORDER
+    for e in evts:
+        name = e.name
+        if "product_kernel" in name:
+            pos = 0 if pos > 4 else pos  # past dWin: the next call
+            part = PMIXER_BWD_ORDER[pos]
+            pos += 1
+        elif "ssd_gate" in name:
+            part, pos = "gate", 1
+        elif "memset" in name.lower():
+            part = "memsets"
+        elif "sum_splits" in name:
+            part = "split-K sums"
+        elif "ssd_" in name or "conv_" in name or "dsilu" in name:
+            part, pos = "K13's span", 3
+        else:
+            part = "torch ops"
+        ms[part] = ms.get(part, 0.0) + e.time_range.elapsed_us() / 1e3
+        seen[part] = seen.get(part, 0) + 1
+    parts = {p: v / (seen[p] if p in PMIXER_BWD_ORDER else iters) for p, v in ms.items()}
+    print_parts(label, parts)
+    rows, e = cfg["batch"] * cfg["seqlen"], cfg["embed"]
+    di = cfg["nheads"] * cfg["hdim"]
+    zx = 2 * di + 2 * cfg["ngroups"] * cfg["d_state"]
+    sizes = {"in_proj recompute": rows * zx * e, "dWout": e * di * rows, "dgated": rows * di * e,
+             "dhidden": rows * e * zx, "dWin": zx * e * rows}
+    print(f"{label}: TFLOP/s " + ", ".join(f"{p} {2 * f / parts[p] / 1e9:.1f}"
+                                          for p, f in sizes.items() if parts.get(p)))
+
+
 def mixer_bwd_split(label, kw):
     """K13's launches summed into the parts of its span."""
     parts = {}
@@ -1620,12 +1684,13 @@ def serving_profile(label, model, clip):
               f"{dev_txt}, idle {idle}")
 
 
-def ssd_bwd_flops(cfg, dtype, kind):
+def ssd_bwd_flops(cfg, dtype, kind, ffma=False):
     """The least operations of K11's backward ("scan"), K13 ("mixer") or
     K14's backward ("pmixer"): per row the causal half of C B^T, dM, M^T dy
     and the two dcb products (Q / 2 keys on average), and per row and head
     the four (P, N) state products; K13 adds the conv backward and the
-    epilogue, K14 the five projection products."""
+    epilogue, K14 the five projection products, which at fp32 run as three
+    TF32 products each ("tf32", or on FMA with ``ffma``)."""
     b, L, e = cfg["batch"], cfg["seqlen"], cfg["embed"]
     h, p, gr, n, w, q = (cfg["nheads"], cfg["hdim"], cfg["ngroups"], cfg["d_state"],
                          cfg["width"], cfg["chunk"])
@@ -1636,8 +1701,10 @@ def ssd_bwd_flops(cfg, dtype, kind):
     fp32 = 0
     if kind != "scan":
         fp32 = b * L * (4 * w * cd + 20 * di)
-    if kind == "pmixer":
-        products += 2 * b * L * e * (3 * (di + cd) + 2 * di)
+    proj = 2 * b * L * e * (3 * (di + cd) + 2 * di) if kind == "pmixer" else 0
+    if tag == "fp32" and not ffma:
+        return {"fp32": products + fp32, "tf32": 3 * proj}
+    products += proj
     return {tag: products, "fp32": (products if tag == "fp32" else 0) + fp32}
 
 
@@ -1705,13 +1772,64 @@ def ssd_train_checks(cfg, device, dtype, label, iters, split=False):
     out["ssd_pmixer_bwd"] = time_against_plain(
         f"ssd_pmixer_bwd {tag}", k14.ssd_pmixer_bwd, k14.ssd_pmixer_bwd_plain, pmixer_bwd,
         tol, ssd_bwd_flops(cfg, dtype, "pmixer"), iters=iters, repeat_identical=True)
+    if dtype == torch.float32:
+        ffma = bound(0, ssd_bwd_flops(cfg, dtype, "pmixer", ffma=True))["bound_ms"]
+        print(f"ssd_pmixer_bwd {tag}: bound {out['ssd_pmixer_bwd']['bound_ms']:.4f} ms with "
+              f"its products as three TF32 products, {ffma:.4f} ms on FMA")
+    if split:
+        pmixer_bwd_split(f"ssd_pmixer_bwd {tag} by part", pmixer_bwd, cfg)
     return out
 
 
+# K14's backward product tile alone: (layout, M, N, K) at Base-m2 widths.
+PRODUCT_SHAPES = (("nt", 3200, 768), ("nn", 1536, 768), ("nn", 768, 3200), ("tn", 768, 1536),
+                  ("tn", 3200, 768))
+
+
+def product_operands(layout, m, n, k, dtype, g, device, pad=0):
+    """a, b of a projection product (rows padded by ``pad`` elements: a
+    row stride TMA cannot describe when odd) and its float64 value."""
+    sa = (k, m) if layout == "tn" else (m, k)
+    sb = (n, k) if layout == "nt" else (k, n)
+    a = randn((sa[0], sa[1] + pad), g, device).to(dtype)[:, :sa[1]]
+    b = randn((sb[0], sb[1] + pad), g, device).to(dtype)[:, :sb[1]]
+    x = a.double().t() if layout == "tn" else a.double()
+    y = b.double().t() if layout == "nt" else b.double()
+    return a, b, x @ y
+
+
+def phase_projection_products(device):
+    """K14's backward product tile alone at each layout and dtype, at B L =
+    1, 1569 and 6276 rows (the rows of M for NT and NN, the contraction of
+    TN) and at an odd row stride (the staging variant), against a float64
+    product (fp32 2e-5, bf16 2e-2), twice bit-identical."""
+    g = torch.Generator().manual_seed(41)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        cases = [(layout, rows, x, y, 0) for rows in (1, 1569, 6276)
+                 for layout, x, y in PRODUCT_SHAPES]
+        cases += [(layout, 1569, x, y, 1) for layout, x, y in PRODUCT_SHAPES[:4]]
+        for layout, rows, x, y, pad in cases:
+            m, n, k = (x, y, rows) if layout == "tn" else (rows, x, y)
+            a, b, want = product_operands(layout, m, n, k, dtype, g, device, pad)
+            got = k14.projection_product(layout, a, b)
+            again = k14.projection_product(layout, a, b)
+            torch.cuda.synchronize()
+            label = (f"projection_product {layout} {tag} M {m} N {n} K {k}"
+                     + (" (odd row stride: staging)" if pad else ""))
+            check(torch.equal(got, again), f"{label}: two runs differ")
+            check_close(label, got, want, tol)
+            del a, b, want, got, again
+    torch.cuda.empty_cache()
+
+
 def phase_ssd_train_kernels(device):
-    """The Mamba-2 training kernels at Base-m2 shapes, B = 1 and 4, fp32 and
+    """K14's backward product tile alone (phase_projection_products), then
+    the Mamba-2 training kernels at Base-m2 shapes, B = 1 and 4, fp32 and
     bf16 (ssd_train_checks), then at head dim 256 and d_state 256 (fp32).
     Returns the kernels-line entries of fp32 B = 1."""
+    phase_projection_products(device)
     entries = {}
     for batch in (1, 4):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1754,8 +1872,9 @@ def phase_m2_train(device, depth):
     1e-4 / 5e-2), then the B=4 zero-target step times and peak memory; at
     fp32 one step each on VIDEOMAMBA_SSD_TRAIN_ROUTE=pmixer (K14 24, its
     backward 24) and VIDEOMAMBA_SSD_BWD=composite (K12 24, K11's backward
-    24) against the mixer route (1e-4), and remat with drop path against no
-    remat (1e-6). Returns the step times and peaks."""
+    24) against the mixer route (1e-4), at bf16 one pmixer-route step
+    against the same step on plain versions (5e-2), and remat with drop
+    path against no remat (1e-6). Returns the step times and peaks."""
     batch2 = train_batch(2, device, zero_target=False)
     batch4 = train_batch(4, device)
     sd0, times, fp32_grads = None, {}, None
@@ -1814,6 +1933,25 @@ def phase_m2_train(device, depth):
         expect_launches(f"m2 fp32 train step, {label}", delta(launches(), before), **want)
         compare_grads(f"m2 {label} vs mixer route", grads_of(model), fp32_grads,
                       STEP_GRAD_TOL)
+    del model, step
+    torch.cuda.empty_cache()
+
+    model = m2_model(device, sd0)
+    step = make_train_step(model, adamw(model), compute_dtype=torch.bfloat16)
+    with env(VIDEOMAMBA_SSD_TRAIN_ROUTE="pmixer"):
+        before = launches()
+        step(batch2, torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        expect_launches("m2 bf16 train step, VIDEOMAMBA_SSD_TRAIN_ROUTE=pmixer",
+                        delta(launches(), before), ssd_pmixer=depth, ssd_pmixer_bwd=depth,
+                        ssd_mixer=0, ssd_mixer_bwd=0)
+        grads = grads_of(model)
+        load_state_dict(model, sd0)
+        with all_plain():
+            step(batch2, torch.Generator().manual_seed(1))
+            torch.cuda.synchronize()
+    compare_grads("m2 bf16 pmixer route vs plain versions", grads, grads_of(model),
+                  BF16_STEP_TOL)
     del model, step
     torch.cuda.empty_cache()
 

@@ -1,6 +1,7 @@
 """Serving times of one checkout of the port, for same-card comparisons.
 
-    python3 scripts/compare_m2_serving.py [--model m2|m2bwd|m1|m1bwd|scan|decode] [--root DIR]
+    python3 scripts/compare_m2_serving.py [--model m2|m2bwd|pmixer_bwd|m1|m1bwd|scan|decode]
+                                          [--root DIR]
                                           [--label NAME] [--out FILE] [--walk-blocks N]
                                           [--bwd-chunk N]
 
@@ -32,6 +33,17 @@ times and each launch's device time a call, as above, the launches also
 summed into the parts of the span (conv recompute, epilogue, C B^T tiles,
 dh_in, reverse pass, k-side tiles, q-side tiles, group sum, dsilu, conv
 backward, torch ops and memsets).
+
+``--model pmixer_bwd``, K14's backward (``ssd_pmixer_bwd``) at
+VideoMamba-Base-m2 shapes, fp32 and bf16, B = 1 and 4, nonzero h0, conv
+state and every cotangent (the output's and h_last's), checkpoints from K14's
+training forward: event times and each launch's device time a call, as
+above, the launches also summed, in the order they run, into the parts of
+the call (in_proj recompute, gate, dWout, dgated, K13's span, dhidden, dWin,
+split-K sums, memsets, torch ops; each product averaged over the launches
+the profiler saw) with each product's TFLOP/s; then
+``torch.matmul`` at the five product shapes and layouts, fp32 (TF32 off)
+and bf16, B = 1 and 4: the yardstick.
 
 ``--model m1``, at VideoMamba-Base shapes (B = 1, L = 1569, Di = 1536,
 N = 16, R = 48; Small for K4 at fp32):
@@ -399,6 +411,118 @@ def measure_m2bwd(result, label, device):
             torch.cuda.empty_cache()
 
 
+# K14's backward: its product launches (any version of the port) in the
+# order they run, and the kernels that sum a product's contraction slices.
+PMIXER_BWD_PRODUCTS = ("product_kernel", "gemm_nt_wide_kernel", "gemm_nt_bf16_kernel",
+                       "gemm_nt_kernel", "gemm_tn_kernel", "gemm_nn_kernel")
+PMIXER_BWD_ORDER = ("in_proj recompute", "dWout", "dgated", "dhidden", "dWin")
+SPLIT_SUMS = ("sum_slices", "sum_splits")
+
+
+def pmixer_bwd_shapes(cfg) -> dict:
+    """(M, N, K) and layout of K14's backward products."""
+    rows = cfg["batch"] * cfg["seqlen"]
+    e, di = cfg["embed"], cfg["nheads"] * cfg["hdim"]
+    zx = 2 * di + 2 * cfg["ngroups"] * cfg["d_state"]
+    return {"in_proj recompute": ((rows, zx, e), "nt"), "dWout": ((e, di, rows), "tn"),
+            "dgated": ((rows, di, e), "nn"), "dhidden": ((rows, e, zx), "nn"),
+            "dWin": ((zx, e, rows), "tn")}
+
+
+def pmixer_bwd_parts(fn, iters: int = 10) -> dict:
+    """K14's backward's launches, device ms a call under the profiler, by
+    part: in_proj's recompute (the product before the gate), dWout and
+    dgated (the products after it), K13's span, dhidden and dWin (the
+    products after the span), the ordered sums of split contractions,
+    memsets and torch's own ops. The profiler can lose a launch's record, so
+    each product is averaged over the launches it saw."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evts = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: e.time_range.start)
+    ms, seen = {}, {}
+    pos = 0  # the next product's place in PMIXER_BWD_ORDER
+    for e in evts:
+        name = e.name
+        if any(t in name for t in PMIXER_BWD_PRODUCTS):
+            pos = 0 if pos > 4 else pos  # past dWin: the next call
+            part = PMIXER_BWD_ORDER[pos]
+            pos += 1
+        elif "ssd_gate" in name:
+            part, pos = "gate", 1
+        elif "memset" in name.lower():
+            part = "memsets"
+        elif any(t in name for t in SPLIT_SUMS):
+            part = "split-K sums"
+        elif "ssd_" in name or "conv_" in name or "dsilu" in name:
+            part, pos = "K13's span", 3
+        else:
+            part = "torch ops"
+        ms[part] = ms.get(part, 0.0) + e.time_range.elapsed_us() / 1e3
+        seen[part] = seen.get(part, 0) + 1
+    return {p: v / (seen[p] if p in PMIXER_BWD_ORDER else iters) for p, v in ms.items()}
+
+
+def measure_pmixer_bwd(result, label, device):
+    from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14
+
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for bsz in (1, 4):
+            cfg = dict(BASE_M2, batch=bsz)
+            _, pm = ssd_inputs(device, dtype, cfg=cfg)
+            h, p, gr, n = cfg["nheads"], cfg["hdim"], cfg["ngroups"], cfg["d_state"]
+            shape = (cfg["chunk"], h, p, gr, n)
+            dt_p = k14.dt_projection(pm["hidden"], pm["in_proj_w"], h, pm["dt_bias"])
+            ws = {k: pm[k] for k in ("A", "in_proj_w", "out_proj_w", "conv_weight",
+                                     "conv_bias", "D")}
+            *_, hins, yd = k14.ssd_pmixer_core(pm["hidden"], dt_p, *ws.values(),
+                                               pm["initial_state"], pm["conv_state"],
+                                               pm["norm_weight"], 1e-5, *shape,
+                                               checkpoints=True)
+            g = torch.Generator().manual_seed(29)
+            kw = dict(hidden=pm["hidden"], dt_p=dt_p, **ws, conv_state=pm["conv_state"],
+                      norm_weight=pm["norm_weight"], norm_eps=1e-5, hins=hins, yd=yd,
+                      dout=torch.randn((bsz, cfg["seqlen"], cfg["embed"]), generator=g)
+                      .to(device).to(dtype),
+                      dhlast=0.5 * torch.randn((bsz, h, p, n), generator=g).to(device),
+                      chunk_size=cfg["chunk"], nheads=h, hdim=p, ngroups=gr, d_state=n)
+            name = f"ssd_pmixer_bwd {tag} B={bsz}"
+            time_kernel(result, label, name, k14.ssd_pmixer_bwd, kw)
+            parts = pmixer_bwd_parts(lambda: k14.ssd_pmixer_bwd(**kw))
+            entry = result["kernels"][name]
+            entry["parts_ms"] = parts
+            entry["tflops"] = {part: 2 * m * nn * k / parts[part] / 1e9
+                               for part, ((m, nn, k), _) in pmixer_bwd_shapes(cfg).items()
+                               if parts.get(part)}
+            print("    parts: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+            print("    TFLOP/s: " + ", ".join(f"{k} {v:.1f}"
+                                             for k, v in entry["tflops"].items()))
+            del pm, kw, hins, yd, dt_p
+            torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(5)
+    result["matmul"] = {}
+    for bsz in (1, 4):
+        for (part, ((m, n, k), layout)) in pmixer_bwd_shapes(dict(BASE_M2, batch=bsz)).items():
+            for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+                a = torch.randn((k, m) if layout == "tn" else (m, k), generator=g)
+                b = torch.randn((n, k) if layout == "nt" else (k, n), generator=g)
+                a, b = a.to(device).to(dtype), b.to(device).to(dtype)
+                x, y = (a.t() if layout == "tn" else a), (b.t() if layout == "nt" else b)
+                ms = statistics.median(event_ms(lambda: torch.matmul(x, y), iters=20)
+                                       for _ in range(3))
+                tf = 2 * m * n * k / ms / 1e9
+                result["matmul"][f"{part} {tag} B={bsz}"] = {"ms": ms, "tflops": tf,
+                                                            "mnk": [m, n, k]}
+                print(f"{label} torch.matmul {part} {tag} B={bsz} ({layout}, M {m} N {n} "
+                      f"K {k}): {ms:.4f} ms, {tf:.1f} TFLOP/s")
+
+
 # Parts of K6's and K7's span, by kernel-name fragment (first match wins).
 BWD_PARTS = (("split_bwd", "reverse walk"), ("scan_bwd", "reverse walk"),
              ("gemm_nn", "product tiles"), ("gemm_tn", "product tiles"),
@@ -639,7 +763,8 @@ def mma_crossover(result, label, model, k9, batches=(4, 8, 16, 32, 80)):
 def main() -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("m2", "m2bwd", "m1", "m1bwd", "scan", "decode"),
+    ap.add_argument("--model", choices=("m2", "m2bwd", "pmixer_bwd", "m1", "m1bwd", "scan",
+                                        "decode"),
                     default="m2")
     ap.add_argument("--root", default=here, help="checkout to import the port from")
     ap.add_argument("--label", default="this")
@@ -682,7 +807,8 @@ def main() -> int:
 
     with torch.inference_mode():
         measure = {"m1": measure_m1, "m1bwd": measure_m1bwd, "m2": measure_m2,
-                   "m2bwd": measure_m2bwd, "scan": measure_scan,
+                   "m2bwd": measure_m2bwd, "pmixer_bwd": measure_pmixer_bwd,
+                   "scan": measure_scan,
                    "decode": measure_decode}[args.model]
         measure(result, args.label, device)
     line = json.dumps(result)

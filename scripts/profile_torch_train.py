@@ -47,6 +47,8 @@ GROUPS = (
     ("scan_bwd_kernel", "reverse walk over all of time (K5 before the split)"),
     ("split_", "forward walk, split over time (K1 / K3 / K4)"),
     ("scan_walk_kernel", "forward walk over all of time (K1 before the split)"),
+    ("product_kernel", "K14 backward product tiles (TMA + wgmma)"),
+    ("sum_splits", "K14 backward ordered split-K sums"),
     ("gemm_nt_wide", "K14 fp32 product tiles"),
     ("gemm_nt", "K3/K6 recompute product tiles"),
     ("gemm_nn", "K6/K7 cotangent product tiles"),

@@ -1609,3 +1609,102 @@ def test_m2_train_routes_run_the_kernels(dev, monkeypatch, route):
         assert (got is None) == (p.grad is None), k
         if p.grad is not None:
             assert rel_err(got.cpu(), p.grad) <= 1e-4, k
+
+
+# ------------------------------------ K14's backward product tile (wgmma, TMA)
+
+PRODUCT_CASES = {
+    # name: (layout, M, N, K): K14's backward shapes at Base-m2 with ragged
+    # B L rows (1, 1569, 6276), and small ragged ones
+    "zx_rows1569": ("nt", 1569, 3200, 768),
+    "zx_rows1": ("nt", 1, 3200, 768),
+    "dgated_rows6276": ("nn", 6276, 1536, 768),
+    "dhidden_rows1569": ("nn", 1569, 768, 3200),
+    "dwout_rows1569": ("tn", 768, 1536, 1569),
+    "dwout_rows6276": ("tn", 768, 1536, 6276),
+    "dwin_rows1": ("tn", 3200, 768, 1),
+    "ragged_nt": ("nt", 77, 130, 45),
+    "ragged_nn": ("nn", 130, 77, 200),
+    "ragged_tn": ("tn", 45, 200, 77),
+}
+
+
+def _product_operands(dev, dtype, layout, m, n, k, pad_a=0, pad_b=0, seed=40):
+    """a and b of a projection product, rows padded by pad_a / pad_b
+    elements (a row stride that TMA cannot describe when it is odd)."""
+    sa = (k, m) if layout == "tn" else (m, k)
+    sb = (n, k) if layout == "nt" else (k, n)
+    a = randn(sa[0], sa[1] + pad_a, dev=dev, seed=seed).to(dtype)[:, :sa[1]]
+    b = randn(sb[0], sb[1] + pad_b, dev=dev, seed=seed + 1).to(dtype)[:, :sb[1]]
+    x = a.double().t() if layout == "tn" else a.double()
+    y = b.double().t() if layout == "nt" else b.double()
+    return a, b, x @ y
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PRODUCT_CASES))
+def test_projection_product_matches_float64(dev, case, dtype):
+    """The product tile of K14's backward alone, each layout at each dtype:
+    fp32 (three TF32 products) within 2e-5 of a float64 product, bf16 within
+    2e-2 (zx is rounded to bf16); two calls bit-identical (the weight
+    gradients' contraction slices are summed in a fixed order)."""
+    from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14
+
+    layout, m, n, k = PRODUCT_CASES[case]
+    a, b, want = _product_operands(dev, dtype, layout, m, n, k)
+    before = k14.projection_product.launches
+    got = k14.projection_product(layout, a, b)
+    again = k14.projection_product(layout, a, b)
+    torch.cuda.synchronize()
+    assert k14.projection_product.launches == before + 2
+    assert got.dtype == (dtype if layout == "nt" else torch.float32)
+    assert torch.equal(got, again)
+    tol = BWD_TOL if dtype == torch.float32 else BWD_BF16_TOL
+    assert rel_err(got, want) <= tol
+    plain = k14.projection_product_plain(layout, a, b)
+    assert rel_err(got, plain.double()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["nt", "nn", "tn"])
+@pytest.mark.parametrize("pads", [(1, 0), (0, 3), (1, 1)])
+def test_projection_product_takes_strides_tma_cannot(dev, layout, dtype, pads):
+    """Row strides that are no multiple of 16 bytes (an odd H P at bf16):
+    the tile's staging variant, against float64."""
+    from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14
+
+    a, b, want = _product_operands(dev, dtype, layout, 300, 200, 1569 if layout == "tn" else 77,
+                                   *pads)
+    got = k14.projection_product(layout, a, b)
+    assert torch.equal(got, k14.projection_product(layout, a, b))
+    assert rel_err(got, want) <= (BWD_TOL if dtype == torch.float32 else BWD_BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("odd", ["di", "e"])
+def test_ssd_pmixer_bwd_at_strides_tma_cannot(dev, dtype, odd):
+    """K14's backward where rows are no multiple of 16 bytes: Di = H P = 12
+    (bf16: gated, dgated and Wout's rows) or E = 130 (hidden, dout, Win,
+    dhidden), against plain. (The SSD kernels take P and N in multiples of
+    4, so ZX = 2 Di + 2 G N is a multiple of 8.)"""
+    from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14
+
+    h, p, g, n, e = (3, 4, 1, 8, 128) if odd == "di" else (4, 8, 1, 8, 130)
+    b, L, q = 2, 70, 32
+    kw = _ssd_inputs(dev, dtype, b, L, h, p, g, n, q, e=e, norm=True, state=True)
+    kw.pop("cfg")
+    dt_p = k14.dt_projection(kw["hidden"], kw["in_proj_w"], h, kw["dt_bias"])
+    ws = (kw["in_proj_w"], kw["out_proj_w"], kw["conv_weight"], kw["conv_bias"], kw["D"])
+    _, _, hins, yd = k14.ssd_pmixer_core(
+        kw["hidden"], dt_p, kw["A"], *ws, kw["initial_state"], kw["conv_state"],
+        kw["norm_weight"], 1e-5, q, h, p, g, n, checkpoints=True)
+    args = (kw["hidden"], dt_p, kw["A"], *ws, kw["conv_state"], kw["norm_weight"], 1e-5, hins,
+            yd, randn(b, L, e, dev=dev, seed=25).to(dtype),
+            randn(b, h, p, n, dev=dev, seed=26, scale=0.5), q, h, p, g, n)
+    got = k14.ssd_pmixer_bwd(*args)
+    again = k14.ssd_pmixer_bwd(*args)
+    want = k14.ssd_pmixer_bwd_plain(*args)
+    _close(got, want, BWD_TOL if dtype == torch.float32 else BWD_BF16_TOL,
+           ("dhidden", "ddt", "dA", "dconv_state", "dWin", "dWout", "dconv_w", "dconv_b",
+            "dh0", "dD", "dnorm"))
+    assert all(a is None or torch.equal(a, c) for a, c in zip(got, again))

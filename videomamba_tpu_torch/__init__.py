@@ -7,16 +7,18 @@ streaming with carried (conv_state, ssm_state), and token decode through
 ``DecodeSession`` or the mixers' ``InferenceCache``) and its training path
 (``parallel.train_step``, ``utils.optimizer``, ``utils.scheduler``; fp32 or
 bf16 compute over fp32 masters; stochastic depth and activation
-checkpointing; the whole-block route with its backward), through ten
-hand-written Hopper kernels (``ops/kernels``): the selective scan and its
-backward, the fused residual add + norm and its backward, the fused mixer
-core and its backward, the whole Block and its backward, the causal conv,
-and the whole-stack decode step; and the fp32 and bf16 serving path of the
-Mamba-2 (SSD) VideoMamba (``videomamba_*_m2``: full clip, streaming and
-``DecodeSession``) through three more: the SSD mixer core, the projected
-mixer and the Mamba-2 decode step (forward only: differentiating them on
-the card raises). bf16 serving weights come from
-``utils.precision.cast_module_for_compute``. Entry points build on the CUDA
+checkpointing; the whole-block route with its backward), and the fp32 and
+bf16 serving and training paths of the Mamba-2 (SSD) VideoMamba
+(``videomamba_*_m2``: full clip, streaming, ``DecodeSession`` and
+``parallel.train_step``), through the fifteen hand-written Hopper kernels
+(``ops/kernels``) that replace the JAX package's Pallas kernels: the
+selective scan and its backward, the fused residual add + norm and its
+backward, the fused mixer core and its backward, the whole Block and its
+backward, the whole-stack decode step (Mamba-1 and Mamba-2), the causal
+conv, the SSD chunk scan with its backward, the SSD mixer core and its
+backward, and the projected mixer with its backward (training runs those
+backwards on the card under ``torch.autograd``). bf16 serving weights come
+from ``utils.precision.cast_module_for_compute``. Entry points build on the CUDA
 card unless given ``device="cpu"`` (``runtime.resolve_device``).
 """
 

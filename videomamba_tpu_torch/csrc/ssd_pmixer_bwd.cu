@@ -18,18 +18,19 @@
 //
 // Design. The TPU kernel keeps both weights and their fp32 gradients in
 // VMEM and accumulates the weight gradients over the chunks. Here the span
-// is launches on one stream: in_proj on K4's bf16 mma.sync tile or K14's
-// wide fp32 tile (mixer_parts.cuh), K12's gate launch for gated, out_proj's
-// two gradients and in_proj's two on K6/K7's FMA tiles (mixer_bwd.cuh: NN
-// products, and TN products over 256-row slices summed in order), and K13's
-// span between them.
+// is launches on one stream: the five products on hopper_gemm.cuh's tile
+// (wgmma fed by TMA; bf16 operands as they are, fp32 as three TF32
+// products), K12's gate launch for gated, and K13's span between them. The
+// weight gradients contract over the B L rows in one product each, split
+// into ordered slices where the output has few tiles (dWout).
 //
 // What bounds it on the H100: operations. At VideoMamba-Base-m2, B = 1, the
-// five products are about 27 GFLOP, 0.4 ms at fp32's 67 TFLOP/s, and K13's
-// walk; the FMA tiles run well below that rate.
+// five products are 30.5 GFLOP: 0.46 ms at fp32's 67 TFLOP/s on FMA, 0.19
+// ms as three TF32 products at 495, 0.03 ms at bf16's 989; K13's span
+// (about 0.8 ms) is then most of the call.
 #include <type_traits>
 
-#include "mixer_bwd.cuh"
+#include "hopper_gemm.cuh"
 #include "ssd_core_bwd.cuh"
 
 namespace {
@@ -42,24 +43,22 @@ cudaError_t pmixer_bwd(const void* hidden, const void* in_w, const void* out_w,
   using T = typename std::conditional<kBf16, vmt::bf16, float>::type;
   const int Di = a.H * a.P, ZX = Di + Di + 2 * a.G * a.N;  // z | x B C
   const int rows = a.B * a.L;
+  const T* const h = (const T*)hidden;
+  const T* const w_in = (const T*)in_w;
+  const T* const dy = (const T*)dout;
   cudaError_t err;
-  if constexpr (kBf16) {
-    err = vmt::gemm_nt_bf16<T, T>((const T*)hidden, E, (const T*)in_w, E, (T*)zx, ZX, rows,
-                                  ZX, E, s);
-  } else {
-    err = vmt::gemm_nt_wide((const T*)hidden, E, (const T*)in_w, E, (T*)zx, ZX, rows, ZX, E,
-                            s);
-  }
-  if (err != cudaSuccess) return err;
+  if ((err = vmt::hg::product<T>(vmt::hg::kNT, h, E, w_in, E, zx, ZX, rows, ZX, E, nullptr,
+                                 s)) != cudaSuccess)
+    return err;
   vmt::SsdArgs g{zx, ZX, gated, nullptr, nullptr, nullptr, a.s, a.dt, nullptr, a.norm_w,
                  nullptr, nullptr, nullptr, const_cast<float*>(a.yd), nullptr, nullptr,
                  a.B, a.L, a.Q, a.H, a.P, a.G, a.N, a.W, a.eps};
   if ((err = vmt::ssd_gate<T>(g, s)) != cudaSuccess) return err;
-  if ((err = gemm_tn<T, T>((const T*)dout, E, (const T*)gated, Di, dwout, part, E, Di,
-                           rows, s)) != cudaSuccess)
+  if ((err = vmt::hg::product<T>(vmt::hg::kTN, dy, E, (const T*)gated, Di, dwout, Di, E, Di,
+                                 rows, part, s)) != cudaSuccess)
     return err;
-  if ((err = gemm_nn<T, T>((const T*)dout, E, (const T*)out_w, Di, dgated, Di, nullptr,
-                           nullptr, rows, Di, E, s)) != cudaSuccess)
+  if ((err = vmt::hg::product<T>(vmt::hg::kNN, dy, E, (const T*)out_w, Di, dgated, Di, rows,
+                                 Di, E, nullptr, s)) != cudaSuccess)
     return err;
   a.zx = zx;
   a.ld_zx = ZX;
@@ -69,10 +68,11 @@ cudaError_t pmixer_bwd(const void* hidden, const void* in_w, const void* out_w,
   a.ld_dzx = ZX;
   a.zero_cols = 0;
   if ((err = vmt::ssd_mixer_bwd<T>(a, s)) != cudaSuccess) return err;
-  if ((err = gemm_nn<T, T>((const T*)dzx, ZX, (const T*)in_w, E, dhidden, E, nullptr,
-                           nullptr, rows, E, ZX, s)) != cudaSuccess)
+  if ((err = vmt::hg::product<T>(vmt::hg::kNN, (const T*)dzx, ZX, w_in, E, dhidden, E, rows,
+                                 E, ZX, nullptr, s)) != cudaSuccess)
     return err;
-  return gemm_tn<T, T>((const T*)dzx, ZX, (const T*)hidden, E, dwin, part, ZX, E, rows, s);
+  return vmt::hg::product<T>(vmt::hg::kTN, (const T*)dzx, ZX, h, E, dwin, E, ZX, E, rows,
+                             part, s);
 }
 
 }  // namespace
@@ -82,8 +82,8 @@ cudaError_t pmixer_bwd(const void* hidden, const void* in_w, const void* out_w,
 // Writes dhidden (B * L, E) fp32, dwin (Di + CD, E) and dwout (E, Di) fp32,
 // and, as vmt_ssd_mixer_bwd, dh0, the conv gradients, the per-block
 // partials and the scan's per-step cotangents. Scratch in that dtype: zx and
-// dzx B L (Di + CD), gated B L Di; fp32: dgated B L Di, part (ceil(B L /
-// 256) max((Di + CD) E, E Di)), and vmt_ssd_mixer_bwd's.
+// dzx B L (Di + CD), gated B L Di; fp32: dgated B L Di, part
+// (hg::kMaxSplits max((Di + CD) E, E Di)), and vmt_ssd_mixer_bwd's.
 extern "C" int vmt_ssd_pmixer_bwd(
     const void* hidden, const void* in_w, const void* out_w, const void* dout, void* zx,
     void* gated, float* dgated, void* dzx, float* dhidden, float* dwin, float* dwout,
@@ -106,4 +106,24 @@ extern "C" int vmt_ssd_pmixer_bwd(
                                           dhidden, dwin, dwout, part, E, a, st)
                        : pmixer_bwd<false>(hidden, in_w, out_w, dout, zx, gated, dgated, dzx,
                                            dhidden, dwin, dwout, part, E, a, st));
+}
+
+// One of K14's backward products alone (hopper_gemm.cuh), for checks and
+// timing: C (M, N), rows of ldc, for layout 0 (NT: A (M, K), B (N, K); C in
+// the operands' dtype), 1 (NN: A (M, K), B (K, N); C fp32) or 2 (TN: A (K,
+// M), B (K, N); C fp32, part hg::kMaxSplits M N floats). A and B fp32 or
+// bf16 (is_bf16), rows of lda and ldb elements, unit stride along a row.
+extern "C" int vmt_projection_product(int layout, const void* A, long long lda, const void* B,
+                                      long long ldb, void* C, long long ldc, int M, int N,
+                                      int K, float* part, int is_bf16, int device,
+                                      void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(is_bf16 ? vmt::hg::product<vmt::bf16>(layout, (const vmt::bf16*)A, lda,
+                                                      (const vmt::bf16*)B, ldb, C, ldc, M, N,
+                                                      K, part, st)
+                       : vmt::hg::product<float>(layout, (const float*)A, lda,
+                                                 (const float*)B, ldb, C, ldc, M, N, K, part,
+                                                 st));
 }

@@ -30,8 +30,8 @@ SOURCES = ("fused_add_norm.cu", "selective_scan.cu", "selective_scan_bf16.cu",
            "fused_add_norm_bwd.cu", "block_bwd.cu", "causal_conv.cu",
            "decode_step.cu", "ssd_mixer.cu", "ssd_pmixer.cu", "ssd_core_bwd.cu",
            "ssd_mixer_bwd.cu", "ssd_pmixer_bwd.cu")
-HEADERS = ("add_norm.cuh", "add_norm_bwd.cuh", "decode_persist.cuh", "mixer_bwd.cuh",
-           "mixer_parts.cuh", "scan_walk.cuh", "scan_walk_bwd.cuh", "scan_walk_split.cuh",
+HEADERS = ("add_norm.cuh", "add_norm_bwd.cuh", "decode_persist.cuh", "hopper_gemm.cuh",
+           "mixer_bwd.cuh", "mixer_parts.cuh", "scan_walk.cuh", "scan_walk_bwd.cuh", "scan_walk_split.cuh",
            "scan_walk_split_bwd.cuh", "ssd_core.cuh", "ssd_core_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -77,6 +77,7 @@ SIGNATURES = {
     "vmt_ssd_scan_bwd": (*(_P,) * 16, *(_I,) * 9, _P),
     "vmt_ssd_mixer_bwd": (_P, _LL, _P, _P, _LL, *(_P,) * 29, *(_I,) * 8, _F, _I, _I, _P),
     "vmt_ssd_pmixer_bwd": (*(_P,) * 12, _I, *(_P,) * 29, *(_I,) * 8, _F, _I, _I, _P),
+    "vmt_projection_product": (_I, _P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _P, _I, _I, _P),
 }
 # Entry points that return a size instead of a CUDA error code.
 SIZE_QUERIES = {

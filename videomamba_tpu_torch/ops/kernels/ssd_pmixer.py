@@ -34,8 +34,10 @@ Training under ``VIDEOMAMBA_SSD_TRAIN_ROUTE=pmixer`` (:class:`SsdPmixerFn`,
 the JAX package's ``_pmixer_vjp_fwd`` / ``_pmixer_vjp_bwd`` on that route)
 runs K14's forward with the walk's checkpoints and K14's backward,
 csrc/ssd_pmixer_bwd.cu (:func:`ssd_pmixer_bwd`: in_proj recomputed,
-out_proj's two gradients, K13's span, in_proj's two gradients, on K4's and
-K6/K7's product tiles). On the default "mixer" route a differentiated layer
+out_proj's two gradients, K13's span, in_proj's two gradients). Its five
+products run on csrc/hopper_gemm.cuh's tile (wgmma fed by TMA; bf16 as it
+is, fp32 as three TF32 products: :func:`projection_product` runs one alone).
+On the default "mixer" route a differentiated layer
 takes K12 and K13 between ``torch.matmul`` projections
 (models/mamba2.py ``Mamba2._kernel_route``).
 """
@@ -56,7 +58,6 @@ from videomamba_tpu_torch.ops.kernels.ssd_mixer import (
     walk_checkpoints,
 )
 from videomamba_tpu_torch.ops.kernels.ssd_mixer_bwd import (
-    SPLIT_ROWS,
     _like,
     bwd_args,
     bwd_operands,
@@ -71,6 +72,10 @@ Tensor = torch.Tensor
 # 128 and the TPU kernel's VMEM budget for the weights and the backward's
 # fp32 accumulators. Kept so both packages route a layer alike.
 PMIXER_BUDGET_BYTES = 48 * 1024 * 1024
+# Contraction slices a weight-gradient product may take (csrc/hopper_gemm.cuh
+# kMaxSplits): its scratch holds that many fp32 copies of the output.
+PRODUCT_SPLITS = 4
+PRODUCT_LAYOUTS = {"nt": 0, "nn": 1, "tn": 2}
 
 
 def pmixer_route_ok(d_model: int, nheads: int, hdim: int, ngroups: int, d_state: int,
@@ -289,7 +294,7 @@ def ssd_pmixer_bwd(hidden: Tensor, dt_p: Tensor, A: Tensor, in_proj_w: Tensor,
     dhidden = torch.empty((rows, e), **f32)
     dwin = torch.zeros(in_proj_w.shape, **f32)
     dwout = torch.empty((e, di), **f32)
-    part = torch.empty(-(-rows // SPLIT_ROWS) * max((di + cd) * e, e * di), **f32)
+    part = torch.empty(PRODUCT_SPLITS * max((di + cd) * e, e * di), **f32)
     has = (conv_state is not None, norm_weight is not None)
     err = _build.library().vmt_ssd_pmixer_bwd(
         *(_build.ptr(t) for t in (hidden, in_proj_w, out_proj_w, dout, zx, gated, dgated,
@@ -305,6 +310,61 @@ def ssd_pmixer_bwd(hidden: Tensor, dt_p: Tensor, A: Tensor, in_proj_w: Tensor,
 
 
 ssd_pmixer_bwd.launches = 0
+
+
+def _product_dims(layout: str, a: Tensor, b: Tensor) -> Tuple[int, int, int]:
+    """(M, N, K) of a projection product, or raise on mismatched operands."""
+    if layout not in PRODUCT_LAYOUTS or a.dim() != 2 or b.dim() != 2:
+        raise ValueError(f"projection_product: layout {layout!r} with 2-D operands "
+                         f"(one of {sorted(PRODUCT_LAYOUTS)})")
+    (m, k), (n, kb) = (a.shape[::-1] if layout == "tn" else a.shape,
+                       b.shape[::-1] if layout == "nn" or layout == "tn" else b.shape)
+    if k != kb:
+        raise ValueError(f"projection_product {layout}: contraction {k} != {kb}")
+    return m, n, k
+
+
+def projection_product_plain(layout: str, a: Tensor, b: Tensor) -> Tensor:
+    """One of K14's backward products in plain PyTorch: "nt" a (M, K) b (N,
+    K)^T in the operands' dtype, "nn" a (M, K) b (K, N) and "tn" a (K, M)^T b
+    (K, N) in fp32; fp32 sums."""
+    _product_dims(layout, a, b)
+    x = a.float().t() if layout == "tn" else a.float()
+    y = b.float().t() if layout == "nt" else b.float()
+    out = x @ y
+    return out.to(a.dtype) if layout == "nt" else out
+
+
+def projection_product(layout: str, a: Tensor, b: Tensor) -> Tensor:
+    """K14's backward product tile alone (csrc/hopper_gemm.cuh), the
+    contract of :func:`projection_product_plain`. On CUDA: a and b one dtype,
+    fp32 or bf16, rows of unit element stride and any row stride (a row
+    stride or address that is not a multiple of 16 bytes takes the tile's
+    staging variant instead of TMA)."""
+    if dispatch.runs_plain(a):
+        return projection_product_plain(layout, a, b)
+    m, n, k = _product_dims(layout, a, b)
+    wdt = _build.one_dtype(a)
+    _build.check_operands("projection_product", a.device,
+                          {"a": (a, tuple(a.shape)), "b": (b, tuple(b.shape))},
+                          dtypes={"a": wdt, "b": wdt})
+    for name, t in (("a", a), ("b", b)):
+        if t.stride(1) != 1 or t.stride(0) < t.shape[1]:
+            raise ValueError(f"projection_product kernel: {name} needs rows of unit stride")
+    out = torch.empty((m, n), dtype=a.dtype if layout == "nt" else torch.float32,
+                      device=a.device)
+    part = (torch.empty(PRODUCT_SPLITS * m * n, dtype=torch.float32, device=a.device)
+            if layout == "tn" else None)
+    err = _build.library().vmt_projection_product(
+        PRODUCT_LAYOUTS[layout], _build.ptr(a), a.stride(0), _build.ptr(b), b.stride(0),
+        _build.ptr(out), n, m, n, k, _build.ptr(part), _build.is_bf16(a), a.device.index,
+        _build.stream_of(a))
+    _build.check(err, "projection_product")
+    projection_product.launches += 1
+    return out
+
+
+projection_product.launches = 0
 
 
 class SsdPmixerFn(torch.autograd.Function):
