@@ -45,13 +45,17 @@ failure, so the script exits nonzero:
    gradients) and K8 (add-norm backward) against
    their plain versions, fp32 within 2e-5 (K8 1e-5) and bf16 within 2e-2
    (K8 bf16 x with an fp32 residual, 1e-2); K6 also at B=4 (the split
-   reverse walk at its other chunk; L 1569 is no multiple of either); K1,
+   reverse walk at its other chunk; L 1569 is no multiple of either); K8
+   also at B=4 (fp32, 1e-5) and with a bf16 x beside an fp32 g_out
+   (dweight and dbias 1e-5: the cotangent read at its own dtype); K1,
    K5, K6 and K8 run twice on the same inputs and must be bit-identical;
    each timed beside its plain version; each of K5's and K6's launches'
    device time a call (the split reverse walk's chunk cotangents, pass and
    output walk, the partial sums, K6's product tiles and conv backward) and
-   K8's and K2's under torch.profiler. K1 (with checkpoints) and K5 at B=4,
-   fp32 and bf16, twice bit-identical, each launch's device time a call.
+   K8's (its row pass and its column sum, and their share of K8's byte
+   bound) and K2's under torch.profiler. K1 (with checkpoints) and K5 at
+   B=4, fp32 and bf16, twice bit-identical, each launch's device time a
+   call.
 9. fp32 train step, Base depth 24, B=2, clip (2,3,8,224,224) and a noise
    target (a zero target leaves only cancellation noise below the final
    RMSNorm to compare), one step of ``make_train_step``'s default loss
@@ -77,7 +81,8 @@ failure, so the script exits nonzero:
     bf16 (2e-2) and fp32 (2e-5), Small fp32 (2e-5), Base bf16 at B=4; K7
     twice bit-identical, each of its launches' device time a call;
     K10 (causal conv) at (1, 1569, 1536) and (4, 1569, 1536), W = 4, fp32
-    (1e-5) and bf16 (1e-2); each timed beside its plain version.
+    (1e-5) and bf16 (1e-2), twice bit-identical; each timed beside its
+    plain version, its device time a call and its share of the byte bound.
 13. eval-mode backward: the bf16 Base model in eval(), a loss on x_vis and
     x_pool against noise targets: every parameter gets a gradient, K4 24
     and K7 24 launches, gradients within 5e-2 of the same model on plain
@@ -170,7 +175,8 @@ failure, so the script exits nonzero:
 25. shapes the JAX package's gates take that the port once refused or ran
     past its arrays: K13 at conv width 9 (Base-m2, fp32, 2e-5) and K6 at
     width 9 (Base, fp32, 2e-5), each twice bit-identical; K2 and K8 at
-    D = 3200 (1e-5 / 2e-5); the train step of a Mamba(768, d_conv=9) layer
+    D = 3200 (1e-5 / 2e-5; K8's launches' device time and share of its
+    byte bound); the train step of a Mamba(768, d_conv=9) layer
     (K3 1, K6 1) and of a Mamba2(768, d_conv=9) layer (K12 1, K13 1) at
     B=1, L=1569 against the same layer on plain versions on the card
     (output 1e-5, parameter gradients 1e-4: each sums a kernel output over
@@ -468,13 +474,18 @@ def phase_kernels(cfg, device):
     return results
 
 
-def launch_split(label, fn, kw, top=10):
-    """Each launch's device time a call of a multi-launch kernel (K1, K3-K7:
-    the split walks' chunk launches, pass and output walk, the reductions,
-    the product tiles), the ``top`` longest."""
-    _, dev = device_ms(lambda: fn(**kw), iters=10, label=label, top=top)
-    print(f"{label}: " + ("device time not measured" if dev is None
-                          else f"{dev:.4f} ms of device kernels a call"))
+def launch_split(label, fn, kw, top=10, bound_ms=None, iters=10):
+    """Each launch's device time a call of a multi-launch kernel (K1, K3-K8,
+    K10: the split walks' chunk launches, pass and output walk, the
+    reductions, the product tiles, K8's row pass and column sum), the
+    ``top`` longest; with ``bound_ms``, the call's share of that bound."""
+    _, dev = device_ms(lambda: fn(**kw), iters=iters, label=label, top=top)
+    if dev is None:
+        print(f"{label}: device time not measured")
+        return
+    share = ("" if bound_ms is None
+             else f", {100 * bound_ms / dev:.1f} % of its {bound_ms:.4f} ms bound")
+    print(f"{label}: {dev:.4f} ms of device kernels a call{share}")
 
 
 def block_inputs(cfg, device, dtype, seed=3):
@@ -737,6 +748,8 @@ def phase_bwd_kernels(device):
         "fused_add_norm_bwd fp32 rms prenorm", k2.fused_add_norm_bwd,
         k2.fused_add_norm_bwd_plain, kw, KERNEL_TOL, {"fp32": 12 * b * L * e},
         repeat_identical=True)
+    launch_split("fused_add_norm_bwd fp32 B=1", k2.fused_add_norm_bwd, kw,
+                 bound_ms=results["fused_add_norm_bwd"]["bound_ms"], iters=30)
     for name, fn in (("fused_add_norm_bwd", k2.fused_add_norm_bwd),
                      ("fused_add_norm", k2.fused_add_norm)):
         args = kw if fn is k2.fused_add_norm_bwd else inputs["fused_add_norm"]
@@ -744,10 +757,32 @@ def phase_bwd_kernels(device):
         dev_txt = "not measured" if dev is None else f"{dev:.4f} ms"
         print(f"kernel {name} fp32: device {dev_txt} a call (profiler), "
               f"host {wall:.4f} ms a call")
-    time_against_plain(
+    bkw = dict(kw, x=kw["x"].bfloat16(), g_out=kw["g_out"].bfloat16())
+    res = time_against_plain(
         "fused_add_norm_bwd bf16 x, fp32 residual", k2.fused_add_norm_bwd,
-        k2.fused_add_norm_bwd_plain, dict(kw, x=kw["x"].bfloat16(), g_out=kw["g_out"].bfloat16()),
-        BF16_TOL, {"fp32": 12 * b * L * e}, repeat_identical=True)
+        k2.fused_add_norm_bwd_plain, bkw, BF16_TOL, {"fp32": 12 * b * L * e},
+        repeat_identical=True)
+    launch_split("fused_add_norm_bwd bf16 x B=1", k2.fused_add_norm_bwd, bkw,
+                 bound_ms=res["bound_ms"], iters=30)
+    # The cotangent at its own dtype (fp32) beside a bf16 x: the fp32
+    # dweight and dbias hold the fp32 bar.
+    fkw = dict(kw, x=kw["x"].bfloat16())
+    got = k2.fused_add_norm_bwd(**fkw)
+    want = k2.fused_add_norm_bwd_plain(**fkw)
+    check_close("kernel fused_add_norm_bwd bf16 x, fp32 g_out: dx", got[0], want[0], BF16_TOL)
+    for i, name in ((1, "dweight"), (2, "dbias"), (3, "dresidual")):
+        check_close(f"kernel fused_add_norm_bwd bf16 x, fp32 g_out: {name}", got[i], want[i],
+                    KERNEL_TOL)
+    b4 = 4
+    kw4 = dict(x=randn((b4, L, e), g, device), weight=kw["weight"],
+               residual=randn((b4, L, e), g, device), g_out=randn((b4, L, e), g, device),
+               g_resout=randn((b4, L, e), g, device), prenorm=True, norm_type="rms")
+    res = time_against_plain("fused_add_norm_bwd fp32 B=4", k2.fused_add_norm_bwd,
+                             k2.fused_add_norm_bwd_plain, kw4, KERNEL_TOL,
+                             {"fp32": 12 * b4 * L * e}, plain_iters=1, repeat_identical=True)
+    launch_split("fused_add_norm_bwd fp32 B=4", k2.fused_add_norm_bwd, kw4,
+                 bound_ms=res["bound_ms"], iters=30)
+    del kw4
     return results
 
 
@@ -1182,11 +1217,9 @@ def phase_conv_kernels(device):
             res = time_against_plain(
                 f"causal_conv {label} B={bsz}", lambda **a: (k10.causal_conv(**a),),
                 lambda **a: (k10.causal_conv_plain(**a),), kw, tol,
-                {"fp32": (2 * w + 5) * bsz * L * di}, iters=50)
-            _, dev = device_ms(lambda: k10.causal_conv(**kw), iters=50,
-                               label=f"causal_conv {label} B={bsz}", top=4)
-            print(f"kernel causal_conv {label} B={bsz}: device "
-                  f"{'not measured' if dev is None else f'{dev:.4f} ms'} a call (profiler)")
+                {"fp32": (2 * w + 5) * bsz * L * di}, iters=50, repeat_identical=True)
+            launch_split(f"causal_conv {label} B={bsz}", k10.causal_conv, kw,
+                         bound_ms=res["bound_ms"], iters=50)
             if result is None:
                 res["library_ms"] = conv_library_ms(kw)
                 result = res
@@ -2108,13 +2141,15 @@ def phase_repaired_gates(device):
     time_against_plain("fused_add_norm fp32 D=3200", k2.fused_add_norm, k2.fused_add_norm_plain,
                        nk, KERNEL_TOL, {"fp32": 8 * b * L * e}, plain_iters=0,
                        repeat_identical=True)
-    time_against_plain("fused_add_norm_bwd fp32 D=3200", k2.fused_add_norm_bwd,
-                       k2.fused_add_norm_bwd_plain,
-                       dict(x=nk["x"], weight=nk["weight"], residual=nk["residual"],
-                            g_out=randn((b, L, e), g, device),
-                            g_resout=randn((b, L, e), g, device), prenorm=True,
-                            norm_type="rms"), GRAD_TOL, {"fp32": 12 * b * L * e}, plain_iters=0,
-                       repeat_identical=True)
+    wide = dict(x=nk["x"], weight=nk["weight"], residual=nk["residual"],
+                g_out=randn((b, L, e), g, device), g_resout=randn((b, L, e), g, device),
+                prenorm=True, norm_type="rms")
+    res = time_against_plain("fused_add_norm_bwd fp32 D=3200", k2.fused_add_norm_bwd,
+                             k2.fused_add_norm_bwd_plain, wide, GRAD_TOL,
+                             {"fp32": 12 * b * L * e}, plain_iters=0, repeat_identical=True)
+    launch_split("fused_add_norm_bwd fp32 D=3200", k2.fused_add_norm_bwd, wide,
+                 bound_ms=res["bound_ms"], iters=30)
+    del wide
 
     counts = {name: 0 for name in WRAPPERS}
     x = randn((b, L, BASE["embed"]), g, device)

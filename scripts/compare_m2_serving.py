@@ -1,6 +1,7 @@
 """Serving times of one checkout of the port, for same-card comparisons.
 
-    python3 scripts/compare_m2_serving.py [--model m2|m2bwd|pmixer_bwd|m1|m1bwd|scan|decode]
+    python3 scripts/compare_m2_serving.py [--model m2|m2bwd|pmixer_bwd|m1|m1bwd|scan|decode|
+                                                   norm|conv]
                                           [--root DIR]
                                           [--label NAME] [--out FILE] [--walk-blocks N]
                                           [--bwd-chunk N]
@@ -85,6 +86,23 @@ ms and its profiled device ms and idle share; where the module has
 ``MMA_MIN_BATCH``, K9 bf16 at B = 4 to 80 with and without its tensor-core
 products.
 
+``--model norm``, the add-norm backward K8 (``fused_add_norm_bwd``, rms
+prenorm with an fp32 residual unless named) at VideoMamba-Base widths: D =
+768 at B = 1 and 4 (M = 1569, 6276) fp32, B = 1 with a bf16 x, B = 1
+layer norm, and D = 3200 at M = 1569; then K2 (``fused_add_norm``) at
+Base B = 1 fp32, K7 (``block_bwd``, whose last launch is K8's row pass)
+bf16 and fp32 at B = 1 and 4, and K3 fp32, K4 bf16 and K6 fp32 at Base B
+= 1 (kernels this change does not touch, as controls): event times and
+each launch's device time a call, as above, and for K8 and K2 the byte
+bound (each input read once, each output written once, at 3.35 TB/s) and
+its share of the device time, back to back (inputs that fit partly stay in
+the 50 MB L2) and with the L2 flushed before each call (a 256 MB read, not
+counted). ``--model conv``, the causal conv K10
+(``causal_conv``, width 4, SiLU and bias, nonzero window) at (B, 1569,
+1536), B = 1 and 4, fp32 and bf16, the same way, then K10 without its SiLU
+and with a zero window beside ``F.conv1d(groups=D)`` on the channels-first
+copy, event ms of each.
+
 ``--walk-blocks N`` sets the least grid of the split forward walk (K1's,
 K3's and K4's, ``ops/kernels/scan.py WALK_MIN_BLOCKS``) on a checkout that has
 one, to compare chunk lengths. ``--bwd-chunk N`` fixes the chunk of the
@@ -143,8 +161,8 @@ def host_ms(fn, repeats: int = 20) -> float:
     return statistics.median(times)
 
 
-def profile(fn, iters: int, top: int):
-    """(wall ms, device kernel ms, {kernel: ms}) a call under torch.profiler."""
+def device_by_name(fn, iters: int):
+    """(wall ms, {kernel name: device ms}) a call under torch.profiler."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -157,10 +175,36 @@ def profile(fn, iters: int, top: int):
     by_name = {}
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
-    kernels = {name[:80]: us / 1e3 / iters
-               for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
-    return wall, sum(by_name.values()) / 1e3 / iters, kernels
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+    return wall, {name: ms / iters for name, ms in by_name.items()}
+
+
+def profile(fn, iters: int, top: int):
+    """(wall ms, device kernel ms, {kernel: ms}) a call under torch.profiler."""
+    wall, by_name = device_by_name(fn, iters)
+    kernels = {name[:80]: ms for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
+    return wall, sum(by_name.values()), kernels
+
+
+L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+
+
+def cold_device_ms(fn, iters: int = 10) -> float:
+    """Device ms of fn's own kernels a call with a cold L2: a 256 MB buffer
+    is read (summed) before each call, its kernels left out of the sum, so
+    fn's inputs come from device memory and the L2 holds only clean lines
+    (a written buffer would leave dirty lines whose write-back fn would
+    pay for). 0.0 when the profiler recorded none of fn's kernels."""
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    _, reads = device_by_name(lambda: flush.sum(), iters=2)
+
+    def call():
+        flush.sum()
+        fn()
+
+    _, by_name = device_by_name(call, iters)
+    del flush
+    return sum(ms for name, ms in by_name.items() if name not in reads)
 
 
 def ssd_inputs(device, dtype, seed=13, cfg=None):
@@ -638,6 +682,127 @@ def measure_m1bwd(result, label, device):
         torch.cuda.empty_cache()
 
 
+HBM_BYTES_PER_S = 3.35e12
+
+
+def byte_bound_ms(*tensors) -> float:
+    """Each tensor given read or written once, at the card's memory rate."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor)) / HBM_BYTES_PER_S * 1e3
+
+
+def time_bound(result, label, name, fn, kw, tensors):
+    """time_kernel, then the byte bound and its share of the device time,
+    back to back (the inputs partly in L2 where they fit) and with a cold
+    L2 (:func:`cold_device_ms`)."""
+    time_kernel(result, label, name, fn, kw)
+    entry = result["kernels"][name]
+    entry["bound_ms"] = byte_bound_ms(*tensors)
+    entry["device_ms_cold"] = cold_device_ms(lambda: fn(**kw))
+    # A profiler session can lose a call's records: such a share is None.
+    for key, ms in (("share_of_bound", "device_ms"), ("share_of_bound_cold", "device_ms_cold")):
+        entry[key] = entry["bound_ms"] / entry[ms] if entry[ms] else None
+    shares = [f"{100 * entry[k]:.1f} %" if entry[k] else "not measured (no records)"
+              for k in ("share_of_bound", "share_of_bound_cold")]
+    print(f"    bound {entry['bound_ms']:.4f} ms: {shares[0]} of it on the device; cold L2 "
+          f"{entry['device_ms_cold']:.4f} ms, {shares[1]}")
+
+
+def measure_norm(result, label, device):
+    from videomamba_tpu_torch.ops.kernels import block_bwd as k7
+    from videomamba_tpu_torch.ops.kernels import block_fused as k4
+    from videomamba_tpu_torch.ops.kernels import fused_add_norm as k2
+    from videomamba_tpu_torch.ops.kernels import mixer_bwd as k6
+    from videomamba_tpu_torch.ops.kernels import mixer_fused as k3
+
+    bf16 = torch.bfloat16
+    for tag, m, d, x_dtype, norm_type in (("fp32 B=1", 1569, 768, torch.float32, "rms"),
+                                          ("fp32 B=4", 6276, 768, torch.float32, "rms"),
+                                          ("bf16 x B=1", 1569, 768, bf16, "rms"),
+                                          ("fp32 layer B=1", 1569, 768, torch.float32, "layer"),
+                                          ("fp32 D=3200", 1569, 3200, torch.float32, "rms")):
+        g = torch.Generator().manual_seed(21)
+
+        def rnd(shape, scale=1.0):
+            return (torch.randn(shape, generator=g) * scale).to(device)
+
+        kw = dict(x=rnd((1, m, d)).to(x_dtype), weight=1 + rnd((d,), 0.1),
+                  residual=rnd((1, m, d)), g_out=rnd((1, m, d)).to(x_dtype),
+                  g_resout=rnd((1, m, d)), prenorm=True, norm_type=norm_type)
+        out = k2.fused_add_norm_bwd(**kw)
+        time_bound(result, label, f"fused_add_norm_bwd {tag}", k2.fused_add_norm_bwd, kw,
+                   [*kw.values(), *out])
+        if tag == "fp32 B=1":
+            fkw = dict(x=kw["x"], weight=kw["weight"], bias=None, residual=kw["residual"],
+                       prenorm=True, residual_in_fp32=True, norm_type="rms")
+            fout = k2.fused_add_norm(**fkw)
+            time_bound(result, label, "fused_add_norm fp32 B=1", k2.fused_add_norm, fkw,
+                       [*fkw.values(), *fout])
+        del kw, out
+    for dtype, bsz in ((bf16, 1), (torch.float32, 1), (bf16, 4), (torch.float32, 4)):
+        cfg = dict(BASE, batch=bsz)
+        _, block = m1_inputs(cfg, device, seed=7)
+        g = torch.Generator().manual_seed(8)
+        kw = {k: v.to(dtype) if k in ("hidden", "in_proj_w", "out_proj_w", "conv_w",
+                                      "conv_b", "x_proj_w", "dt_proj_w") else v
+              for k, v in block.items()}
+        *_, ckpt = k4.block_fused(**kw, checkpoints=True)
+        names = ("norm_w", "norm_b", "in_proj_w", "out_proj_w", "conv_w", "conv_b",
+                 "x_proj_w", "dt_proj_w", "dt_bias", "A", "D", "conv_state")
+        shape = kw["hidden"].shape
+        kw = dict(res_out=kw["hidden"].float() + kw["residual"].float(),
+                  **{k: kw[k] for k in names}, ckpt=ckpt,
+                  g_out=torch.randn(shape, generator=g).to(device).to(dtype),
+                  g_res=0.3 * torch.randn(shape, generator=g).to(device),
+                  g_hlast=0.3 * torch.randn(block["h0"].shape, generator=g).to(device))
+        name = f"block_bwd {'fp32' if dtype == torch.float32 else 'bf16'} B={bsz}"
+        time_kernel(result, label, name, k7.block_bwd, kw)
+        del block, kw, ckpt
+        torch.cuda.empty_cache()
+    mixer, block = m1_inputs(BASE, device, seed=3)
+    time_kernel(result, label, "mixer_fused fp32 B=1", k3.mixer_fused, mixer)
+    bkw = {k: v.to(bf16) if k in ("hidden", "in_proj_w", "out_proj_w", "conv_w", "conv_b",
+                                  "x_proj_w", "dt_proj_w") else v for k, v in block.items()}
+    time_kernel(result, label, "block_fused bf16 B=1", k4.block_fused, bkw)
+    *_, ckpt = k3.mixer_fused(**mixer, checkpoints=True)
+    g = torch.Generator().manual_seed(8)
+    mkw = dict({k: v for k, v in mixer.items() if k != "h0"}, ckpt=ckpt,
+               g_y=torch.randn(mixer["x"].shape, generator=g).to(device),
+               g_hlast=0.3 * torch.randn(mixer["h0"].shape, generator=g).to(device))
+    time_kernel(result, label, "mixer_bwd fp32 B=1", k6.mixer_bwd, mkw)
+
+
+def measure_conv(result, label, device):
+    from videomamba_tpu_torch.ops.kernels import causal_conv as k10
+
+    F = torch.nn.functional
+    L, di, w = BASE["seqlen"], BASE["d_inner"], BASE["width"]
+    for bsz in (1, 4):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(13 + bsz)
+
+            def rnd(shape, scale=1.0):
+                return (torch.randn(shape, generator=g) * scale).to(device)
+
+            kw = dict(x=rnd((bsz, L, di)).to(dtype), weight=rnd((w, di), 0.5),
+                      bias=rnd((di,), 0.1), conv_state=rnd((bsz, di, w)).to(dtype))
+            tag = f"{'fp32' if dtype == torch.float32 else 'bf16'} B={bsz}"
+            y = k10.causal_conv(**kw)
+            time_bound(result, label, f"causal_conv {tag}", k10.causal_conv, kw,
+                       [*kw.values(), y])
+            if dtype == torch.float32:
+                zero = dict(kw, conv_state=torch.zeros_like(kw["conv_state"]), activation=None)
+                xt = kw["x"].transpose(1, 2).contiguous()
+                wt = kw["weight"].t().contiguous().unsqueeze(1)
+                lib = lambda: F.conv1d(xt, wt, kw["bias"], padding=w - 1, groups=di)  # noqa: E731
+                ms = statistics.median(event_ms(lambda: k10.causal_conv(**zero)) for _ in range(5))
+                lib_ms = statistics.median(event_ms(lib) for _ in range(5))
+                result["kernels"][f"causal_conv no SiLU zero window {tag}"] = {
+                    "ms": ms, "conv1d_ms": lib_ms}
+                print(f"{label} causal_conv no SiLU, zero window {tag}: {ms:.4f} ms; "
+                      f"F.conv1d(groups={di}) {lib_ms:.4f} ms")
+
+
 # Launch kinds of the decode stacks, by kernel name (the per-layer launches of
 # a multi-launch stack; x_proj and out_proj share K9's GEMV kernel and come
 # in that order within a layer).
@@ -764,7 +929,7 @@ def main() -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=("m2", "m2bwd", "pmixer_bwd", "m1", "m1bwd", "scan",
-                                        "decode"),
+                                        "decode", "norm", "conv"),
                     default="m2")
     ap.add_argument("--root", default=here, help="checkout to import the port from")
     ap.add_argument("--label", default="this")
@@ -808,7 +973,7 @@ def main() -> int:
     with torch.inference_mode():
         measure = {"m1": measure_m1, "m1bwd": measure_m1bwd, "m2": measure_m2,
                    "m2bwd": measure_m2bwd, "pmixer_bwd": measure_pmixer_bwd,
-                   "scan": measure_scan,
+                   "scan": measure_scan, "norm": measure_norm, "conv": measure_conv,
                    "decode": measure_decode}[args.model]
         measure(result, args.label, device)
     line = json.dumps(result)

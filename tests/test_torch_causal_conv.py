@@ -6,6 +6,10 @@ version, and the JAX package runs its Pallas kernel in interpret mode
 (VIDEOMAMBA_PALLAS_INTERPRET=1, as tests/test_pallas_conv.py does). Same
 numpy inputs, rel_err = max|a - b| / max|b| <= 1e-5 for outputs and
 gradients; the new conv window is sliced from the raw input, bit-equal.
+The JAX kernel also runs at channel counts its own gate refuses (1, 3,
+130: one channel block of D) against the port's route. K10's launch plan
+(``causal_conv_plan``) is checked against a model of the kernel's index
+arithmetic (csrc/causal_conv.cu): every (t, d) is written exactly once.
 """
 
 import numpy as np
@@ -104,3 +108,71 @@ def test_width_outside_the_gate_takes_the_plain_composition():
     y = t_conv(*args, initial_state=torch.from_numpy(st), use_kernel=True)
     assert k10.causal_conv.launches == before
     assert torch.equal(y, t_conv(*args, initial_state=torch.from_numpy(st)))
+
+
+@pytest.mark.parametrize("w", [1, 5, 9])
+@pytest.mark.parametrize("d", [1, 3, 130])
+def test_route_matches_pallas_at_odd_channel_counts(d, w):
+    """The port's route (its plain version on the CPU) against the JAX
+    kernel run with one channel block of all D, at an L of 37 (no multiple
+    of either tile)."""
+    x, wt, b, st = inputs(6 + w, L=37, d=d, w=w)
+    jy = causal_conv1d_pallas(jnp.asarray(x), jnp.asarray(wt), jnp.asarray(b),
+                              jnp.asarray(st), block_d=d)
+    before = k10.causal_conv.launches
+    ty = t_conv(torch.from_numpy(x), torch.from_numpy(wt), torch.from_numpy(b),
+                initial_state=torch.from_numpy(st), use_kernel=True)
+    assert k10.causal_conv.launches == before
+    assert rel_err(ty, jy) <= TOL
+
+
+def _conv_cover(plan, batch, seqlen, d):
+    """How often the kernel writes each (b, t, d): block (x, y, z) of
+    CONV_THREADS threads takes time steps x * tile .. + tile - 1 (those
+    below L) of batch row z, and thread i channel vector j = y * threads +
+    i (those below D / vec), channels j * vec .. j * vec + vec - 1."""
+    gx, gy, gz = plan.grid
+    t = np.arange(gx)[:, None] * plan.tile + np.arange(plan.tile)[None, :]
+    t = t[t < seqlen]
+    j = np.arange(gy)[:, None] * k10.CONV_THREADS + np.arange(k10.CONV_THREADS)[None, :]
+    j = j[j < d // plan.vec]
+    ch = (j[:, None] * plan.vec + np.arange(plan.vec)[None, :]).ravel()
+    return gz, np.bincount(t, minlength=seqlen), np.bincount(ch, minlength=d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 3, 7, 8, 768, 1000, 3200, 14529, 65536])
+def test_conv_plan_covers_every_output_once(d, dtype):
+    for seqlen in (1, 5, 1569, 6276):
+        for w in (1, 4, 5, 9):
+            for aligned in (True, False):
+                plan = k10.causal_conv_plan(2, seqlen, d, dtype, w, aligned=aligned)
+                wide = 8 if dtype == torch.bfloat16 else 4
+                assert plan.vec == (wide if aligned and d % wide == 0 else 1)
+                assert plan.tile == (4 if w <= 4 else 8)
+                batches, t_seen, d_seen = _conv_cover(plan, 2, seqlen, d)
+                assert batches == 2
+                assert np.all(t_seen == 1) and np.all(d_seen == 1)
+
+
+def test_conv_plan_fills_two_waves_at_base():
+    """At Base B=1, (1, 1569, 1536), the grid holds at least two waves of
+    132 blocks at fp32 and at bf16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        gx, gy, gz = k10.causal_conv_plan(1, 1569, 1536, dtype, 4).grid
+        assert gx * gy * gz >= 2 * 132
+
+
+@pytest.mark.parametrize("py_name,c_name", [
+    ("CONV_THREADS", "kConvThreads"), ("CONV_TILE_FIXED", "kConvTileFixed"),
+    ("CONV_TILE_ANY", "kConvTileAny")])
+def test_conv_plan_constants_are_the_kernels(py_name, c_name):
+    """The plan's constants are those csrc/causal_conv.cu launches with
+    and checks a plan's tile against."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(__file__).resolve().parents[1] / "videomamba_tpu_torch" / "csrc" /
+           "causal_conv.cu").read_text()
+    found = re.search(rf"constexpr int {c_name} = (\d+);", src)
+    assert found and int(found.group(1)) == getattr(k10, py_name)

@@ -528,9 +528,10 @@ def test_mixer_and_block_bwd_at_each_reverse_walk_chunk(dev, monkeypatch, dtype,
 @pytest.mark.parametrize("norm_type", ["rms", "layer"])
 def test_add_norm_kernels_at_wide_rows(dev, d, dtype, norm_type):
     """K2 and K8 at D above 3072: 4 rows a block in more than 48 KB of
-    shared memory (K2 at 3200 to 16384, K8 at 3200), fewer rows a block (K8
-    at 8192), a streamed row (K8 at 16384); against the plain versions
-    (fp32 1e-5 / 2e-5, bf16 1e-2 / 2e-2), K8 twice bit-identical."""
+    shared memory (K2 at 3200 to 16384), a row in registers over 4 warps
+    (K8 at 3200), a streamed row (K8 at 8192 and 16384); against the
+    plain versions (fp32 1e-5 / 2e-5, bf16 1e-2 / 2e-2), K8 twice
+    bit-identical."""
     x = randn(3, 41, d, dev=dev, seed=1).to(dtype)
     res = randn(3, 41, d, dev=dev, seed=2)
     w = 1 + randn(d, dev=dev, scale=0.1, seed=3)
@@ -575,6 +576,113 @@ def test_add_norm_bwd_kernel_matches_plain(dev, d, norm_type, x_dtype, res_dtype
         assert a.dtype == b.dtype and rel_err(a, b) <= tol
 
 
+# K8 row layouts: one warp a row (D <= 768, scalar below the vector), 2-8
+# warps a row (1000-6128: four, two and one row groups a block at 1536,
+# 3072 and 6128, the last filling 48 KB of shared memory with its
+# reduction words), streamed (6144, one row's sums and reduction words
+# past 48 KB; 8192, 16384); M from one row to B=4 Base.
+NORM_BWD_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                   (torch.bfloat16, torch.bfloat16)]
+
+
+def _norm_bwd_case(dev, m, d, x_dtype, res_dtype, prenorm, seed=0):
+    x = randn(m, d, dev=dev, seed=seed + 1).to(x_dtype)
+    res = randn(m, d, dev=dev, seed=seed + 2).to(res_dtype)
+    w = 1 + randn(d, dev=dev, scale=0.1, seed=seed + 3)
+    g = randn(m, d, dev=dev, seed=seed + 4).to(x_dtype)
+    gr = randn(m, d, dev=dev, seed=seed + 5).to(res_dtype) if prenorm else None
+    return x, w, res, g, gr
+
+
+def _norm_bwd_holds(got, again, want, terms=None):
+    """Twice bit-identical; each output within its dtype's bar of the plain
+    version (fp32 1e-5, bf16 1e-2). ``terms``: the size of the terms dx and
+    dresidual are a difference of, where that difference cancels."""
+    torch.cuda.synchronize()
+    assert _same(got, again)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype, i
+        tol = TOL if a.dtype == torch.float32 else BF16_TOL
+        err = rel_err(a, b)
+        if terms is not None and i in (0, 3):
+            err = float((a.double() - b.double()).abs().max() / max(b.abs().max(), terms))
+        assert err <= tol, (i, err)
+
+
+def _dr_terms(x, w, res, g, eps=1e-5):
+    """max |g w inv|: at D = 1 the RMS gradient g w inv (1 - r^2 inv^2) is
+    that term times eps / (r^2 + eps), a total cancellation whose fp32 noise
+    (about 1e-3 of it, in both versions) is measured against the term."""
+    r = x.float() + res.float()
+    inv = torch.rsqrt(r.square().mean(-1, keepdim=True) + eps)
+    return float((g.float() * w * inv).abs().max())
+
+
+@pytest.mark.parametrize("m", [1, 7, 1569, 6276])
+@pytest.mark.parametrize("d", [1, 3, 100, 768, 1000, 1536, 3072, 3200, 6128, 6144, 8192,
+                               16384])
+def test_add_norm_bwd_kernel_at_every_row_layout(dev, d, m):
+    """K8 against its plain version at each row layout its plan takes, fp32
+    and bf16 x and residual, with and without g_resout, rms and layer (at D
+    = 1, dx and dresidual against the size of the terms they cancel)."""
+    before = k2.fused_add_norm_bwd.launches
+    for x_dtype, res_dtype in NORM_BWD_DTYPES:
+        for prenorm in (True, False):
+            x, w, res, g, gr = _norm_bwd_case(dev, m, d, x_dtype, res_dtype, prenorm)
+            terms = _dr_terms(x, w, res, g) if d == 1 else None
+            for norm_type in ("rms", "layer"):
+                kw = dict(prenorm=prenorm, norm_type=norm_type)
+                got = k2.fused_add_norm_bwd(x, w, res, g, gr, **kw)
+                again = k2.fused_add_norm_bwd(x, w, res, g, gr, **kw)
+                _norm_bwd_holds(got, again, k2.fused_add_norm_bwd_plain(x, w, res, g, gr, **kw),
+                                terms)
+    assert k2.fused_add_norm_bwd.launches == before + 2 * 2 * 2 * len(NORM_BWD_DTYPES)
+
+
+def _offset(t):
+    """A contiguous copy of t whose storage starts one element in: its
+    pointer is off every vector boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("x_dtype,res_dtype", NORM_BWD_DTYPES)
+def test_add_norm_bwd_kernel_on_misaligned_views(dev, x_dtype, res_dtype):
+    """Views whose storage offset breaks 16-byte alignment take the
+    kernel's one-element vectors (the plan says so) and give the plain
+    version's values, twice bit-identical; then the aligned copies."""
+    x, w, res, g, gr = _norm_bwd_case(dev, 1569, 768, x_dtype, res_dtype, True, seed=9)
+    views = [_offset(t) for t in (x, w, res, g, gr)]
+    for t in views:
+        assert t.is_contiguous() and t.data_ptr() % 16
+    dtypes = [x_dtype, res_dtype, x_dtype, res_dtype]
+    assert k2.norm_bwd_plan(1569, 768, dtypes, aligned=False).vec == 1
+    for norm_type in ("rms", "layer"):
+        kw = dict(prenorm=True, norm_type=norm_type)
+        want = k2.fused_add_norm_bwd_plain(x, w, res, g, gr, **kw)
+        _norm_bwd_holds(k2.fused_add_norm_bwd(*views, **kw), k2.fused_add_norm_bwd(*views, **kw),
+                        want)
+        _norm_bwd_holds(k2.fused_add_norm_bwd(x, w, res, g, gr, **kw),
+                        k2.fused_add_norm_bwd(x, w, res, g, gr, **kw), want)
+
+
+@pytest.mark.parametrize("norm_type", ["rms", "layer"])
+@pytest.mark.parametrize("m", [7, 1569])
+def test_add_norm_bwd_kernel_reads_an_fp32_cotangent_beside_bf16_x(dev, m, norm_type):
+    """bf16 x (and residual) with an fp32 g_out: the kernel reads g_out at
+    its own dtype, as the plain version does, so the fp32 dweight and dbias
+    hold 1e-5 (rounding g to bf16 first missed it by a bf16 rounding)."""
+    x, w, res, _, gr = _norm_bwd_case(dev, m, 768, torch.bfloat16, torch.float32, True, seed=4)
+    g = randn(m, 768, dev=dev, seed=30)
+    kw = dict(prenorm=True, norm_type=norm_type)
+    got = k2.fused_add_norm_bwd(x, w, res, g, gr, **kw)
+    want = k2.fused_add_norm_bwd_plain(x, w, res, g, gr, **kw)
+    _norm_bwd_holds(got, k2.fused_add_norm_bwd(x, w, res, g, gr, **kw), want)
+    assert rel_err(got[1], want[1]) <= 1e-5 and rel_err(got[2], want[2]) <= 1e-5
+
+
 def test_small_model_trains_on_the_kernels(dev):
     """A small fp32 model's train step on the kernels (K2 + K3 forward, K6
     backward) against the same weights on the plain path."""
@@ -613,6 +721,10 @@ BLOCK_BWD_CASES = {
     "fp32_w9": (torch.float32, dict(w=9, L=300), "rms"),
     "bf16_w12": (torch.bfloat16, dict(w=12), "layer"),
     "fp32_e3200": (torch.float32, dict(e=3200), "layer"),
+    # the add-norm row pass with several row groups of 2 warps a block
+    # (E = 1536), and streamed because one row's sums fill 48 KB (E = 6144)
+    "fp32_e1536": (torch.float32, dict(e=1536), "rms"),
+    "bf16_e6144": (torch.bfloat16, dict(e=6144), "layer"),
 }
 
 
@@ -903,6 +1015,54 @@ def test_causal_conv_kernel_matches_plain(dev, dtype, w, L):
         torch.cuda.synchronize()
         assert y.dtype == ref.dtype == dtype and rel_err(y, ref) <= tol
     assert k10.causal_conv.launches == before + 2
+
+
+@pytest.mark.parametrize("w", list(range(1, 10)))
+@pytest.mark.parametrize("d", [1, 3, 130, 1536])
+def test_causal_conv_kernel_at_every_width_and_channel_count(dev, d, w):
+    """K10 against its plain version at widths 1-9 (1-4 compiled as such,
+    the rest a run-time tap loop), channel counts that take 16-byte vectors
+    (1536) and that do not (1, 3, 130), L from 9 to 1569 (none a multiple
+    of a tile but 1569's neighbours), fp32 and bf16, with and without SiLU
+    and bias; twice bit-identical."""
+    from videomamba_tpu_torch.ops.kernels import causal_conv as k10
+
+    for L in (9, 37, 1569):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(2, L, d, dev=dev, seed=w + L).to(dtype)
+            weight = randn(w, d, dev=dev, scale=0.5, seed=2)
+            bias = randn(d, dev=dev, scale=0.1, seed=3)
+            state = randn(2, d, w, dev=dev, seed=4).to(dtype)
+            tol = TOL if dtype == torch.float32 else BF16_TOL
+            for act, b in (("silu", bias), (None, None)):
+                y = k10.causal_conv(x, weight, b, state, act)
+                again = k10.causal_conv(x, weight, b, state, act)
+                ref = k10.causal_conv_plain(x, weight, b, state, act)
+                torch.cuda.synchronize()
+                assert torch.equal(y, again)
+                assert y.dtype == ref.dtype == dtype and rel_err(y, ref) <= tol, (L, dtype, act)
+
+
+@pytest.mark.parametrize("w", [4, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_causal_conv_kernel_on_misaligned_views(dev, dtype, w):
+    """x, weight and bias as views one element into their storage: the
+    plan takes one channel a thread and the kernel gives the plain
+    version's values, twice bit-identical."""
+    from videomamba_tpu_torch.ops.kernels import causal_conv as k10
+
+    x = _offset(randn(2, 1569, 1536, dev=dev, seed=5).to(dtype))
+    weight = _offset(randn(w, 1536, dev=dev, scale=0.5, seed=6))
+    bias = _offset(randn(1536, dev=dev, scale=0.1, seed=7))
+    state = randn(2, 1536, w, dev=dev, seed=8)
+    assert x.data_ptr() % 16 and weight.data_ptr() % 16
+    assert k10.causal_conv_plan(2, 1569, 1536, dtype, w, aligned=False).vec == 1
+    y = k10.causal_conv(x, weight, bias, state)
+    again = k10.causal_conv(x, weight, bias, state)
+    ref = k10.causal_conv_plain(x, weight, bias, state)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    assert rel_err(y, ref) <= (TOL if dtype == torch.float32 else BF16_TOL)
 
 
 def test_causal_conv_route_takes_width_5(dev):

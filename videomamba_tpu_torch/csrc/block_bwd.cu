@@ -82,6 +82,7 @@ struct BlockBwdIO {
   int chunk;  // steps per chunk of the split reverse walk
   float eps;
   int is_rms;
+  vmt::NormBwdPlan norm_plan;  // the add-norm row pass's (the wrapper's norm_bwd_plan)
 };
 
 // Scratch regions in floats, each 64-float aligned (16-byte loads).
@@ -90,7 +91,7 @@ struct BlockBwdScratch {
 };
 
 BlockBwdScratch block_bwd_scratch(int batch, int L, int E, int Di, int W, int R, int N,
-                                  int chunk) {
+                                  int chunk, int norm_blocks) {
   const long long rows = (long long)batch * L;
   BlockBwdScratch s;
   long long at = 0;
@@ -109,7 +110,7 @@ BlockBwdScratch block_bwd_scratch(int batch, int L, int E, int Di, int W, int R,
   s.tn_part = at;
   at += align64((long long)tn_slices(rows) * E * 2 * Di);
   s.norm_part = at;
-  at += align64((long long)vmt::norm_bwd_blocks(rows) * 2 * E);
+  at += align64((long long)norm_blocks * 2 * E);
   s.mixer = at;
   at += mixer_bwd_scratch(batch, L, Di, W, R, N, chunk).total;
   s.total = at;
@@ -121,7 +122,8 @@ cudaError_t block_bwd_t(const BlockBwdIO& io, cudaStream_t s) {
   constexpr bool kBf16 = sizeof(TW) == 2;
   const int batch = io.batch, L = io.L, E = io.E, Di = io.Di;
   const int rows = batch * L;
-  const BlockBwdScratch at = block_bwd_scratch(batch, L, E, Di, io.W, io.R, io.N, io.chunk);
+  const BlockBwdScratch at =
+      block_bwd_scratch(batch, L, E, Di, io.W, io.R, io.N, io.chunk, io.norm_plan.blocks);
   TW* normed = (TW*)(io.scratch + at.normed);
   float* xz = io.scratch + at.xz;
   float* g_y = io.scratch + at.g_y;
@@ -170,19 +172,22 @@ cudaError_t block_bwd_t(const BlockBwdIO& io, cudaStream_t s) {
   err = product_tn<kBf16>(dxz, 2 * Di, normed, E, io.dWin, tn_part, 2 * Di, E, rows, s);
   if (err != cudaSuccess) return err;
 
-  // dres = norm backward at res_out + g_res; dnorm_w, dnorm_b (K8's rows).
+  // dres = norm backward at res_out + g_res; dnorm_w, dnorm_b (K8's rows,
+  // at the wrapper's plan).
   return vmt::launch_add_norm_bwd<float, float, TG, float>(
       io.res_out, nullptr, io.norm_w, dnormed, (const TG*)io.g_res, io.dres, nullptr,
-      io.dnorm_w, io.dnorm_b, norm_part, rows, E, io.eps, io.is_rms, s);
+      io.dnorm_w, io.dnorm_b, norm_part, rows, E, io.eps, io.is_rms, io.norm_plan, s);
 }
 
 }  // namespace
 
 // fp32 scratch the wrapper allocates for one call (in floats).
-// chunk: steps per chunk of the split reverse walk, a multiple of 16.
+// chunk: steps per chunk of the split reverse walk, a multiple of 16;
+// norm_blocks: the add-norm row pass's blocks (its partial rows).
 extern "C" long long vmt_block_bwd_scratch_floats(int batch, int L, int E, int Di,
-                                                  int W, int R, int N, int chunk) {
-  return block_bwd_scratch(batch, L, E, Di, W, R, N, chunk).total;
+                                                  int W, int R, int N, int chunk,
+                                                  int norm_blocks) {
+  return block_bwd_scratch(batch, L, E, Di, W, R, N, chunk, norm_blocks).total;
 }
 
 // res_out (batch, L, E) fp32 = f32(hidden) + f32(residual); norm_w, norm_b
@@ -195,7 +200,9 @@ extern "C" long long vmt_block_bwd_scratch_floats(int batch, int L, int E, int D
 // layout: dres (batch, L, E), dnorm_w, dnorm_b (E,), dWin (2Di, E), dWout
 // (E, Di), dconv_w (Di, W), dconv_b (Di,), dx_proj_w (R + 2N, Di),
 // ddt_proj_w (Di, R), ddt_bias, dD (Di,), dA (Di, N), dh0 (batch, Di, N),
-// dconv_state (batch, Di, W). All contiguous.
+// dconv_state (batch, Di, W). All contiguous. norm_vec .. norm_stream: the
+// add-norm row pass's plan (the wrapper's norm_bwd_plan; one these pointers
+// cannot take returns cudaErrorInvalidValue from that last launch).
 extern "C" int vmt_block_bwd(
     const float* res_out, const float* norm_w, const float* norm_b, const void* in_w,
     const void* out_w, const void* conv_w, const void* conv_b, const void* x_proj_w,
@@ -205,14 +212,16 @@ extern "C" int vmt_block_bwd(
     float* dWin, float* dWout, float* dconv_w, float* dconv_b, float* dx_proj_w,
     float* ddt_proj_w, float* ddt_bias, float* dA, float* dD, float* dh0,
     float* dconv_state, float* scratch, int w_bf16, int batch, int L, int E, int Di,
-    int W, int R, int N, int chunk, float eps, int is_rms, int device, void* stream) {
+    int W, int R, int N, int chunk, float eps, int is_rms, int norm_vec, int norm_threads,
+    int norm_rows, int norm_blocks, int norm_stream, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   BlockBwdIO io{res_out, norm_w, norm_b, in_w, out_w, conv_w, conv_b, x_proj_w,
                 dt_proj_w, dt_bias, A, Dskip, conv_state, ckpt, g_out, g_res, g_hlast,
                 dres, dnorm_w, dnorm_b, dWin, dWout, dconv_w, dconv_b, dx_proj_w,
                 ddt_proj_w, ddt_bias, dA, dD, dh0, dconv_state, scratch,
-                batch, L, E, Di, W, R, N, chunk, eps, is_rms};
+                batch, L, E, Di, W, R, N, chunk, eps, is_rms,
+                vmt::NormBwdPlan{norm_vec, norm_threads, norm_rows, norm_blocks, norm_stream}};
   const cudaStream_t s = (cudaStream_t)stream;
   using vmt::bf16;
   if (w_bf16) {

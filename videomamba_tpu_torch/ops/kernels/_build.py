@@ -65,10 +65,11 @@ SIGNATURES = {
         _P, _LL, _P, _LL, *(_P,) * 23, *(_I,) * 10, _P,
     ),
     "vmt_fused_add_norm_bwd": (
-        _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _I, _P,
+        _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _LL, _I, _F, _I,
+        *(_I,) * 5, _I, _P,
     ),
-    "vmt_block_bwd": (*(_P,) * 16, _I, *(_P,) * 16, *(_I,) * 9, _F, _I, _I, _P),
-    "vmt_causal_conv": (*(_P,) * 5, *(_I,) * 7, _P),
+    "vmt_block_bwd": (*(_P,) * 16, _I, *(_P,) * 16, *(_I,) * 9, _F, *(_I,) * 7, _P),
+    "vmt_causal_conv": (_P, _P, _I, _P, _P, _P, *(_I,) * 9, _P),
     "vmt_decode_stack": (_P, _P, _P, _F, _I, _P),
     "vmt_decode_stack_m2": (_P, _P, _P, _F, _F, _I, _P),
     "vmt_ssd_mixer": (_P, _LL, *(_P,) * 14, *(_I,) * 8, _F, _I, _I, _P),
@@ -82,8 +83,7 @@ SIGNATURES = {
 # Entry points that return a size instead of a CUDA error code.
 SIZE_QUERIES = {
     "vmt_mixer_bwd_scratch_floats": ((_I,) * 7, _LL),
-    "vmt_fused_add_norm_bwd_blocks": ((_LL,), _I),
-    "vmt_block_bwd_scratch_floats": ((_I,) * 8, _LL),
+    "vmt_block_bwd_scratch_floats": ((_I,) * 9, _LL),
 }
 
 
@@ -176,6 +176,7 @@ def check_operands(kernel: str, device: torch.device, operands: dict,
     off. So an operand that autograd would record (a direct call under grad
     mode) raises instead of the kernel silently cutting the graph."""
     dtypes = dtypes or {}
+    grad_mode = torch.is_grad_enabled()
     for name, (t, shape) in operands.items():
         if t is None:
             continue
@@ -186,14 +187,14 @@ def check_operands(kernel: str, device: torch.device, operands: dict,
                 f"{kernel} kernel: {name} must be {names} on {device} "
                 f"(got {t.dtype} on {t.device})"
             )
-        if tuple(t.shape) != tuple(shape):
+        if t.shape != tuple(shape):
             raise ValueError(
                 f"{kernel} kernel: {name} has shape {tuple(t.shape)}, "
                 f"expected {tuple(shape)}"
             )
         if name in contiguous and not t.is_contiguous():
             raise ValueError(f"{kernel} kernel: {name} must be contiguous")
-        if torch.is_grad_enabled() and t.requires_grad:
+        if grad_mode and t.requires_grad:
             raise RuntimeError(
                 f"{kernel} kernel: a direct call has no backward; call it "
                 "through its autograd Function, or under torch.no_grad() "
@@ -222,7 +223,10 @@ def row_stride(t: torch.Tensor, name: str) -> int:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on t's device (the value of
+    ``torch.cuda.current_stream(t.device).cuda_stream``, without building
+    the Stream object: a few microseconds a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def is_bf16(t) -> int:

@@ -37,7 +37,8 @@ import torch
 
 from videomamba_tpu_torch.ops import dispatch
 from videomamba_tpu_torch.ops.kernels import _build, scan
-from videomamba_tpu_torch.ops.kernels.fused_add_norm import fused_add_norm_bwd_plain
+from videomamba_tpu_torch.ops.kernels.fused_add_norm import (
+    fused_add_norm_bwd_plain, norm_bwd_plan)
 from videomamba_tpu_torch.ops.kernels.mixer_bwd import _rnd, mixer_bwd_plain
 from videomamba_tpu_torch.ops.kernels.mixer_fused import mixer_fused_plain
 from videomamba_tpu_torch.ops.kernels.scan import (
@@ -193,8 +194,14 @@ def block_bwd(
     dconv_state = torch.empty((bsz, di, width), **f32)
     lib = _build.library()
     chunk = scan.walk_bwd_chunk(bsz, seqlen, di)
+    # The add-norm row pass's plan (dres, dnormed and its partial rows are
+    # fresh: only these pointers can break its vectors).
+    nplan = norm_bwd_plan(
+        bsz * seqlen, e, (torch.float32, torch.float32, torch.float32, g_r.dtype),
+        aligned=(res_out.data_ptr() | norm_w.data_ptr() | g_r.data_ptr()) % 16 == 0)
     scratch = torch.empty(
-        (lib.vmt_block_bwd_scratch_floats(bsz, seqlen, e, di, width, r, n, chunk),), **f32)
+        (lib.vmt_block_bwd_scratch_floats(bsz, seqlen, e, di, width, r, n, chunk,
+                                          nplan.blocks),), **f32)
     cstate = conv_state.float().contiguous()
     err = lib.vmt_block_bwd(
         _build.ptr(res_out), _build.ptr(norm_w), _build.ptr(norm_b), _build.ptr(in_proj_w),
@@ -207,7 +214,7 @@ def block_bwd(
         _build.ptr(dx_proj_w), _build.ptr(ddt_proj_w), _build.ptr(ddt_bias), _build.ptr(dA),
         _build.ptr(dD), _build.ptr(dh0), _build.ptr(dconv_state), _build.ptr(scratch),
         _build.is_bf16(in_proj_w), bsz, seqlen, e, di, width, r, n, chunk, eps,
-        int(norm_type == "rms"), dev.index, _build.stream_of(res_out),
+        int(norm_type == "rms"), *nplan, dev.index, _build.stream_of(res_out),
     )
     _build.check(err, "block_bwd")
     block_bwd.launches += 1

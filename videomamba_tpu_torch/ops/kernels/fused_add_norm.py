@@ -14,15 +14,24 @@ residual. The returned residual is fp32 under ``residual_in_fp32``, else
 x's dtype, as in the JAX package. Any other dtype on CUDA raises.
 
 K8 replaces fused_add_norm.py (fused_add_norm_bwd_pallas, ``_bwd_kernel``):
-dx, dresidual, dweight and dbias in one pass, csrc/fused_add_norm_bwd.cu.
-It shares K2's row layout (one warp per row, the row in shared memory) and
-is bound by device memory the same way; dweight and dbias go to one partial
-row per block and a second launch sums them in a fixed order (no atomics).
+dx, dresidual, dweight and dbias, csrc/fused_add_norm_bwd.cu over the row
+pass of csrc/add_norm_bwd.cuh (which K7's last launch shares). A group of
+threads holds a row in registers (one warp up to D = 768, 2-8 warps a
+wider row, a streamed row above D = 6128) and moves it in 16-byte vectors
+where D and the pointers allow, all of a row's loads issued before its
+first reduction; each thread adds its columns' dweight and dbias terms into
+its row group's row of shared memory, a block's groups add theirs in order
+into one partial row, and a second launch sums the partial rows in a fixed
+tree (no atomics: repeats are bit-identical). :func:`norm_bwd_plan` lays
+the launch out on the host, for K8 and for K7's last launch; the kernel
+checks it.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import operator
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -153,6 +162,86 @@ def fused_add_norm_bwd_plain(
     return dr.to(x.dtype), dweight, dbias, dres
 
 
+# The row pass's layout. csrc/add_norm_bwd.cuh checks every plan against
+# the same constants (its kNormBwd*), which must agree with these.
+NORM_BWD_SMS = 132            # the grid is sized for one wave of these
+NORM_BWD_SM_THREADS = 512     # resident threads an SM the grid assumes
+NORM_BWD_ROW_ELEMS = 24       # row elements a thread holds in registers
+NORM_BWD_ROW_ELEMS_SCALAR = 16  # the same at one element a vector
+NORM_BWD_MAX_THREADS = 256    # threads a block (and a row, at most); wider rows stream
+NORM_BWD_SMEM_FLOATS = 12288  # a block's dynamic shared memory (48 KB, no opt-in)
+NORM_BWD_RED_FLOATS = 32      # a group wider than a warp: its reduction words
+NORM_BWD_SUM_COLS = 8         # columns a block of the column sum
+NORM_BWD_SUM_SLICES = 32      # slices of partial rows a column sum adds
+
+
+class NormBwdPlan(NamedTuple):
+    """One row pass's launch: ``vec`` elements a vector (1, 4 or 8),
+    ``threads`` a row (a multiple of 32), ``rows`` a block, ``blocks`` in
+    the grid (the partial rows), ``stream`` for rows re-read from device
+    memory in each pass (too wide for registers)."""
+    vec: int
+    threads: int
+    rows: int
+    blocks: int
+    stream: bool
+
+    def part_shape(self, d: int) -> tuple:
+        """The fp32 partial sums' shape: a (dweight, dbias) row a block."""
+        return (self.blocks, 2, d)
+
+
+def norm_bwd_vec(dtypes, d: int, aligned: bool = True) -> int:
+    """Elements a vector: 8 when every row array (x, residual, g_out,
+    g_resout; a missing one counts as x's dtype) is bf16, else 4 (a 16-byte
+    fp32 load; bf16 beside fp32 moves 8 bytes); 1 when D is no multiple of
+    it or a pointer cannot start a vector (``aligned`` False)."""
+    vec = 8 if all(t == torch.bfloat16 for t in dtypes) else 4
+    return vec if aligned and d % vec == 0 else 1
+
+
+def norm_bwd_row_elems(vec: int) -> int:
+    """Row elements a thread holds at this vector width (fewer at one
+    element a vector, whose addressing costs registers)."""
+    return NORM_BWD_ROW_ELEMS_SCALAR if vec == 1 else NORM_BWD_ROW_ELEMS
+
+
+def norm_bwd_smem_floats(rows: int, threads: int, d: int) -> int:
+    """A row-pass block's dynamic shared memory in floats: its dweight /
+    dbias rows, then the reduction words of a group wider than a warp."""
+    return 2 * rows * d + (NORM_BWD_RED_FLOATS if threads > 32 else 0)
+
+
+def norm_bwd_plan(m: int, d: int, dtypes, aligned: bool = True) -> NormBwdPlan:
+    """The row pass's launch at M rows of width D for these row dtypes (see
+    :func:`norm_bwd_vec`): the fewest warps a row (rounded up to whole
+    warps) at :func:`norm_bwd_row_elems` elements a thread; as many rows a
+    block as fill NORM_BWD_MAX_THREADS threads while
+    :func:`norm_bwd_smem_floats` stays within NORM_BWD_SMEM_FLOATS; streamed
+    (one row a block) where a row needs more than NORM_BWD_MAX_THREADS
+    threads or one row's shared memory does not fit; about one wave of
+    blocks (NORM_BWD_SM_THREADS threads an SM), fewer for fewer rows. K8's
+    and K7's wrappers both pass it to the kernel, which checks it."""
+    return _norm_bwd_plan(m, d, tuple(dtypes), aligned)
+
+
+@functools.lru_cache(maxsize=256)
+def _norm_bwd_plan(m: int, d: int, dtypes: tuple, aligned: bool) -> NormBwdPlan:
+    vec = norm_bwd_vec(dtypes, d, aligned)
+    nvec = -(-d // vec)
+    need = -(-nvec // (norm_bwd_row_elems(vec) // vec))
+    threads = -(-max(need, 1) // 32) * 32
+    fit = (NORM_BWD_SMEM_FLOATS - norm_bwd_smem_floats(0, threads, d)) // (2 * max(d, 1))
+    stream = threads > NORM_BWD_MAX_THREADS or fit < 1
+    if stream:
+        threads, rows = NORM_BWD_MAX_THREADS, 1
+    else:
+        rows = min(NORM_BWD_MAX_THREADS // threads, fit)
+    cap = NORM_BWD_SMS * max(1, NORM_BWD_SM_THREADS // (rows * threads))
+    blocks = max(1, min(-(-m // rows), cap))
+    return NormBwdPlan(vec, threads, rows, blocks, stream)
+
+
 def fused_add_norm_bwd(
     x: Tensor,
     weight: Tensor,
@@ -165,15 +254,15 @@ def fused_add_norm_bwd(
 ):
     """Kernel wrapper with the contract of :func:`fused_add_norm_bwd_plain`.
 
-    On CUDA: x (fp32 or bf16) with g_out in its dtype, the residual and
-    g_resout each fp32 or bf16, weight (D,) fp32."""
+    On CUDA: x, the residual, g_out and g_resout each fp32 or bf16 (g_out is
+    read at its own dtype, as the JAX kernel reads it), weight (D,) fp32."""
     if dispatch.runs_plain(x):
         return fused_add_norm_bwd_plain(x, weight, residual, g_out, g_resout,
                                         prenorm=prenorm, eps=eps, norm_type=norm_type)
     if norm_type not in ("rms", "layer"):
         raise ValueError(f"Unknown norm_type: {norm_type!r}")
     d = x.shape[-1]
-    g = g_out.to(x.dtype).contiguous()
+    g = g_out.contiguous()
     g_r = g_resout.contiguous() if (prenorm and g_resout is not None) else None
     _build.check_operands(
         "fused_add_norm_bwd", x.device,
@@ -186,22 +275,26 @@ def fused_add_norm_bwd(
     dev = x.device
     dx = torch.empty_like(x)
     dres = torch.empty_like(residual) if residual is not None else None
-    dweight = torch.empty((d,), dtype=torch.float32, device=dev)
-    dbias = torch.empty_like(dweight)
     m = x.numel() // d if d else 0
+    sums = torch.empty((2, d), dtype=torch.float32, device=dev)
+    dweight, dbias = sums.unbind(0)
     if m == 0:
-        dweight.zero_()
-        dbias.zero_()
+        sums.zero_()
         return dx, dweight, dbias, dres
-    lib = _build.library()
-    part = torch.empty((lib.vmt_fused_add_norm_bwd_blocks(m), 2, d),
-                       dtype=torch.float32, device=dev)
-    err = lib.vmt_fused_add_norm_bwd(
-        _build.ptr(x), _build.is_bf16(x), _build.ptr(residual), _build.is_bf16(residual),
-        _build.ptr(weight), _build.ptr(g), _build.ptr(g_r), _build.is_bf16(g_r),
-        _build.ptr(dx), _build.ptr(dres), _build.ptr(dweight), _build.ptr(dbias),
-        _build.ptr(part), m, d, eps, int(norm_type == "rms"), dev.index,
-        _build.stream_of(x),
+    arrays = (x, residual, g, g_r, weight, dx, dres)
+    ptrs = [0 if t is None else t.data_ptr() for t in arrays]
+    dtypes = tuple(x.dtype if t is None else t.dtype for t in arrays[:4])
+    # One test for every pointer: 16-byte boundaries (a bf16 array with
+    # 4-element vectors would do with 8).
+    aligned = functools.reduce(operator.or_, ptrs) % 16 == 0
+    plan = norm_bwd_plan(m, d, dtypes, aligned=aligned)
+    part = torch.empty(plan.part_shape(d), dtype=torch.float32, device=dev)
+    p_x, p_res, p_g, p_gr, p_w, p_dx, p_dres = ptrs
+    err = _build.library().vmt_fused_add_norm_bwd(
+        p_x, _build.is_bf16(x), p_res or None, _build.is_bf16(residual), p_w, p_g,
+        _build.is_bf16(g), p_gr or None, _build.is_bf16(g_r), p_dx, p_dres or None,
+        dweight.data_ptr(), dbias.data_ptr(), part.data_ptr(), m, d, eps,
+        int(norm_type == "rms"), *plan, dev.index, _build.stream_of(x),
     )
     _build.check(err, "fused_add_norm_bwd")
     fused_add_norm_bwd.launches += 1
