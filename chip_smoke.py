@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving, training and decode paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving, training, decode, masked-pretraining and data paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -181,14 +181,51 @@ failure, so the script exits nonzero:
     B=1, L=1569 against the same layer on plain versions on the card
     (output 1e-5, parameter gradients 1e-4: each sums a kernel output over
     all rows); ``causal_conv1d(use_kernel=True)`` at width 5 (K10 1, 1e-5).
+26. masked serving at Base, B=2, a VideoMAE tube mask (ratio 0.75 on 8 x 14
+    x 14: 1 + 8 * 49 = 393 visible tokens, no multiple of any walk chunk):
+    fp32 (K2 25, K3 24) against the plain path (1e-4), ``keep_temporal``
+    pooling through the masked temporal average, the mask as a CUDA tensor
+    bit-equal to the NumPy one; bf16 (K4 24, K2 1) against the same Blocks'
+    plain versions (2e-2); ``videomamba_base_m2`` fp32 (K14 24) against the
+    plain chunked SSD (1e-4); a masked two-chunk StreamingSession (CLS in
+    chunk 0 only), each chunk against the same model's single-chunk forward
+    from the same state and against the plain path's session (1e-4).
+27. masked pretraining, ``make_train_step`` with the mask in the batch (the
+    default loss regresses the 392 visible patch tokens onto a noise
+    target), the bench recipe: fp32 B=2 (K2 25, K3 24, K6 24) against the
+    plain path (loss 1e-5, gradients 1e-4), bf16 over fp32 masters against
+    the same step on plain versions (loss 1e-2, gradients 5e-2); then the
+    masked fp32 and bf16 steps at B=4 (median host ms of 5 after 2 warm,
+    peak memory) printed beside phase 11's unmasked ones.
+28. from files: 8 seeded clips (16 x 256 x 320, ``.npy`` and ``.vraw``)
+    written under ``build/``, ``make_clip_loader`` (native loader, train
+    augmentation, 8 frames, 224 crops, B=2) over two pinned epochs by two
+    loaders: bit-equal batches; the loader's clips/s; one masked fp32 step
+    on a loaded batch (finite loss, K6 24).
+29. ``BiMambaRefinerBlock(768)`` (Base ssm config, RMSNorm, fused add-norm,
+    fp32 residual) on phase 2's (1, 8, 196, 768) patch tokens: fp32 K2 2,
+    K3 2 against its plain version (1e-4), the forward state after two
+    4-frame calls against one 8-frame call (1e-4), bf16 K4 2 against its
+    plain versions (2e-2).
+30. checkpoint files and determinism (last: it sets process-wide modes):
+    ``save_torch_state_dict`` of phase 2's weights, ``load_checkpoint`` into
+    a fresh Base model on the card, bit-equal parameters and phase 2's
+    forward bit for bit; a seeded temporal embedding loaded with
+    ``ckpt_num_frame=8`` into a 16-frame model (against ``F.interpolate``,
+    1e-6) and a 16-frame clip through it; ``configure_determinism(0,
+    deterministic=True)`` and the masked fp32 step twice: bit-identical
+    loss and gradients; TF32 off and non-deterministic mode restored.
 
 The launch counters are zeroed just before each main path and read just
 after: phases 2-4 (fp32 serving), 6-7 (bf16 serving), 9 (fp32 training),
 10 (bf16 training), 13 (eval backward), 14 (whole-block training), 15
 (decode, per dtype), 16 (the conv route), 18 (m2 fp32 serving, both
 routes), 19 (m2 bf16 serving), 20 (m2 decode, per dtype), 22 (m2
-training, every route), 23 (K11's route) and 25 (the layer steps and the
-conv route at widened gates); the kernels line sums them.
+training, every route), 23 (K11's route), 25 (the layer steps and the
+conv route at widened gates), 26 (masked serving), 27 (masked training),
+28 (the step from files), 29 (the refiner) and 30 (the loaded models and
+the deterministic steps); the kernels line sums them. The total seconds
+of the run are printed before the kernels line.
 TF32 is off for matmuls and cuDNN throughout. Times are CUDA-event times per
 launch (kernels) or host time around a synchronised call (forward, chunk,
 step, token), on the card named in the output. Each kernel's bound is
@@ -218,17 +255,27 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from videomamba_tpu_torch.checkpoint import load_state_dict  # noqa: E402
+from videomamba_tpu_torch.checkpoint import (  # noqa: E402
+    load_checkpoint,
+    load_state_dict,
+    save_torch_state_dict,
+)
+from videomamba_tpu_torch.data import TubeMaskingGenerator, make_clip_loader  # noqa: E402
+from videomamba_tpu_torch.data.native import write_vraw  # noqa: E402
+from videomamba_tpu_torch.determinism import configure_determinism  # noqa: E402
 from videomamba_tpu_torch.models import block as block_mod  # noqa: E402
 from videomamba_tpu_torch.models import mamba as mamba_mod  # noqa: E402
 from videomamba_tpu_torch.models import mamba2 as mamba2_mod  # noqa: E402
 from videomamba_tpu_torch.models.mamba import Mamba  # noqa: E402
+from videomamba_tpu_torch.models.refiner import BiMambaRefinerBlock  # noqa: E402
 from videomamba_tpu_torch.models.presets import videomamba_base, videomamba_base_m2  # noqa: E402
 from videomamba_tpu_torch.ops import dispatch  # noqa: E402
 from videomamba_tpu_torch.ops.causal_conv1d import causal_conv1d  # noqa: E402
@@ -2185,6 +2232,371 @@ def phase_repaired_gates(device):
     return counts
 
 
+MASK_GRID = (8, IMG // 16, IMG // 16)  # Base: 8 frames of 14 x 14 patches
+MASK_RATIO = 0.75                      # VideoMAE's tube ratio: 49 of 196 visible
+
+
+def tube_mask(batch, frames=None, with_cls=True, seed=0):
+    """A seeded VideoMAE tube mask (True = hidden) over ``frames`` (default:
+    all 8) of the 14 x 14 grid: at Base, 1 + 8 * 49 = 393 visible tokens a
+    clip."""
+    grid = MASK_GRID if frames is None else (frames,) + MASK_GRID[1:]
+    return TubeMaskingGenerator(grid, MASK_RATIO, with_cls=with_cls)(
+        batch, rng=np.random.default_rng(seed))
+
+
+def masked_batch(batch, device, mask, seed=2, video=None):
+    """A seeded clip (or ``video``), the mask, and a noise target for the
+    visible patch tokens."""
+    g = torch.Generator().manual_seed(seed)
+    if video is None:
+        video = torch.randn((batch, 3, 8, IMG, IMG), generator=g)
+    visible = int((~mask[0, 1:]).sum())
+    target = torch.randn((batch, visible, BASE["embed"]), generator=g)
+    return {"video": video.to(device), "target": target.to(device), "mask": mask}
+
+
+def phase_masked_serving(device, sd0, depth):
+    """Masked Base serving at B=2 (a 0.75 tube mask, 393 visible tokens):
+    fp32 K2 25, K3 24 against the plain path (1e-4), per-frame pooling
+    through the masked temporal average; bf16 K4 24, K2 1 against the same
+    Blocks' plain versions (2e-2); videomamba_base_m2 fp32 K14 24 against
+    the plain chunked SSD (1e-4); a masked two-chunk StreamingSession, each
+    chunk against the same model's single-chunk forward from the same state
+    and the plain path's session (1e-4)."""
+    mask = tube_mask(2)
+    clip2 = torch.randn((2, 3, 8, IMG, IMG), generator=torch.Generator().manual_seed(26)).to(device)
+    visible = int((~mask[0]).sum())
+    print(f"masked serving: tube mask ratio {MASK_RATIO} on {MASK_GRID}, B=2, "
+          f"{visible} visible tokens a clip")
+    fast = base_model(device, sd0).eval()
+    plain = base_model(device, sd0, fused_add_norm=False,
+                       ssm_cfg={"use_fast_path": False}).eval()
+    before = launches()
+    x_vis, x_pool = fast(clip2, mask=mask, keep_temporal=True)
+    torch.cuda.synchronize()
+    used = delta(launches(), before)
+    expect_launches("masked fp32 forward", used, fused_add_norm=depth + 1, mixer_fused=depth,
+                    block_fused=0)
+    check(x_vis.shape == (2, visible - 1, BASE["embed"]), f"masked x_vis {tuple(x_vis.shape)}")
+    check(x_pool.shape == (2, 8, BASE["embed"]), f"masked x_pool {tuple(x_pool.shape)}")
+    p_vis, p_pool = plain(clip2, mask=mask, keep_temporal=True)
+    check_close("masked fp32 x_vis vs plain", x_vis, p_vis, MODEL_TOL)
+    check_close("masked fp32 x_pool (masked temporal average) vs plain", x_pool, p_pool,
+                MODEL_TOL)
+    # A CUDA mask is copied to the host once and gives the same result.
+    again, _ = fast(clip2, mask=torch.from_numpy(mask).to(device), keep_temporal=True)
+    check(torch.equal(again, x_vis), "masked fp32: a CUDA mask gave other tokens")
+
+    bf16 = cast_module_for_compute(copy.deepcopy(fast), torch.bfloat16)
+    seen = {}
+    hook = bf16.layers[0].register_forward_pre_hook(
+        lambda module, args: seen.setdefault("tokens", args[0]))
+    before = launches()
+    b_vis, b_pool = bf16(clip2, mask=mask, keep_temporal=True)
+    torch.cuda.synchronize()
+    hook.remove()
+    used_b = delta(launches(), before)
+    expect_launches("masked bf16 forward", used_b, block_fused=depth, fused_add_norm=1,
+                    mixer_fused=0)
+    check(seen["tokens"].shape[1] == visible, f"bf16 Blocks saw {seen['tokens'].shape[1]} tokens")
+    check(bool(torch.isfinite(b_pool).all()), "masked bf16: non-finite x_pool")
+    check_close("masked bf16 x_vis vs plain Blocks", b_vis,
+                plain_blocks(bf16, seen["tokens"])[:, 1:], BF16_MODEL_TOL)
+    del bf16
+
+    session, plain_session = StreamingSession(fast, 2), StreamingSession(plain, 2)
+    for c, m in enumerate((tube_mask(2, frames=4, seed=1),
+                           tube_mask(2, frames=4, with_cls=False, seed=2))):
+        chunk = clip2[:, :, 4 * c:4 * c + 4]
+        state = [(conv.clone(), ssm.clone()) for conv, ssm in session.state]
+        offset = session.offset
+        before = launches()
+        s_vis, s_pool = session.process(chunk, mask=m, keep_temporal=True)
+        torch.cuda.synchronize()
+        used_s = delta(launches(), before)
+        check(used_s["mixer_fused"] == depth, f"masked chunk {c}: K3 {used_s['mixer_fused']}")
+        one_vis, one_pool, _ = fast(chunk, mask=m, keep_temporal=True, ssm_state=state,
+                                    temporal_pos_offset=offset)
+        check_close(f"masked chunk {c} vs single-chunk forward from the same state",
+                    s_vis, one_vis, MODEL_TOL)
+        p_vis, p_pool = plain_session.process(chunk, mask=m, keep_temporal=True)
+        check_close(f"masked chunk {c} vs plain path", s_vis, p_vis, MODEL_TOL)
+        check_close(f"masked chunk {c} pool vs plain path", s_pool, p_pool, MODEL_TOL)
+    del fast, plain, session, plain_session
+    torch.cuda.empty_cache()
+
+    m2 = m2_model(device).eval()
+    m2_plain = m2_model(device, m2.state_dict(), fused_add_norm=False).eval()
+    before = launches()
+    m_vis, m_pool = m2(clip2, mask=mask, keep_temporal=True)
+    torch.cuda.synchronize()
+    used_m = delta(launches(), before)
+    expect_launches("masked m2 fp32 forward", used_m, fused_add_norm=depth + 1,
+                    ssd_pmixer=depth, ssd_mixer=0)
+    with env(VIDEOMAMBA_SSD_METHOD="chunked"):
+        pm_vis, pm_pool = m2_plain(clip2, mask=mask, keep_temporal=True)
+    check_close("masked m2 fp32 x_vis vs plain chunked SSD", m_vis, pm_vis, MODEL_TOL)
+    check_close("masked m2 fp32 x_pool vs plain chunked SSD", m_pool, pm_pool, MODEL_TOL)
+    del m2, m2_plain
+    torch.cuda.empty_cache()
+
+
+def phase_masked_train(device, sd0, depth, unmasked_ms):
+    """``make_train_step`` with a tube mask in the batch (the default loss
+    regresses the visible tokens), the bench recipe: fp32 at B=2 (K2 25, K3
+    24, K6 24) against the plain path (loss 1e-5, gradients 1e-4); bf16
+    over fp32 masters against the same step on plain versions (loss 1e-2,
+    gradients 5e-2); then masked fp32 and bf16 steps at B=4 (median host ms
+    of 5 after 2 warm, peak memory) beside phase 11's unmasked ones."""
+    batch2 = masked_batch(2, device, tube_mask(2))
+    fast = base_model(device, sd0)
+    step = make_train_step(fast, adamw(fast))
+    before = launches()
+    metrics = step(batch2, torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    used = delta(launches(), before)
+    expect_launches("masked fp32 train step", used, fused_add_norm=depth + 1,
+                    mixer_fused=depth, mixer_bwd=depth, block_fused=0)
+    grads = grads_of(fast)
+    plain = base_model(device, sd0, fused_add_norm=False, ssm_cfg={"use_fast_path": False})
+    plain_metrics = make_train_step(plain, adamw(plain))(batch2)
+    torch.cuda.synchronize()
+    check_close("masked fp32 train step loss vs plain", metrics["loss"].reshape(1),
+                plain_metrics["loss"].reshape(1), 1e-5)
+    compare_grads("masked fp32 train step vs plain", grads, grads_of(plain), STEP_GRAD_TOL)
+    del plain, plain_metrics
+    torch.cuda.empty_cache()
+
+    load_state_dict(fast, sd0)
+    step = make_train_step(fast, adamw(fast), compute_dtype=torch.bfloat16)
+    before = launches()
+    metrics = step(batch2, torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    used_b = delta(launches(), before)
+    expect_launches("masked bf16 train step", used_b, fused_add_norm=depth + 1,
+                    mixer_fused=depth, mixer_bwd=depth)
+    check(all(p.dtype == torch.float32 for p in fast.parameters()), "masked bf16: masters not fp32")
+    grads = grads_of(fast)
+    load_state_dict(fast, sd0)
+    with plain_versions():
+        before = launches()
+        plain_metrics = step(batch2, torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        check(launches() == before, "masked bf16 plain-version step launched a kernel")
+    check_close("masked bf16 train step loss vs plain versions", metrics["loss"].reshape(1),
+                plain_metrics["loss"].reshape(1), BF16_TOL)
+    compare_grads("masked bf16 train step vs plain versions", grads, grads_of(fast),
+                  BF16_STEP_TOL)
+
+    batch4 = masked_batch(4, device, tube_mask(4, seed=4), seed=4)
+    times = {}
+    for tag, dtype in (("fp32", None), ("bf16", torch.bfloat16)):
+        load_state_dict(fast, sd0)
+        step = make_train_step(fast, adamw(fast), compute_dtype=dtype)
+        times[tag] = timed_steps(step, batch4, f"masked {tag} train step (4,3,8,224,224), "
+                                 f"{int((~batch4['mask'][0]).sum())} visible tokens")
+    for tag, (ms, peak) in times.items():
+        print(f"train step B=4 {tag}: masked {ms:.3f} ms ({peak:.2f} GiB peak), unmasked "
+              f"{unmasked_ms[tag][0]:.3f} ms ({unmasked_ms[tag][1]:.2f} GiB peak, phase 11)")
+    del fast, step
+    torch.cuda.empty_cache()
+
+
+def write_clips(root, n=8, frames=16, hw=(256, 320)):
+    """``n`` seeded uint8 clips (T, H, W, 3) in two class directories,
+    alternately ``.npy`` and ``.vraw``."""
+    rng = np.random.default_rng(28)
+    for i in range(n):
+        d = os.path.join(root, f"class{i % 2}")
+        os.makedirs(d, exist_ok=True)
+        clip = rng.integers(0, 256, (frames,) + hw + (3,), dtype=np.uint8)
+        if i % 2:
+            np.save(os.path.join(d, f"clip{i}.npy"), clip)
+        else:
+            write_vraw(os.path.join(d, f"clip{i}.vraw"), clip)
+
+
+def phase_from_files(device, sd0, depth):
+    """8 seeded clips written to disk, ``make_clip_loader`` (train
+    augmentation, 8 frames, 224 crops, B=2) over two pinned epochs, twice:
+    bit-equal batches; the loader's clips/s; one masked fp32 step on a
+    loaded batch (finite loss, K6 24)."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        write_clips(root)
+        runs = []
+        for _ in range(2):
+            loader, n_cls = make_clip_loader(data_dir=root, train=True, clip_len=8, crop=IMG,
+                                             batch_size=2, num_threads=4)
+            try:
+                t0 = time.perf_counter()
+                epochs = [list(loader.epoch(seed=0, shuffle=True, epoch=e)) for e in (0, 1)]
+                secs = time.perf_counter() - t0
+            finally:
+                loader.close()
+            runs.append(epochs)
+            print(f"clip loader: 2 epochs of 8 clips (16 x 256 x 320 -> 3 x 8 x 224 x 224) in "
+                  f"{secs * 1e3:.1f} ms, {16 / secs:.1f} clips/s")
+    check(n_cls == 2, f"clip loader: {n_cls} classes")
+    for e in range(2):
+        check(len(runs[0][e]) == 4, f"clip loader: {len(runs[0][e])} batches in epoch {e}")
+        for (a, la), (b, lb) in zip(runs[0][e], runs[1][e]):
+            check(a.shape == (2, 3, 8, IMG, IMG) and a.dtype == torch.float32,
+                  f"clip loader batch {tuple(a.shape)} {a.dtype}")
+            check(torch.equal(a, b) and torch.equal(la, lb),
+                  f"clip loader: epoch {e} differs between two loaders of one seed")
+    check(not torch.equal(runs[0][0][0][0], runs[0][1][0][0]) or
+          not torch.equal(runs[0][0][0][1], runs[0][1][0][1]),
+          "clip loader: epochs 0 and 1 drew the same first batch")
+    print("clip loader: two loaders of one seed gave bit-equal batches over epochs 0 and 1")
+
+    clips, _ = runs[0][0][0]
+    model = base_model(device, sd0)
+    step = make_train_step(model, adamw(model))
+    batch = masked_batch(2, device, tube_mask(2, seed=5), seed=5, video=clips)
+    before = launches()
+    metrics = step(batch, torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    used = delta(launches(), before)
+    expect_launches("masked fp32 step on a loaded batch", used, fused_add_norm=depth + 1,
+                    mixer_fused=depth, mixer_bwd=depth)
+    check(bool(torch.isfinite(metrics["loss"])), "masked step on a loaded batch: non-finite loss")
+    print(f"masked fp32 step on a loaded batch: loss {float(metrics['loss']):.6f}")
+    del model, step
+    torch.cuda.empty_cache()
+
+
+def phase_refiner(device, tokens):
+    """``BiMambaRefinerBlock(768)`` (Base ssm config, RMSNorm, fused
+    add-norm, fp32 residual) on phase 2's (1, 8, 196, 768) patch tokens:
+    fp32 K2 2, K3 2 against the same weights on the plain path (1e-4);
+    bf16 K4 2 against the same refiner on plain versions (2e-2); the
+    forward state after two 4-frame calls against one 8-frame call (1e-4)."""
+    g = torch.Generator().manual_seed(29)
+    refiner = BiMambaRefinerBlock(BASE["embed"], device=device, generator=g, layer_idx=0).eval()
+    plain = BiMambaRefinerBlock(BASE["embed"], device=device, fused_add_norm=False,
+                                ssm_cfg={"use_fast_path": False}, layer_idx=0).eval()
+    load_state_dict(plain, refiner.state_dict())
+    before = launches()
+    out, state = refiner(tokens)
+    torch.cuda.synchronize()
+    used = delta(launches(), before)
+    expect_launches("refiner fp32", used, fused_add_norm=2, mixer_fused=2, block_fused=0)
+    check(out.shape == tokens.shape, f"refiner output {tuple(out.shape)}")
+    p_out, p_state = plain(tokens)
+    check_close("refiner fp32 vs plain", out, p_out, MODEL_TOL)
+    for name, got, want in zip(("conv", "ssm"), state, p_state):
+        check_close(f"refiner fp32 forward {name} state vs plain", got, want, MODEL_TOL)
+
+    _, half = refiner(tokens[:, :4])
+    _, half = refiner(tokens[:, 4:], state_fwd=half)
+    torch.cuda.synchronize()
+    for name, got, want in zip(("conv", "ssm"), half, state):
+        check_close(f"refiner forward {name} state, two 4-frame calls vs one 8-frame call",
+                    got, want, MODEL_TOL)
+
+    bf16 = cast_module_for_compute(copy.deepcopy(refiner), torch.bfloat16)
+    x16 = tokens.bfloat16()
+    before = launches()
+    b_out, _ = bf16(x16)
+    torch.cuda.synchronize()
+    used_b = delta(launches(), before)
+    expect_launches("refiner bf16", used_b, block_fused=2, mixer_fused=0, fused_add_norm=0)
+    check(b_out.dtype == torch.bfloat16, f"refiner bf16 output {b_out.dtype}")
+    with plain_versions():
+        pb_out, _ = bf16(x16)
+    check_close("refiner bf16 vs plain versions", b_out, pb_out, BF16_MODEL_TOL)
+    del refiner, plain, bf16
+    torch.cuda.empty_cache()
+
+
+def phase_files_and_determinism(device, sd0, full_vis, clip, depth):
+    """Phase 2's weights written with ``save_torch_state_dict`` and read
+    back with ``load_checkpoint`` into a fresh Base model on the card:
+    bit-equal parameters and phase 2's forward; the same weights with a
+    seeded temporal embedding into a 16-frame model (temporal 8 -> 16,
+    linear, against ``F.interpolate``, 1e-6) and a 16-frame clip through
+    it; then ``configure_determinism(0, deterministic=True)`` and the
+    masked fp32 step twice from the same weights: bit-identical loss and
+    gradients. Restores TF32 off and non-deterministic mode after it."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path, path_t = os.path.join(tmp, "base.pt"), os.path.join(tmp, "base_t.pt")
+        with torch.inference_mode():
+            model = base_model(device, sd0)
+            save_torch_state_dict(path, model)
+            temporal = 0.02 * torch.randn(model.temporal_pos_embedding.shape,
+                                          generator=torch.Generator().manual_seed(30))
+            model.temporal_pos_embedding.copy_(temporal)
+            save_torch_state_dict(path_t, model)
+            del model
+            print(f"checkpoint file: {os.path.getsize(path) / 2**20:.1f} MiB")
+            loaded = videomamba_base(pool_type="avg", device=device,
+                                     generator=torch.Generator().manual_seed(30)).eval()
+            load_checkpoint(path, loaded, ckpt_num_frame=8, num_frames=8)
+            for name, value in loaded.state_dict().items():
+                check(torch.equal(value, sd0[name]), f"checkpoint round trip: {name} differs")
+            x_vis, _ = loaded(clip)
+            torch.cuda.synchronize()
+            check(torch.equal(x_vis, full_vis), "checkpoint round trip: forward differs "
+                  f"from phase 2's (rel_err {rel_err(x_vis, full_vis):.3e})")
+            print("checkpoint round trip: bit-equal parameters and forward")
+            del loaded
+            long = videomamba_base(pool_type="avg", num_frames=16, device=device,
+                                   generator=torch.Generator().manual_seed(31)).eval()
+            load_checkpoint(path_t, long, ckpt_num_frame=8, num_frames=16)
+            want = torch.nn.functional.interpolate(
+                temporal.to(device).permute(0, 2, 1), size=16, mode="linear",
+                align_corners=False).permute(0, 2, 1)
+            check_close("16-frame temporal embedding vs F.interpolate",
+                        long.temporal_pos_embedding, want, 1e-6)
+            clip16 = torch.randn((1, 3, 16, IMG, IMG),
+                                 generator=torch.Generator().manual_seed(30)).to(device)
+            v16, p16 = long(clip16)
+            torch.cuda.synchronize()
+            check(v16.shape == (1, 16 * (IMG // 16) ** 2, BASE["embed"])
+                  and bool(torch.isfinite(v16).all())
+                  and bool(torch.isfinite(p16).all()), f"16-frame forward {tuple(v16.shape)}")
+            print(f"16-frame forward from an 8-frame checkpoint: x_vis {tuple(v16.shape)}")
+            del long
+    torch.cuda.empty_cache()
+
+    batch2 = masked_batch(2, device, tube_mask(2))
+    runs = []
+    try:
+        cfg = configure_determinism(0, deterministic=True, warn_only=False)
+        print(f"determinism: {cfg}, CUBLAS_WORKSPACE_CONFIG="
+              f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')}")
+        model = base_model(device, sd0)
+        for _ in range(2):
+            load_state_dict(model, sd0)
+            metrics = make_train_step(model, adamw(model))(batch2)
+            torch.cuda.synchronize()
+            runs.append((metrics["loss"].clone(), grads_of(model)))
+    finally:
+        configure_determinism(0, deterministic=False, cudnn_benchmark=False, allow_tf32=False)
+    (loss_a, grads_a), (loss_b, grads_b) = runs
+    check(torch.equal(loss_a, loss_b), "deterministic masked step: losses differ")
+    differ = [k for k in grads_a if not torch.equal(grads_a[k], grads_b[k])]
+    check(not differ, f"deterministic masked step: gradients of {differ} differ")
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+          and not torch.are_deterministic_algorithms_enabled(), "determinism not restored")
+    print(f"deterministic masked fp32 step twice: bit-identical loss {float(loss_a):.6f} "
+          f"and {len(grads_a)} gradients")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_seconds(phase: int, t0: float) -> float:
+    """Print a phase's host seconds since ``t0``; returns the time now."""
+    now = time.perf_counter()
+    print(f"phase {phase}: {now - t0:.1f} s")
+    return now
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2197,6 +2609,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; nothing was run", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2378,9 +2791,50 @@ def main() -> int:
     gate_counts = phase_repaired_gates(device)
     torch.cuda.empty_cache()
 
+    t_new = time.perf_counter()
+    zero_launches()
+    with torch.inference_mode():
+        phase_masked_serving(device, sd0, depth)
+    masked_serving_counts = launches()
+    t_new = phase_seconds(26, t_new)
+    print(f"masked serving path launches: {masked_serving_counts}")
+    for name in ("fused_add_norm", "mixer_fused", "block_fused", "ssd_pmixer"):
+        check(masked_serving_counts[name] > 0, f"{name} was not launched on the masked serving path")
+    zero_launches()
+    phase_masked_train(device, sd0, depth, {"fp32": (fp32_ms, fp32_peak),
+                                            "bf16": (bf16_ms, bf16_peak)})
+    masked_train_counts = launches()
+    print(f"masked training path launches: {masked_train_counts}")
+    for name in ("fused_add_norm", "mixer_fused", "mixer_bwd"):
+        check(masked_train_counts[name] > 0, f"{name} was not launched on the masked training path")
+    t_new = phase_seconds(27, t_new)
+    zero_launches()
+    phase_from_files(device, sd0, depth)
+    files_counts = launches()
+    for name in ("fused_add_norm", "mixer_fused", "mixer_bwd"):
+        check(files_counts[name] > 0, f"{name} was not launched on the clip-file path")
+    t_new = phase_seconds(28, t_new)
+    zero_launches()
+    with torch.inference_mode():
+        phase_refiner(device, full_vis.reshape(1, 8, -1, BASE["embed"]))
+    refiner_counts = launches()
+    print(f"refiner path launches: {refiner_counts}")
+    for name in ("fused_add_norm", "mixer_fused", "block_fused"):
+        check(refiner_counts[name] > 0, f"{name} was not launched on the refiner path")
+    t_new = phase_seconds(29, t_new)
+    zero_launches()
+    phase_files_and_determinism(device, sd0, full_vis, clip, depth)  # last: sets global modes
+    files_det_counts = launches()
+    for name in ("fused_add_norm", "mixer_fused", "mixer_bwd"):
+        check(files_det_counts[name] > 0,
+              f"{name} was not launched on the checkpoint and determinism path")
+    phase_seconds(30, t_new)
+
     paths = (fp32_counts, bf16_counts, train32_counts, train16_counts, eval_counts,
              block_route_counts, decode_counts, conv_counts, m2_fp32_counts, m2_bf16_counts,
-             m2_decode_counts, m2_train_counts, ssd_path_counts, gate_counts)
+             m2_decode_counts, m2_train_counts, ssd_path_counts, gate_counts,
+             masked_serving_counts, masked_train_counts, files_counts, refiner_counts,
+             files_det_counts)
     counts = {name: sum(c[name] for c in paths) for name in WRAPPERS}
 
     rows = [
@@ -2388,6 +2842,7 @@ def main() -> int:
          "replaces": SOURCES[name][1], "launches": counts[name], **kernels[name]}
         for name in WRAPPERS
     ]
+    print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """Device-time breakdown of the PyTorch port's train step on one CUDA card.
 
     python3 scripts/profile_torch_train.py [--batch 4] [--dtype fp32|bf16|both]
-        [--model m1|m2|both] [--root DIR]
+        [--model m1|m2|both] [--mask-ratio R] [--root DIR]
 
 Builds VideoMamba-Base (Mamba-1, ``m1``) or VideoMamba-Base-m2 (Mamba-2,
 ``m2``; its layers on the default "mixer" train route: ``torch.matmul``
@@ -13,6 +13,10 @@ step), then profiles one step with ``torch.profiler`` and prints, for each
 model and dtype, the step's host wall time, the device time summed by
 kernel group and the top kernels by name. The device's idle share is the
 wall time not covered by kernel time (one stream: kernels do not overlap).
+``--mask-ratio R`` (R > 0) trains masked: a seeded VideoMAE tube mask of
+ratio R on the 8 x 14 x 14 token grid in the batch, the target sized to the
+visible patch tokens (0.75: 392 of 1568, the encoder running on 393 tokens
+with CLS).
 ``--root`` imports the port from another checkout (default: the one holding
 this script), so two checkouts can be compared in one call to the card,
 each in its own process. Needs a CUDA card.
@@ -84,7 +88,11 @@ def card_line() -> str:
     return out.splitlines()[0] if out else "unknown"
 
 
-def profile_step(model_key: str, dtype: torch.dtype, batch: int, device) -> None:
+def profile_step(model_key: str, dtype: torch.dtype, batch: int, device,
+                 mask_ratio: float = 0.0) -> None:
+    import numpy as np
+
+    from videomamba_tpu_torch.data.masking import TubeMaskingGenerator
     from videomamba_tpu_torch.models.presets import videomamba_base, videomamba_base_m2
     from videomamba_tpu_torch.parallel.train_step import make_train_step
 
@@ -95,8 +103,13 @@ def profile_step(model_key: str, dtype: torch.dtype, batch: int, device) -> None
     step = make_train_step(model, opt,
                            compute_dtype=None if dtype == torch.float32 else dtype)
     g = torch.Generator().manual_seed(2)
-    data = {"video": torch.randn((batch, 3, 8, 224, 224), generator=g).to(device),
-            "target": torch.zeros((batch, 8 * 196, 768), device=device)}
+    data = {"video": torch.randn((batch, 3, 8, 224, 224), generator=g).to(device)}
+    tokens = 8 * 196
+    if mask_ratio > 0:
+        data["mask"] = TubeMaskingGenerator((8, 14, 14), mask_ratio)(
+            batch, rng=np.random.default_rng(0))
+        tokens = int((~data["mask"][0, 1:]).sum())
+    data["target"] = torch.zeros((batch, tokens, 768), device=device)
     for _ in range(2):
         step(data)
     torch.cuda.synchronize()
@@ -121,7 +134,8 @@ def profile_step(model_key: str, dtype: torch.dtype, batch: int, device) -> None
     for name, ms in by_name.items():
         by_group[group_of(name)] += ms
     label = "fp32" if dtype == torch.float32 else "bf16"
-    print(f"\n{title} {label} train step, B={batch}: host {statistics.median(times):.3f} ms "
+    masked = f", masked {mask_ratio} ({tokens} patch tokens)" if mask_ratio > 0 else ""
+    print(f"\n{title} {label} train step, B={batch}{masked}: host {statistics.median(times):.3f} ms "
           f"(median of 5, {min(times):.3f}-{max(times):.3f}); profiled: wall {wall_ms:.3f} ms, "
           f"kernel time "
           f"{total:.3f} ms, device idle {wall_ms - total:.3f} ms "
@@ -138,6 +152,8 @@ def main() -> int:
     parser.add_argument("--batch", type=int, default=4)
     parser.add_argument("--dtype", choices=("fp32", "bf16", "both"), default="both")
     parser.add_argument("--model", choices=("m1", "m2", "both"), default="both")
+    parser.add_argument("--mask-ratio", type=float, default=0.0,
+                        help="tube-mask ratio of a masked step (0: unmasked)")
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout to import the port from")
     args = parser.parse_args()
@@ -157,7 +173,7 @@ def main() -> int:
     models = ["m1", "m2"] if args.model == "both" else [args.model]
     for model_key in models:
         for dtype in dtypes:
-            profile_step(model_key, dtype, args.batch, device)
+            profile_step(model_key, dtype, args.batch, device, args.mask_ratio)
             torch.cuda.empty_cache()
     return 0
 

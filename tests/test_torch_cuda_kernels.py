@@ -709,6 +709,62 @@ def test_small_model_trains_on_the_kernels(dev):
             assert rel_err(p.grad, q.grad) <= 1e-4, name
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixer_kernels_at_the_masked_visible_length(dev, dtype):
+    """K3 (with and without checkpoints) and K6 at the masked Base step's
+    shapes: B=2 and L = 1 + 8 * 49 = 393 visible tokens (a tube mask of
+    ratio 0.75 on 8 x 14 x 14), no multiple of any walk chunk; against their
+    plain versions, each twice bit-identical."""
+    kw = _mixer_inputs(dev, b=2, L=393, di=1536, r=48)
+    if dtype == torch.bfloat16:
+        kw = {k: v.to(dtype) if k in MIXER_BF16 else v for k, v in kw.items()}
+    tol = TOL if dtype == torch.float32 else BF16_TOL
+    for checkpoints in (False, True):
+        _same_twice_and_plain(k3.mixer_fused, k3.mixer_fused_plain,
+                              dict(kw, checkpoints=checkpoints), tol)
+    *_, ckpt = k3.mixer_fused(**kw, checkpoints=True)
+    args = dict({k: v for k, v in kw.items() if k != "h0"}, ckpt=ckpt,
+                g_y=randn(2, 393, 1536, dev=dev, seed=12).to(dtype),
+                g_hlast=randn(2, 1536, 16, dev=dev, scale=0.3, seed=13))
+    before = k6.mixer_bwd.launches
+    got, again = k6.mixer_bwd(**args), k6.mixer_bwd(**args)
+    torch.cuda.synchronize()
+    assert k6.mixer_bwd.launches == before + 2 and _same(got, again)
+    for a, w in zip(got, k6.mixer_bwd_plain(**args)):
+        assert a.dtype == w.dtype and rel_err(a, w) <= GRAD_TOL[dtype]
+
+
+def test_masked_small_model_trains_on_the_kernels(dev):
+    """A masked fp32 train step (a tube mask in the batch, the default
+    loss) on the kernels: K2 + K3 forward and K6 backward on the visible
+    tokens only, against the same weights on the plain path."""
+    import numpy as np
+
+    from videomamba_tpu_torch.checkpoint import load_state_dict
+    from videomamba_tpu_torch.data.masking import TubeMaskingGenerator
+    from videomamba_tpu_torch.models.videomamba import PretrainVideoMamba
+    from videomamba_tpu_torch.parallel.train_step import make_train_step
+
+    geom = dict(img_size=32, patch_size=8, depth=3, embed_dim=128, num_frames=4,
+                pool_type="avg", device=dev)
+    fast = PretrainVideoMamba(**geom, generator=torch.Generator().manual_seed(0))
+    plain = PretrainVideoMamba(**geom, fused_add_norm=False, ssm_cfg={"use_fast_path": False})
+    load_state_dict(plain, fast.state_dict())
+    mask = TubeMaskingGenerator((4, 4, 4), 0.75)(2, rng=np.random.default_rng(0))
+    batch = {"video": randn(2, 3, 4, 32, 32, dev=dev, seed=11),
+             "target": randn(2, 16, 128, dev=dev, seed=12), "mask": mask}
+    before = (k3.mixer_fused.launches, k6.mixer_bwd.launches, k2.fused_add_norm.launches)
+    metrics = {}
+    for name, model in (("fast", fast), ("plain", plain)):
+        metrics[name] = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0))(batch)
+    assert (k3.mixer_fused.launches - before[0], k6.mixer_bwd.launches - before[1],
+            k2.fused_add_norm.launches - before[2]) == (3, 3, 4)
+    assert rel_err(metrics["fast"]["loss"], metrics["plain"]["loss"]) <= 1e-5
+    for (name, p), q in zip(fast.named_parameters(), plain.parameters()):
+        if p.grad is not None:
+            assert rel_err(p.grad, q.grad) <= 1e-4, name
+
+
 BLOCK_BWD_CASES = {
     # name: (dtype, geometry, norm_type)
     "fp32_ragged_rms": (torch.float32, dict(), "rms"),

@@ -1,4 +1,5 @@
-"""The PyTorch port imports without jax, and builds nothing at import."""
+"""The PyTorch port imports without jax or the JAX package, and builds
+nothing at import."""
 
 import os
 import subprocess
@@ -9,6 +10,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "videomamba_tpu_torch",
     "videomamba_tpu_torch.checkpoint",
+    "videomamba_tpu_torch.data",
+    "videomamba_tpu_torch.data.dataset",
+    "videomamba_tpu_torch.data.masking",
+    "videomamba_tpu_torch.data.native",
+    "videomamba_tpu_torch.data.video",
+    "videomamba_tpu_torch.determinism",
     "videomamba_tpu_torch.runtime",
     "videomamba_tpu_torch.streaming",
     "videomamba_tpu_torch.models",
@@ -17,6 +24,7 @@ MODULES = [
     "videomamba_tpu_torch.models.mamba",
     "videomamba_tpu_torch.models.mamba2",
     "videomamba_tpu_torch.models.presets",
+    "videomamba_tpu_torch.models.refiner",
     "videomamba_tpu_torch.models.videomamba",
     "videomamba_tpu_torch.ops",
     "videomamba_tpu_torch.ops.causal_conv1d",
@@ -54,9 +62,13 @@ def test_port_imports_without_jax():
         + [f"importlib.import_module({m!r})" for m in MODULES]
         + [
             "assert 'jax' not in sys.modules, 'jax was imported'",
+            "assert not any(m == 'videomamba_tpu' or m.startswith('videomamba_tpu.')"
+            " for m in sys.modules), 'the JAX package was imported'",
             "assert not any(m == 'triton' or m.startswith('triton.') for m in sys.modules)",
             "from videomamba_tpu_torch.ops.kernels import _build",
             "assert _build.library.cache_info().currsize == 0, 'built at import'",
+            "from videomamba_tpu_torch.data import native",
+            "assert native._load_lib.cache_info().currsize == 0, 'loader built at import'",
         ]
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -1,6 +1,7 @@
-"""Models of the PyTorch port (VideoMamba on the Mamba-1 and Mamba-2 mixers)."""
+"""Models of the PyTorch port (VideoMamba on the Mamba-1 and Mamba-2 mixers,
+and the refiner)."""
 
-from videomamba_tpu_torch.models.block import Block, create_block
+from videomamba_tpu_torch.models.block import Block, create_block, drop_path
 from videomamba_tpu_torch.models.mamba import InferenceCache, Mamba
 from videomamba_tpu_torch.models.mamba2 import Mamba2
 from videomamba_tpu_torch.models.presets import (
@@ -14,6 +15,7 @@ from videomamba_tpu_torch.models.presets import (
     videomamba_tiny,
     videomamba_tiny_m2,
 )
+from videomamba_tpu_torch.models.refiner import BiMambaRefinerBlock
 from videomamba_tpu_torch.models.videomamba import (
     PatchEmbed,
     PretrainVideoMamba,
@@ -21,6 +23,7 @@ from videomamba_tpu_torch.models.videomamba import (
 )
 
 __all__ = [
+    "BiMambaRefinerBlock",
     "Block",
     "InferenceCache",
     "M2_SSM_CFG",
@@ -30,6 +33,7 @@ __all__ = [
     "PretrainVideoMamba",
     "build_videomamba",
     "create_block",
+    "drop_path",
     "videomamba_base",
     "videomamba_base_m2",
     "videomamba_middle",

@@ -21,8 +21,16 @@ names, so a reference state_dict loads strictly:
   the blocks run; ``use_checkpoint`` wraps the first ``checkpoint_num``
   blocks in ``torch.utils.checkpoint`` (non-reentrant), which recomputes
   them in the backward with the same masks.
-
-Masking is not ported.
+* Masking (VideoMAE-style) is validated on the host and gathered on the
+  device (JAX videomamba.py:441-538): the mask (True = hidden) must keep
+  CLS visible and the same number of visible tokens in every sample, which
+  gives the gather one shape; the visible positions are computed on the
+  host and the tokens gathered after the CLS concat with
+  ``torch.take_along_dim`` (unique positions per row, so its backward adds
+  nothing twice). The Blocks then run on the visible tokens only, on the
+  same kernels as an unmasked clip. The per-frame pool of a masked clip
+  (``keep_temporal``) is a one-hot product in the tokens' dtype divided by
+  host counts, deterministic (no atomic scatter).
 
 Forward-return contract (streaming.py):
   add_pool_norm=True:  (x_vis, x_pool) | (x_vis, x_pool, next_state)
@@ -38,6 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from videomamba_tpu_torch.checkpoint import load_checkpoint, load_state_dict, load_timm_npz
 from videomamba_tpu_torch.models import initializers as init
 from torch.utils.checkpoint import checkpoint as _checkpoint
 
@@ -55,7 +64,13 @@ from videomamba_tpu_torch.ops.resample import (
     resample_bicubic_2d,
 )
 from videomamba_tpu_torch.runtime import resolve_device
-from videomamba_tpu_torch.streaming import STREAMING_CONTRACT_VERSION
+from videomamba_tpu_torch.streaming import (
+    STREAMING_CONTRACT_VERSION,
+    ForwardReturnSemantics,
+    StateShape,
+    expected_state_shapes as contract_state_shapes,
+    forward_return_semantics as get_forward_return_semantics,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -68,6 +83,17 @@ def _to_2tuple(v) -> Tuple[int, int]:
     if isinstance(v, (tuple, list)):
         return int(v[0]), int(v[1])
     return int(v), int(v)
+
+
+def _host_mask(mask) -> Optional[np.ndarray]:
+    """A token mask as a host NumPy array: an array as it is, a tensor (CPU
+    or CUDA) copied to the host, once, as the JAX package's host-side
+    ``np.asarray`` does."""
+    if mask is None:
+        return None
+    if isinstance(mask, Tensor):
+        return mask.detach().cpu().numpy()
+    return np.asarray(mask)
 
 
 def _checkpointed_block(layer: nn.Module, hidden: Tensor, residual, mask):
@@ -137,10 +163,9 @@ class PatchEmbed(nn.Module):
 
 
 class PretrainVideoMamba(nn.Module):
-    """VideoMamba encoder with streaming state and pooling heads.
+    """VideoMamba encoder with streaming state, masking and pooling heads.
 
-    ``forward`` mirrors the reference signature; ``mask`` must be None
-    (masking is not ported). Parameters are drawn from ``generator``
+    ``forward`` mirrors the reference signature. Parameters are drawn from ``generator``
     (default: seed 0) with the reference's three init passes, on ``device``
     (default: the card, :func:`videomamba_tpu_torch.runtime.resolve_device`).
     """
@@ -285,6 +310,10 @@ class PretrainVideoMamba(nn.Module):
         ]
         return dict(enumerate(states)) if as_dict else states
 
+    def init_state(self, batch_size: int, dtype=None, device=None, as_dict: bool = False):
+        """Backward-compatible alias for :meth:`allocate_state`."""
+        return self.allocate_state(batch_size, dtype=dtype, device=device, as_dict=as_dict)
+
     def allocate_inference_cache(self, batch_size: int, max_seqlen: int = 1, dtype=None,
                                  device=None, **kwargs) -> Dict[int, LayerState]:
         """Per-layer zero decode-cache states keyed by layer index (JAX
@@ -305,6 +334,22 @@ class PretrainVideoMamba(nn.Module):
             for layer in self.layers
         ]
         return dict(enumerate(states)) if as_dict else states
+
+    def expected_state_shapes(self, batch_size: int) -> Dict[int, StateShape]:
+        """Per-layer state shapes of the streaming contract."""
+        return contract_state_shapes(self, batch_size)
+
+    def forward_return_semantics(self) -> ForwardReturnSemantics:
+        return get_forward_return_semantics(self.add_pool_norm)
+
+    def get_num_layers(self) -> int:
+        return len(self.layers)
+
+    def load_pretrained(self, checkpoint_path: str, prefix: str = "") -> None:
+        """Load the ViT subset of a timm ``.npz`` checkpoint
+        (:func:`videomamba_tpu_torch.checkpoint.load_timm_npz`) into this
+        model."""
+        load_state_dict(self, load_timm_npz(checkpoint_path, self, prefix=prefix))
 
     # ----------------------------------------------- host-side shape helpers
 
@@ -370,6 +415,67 @@ class PretrainVideoMamba(nn.Module):
         pos = torch.einsum("ol,blc->boc", m.to(pos_embed.device), pos_embed.float())
         return pos.to(dtype)
 
+    # --------------------------------------------------------------- masking
+
+    def _normalize_mask(
+        self,
+        mask,
+        batch_size: int,
+        token_count: int,
+        require_cls_visible: bool,
+    ) -> Optional[np.ndarray]:
+        """Host-side mask validation (JAX videomamba.py:441-467). True =
+        masked."""
+        if mask is None:
+            return None
+        mask = _host_mask(mask)
+        if mask.ndim != 2:
+            raise ValueError("mask must be 2D with shape [B, N].")
+        if mask.shape[0] != batch_size:
+            raise ValueError(
+                f"mask batch size mismatch: expected {batch_size}, got {mask.shape[0]}."
+            )
+        mask = mask.astype(bool)
+        if mask.shape[1] != token_count:
+            raise ValueError(
+                f"mask token length mismatch: expected {token_count}, got {mask.shape[1]}."
+            )
+        if require_cls_visible and token_count > 0 and bool(mask[:, 0].any()):
+            raise ValueError(
+                "mask must keep CLS token visible (mask[:, 0] must be False)."
+            )
+        return mask
+
+    def _visible_token_positions(
+        self,
+        mask,
+        batch_size: int,
+        token_count: int,
+        require_cls_visible: bool,
+    ) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
+        """The normalized mask and each sample's visible positions in
+        ascending order, on the host (JAX videomamba.py:469-499). Every
+        sample must keep the same number of visible tokens."""
+        normalized = self._normalize_mask(
+            mask, batch_size, token_count, require_cls_visible
+        )
+        if normalized is None:
+            return None, None
+        visible_mask = ~normalized
+        visible_counts = visible_mask.sum(axis=1)
+        if visible_counts.size > 0 and not (visible_counts == visible_counts[0]).all():
+            raise ValueError(
+                "mask must keep the same number of visible tokens per sample; "
+                f"got per-sample counts: {visible_counts.tolist()}."
+            )
+        if visible_counts.size > 0 and int(visible_counts[0]) <= 0:
+            raise ValueError("mask must keep at least one visible token per sample.")
+        positions = np.arange(token_count)[None, :].repeat(batch_size, axis=0)
+        positions = np.where(visible_mask, positions, token_count)
+        num_visible = int(visible_counts[0]) if visible_counts.size > 0 else 0
+        visible_positions = np.sort(positions, axis=1)[:, :num_visible]
+        return normalized, visible_positions
+
     # ------------------------------------------------------------- encoder
 
     def _encoder(
@@ -380,8 +486,10 @@ class PretrainVideoMamba(nn.Module):
         state: Optional[List[Optional[LayerState]]],
         has_cls: bool,
         generator: Optional[torch.Generator] = None,
+        visible_positions: Optional[np.ndarray] = None,
     ) -> Tuple[Tensor, Optional[List[Optional[LayerState]]]]:
-        """Patchify -> pos-add -> (CLS) -> depth x Block -> final norm."""
+        """Patchify -> pos-add -> (CLS) -> (visible-token gather) -> depth x
+        Block -> final norm."""
         compute_dtype = self.patch_embed.proj.weight.dtype
         tokens = self.patch_embed(x.to(compute_dtype))  # (B, T', HW, E)
         bsz = tokens.shape[0]
@@ -391,6 +499,9 @@ class PretrainVideoMamba(nn.Module):
         if has_cls:
             cls_tok = (self.cls_token + self.pos_embed[:, :1]).to(compute_dtype)
             tokens = torch.cat([cls_tok.expand(bsz, 1, self.embed_dim), tokens], dim=1)
+        if visible_positions is not None:
+            index = torch.from_numpy(visible_positions).to(tokens.device)
+            tokens = torch.take_along_dim(tokens, index[:, :, None], dim=1)
 
         hidden_states, residual = tokens, None
         masks = self._drop_path_masks(bsz, generator, tokens.device)
@@ -440,10 +551,14 @@ class PretrainVideoMamba(nn.Module):
     ):
         """Encoder features; returns (x_vis, next_state) when state is passed,
         in the container type that was passed (list, tuple or dict).
-        ``generator`` draws the stochastic-depth masks in training."""
+        ``generator`` draws the stochastic-depth masks in training.
+
+        ``mask`` (True = hidden) is a NumPy array or a CPU or CUDA tensor of
+        shape (B, [1 +] T'*H'*W'), the CLS slot first in a chunk that has
+        CLS; a tensor is copied to the host once, where the mask is checked
+        and the visible positions are computed. x_vis holds the visible
+        tokens only."""
         del use_image
-        if mask is not None:
-            raise NotImplementedError("Masking is not ported yet.")
         if x.ndim != 5:
             raise ValueError("x must have shape [B, C, T, H, W].")
         t_tokens = self._validate_temporal_length(x.shape[2])
@@ -454,10 +569,15 @@ class PretrainVideoMamba(nn.Module):
             t_tokens, temporal_pos_offset, compute_dtype
         )
         has_cls = self._has_cls_token_for_forward(ssm_state, temporal_pos_offset)
+        token_count = t_tokens * grid_h * grid_w + (1 if has_cls else 0)
+        _, visible_positions = self._visible_token_positions(
+            mask, x.shape[0], token_count, require_cls_visible=has_cls
+        )
         state_list, container, any_full = self._canonicalize_state(ssm_state)
 
         x_vis, new_states = self._encoder(
-            x, spatial_pos, temporal_pos, state_list, has_cls, generator
+            x, spatial_pos, temporal_pos, state_list, has_cls, generator,
+            visible_positions,
         )
         if new_states is not None:
             return x_vis, self._repack_state(
@@ -506,7 +626,10 @@ class PretrainVideoMamba(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         """Full forward with pooling head (reference videomamba.py:943-1067).
-        ``generator`` draws the stochastic-depth masks in training."""
+        ``generator`` draws the stochastic-depth masks in training; ``mask``
+        as in :meth:`forward_features` (a tensor is copied to the host once
+        here, for the features and the pool)."""
+        mask = _host_mask(mask)
         if x.ndim != 5:
             raise ValueError("x must have shape [B, C, T, H, W].")
         grid_h, grid_w = self._spatial_token_grid(x.shape[-2], x.shape[-1])
@@ -535,8 +658,14 @@ class PretrainVideoMamba(nn.Module):
                 "full state) do not include CLS. Use pool_type='avg' for "
                 "chunked streaming."
             )
+        if self.pool_type != "cls" and patch_tokens.shape[1] == 0:
+            raise ValueError(
+                "mask must keep at least one patch token visible when using "
+                f"pool_type='{self.pool_type}'."
+            )
         x_pool = self._pool(
-            cls_token, patch_tokens, keep_temporal, temporal_tokens, tokens_per_frame
+            cls_token, patch_tokens, mask, keep_temporal, temporal_tokens,
+            tokens_per_frame, has_cls, x.shape[0],
         )
         if ssm_state is None:
             return patch_tokens, x_pool
@@ -546,11 +675,15 @@ class PretrainVideoMamba(nn.Module):
         self,
         cls_token: Optional[Tensor],
         patch_tokens: Tensor,
+        mask: Optional[np.ndarray],
         keep_temporal: bool,
         temporal_tokens: int,
         tokens_per_frame: int,
+        has_cls: bool,
+        batch_size: int,
     ) -> Tensor:
-        """Pooling head with pool_norm (LayerNorm, eps 1e-5)."""
+        """Pooling head with pool_norm (LayerNorm, eps 1e-5); a masked clip's
+        per-frame means count only its visible tokens."""
         pn = self.pool_norm
 
         def pool_norm(v: Tensor) -> Tensor:
@@ -558,11 +691,19 @@ class PretrainVideoMamba(nn.Module):
 
         if self.pool_type == "cls":
             return pool_norm(cls_token)
-        if keep_temporal:
+        if keep_temporal and mask is None:
             bsz, _, c = patch_tokens.shape
             temporal_avg = patch_tokens.reshape(
                 bsz, temporal_tokens, tokens_per_frame, c
             ).mean(dim=2)
+        elif keep_temporal:
+            full_token_count = (1 if has_cls else 0) + temporal_tokens * tokens_per_frame
+            _, visible_positions = self._visible_token_positions(
+                mask, batch_size, full_token_count, require_cls_visible=has_cls
+            )
+            temporal_avg = self._masked_temporal_average(
+                patch_tokens, visible_positions, temporal_tokens, tokens_per_frame, has_cls
+            )
         else:
             temporal_avg = patch_tokens.mean(dim=1, keepdim=True)
         if self.pool_type == "cls+avg":
@@ -573,20 +714,64 @@ class PretrainVideoMamba(nn.Module):
             return pool_norm(temporal_avg)
         raise ValueError(f"Unsupported pool_type: {self.pool_type}")
 
+    def _masked_temporal_average(
+        self,
+        patch_tokens: Tensor,
+        visible_positions: np.ndarray,
+        temporal_tokens: int,
+        tokens_per_frame: int,
+        has_cls: bool,
+    ) -> Tensor:
+        """Per-frame mean of the visible patch tokens under any mask (JAX
+        videomamba.py:856-903): a one-hot (B, Nvis, T') product in the
+        tokens' dtype, divided by the per-frame counts taken on the host."""
+        if patch_tokens.dim() != 3:
+            raise ValueError("patch_tokens must have shape [B, N, C].")
+        if visible_positions.ndim != 2:
+            raise ValueError("visible_positions must have shape [B, N_total_visible].")
+        if patch_tokens.shape[0] != visible_positions.shape[0]:
+            raise ValueError(
+                "Batch size mismatch between patch_tokens and visible_positions."
+            )
+        expected = patch_tokens.shape[1] + (1 if has_cls else 0)
+        if visible_positions.shape[1] != expected:
+            raise ValueError(
+                "visible_positions and patch_tokens lengths are inconsistent."
+            )
+        if has_cls and visible_positions.size > 0 and not (
+            visible_positions[:, 0] == 0
+        ).all():
+            raise ValueError("mask must keep CLS token visible for temporal pooling.")
+
+        patch_positions = visible_positions[:, 1:] - 1 if has_cls else visible_positions
+        frame_indices = patch_positions // tokens_per_frame
+        counts = np.zeros((patch_tokens.shape[0], temporal_tokens), np.int64)
+        for b in range(frame_indices.shape[0]):
+            counts[b] = np.bincount(frame_indices[b], minlength=temporal_tokens)
+        if (counts == 0).any():
+            raise ValueError(
+                "keep_temporal with masking requires at least one visible patch "
+                "token for each temporal slice."
+            )
+        device, dtype = patch_tokens.device, patch_tokens.dtype
+        one_hot = torch.nn.functional.one_hot(
+            torch.from_numpy(frame_indices).to(device), temporal_tokens
+        ).to(dtype)  # (B, Nvis, T')
+        temporal_sum = torch.einsum("bvt,bvc->btc", one_hot, patch_tokens)
+        return temporal_sum / torch.from_numpy(counts).to(device=device, dtype=dtype)[:, :, None]
+
 
 def build_videomamba(config, add_pool_norm: bool = True, device=None,
                      dtype: Optional[torch.dtype] = None,
                      generator: Optional[torch.Generator] = None) -> PretrainVideoMamba:
     """Build the model from a config namespace (videomamba_tpu/models/
     videomamba.py:906-947). ``config.vision_encoder.channels`` is required.
-    Loading ``vision_encoder.pretrained`` from a file is not ported yet and
-    raises; load weights with :func:`videomamba_tpu_torch.checkpoint.load_state_dict`."""
+    With ``vision_encoder.pretrained`` set, the ``.pt`` file it names is
+    loaded strictly by :func:`videomamba_tpu_torch.checkpoint.load_checkpoint`
+    (pos-embed re-grid, temporal resample from ``ckpt_num_frame``)."""
     vision_cfg = config.vision_encoder
     channels = vision_cfg.channels
-    if getattr(vision_cfg, "pretrained", None) is not None:
-        raise NotImplementedError("Loading pretrained checkpoint files is not ported yet.")
-    logger.info("No pretrained weights!!!")
-    return PretrainVideoMamba(
+    model = PretrainVideoMamba(
         img_size=vision_cfg.img_size,
         patch_size=vision_cfg.patch_size,
         depth=vision_cfg.depth,
@@ -609,3 +794,14 @@ def build_videomamba(config, add_pool_norm: bool = True, device=None,
         dtype=dtype,
         generator=generator,
     )
+    pretrained_path = getattr(vision_cfg, "pretrained", None)
+    if pretrained_path is not None:
+        load_checkpoint(
+            pretrained_path=pretrained_path,
+            model=model,
+            ckpt_num_frame=vision_cfg.ckpt_num_frame,
+            num_frames=vision_cfg.num_frames,
+        )
+    else:
+        logger.info("No pretrained weights!!!")
+    return model

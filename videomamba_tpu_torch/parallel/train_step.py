@@ -1,7 +1,8 @@
 """Training step — port of videomamba_tpu/parallel/train_step.py (29-125).
 
 The default objective is feature regression: the fp32 MSE of the encoder's
-visible tokens against ``batch["target"]`` (pixels, teacher features, ...).
+visible tokens against ``batch["target"]`` (pixels, teacher features, ...),
+with a VideoMAE mask from ``batch["mask"]`` when the batch has one.
 With ``compute_dtype`` the loss runs the model through
 ``torch.func.functional_call`` on parameters cast by
 ``utils.precision.cast_params_for_compute``, so the fp32 masters the
@@ -30,13 +31,20 @@ Tensor = torch.Tensor
 def default_loss_fn(model: nn.Module, batch: Dict[str, Tensor],
                     generator: Optional[torch.Generator] = None,
                     compute_dtype: Optional[torch.dtype] = None):
-    """MSE of x_vis (fp32) against ``batch["target"]``; returns (loss, metrics)."""
+    """MSE of x_vis (fp32) against ``batch["target"]``; returns (loss, metrics).
+
+    With ``batch["mask"]`` (True = hidden, the model's mask contract) the
+    encoder runs on the visible tokens only and the target holds one row per
+    visible patch token: VideoMAE-style masked feature regression (JAX
+    examples/train_masked_pretrain.py). A NumPy mask stays on the host; a
+    tensor mask is copied there once."""
     video = batch["video"]
+    kwargs = {"mask": batch.get("mask"), "generator": generator}
     if compute_dtype is None:
-        out = model(video, generator=generator)
+        out = model(video, **kwargs)
     else:
         params = cast_params_for_compute(model, compute_dtype)
-        out = torch.func.functional_call(model, params, (video,), {"generator": generator})
+        out = torch.func.functional_call(model, params, (video,), kwargs)
     x_vis = out[0] if isinstance(out, tuple) else out
     loss = (x_vis.float() - batch["target"].float()).square().mean()
     return loss, {"loss": loss.detach()}

@@ -5,12 +5,13 @@ Port of videomamba_tpu/runtime.py. ``StreamingSession`` carries per-layer
 batch row is an independent video stream. ``DecodeSession`` advances the
 whole layer stack one token at a time (K9 for Mamba-1, K15 for Mamba-2).
 :func:`resolve_device` is the port's one rule for a device that the caller
-did not name.
+did not name; :func:`time_fn` times a call on the host.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import time
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -287,3 +288,30 @@ class DecodeSession:
         self.conv_states = conv.to(self.conv_states.dtype).contiguous()
         self.ssm_states = ssm.to(self.ssm_states.dtype).contiguous()
         self._prepare()
+
+
+def time_fn(fn, *args, warmup: int = 2, iters: int = 10,
+            device=None) -> Tuple[float, List[float]]:
+    """(median seconds, every call's seconds) of ``fn(*args)`` on the host
+    clock (JAX runtime.py:375). On a CUDA ``device`` (default: the card when
+    there is one) each call ends in ``torch.cuda.synchronize``, so a time
+    covers the device's work and not only its enqueue."""
+    if device is None:
+        device = torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu")
+    device = torch.device(device)
+
+    def sync() -> None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    for _ in range(warmup):
+        fn(*args)
+        sync()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn(*args)
+        sync()
+        times.append(time.perf_counter() - t0)
+    times_sorted = sorted(times)
+    return times_sorted[len(times_sorted) // 2], times

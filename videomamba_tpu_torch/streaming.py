@@ -60,6 +60,10 @@ def forward_return_semantics(add_pool_norm: bool) -> ForwardReturnSemantics:
     return _FORWARD_RETURN_SEMANTICS_BY_POOL_NORM[bool(add_pool_norm)]
 
 
+def model_forward_return_semantics(model: _ModelLike) -> ForwardReturnSemantics:
+    return forward_return_semantics(bool(getattr(model, "add_pool_norm", True)))
+
+
 def expected_state_shapes(model: _ModelLike, batch_size: int) -> Dict[int, StateShape]:
     """Per-layer expected state shapes."""
     if batch_size <= 0:
