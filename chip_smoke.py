@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving, training, decode, masked-pretraining and data paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving, training, decode, masked-pretraining, data and distribution paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -207,6 +207,37 @@ failure, so the script exits nonzero:
     K3 2 against its plain version (1e-4), the forward state after two
     4-frame calls against one 8-frame call (1e-4), bf16 K4 2 against its
     plain versions (2e-2).
+A. sequence parallelism at Base width on one card, after a one-rank NCCL
+   group is started through ``utils.distributed.init_distributed_mode``
+   (torchrun's variables, a file rendezvous under ``build/``): one Base
+   Mamba-1 Block (RMSNorm, fused add-norm, fp32 residual) over a 16-frame
+   clip, B=1, L 3136, split into 4 time shards of 784 and run through the
+   ranks' functions (``parallel.sequence.sequence_parallel_mixer_shards``:
+   K2 4, K1 4 forward, K5 4 backward) against the same Block's single-card
+   forward (K3) and backward (K6): output, returned (conv_state,
+   ssm_state), parameter and input gradients within 1e-4; a Base-m2 mixer
+   the same way through ``sequence_parallel_ssd(method="pallas")`` (K11 4
+   forward, 4 backward) against the single-card ``Mamba2`` (K12, K13),
+   1e-4; each path's forward + backward device ms; then the public
+   ``sequence_parallel_mixer`` on the NCCL group (K1 1), bit-equal to the
+   single-shard path.
+B. tensor parallelism: a Base Mamba-1 mixer split over 2 ranks
+   (``Mamba.keep_channels``; the gathered parameters bit-equal to the
+   unsplit ones) through ``models.mamba.tensor_parallel_shards``
+   (``channel_parallel``, the code a ``shard_channels`` mixer's forward
+   runs, the parts of x_dbl and of the output summed where its all-reduces
+   run; K1 2, K5 2), against the single-card mixer (K3, K6): output 1e-5,
+   gradients 1e-4.
+C. the sharded train step: phase 11's Base B=4 step under
+   ``init_train_state(mesh=make_mesh({"dp": 1, "fsdp": 1, "tp": 1}))``
+   (FSDP2 over the one-rank NCCL group): three fp32 steps on a noise target
+   against the unsharded step from the same weights (loss and grad_norm
+   1e-5 each step, the gathered parameters 1e-5; K2 25, K3 24, K6 24 a
+   step), then the bench recipe's steps (median host ms of 5 after 2 warm,
+   peak memory) beside phase 11's, each step once more under the profiler
+   (host and device ms, top kernels) with the unsharded one; the same for
+   bf16 (one step: loss 1e-2, gradients 5e-2); then the fp32 steps with a
+   fused AdamW. The process group is destroyed after.
 30. checkpoint files and determinism (last: it sets process-wide modes):
     ``save_torch_state_dict`` of phase 2's weights, ``load_checkpoint`` into
     a fresh Base model on the card, bit-equal parameters and phase 2's
@@ -223,8 +254,11 @@ after: phases 2-4 (fp32 serving), 6-7 (bf16 serving), 9 (fp32 training),
 routes), 19 (m2 bf16 serving), 20 (m2 decode, per dtype), 22 (m2
 training, every route), 23 (K11's route), 25 (the layer steps and the
 conv route at widened gates), 26 (masked serving), 27 (masked training),
-28 (the step from files), 29 (the refiner) and 30 (the loaded models and
-the deterministic steps); the kernels line sums them. The total seconds
+28 (the step from files), 29 (the refiner), A (the sequence-parallel Block,
+m2 mixer and public mixer), B (the tensor-parallel mixer), C (the sharded
+steps) and 30 (the loaded models and the deterministic steps); the kernels
+line sums them. The single-card references of A-C run outside those
+windows. The total seconds
 of the run are printed before the kernels line.
 TF32 is off for matmuls and cuDNN throughout. Times are CUDA-event times per
 launch (kernels) or host time around a synchronised call (forward, chunk,
@@ -257,9 +291,11 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -274,9 +310,15 @@ from videomamba_tpu_torch.determinism import configure_determinism  # noqa: E402
 from videomamba_tpu_torch.models import block as block_mod  # noqa: E402
 from videomamba_tpu_torch.models import mamba as mamba_mod  # noqa: E402
 from videomamba_tpu_torch.models import mamba2 as mamba2_mod  # noqa: E402
-from videomamba_tpu_torch.models.mamba import Mamba  # noqa: E402
+from videomamba_tpu_torch.models.block import create_block  # noqa: E402
+from videomamba_tpu_torch.models.mamba import Mamba, tensor_parallel_shards  # noqa: E402
+from videomamba_tpu_torch.models.mamba2 import Mamba2  # noqa: E402
 from videomamba_tpu_torch.models.refiner import BiMambaRefinerBlock  # noqa: E402
-from videomamba_tpu_torch.models.presets import videomamba_base, videomamba_base_m2  # noqa: E402
+from videomamba_tpu_torch.models.presets import (  # noqa: E402
+    M2_SSM_CFG,
+    videomamba_base,
+    videomamba_base_m2,
+)
 from videomamba_tpu_torch.ops import dispatch  # noqa: E402
 from videomamba_tpu_torch.ops.causal_conv1d import causal_conv1d  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import _build  # noqa: E402
@@ -292,9 +334,21 @@ from videomamba_tpu_torch.ops.kernels import ssd_core as k11  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import ssd_mixer_bwd as k13  # noqa: E402
 from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14  # noqa: E402
+from videomamba_tpu_torch.ops.norm import fused_add_norm  # noqa: E402
 from videomamba_tpu_torch.ops.ssd import _prepare_dt, ssd_chunked  # noqa: E402
+from videomamba_tpu_torch.parallel import (  # noqa: E402
+    full_state_dict,
+    init_train_state,
+    make_mesh,
+    sequence_parallel_mixer,
+)
+from videomamba_tpu_torch.parallel.sequence import (  # noqa: E402
+    sequence_parallel_mixer_m2_shards,
+    sequence_parallel_mixer_shards,
+)
 from videomamba_tpu_torch.parallel.train_step import make_train_step  # noqa: E402
 from videomamba_tpu_torch.runtime import DecodeSession, StreamingSession  # noqa: E402
+from videomamba_tpu_torch.utils.distributed import init_distributed_mode  # noqa: E402
 from videomamba_tpu_torch.utils.precision import cast_module_for_compute  # noqa: E402
 
 BASE = dict(batch=1, seqlen=1569, embed=768, d_inner=1536, d_state=16, dt_rank=48, width=4)
@@ -2590,7 +2644,241 @@ def phase_files_and_determinism(device, sd0, full_vis, clip, depth):
     torch.cuda.empty_cache()
 
 
-def phase_seconds(phase: int, t0: float) -> float:
+SP_FRAMES = 16  # a 16-frame clip, 3136 tokens: what users shard time for
+SP_SHARDS = 4
+
+
+def init_nccl_world():
+    """A one-rank NCCL process group through ``init_distributed_mode``, the
+    entry point a user calls (torchrun's RANK, WORLD_SIZE and LOCAL_RANK,
+    a file rendezvous under build/). Returns the rendezvous file."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    path = os.path.join(build, f"nccl_rendezvous_{os.getpid()}")
+    if os.path.exists(path):
+        os.remove(path)
+    saved = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    try:
+        init_distributed_mode(SimpleNamespace(dist_url="file://" + path))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(dist.get_backend() == "nccl", f"process group backend {dist.get_backend()}, not nccl")
+    print(f"NCCL {'.'.join(map(str, torch.cuda.nccl.version()))} world of "
+          f"{dist.get_world_size()} rank")
+    return path
+
+
+def forward_and_grads(fn, leaves, cot):
+    """``fn()``'s outputs (detached) and the gradients of its first output
+    under ``cot`` with respect to ``leaves``."""
+    outs = fn()
+    grads = torch.autograd.grad(outs[0], leaves, cot)
+    return [o.detach() for o in outs], grads
+
+
+def compare_grad_lists(label, names, got, want, tol):
+    compare_grads(label, dict(zip(names, got)), dict(zip(names, want)), tol)
+
+
+def phase_sequence_parallel(device):
+    """Phase A: a Base Mamba-1 Block over a 16-frame clip (L 3136) split
+    into 4 time shards, run through the ranks' functions on one card, and a
+    Base-m2 mixer through ``sequence_parallel_ssd(method="pallas")``'s; then
+    the public ``sequence_parallel_mixer`` on the NCCL group."""
+    e = BASE["embed"]
+    L = SP_FRAMES * (IMG // 16) ** 2
+    g = torch.Generator().manual_seed(31)
+    block = create_block(e, rms_norm=True, residual_in_fp32=True, fused_add_norm=True,
+                         layer_idx=0, device=device, generator=g).train()
+    hidden = randn((1, L, e), g, device).requires_grad_()
+    residual = randn((1, L, e), g, device).requires_grad_()
+    cot = randn((1, L, e), g, device)
+    state0 = block.allocate_state(1)
+    names = ["hidden", "residual"] + [n for n, _ in block.named_parameters()]
+    leaves = [hidden, residual] + list(block.parameters())
+
+    def single():
+        out, _, (conv, ssm) = block(hidden, residual, state=state0, return_state=True)
+        return out, conv, ssm
+
+    def sharded():
+        normed = [fused_add_norm(h, block.norm.weight, None, residual=r, prenorm=True,
+                                 residual_in_fp32=True, eps=block.norm_epsilon,
+                                 norm_type="rms", use_kernel=True)[0]
+                  for h, r in zip(hidden.chunk(SP_SHARDS, 1), residual.chunk(SP_SHARDS, 1))]
+        out, (conv, ssm) = sequence_parallel_mixer_shards(
+            block.mixer, torch.cat(normed, 1), SP_SHARDS, state=state0, return_state=True)
+        return out, conv, ssm
+
+    (r_out, r_conv, r_ssm), r_grads = forward_and_grads(single, leaves, cot)
+    zero_launches()
+    (out, conv, ssm), grads = forward_and_grads(sharded, leaves, cot)
+    torch.cuda.synchronize()
+    used = launches()
+    expect_launches(f"sequence-parallel Block, {SP_SHARDS} shards of {L // SP_SHARDS}", used,
+                    selective_scan=SP_SHARDS, selective_scan_bwd=SP_SHARDS,
+                    fused_add_norm=SP_SHARDS, mixer_fused=0, mixer_bwd=0)
+    check_close("SP Block output vs single-card Block (K3)", out, r_out, MODEL_TOL)
+    check_close("SP Block conv_state", conv, r_conv, MODEL_TOL)
+    check_close("SP Block ssm_state", ssm, r_ssm, MODEL_TOL)
+    compare_grad_lists("SP Block vs single-card Block (K6)", names, grads, r_grads,
+                       STEP_GRAD_TOL)
+    for label, fn in (("single-card Block (K2, K3 / K6)", single),
+                      (f"SP Block, {SP_SHARDS} shards (K2, K1 / K5)", sharded)):
+        wall, dev_ms = device_ms(lambda: forward_and_grads(fn, leaves, cot), 3)
+        print(f"{label}: forward + backward {dev_ms if dev_ms is None else round(dev_ms, 4)} "
+              f"device ms, {wall:.3f} host ms")
+
+    cfg = {k: v for k, v in M2_SSM_CFG.items() if k != "layer"}
+    m2 = Mamba2(e, **cfg, device=device, generator=g)
+    x2 = randn((1, L, e), g, device).requires_grad_()
+    names2 = ["x"] + [n for n, _ in m2.named_parameters()]
+    leaves2 = [x2] + list(m2.parameters())
+    (r_out2,), r_grads2 = forward_and_grads(lambda: (m2(x2),), leaves2, cot)
+    zero_launches()
+    (out2,), grads2 = forward_and_grads(
+        lambda: (sequence_parallel_mixer_m2_shards(m2, x2, SP_SHARDS, method="pallas"),),
+        leaves2, cot)
+    torch.cuda.synchronize()
+    used_m2 = launches()
+    expect_launches("sequence-parallel Base-m2 mixer, method pallas", used_m2,
+                    ssd_scan=SP_SHARDS, ssd_scan_bwd=SP_SHARDS, ssd_mixer=0, ssd_mixer_bwd=0)
+    check_close("SP m2 mixer output vs single-card Mamba2 (K12)", out2, r_out2, MODEL_TOL)
+    compare_grad_lists("SP m2 mixer vs single-card Mamba2 (K13)", names2, grads2, r_grads2,
+                       STEP_GRAD_TOL)
+    for label, fn in (("single-card m2 mixer (K12 / K13)", lambda: (m2(x2),)),
+                      (f"SP m2 mixer, {SP_SHARDS} shards (K11)", lambda: (
+                          sequence_parallel_mixer_m2_shards(m2, x2, SP_SHARDS,
+                                                            method="pallas"),))):
+        wall, dev_ms = device_ms(lambda: forward_and_grads(fn, leaves2, cot), 3)
+        print(f"{label}: forward + backward {dev_ms if dev_ms is None else round(dev_ms, 4)} "
+              f"device ms, {wall:.3f} host ms")
+
+    with torch.no_grad():
+        normed = fused_add_norm(hidden, block.norm.weight, None, residual=residual, prenorm=True,
+                                residual_in_fp32=True, eps=block.norm_epsilon,
+                                norm_type="rms", use_kernel=True)[0]
+        zero_launches()
+        out_pub, (conv_pub, ssm_pub) = sequence_parallel_mixer(
+            block.mixer, normed, group=dist.group.WORLD, state=state0, return_state=True)
+        torch.cuda.synchronize()
+        used_pub = launches()
+        out_one, (conv_one, ssm_one) = sequence_parallel_mixer_shards(
+            block.mixer, normed, 1, state=state0, return_state=True)
+    expect_launches("public sequence_parallel_mixer on the NCCL group", used_pub,
+                    selective_scan=1)
+    for name, a, b in (("out", out_pub, out_one), ("conv_state", conv_pub, conv_one),
+                       ("ssm_state", ssm_pub, ssm_one)):
+        check(torch.equal(a, b), f"NCCL sequence_parallel_mixer {name} != single-shard path")
+    print("public sequence_parallel_mixer on the NCCL group: equal to the single-shard path")
+    return {k: used[k] + used_m2[k] + used_pub[k] for k in used}
+
+
+def phase_tensor_parallel(device):
+    """Phase B: a Base Mamba-1 mixer split over 2 tensor-parallel ranks
+    (d_inner 768 each) through the ranks' function on one card, the parts
+    summed where the all-reduces run, against the single-card mixer."""
+    g = torch.Generator().manual_seed(32)
+    mixer = Mamba(BASE["embed"], device=device, generator=g)
+    x = randn((1, BASE["seqlen"], BASE["embed"]), g, device).requires_grad_()
+    cot = randn((1, BASE["seqlen"], BASE["embed"]), g, device)
+    names = [n for n, _ in mixer.named_parameters()]
+    (r_out,), r_grads = forward_and_grads(lambda: (mixer(x),), [x] + list(mixer.parameters()),
+                                          cot)
+    shards = [copy.deepcopy(mixer).keep_channels(k, 2) for k in range(2)]
+    joined = Mamba.join_channel_slices([dict(s.named_parameters()) for s in shards])
+    for n, p in mixer.named_parameters():
+        check(torch.equal(joined[n], p), f"tp: gathered {n} is not the unsplit parameter")
+    print("tp=2: gathered parameters bit-equal to the unsplit ones")
+    leaves = [x] + [p for s in shards for p in s.parameters()]
+    zero_launches()
+    (out,), grads = forward_and_grads(lambda: (tensor_parallel_shards(shards, x),), leaves, cot)
+    torch.cuda.synchronize()
+    used = launches()
+    expect_launches("tensor-parallel Base mixer, tp=2", used, selective_scan=2,
+                    selective_scan_bwd=2, mixer_fused=0, mixer_bwd=0)
+    check_close("tp=2 mixer output vs single-card mixer (K3)", out, r_out, KERNEL_TOL)
+    per = len(names)
+    shard_grads = [dict(zip(names, grads[1 + k * per:1 + (k + 1) * per])) for k in range(2)]
+    got = Mamba.join_channel_slices(shard_grads)
+    compare_grads("tp=2 mixer vs single-card mixer (K6)", {"x": grads[0], **got},
+                  {"x": r_grads[0], **dict(zip(names, r_grads[1:]))}, STEP_GRAD_TOL)
+    return used
+
+
+def phase_sharded_train(device, sd0, depth, unsharded):
+    """Phase C: phase 11's Base B=4 steps under ``init_train_state(mesh=
+    make_mesh({"dp": 1, "fsdp": 1, "tp": 1}))`` on the NCCL group (FSDP2
+    over one rank): three fp32 steps against the unsharded step from the
+    same weights, then the bench recipe's times; the same for bf16."""
+    mesh = make_mesh({"dp": 1, "fsdp": 1, "tp": 1})
+    batch_cmp = train_batch(4, device, zero_target=False)
+    batch4 = train_batch(4, device)
+    counts = {name: 0 for name in WRAPPERS}
+    for tag, dtype, steps, loss_tol, tol in (("fp32", None, 3, 1e-5, 1e-5),
+                                             ("bf16", torch.bfloat16, 1, BF16_TOL,
+                                              BF16_STEP_TOL)):
+        ref = base_model(device, sd0)
+        ref_step = make_train_step(ref, adamw(ref), compute_dtype=dtype)
+        model = base_model(device, sd0)
+        opt = adamw(model)
+        init_train_state(model, opt, mesh=mesh)
+        step = make_train_step(model, opt, compute_dtype=dtype)
+        for i in range(steps):
+            want = ref_step(batch_cmp)
+            before = launches()
+            got = step(batch_cmp)
+            torch.cuda.synchronize()
+            used = delta(launches(), before)
+            counts = {k: counts[k] + used[k] for k in counts}
+            expect_launches(f"sharded {tag} train step {i}", used, fused_add_norm=depth + 1,
+                            mixer_fused=depth, mixer_bwd=depth)
+            for key in ("loss", "grad_norm"):
+                check_close(f"sharded {tag} step {i} {key} vs unsharded",
+                            got[key].reshape(1).float(), want[key].reshape(1).float(),
+                            loss_tol)
+        if dtype is None:
+            full = full_state_dict(model)
+            worst = max((rel_err(full[n], p.detach()), n) for n, p in ref.named_parameters())
+            print(f"sharded fp32 parameters after {steps} steps: max rel_err {worst[0]:.3e} "
+                  f"({worst[1]})")
+            check(worst[0] <= tol, f"sharded fp32 parameter {worst[1]} rel_err {worst[0]:.3e}")
+        else:
+            got_g = {n: p.grad.full_tensor() for n, p in model.named_parameters()
+                     if p.grad is not None}
+            compare_grads("sharded bf16 step vs unsharded", got_g, grads_of(ref), tol)
+        for label, fn in (("unsharded", ref_step), ("FSDP2 over one rank", step)):
+            wall, dev_ms = device_ms(lambda: fn(batch4), 2, f"{tag} {label}", top=4)
+            print(f"train step B=4 {tag}, {label}, under the profiler: {wall:.3f} host ms, "
+                  f"{dev_ms if dev_ms is None else round(dev_ms, 3)} device ms")
+        del ref, ref_step
+        torch.cuda.empty_cache()
+        ms, peak = timed_steps(step, batch4, f"sharded {tag} train step (4,3,8,224,224)")
+        print(f"train step B=4 {tag}: FSDP2 over one rank {ms:.3f} ms ({peak:.2f} GiB peak), "
+              f"unsharded {unsharded[tag][0]:.3f} ms ({unsharded[tag][1]:.2f} GiB peak, "
+              f"phase 11)")
+        del model, opt, step
+        torch.cuda.empty_cache()
+    # FSDP2's parameters are DTensors, whose every op the foreach AdamW
+    # dispatches on the host; the fused AdamW takes one launch a group.
+    model = base_model(device, sd0)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=0.05, fused=True)
+    init_train_state(model, opt, mesh=mesh)
+    ms, peak = timed_steps(make_train_step(model, opt), batch4,
+                           "sharded fp32 train step (4,3,8,224,224), fused AdamW")
+    print(f"train step B=4 fp32: FSDP2 over one rank with fused AdamW {ms:.3f} ms "
+          f"({peak:.2f} GiB peak)")
+    del model, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_seconds(phase, t0: float) -> float:
     """Print a phase's host seconds since ``t0``; returns the time now."""
     now = time.perf_counter()
     print(f"phase {phase}: {now - t0:.1f} s")
@@ -2822,6 +3110,28 @@ def main() -> int:
     for name in ("fused_add_norm", "mixer_fused", "block_fused"):
         check(refiner_counts[name] > 0, f"{name} was not launched on the refiner path")
     t_new = phase_seconds(29, t_new)
+    rendezvous = init_nccl_world()
+    try:
+        sp_counts = phase_sequence_parallel(device)
+        torch.cuda.empty_cache()
+        t_new = phase_seconds("A", t_new)
+        tp_counts = phase_tensor_parallel(device)
+        torch.cuda.empty_cache()
+        t_new = phase_seconds("B", t_new)
+        sharded_counts = phase_sharded_train(device, sd0, depth, {"fp32": (fp32_ms, fp32_peak),
+                                                                  "bf16": (bf16_ms, bf16_peak)})
+        print(f"sharded training path launches: {sharded_counts}")
+        t_new = phase_seconds("C", t_new)
+    finally:
+        dist.destroy_process_group()
+        os.remove(rendezvous)
+    for label, used, names in (
+            ("sequence-parallel", sp_counts, ("fused_add_norm", "selective_scan",
+                                              "selective_scan_bwd", "ssd_scan", "ssd_scan_bwd")),
+            ("tensor-parallel", tp_counts, ("selective_scan", "selective_scan_bwd")),
+            ("sharded training", sharded_counts, ("fused_add_norm", "mixer_fused", "mixer_bwd"))):
+        for name in names:
+            check(used[name] > 0, f"{name} was not launched on the {label} path")
     zero_launches()
     phase_files_and_determinism(device, sd0, full_vis, clip, depth)  # last: sets global modes
     files_det_counts = launches()
@@ -2834,7 +3144,7 @@ def main() -> int:
              block_route_counts, decode_counts, conv_counts, m2_fp32_counts, m2_bf16_counts,
              m2_decode_counts, m2_train_counts, ssd_path_counts, gate_counts,
              masked_serving_counts, masked_train_counts, files_counts, refiner_counts,
-             files_det_counts)
+             sp_counts, tp_counts, sharded_counts, files_det_counts)
     counts = {name: sum(c[name] for c in paths) for name in WRAPPERS}
 
     rows = [

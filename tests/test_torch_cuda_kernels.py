@@ -1924,3 +1924,36 @@ def test_ssd_pmixer_bwd_at_strides_tma_cannot(dev, dtype, odd):
            ("dhidden", "ddt", "dA", "dconv_state", "dWin", "dWout", "dconv_w", "dconv_b",
             "dh0", "dD", "dnorm"))
     assert all(a is None or torch.equal(a, c) for a, c in zip(got, again))
+
+
+# The distribution slice's shapes: a Base clip of 16 frames (3136 tokens)
+# over 4 sequence-parallel ranks (784 a shard; the local scan from a zero
+# state, no D, gate or bias, the last state kept), and a Base mixer's
+# channels over 2 tensor-parallel ranks (d_inner 1536 / 2).
+SHARD_SHAPES = {"sequence_shard": (1, 784, 1536, False), "tp_channels": (2, 1569, 768, True)}
+
+
+@pytest.mark.parametrize("shape", sorted(SHARD_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernels_at_the_distributed_shapes(dev, dtype, shape):
+    """K1 (with checkpoints) and K5 at a shard's shapes against their plain
+    versions, each twice bit-identical."""
+    b, L, d, full = SHARD_SHAPES[shape]
+    kw = _scan_operands(dev, dtype, b, L, d, 16, full, full, full, full)
+    if not full:
+        kw["h0"] = torch.zeros_like(kw["h0"])
+    tol = TOL if dtype == torch.float32 else BF16_TOL
+    _same_twice_and_plain(k1.selective_scan, k1.selective_scan_plain,
+                          dict(kw, softplus_delta=full, checkpoints=True), tol)
+    *_, ckpt = k1.selective_scan(**kw, softplus_delta=full, checkpoints=True)
+    args = dict({k: v for k, v in kw.items() if k != "h0"}, ckpt=ckpt,
+                g_out=randn(b, L, d, dev=dev, seed=9).to(dtype),
+                g_hlast=randn(b, d, 16, dev=dev, seed=10), softplus_delta=full)
+    got = k1.selective_scan_bwd(**args)
+    again = k1.selective_scan_bwd(**args)
+    torch.cuda.synchronize()
+    assert _same(got, again)
+    for a, w in zip(got, k1.selective_scan_bwd_plain(**args)):
+        assert (a is None) == (w is None)
+        if a is not None:
+            assert a.dtype == w.dtype and rel_err(a, w) <= GRAD_TOL[dtype]

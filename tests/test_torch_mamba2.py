@@ -209,7 +209,7 @@ def test_mixer_validation_and_block_route():
         Mamba2(d_model=100, headdim=24, device="cpu")
     with pytest.raises(ValueError, match="ngroups"):
         Mamba2(d_model=96, headdim=24, ngroups=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
+    with pytest.raises(TypeError, match="process group"):
         Mamba2(d_model=128, headdim=32, sp_axis="sp", device="cpu")
     with pytest.raises(ValueError, match="unknown ssm_cfg layer"):
         create_block(64, ssm_cfg={"layer": "Mamba3"}, device="cpu")

@@ -48,8 +48,11 @@ MODULES = [
     "videomamba_tpu_torch.ops.kernels.ssd_mixer_bwd",
     "videomamba_tpu_torch.ops.kernels.ssd_pmixer",
     "videomamba_tpu_torch.parallel",
+    "videomamba_tpu_torch.parallel.mesh",
+    "videomamba_tpu_torch.parallel.sequence",
     "videomamba_tpu_torch.parallel.train_step",
     "videomamba_tpu_torch.utils",
+    "videomamba_tpu_torch.utils.distributed",
     "videomamba_tpu_torch.utils.optimizer",
     "videomamba_tpu_torch.utils.precision",
     "videomamba_tpu_torch.utils.scheduler",

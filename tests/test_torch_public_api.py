@@ -119,16 +119,3 @@ def test_time_fn_returns_the_median_of_synced_calls():
     median, times = time_fn(lambda v: calls.append(v), 3, warmup=2, iters=5, device="cpu")
     assert calls == [3] * 7 and len(times) == 5
     assert median == sorted(times)[2] and all(t >= 0 for t in times)
-
-
-def test_later_slices_still_refuse():
-    """A mesh and Mamba2's sequence parallelism belong to the distribution
-    slice and raise until then."""
-    from videomamba_tpu_torch.models.mamba2 import Mamba2
-    from videomamba_tpu_torch.parallel.train_step import init_train_state
-
-    model = _small_model()
-    with pytest.raises(NotImplementedError):
-        init_train_state(model, torch.optim.SGD(model.parameters(), lr=0.1), mesh=object())
-    with pytest.raises(NotImplementedError):
-        Mamba2(16, sp_axis="sp", device="cpu")

@@ -186,7 +186,7 @@ def test_init_train_state_without_mesh():
     opt = torch.optim.AdamW(tm.parameters(), lr=1e-3)
     params, state, step = init_train_state(tm, opt)
     assert step == 0 and set(params) == {k for k, _ in tm.named_parameters()}
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         init_train_state(tm, opt, mesh=object())
 
 

@@ -24,8 +24,11 @@ card unless given ``device="cpu"`` (``runtime.resolve_device``).
 Beside those paths: VideoMAE-style masking (``forward(mask=...)``, mask
 generators in ``data``), the ``BiMambaRefinerBlock``, checkpoint files
 (``checkpoint.load_checkpoint``, ``save_torch_state_dict``, timm ``.npz``,
-train state), ``determinism`` and the native clip loader
-(``data.native``). The root exports every name of the JAX package's root.
+train state), ``determinism``, the native clip loader (``data.native``)
+and distribution over ``torch.distributed`` (``utils.distributed``: NCCL
+init and collectives; ``parallel``: the dp / fsdp / tp mesh, FSDP2 and
+tensor-parallel training, sequence-parallel mixers). The root exports
+every name of the JAX package's root.
 """
 
 from videomamba_tpu_torch.determinism import (

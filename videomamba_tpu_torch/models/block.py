@@ -241,13 +241,17 @@ class Block(nn.Module):
         byte rule of :func:`block_fused_supported` at 4 bytes a weight for
         fp32 and 2 for bf16. The rule is the TPU kernel's VMEM budget, ported
         to keep both packages on one route, not a limit of this card. A
-        Mamba-2 mixer never takes it. (The JAX gate's sequence-parallel and
-        scan-backend conditions have no counterpart here: the port's fast
-        path is its kernels.)"""
+        Mamba-2 mixer never takes it, nor a sequence-parallel mixer (JAX
+        block.py:325: its route owns the mixer call) or a mixer split over
+        tensor-parallel ranks (K4 sums x_proj over every channel). (The JAX
+        gate's scan-backend condition has no counterpart here: the port's
+        fast path is its kernels.)"""
         mx = self.mixer
         if not getattr(mx, "supports_block_fusion", True):
             return False  # Mamba2: add + norm, then its own kernels (JAX block.py:321-322)
         if not (self.fused_add_norm and mx.use_fast_path):
+            return False
+        if mx.sp_axis is not None or mx.tp_group is not None:
             return False
         if (mx.in_proj.bias is not None or mx.out_proj.bias is not None
                 or mx.conv1d.bias is None):

@@ -26,6 +26,13 @@ d_conv raw conv inputs, ``ssm_state (B, d_inner, d_state)`` the recurrence;
 pair, so chunked execution reproduces full-sequence execution. New states
 keep the incoming states' dtypes.
 
+Distribution: ``sp_axis`` (a process group) makes the forward take this
+rank's time shard through ``parallel.sequence.sequence_parallel_mixer``
+(K1 / K5, the conv halo and the segment combine); :meth:`Mamba.shard_channels`
+splits d_inner over a tensor-parallel group (:func:`channel_parallel`, the
+unfused branch on the rank's channels with explicit all-reduces; decode
+steps all-reduce the same sums). Neither takes K3.
+
 Decode cache (JAX mamba.py:218-232, 408-440, 574-665): with
 ``inference_params`` (an :class:`InferenceCache`) the mixer allocates its
 layer's (conv_state, ssm_state) in the cache on first use (again when the
@@ -40,7 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -62,6 +69,7 @@ from videomamba_tpu_torch.ops.selective_scan import (
     selective_state_update,
 )
 from videomamba_tpu_torch.runtime import resolve_device
+from videomamba_tpu_torch.utils.distributed import copy_to_group, reduce_from_group
 
 Tensor = torch.Tensor
 LayerState = Tuple[Tensor, Tensor]
@@ -72,6 +80,18 @@ def skip_init(module_cls, *args, device=None, **kwargs) -> nn.Module:
     parameters from its generator), on ``device`` (default: the card, see
     :func:`videomamba_tpu_torch.runtime.resolve_device`)."""
     return _skip_init(module_cls, *args, device=resolve_device(device), **kwargs)
+
+
+def check_sp_axis(sp_axis):
+    """``sp_axis`` as the mixers take it: None, or the process group of the
+    sequence-parallel ranks (a ``DeviceMesh`` gives one,
+    ``mesh.get_group("sp")``). The JAX mixers take a mesh-axis name; a
+    string raises here."""
+    if isinstance(sp_axis, str):
+        raise TypeError(
+            f"sp_axis={sp_axis!r}: pass the torch.distributed process group of the "
+            "sequence-parallel ranks (e.g. mesh.get_group(name)), not a mesh-axis name")
+    return sp_axis
 
 
 def _composite_bwd(x, z, conv_w, conv_b, x_proj_w, dt_proj_w, dt_bias, A, D,
@@ -126,6 +146,87 @@ class MixerFusedFn(torch.autograd.Function):
         return (*head, dh0.to(h0.dtype), dcst)
 
 
+class _TpGroup:
+    """One part of d_inner a process, this rank's: Megatron's f and g over
+    ``group`` (the input's gradient and every sum all-reduced)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def enter(self, t: Tensor) -> Tensor:
+        return copy_to_group(t, self.group)
+
+    def sum(self, parts: List[Tensor], reduce_grad: bool = False) -> List[Tensor]:
+        return [reduce_from_group(parts[0], self.group, reduce_grad)]
+
+
+class _TpLocal:
+    """Every part of d_inner in this process (a whole mixer is one part):
+    the input is shared as it is, the all-reduce is a sum of the list."""
+
+    def enter(self, t: Tensor) -> Tensor:
+        return t
+
+    def sum(self, parts: List[Tensor], reduce_grad: bool = False) -> List[Tensor]:
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        return [total] * len(parts)
+
+
+def channel_parallel(mixers: Sequence["Mamba"], comm, hidden_states: Tensor,
+                     conv_state: Optional[Tensor] = None, ssm_state: Optional[Tensor] = None,
+                     return_state: bool = False, need_state: bool = False):
+    """The unfused mixer over parts of d_inner: ``mixers[k]`` holds part k
+    (:meth:`Mamba.keep_channels`; a whole mixer is one part) and ``comm``
+    makes the parts' sums (``_TpGroup``: an all-reduce over a
+    tensor-parallel group, one part a rank; ``_TpLocal``: a sum over the
+    list). Each part runs its rows of in_proj, the plain causal conv and
+    x_proj on its columns; the summed x_dbl feeds each part's dt_proj and
+    scan (K1 on the fast path, K5 in the backward), whose output goes
+    through out_proj's columns; the parts of the output are summed. The
+    states are the first part's; several parts in one process take none.
+    Returns (out (B, L, d_model), new conv window or None, h_last or None)."""
+    if len(mixers) > 1 and (conv_state is not None or ssm_state is not None or need_state):
+        raise ValueError("channel_parallel: several parts in one process carry no state")
+    hidden_states = comm.enter(hidden_states)
+    parts = []
+    for m in mixers:
+        x, z = m._in_proj(hidden_states)
+        conv_out = causal_conv1d(
+            x, m.conv1d.weight.squeeze(1).t(), m.conv1d.bias, activation="silu",
+            initial_state=conv_state, return_final_state=return_state)
+        new_conv_state = None
+        if return_state:
+            conv_out, new_conv_state = conv_out
+        parts.append((conv_out, z, new_conv_state, conv_out @ m.x_proj.weight.t()))
+    # The sum feeds every part's own channels, so its cotangent is summed too.
+    x_dbls = comm.sum([p[3] for p in parts], reduce_grad=True)
+    outs, h_lasts = [], []
+    for m, (conv_out, z, _, _), x_dbl in zip(mixers, parts, x_dbls):
+        r, n = m.dt_rank, m.d_state
+        scan_out = selective_scan_bld(
+            conv_out, x_dbl[..., :r] @ m.dt_proj.weight.t(), -torch.exp(m.A_log.float()),
+            x_dbl[..., r:r + n], x_dbl[..., r + n:], D=m.D.float(), z=z,
+            delta_bias=m.dt_proj.bias.float(), delta_softplus=True, initial_state=ssm_state,
+            return_last_state=need_state, method="kernel" if m.use_fast_path else "ref")
+        y, h_last = scan_out if need_state else (scan_out, None)
+        outs.append(y @ m.out_proj.weight.t())
+        h_lasts.append(h_last)
+    out = comm.sum(outs)[0]
+    if mixers[0].out_proj.bias is not None:
+        out = out + mixers[0].out_proj.bias
+    return out, parts[0][2], h_lasts[0]
+
+
+def tensor_parallel_shards(shards: Sequence["Mamba"], hidden_states: Tensor) -> Tensor:
+    """The tensor-parallel mixer for every rank in one process:
+    :func:`channel_parallel` over ``shards`` (rank k's channels in
+    ``shards[k]``) with the all-reduces replaced by sums, the code a
+    ``shard_channels`` mixer's forward runs. Returns (B, L, d_model)."""
+    return channel_parallel(shards, _TpLocal(), hidden_states)[0]
+
+
 @dataclasses.dataclass
 class InferenceCache:
     """Decode-time cache (JAX mamba.py:218-232): per-layer (conv_state,
@@ -176,12 +277,15 @@ class Mamba(nn.Module):
         use_fast_path: bool = True,
         layer_idx: Optional[int] = None,
         bimamba: bool = True,
+        sp_axis=None,
         device=None,
         dtype: Optional[torch.dtype] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         del bimamba
+        self.sp_axis = check_sp_axis(sp_axis)
+        self.tp_group = None  # set by shard_channels
         device = resolve_device(device)
         dtype = torch.float32 if dtype is None else dtype
         g = torch.Generator().manual_seed(0) if generator is None else generator
@@ -252,6 +356,10 @@ class Mamba(nn.Module):
         if return_ssm_state and ssm_state is None:
             raise ValueError("return_ssm_state requires ssm_state.")
         if inference_params is not None:
+            if self.sp_axis is not None:
+                raise ValueError(
+                    "inference_params is not supported under sequence parallelism; "
+                    "decode on a single shard.")
             if state is not None:
                 raise ValueError("state is not supported with inference_params.")
             if return_ssm_state:
@@ -260,19 +368,25 @@ class Mamba(nn.Module):
                     "the decode cache already carries the advanced state."
                 )
             return self._forward_cached(hidden_states, ssm_state, inference_params)
+        if self.sp_axis is not None:
+            # hidden_states is this rank's time shard (JAX mamba.py:387-404).
+            from videomamba_tpu_torch.parallel.sequence import sequence_parallel_mixer
+
+            return sequence_parallel_mixer(
+                self, hidden_states, group=self.sp_axis, state=state,
+                return_state=return_state, ssm_state=ssm_state,
+                return_ssm_state=return_ssm_state)
         conv_state = None
         if state is not None:
             conv_state, ssm_state = state
         need_state = return_state or return_ssm_state
 
-        xz = hidden_states @ self.in_proj.weight.t()
-        if self.in_proj.bias is not None:
-            xz = xz + self.in_proj.bias
-        x, z = xz.chunk(2, dim=-1)
-        A = -torch.exp(self.A_log.float())
-        new_conv_state = None
-
-        if self._use_fused_mixer():
+        if not self._use_fused_mixer():
+            out, new_conv_state, new_ssm_state = channel_parallel(
+                [self], self._tp_comm(), hidden_states, conv_state, ssm_state, return_state,
+                need_state)
+        else:
+            x, z = self._in_proj(hidden_states)
             bsz = x.shape[0]
             h0 = (
                 ssm_state.float()
@@ -285,37 +399,16 @@ class Mamba(nn.Module):
                 else x.new_zeros((bsz, self.d_inner, self.d_conv))
             )
             args = (x, z, self.conv1d.weight.squeeze(1), self.conv1d.bias,
-                    self.x_proj.weight, self.dt_proj.weight,
-                    self.dt_proj.bias.float(), A, self.D.float(), h0, cstate_in)
+                    self.x_proj.weight, self.dt_proj.weight, self.dt_proj.bias.float(),
+                    -torch.exp(self.A_log.float()), self.D.float(), h0, cstate_in)
             if torch.is_grad_enabled() and any(t.requires_grad for t in args):
                 y, new_ssm_state = MixerFusedFn.apply(*args)
             else:
                 y, new_ssm_state = mixer_fused(*args)
-            if return_state:
-                new_conv_state = conv_window(x, conv_state, self.d_conv)
-        else:
-            conv_out = causal_conv1d(
-                x, self.conv1d.weight.squeeze(1).t(), self.conv1d.bias,
-                activation="silu", initial_state=conv_state,
-                return_final_state=return_state,
-            )
-            if return_state:
-                conv_out, new_conv_state = conv_out
-            x_dbl = conv_out @ self.x_proj.weight.t()
-            r, n = self.dt_rank, self.d_state
-            dt = x_dbl[..., :r] @ self.dt_proj.weight.t()
-            scan_out = selective_scan_bld(
-                conv_out, dt, A, x_dbl[..., r:r + n], x_dbl[..., r + n:],
-                D=self.D.float(), z=z, delta_bias=self.dt_proj.bias.float(),
-                delta_softplus=True, initial_state=ssm_state,
-                return_last_state=need_state,
-                method="kernel" if self.use_fast_path else "ref",
-            )
-            y, new_ssm_state = scan_out if need_state else (scan_out, None)
-
-        out = y @ self.out_proj.weight.t()
-        if self.out_proj.bias is not None:
-            out = out + self.out_proj.bias
+            new_conv_state = conv_window(x, conv_state, self.d_conv) if return_state else None
+            out = y @ self.out_proj.weight.t()
+            if self.out_proj.bias is not None:
+                out = out + self.out_proj.bias
         if not need_state:
             return out
         if ssm_state is not None:
@@ -351,32 +444,114 @@ class Mamba(nn.Module):
         new_ssm_state), the states in their incoming dtypes."""
         if hidden_states.shape[1] != 1:
             raise ValueError("step() decodes exactly one token at a time.")
-        xz = hidden_states[:, 0] @ self.in_proj.weight.t()
-        if self.in_proj.bias is not None:
-            xz = xz + self.in_proj.bias
-        x, z = xz.chunk(2, dim=-1)
+        comm = self._tp_comm()
+        x, z = self._in_proj(comm.enter(hidden_states[:, 0]))
         x, new_conv_state = causal_conv1d_update(
             x, conv_state, self.conv1d.weight.squeeze(1).t(), self.conv1d.bias)
-        x_db = x @ self.x_proj.weight.t()
+        x_db = comm.sum([x @ self.x_proj.weight.t()], reduce_grad=True)[0]
         r, n = self.dt_rank, self.d_state
         dt = x_db[..., :r] @ self.dt_proj.weight.t()
         y, new_ssm_state = selective_state_update(
             ssm_state, x, dt, -torch.exp(self.A_log.float()), x_db[..., r:r + n],
             x_db[..., r + n:], D=self.D, z=z, dt_bias=self.dt_proj.bias, dt_softplus=True,
         )
-        out = y @ self.out_proj.weight.t()
+        out = comm.sum([y @ self.out_proj.weight.t()])[0]
         if self.out_proj.bias is not None:
             out = out + self.out_proj.bias
         return out[:, None], new_conv_state, new_ssm_state
+
+    def _in_proj(self, hidden_states: Tensor) -> Tuple[Tensor, Tensor]:
+        """in_proj (this mixer's rows: all, or a tensor-parallel rank's
+        [x_k; z_k]), split into (x, z)."""
+        xz = hidden_states @ self.in_proj.weight.t()
+        if self.in_proj.bias is not None:
+            xz = xz + self.in_proj.bias
+        return xz.chunk(2, dim=-1)
+
+    def _tp_comm(self):
+        """The sums of :func:`channel_parallel`: over the tensor-parallel
+        group after :meth:`shard_channels`, else of this mixer's one part."""
+        return _TpLocal() if self.tp_group is None else _TpGroup(self.tp_group)
 
     def _use_fused_mixer(self) -> bool:
         """The fused core (K3) needs the fast path, a conv bias and the JAX
         package's shape rule (d_inner a multiple of 128, dt_rank and d_state
         up to 128, d_state a multiple of 8), as in
         videomamba_tpu/models/mamba.py:552-560; other layers take the
-        unfused branch, whose scan is K1."""
+        unfused branch, whose scan is K1. K3 sums x_proj over all channels
+        inside the kernel, so a mixer split over tensor-parallel ranks takes
+        the unfused branch."""
         return (self.use_fast_path and self.conv1d.bias is not None
+                and self.tp_group is None
                 and mixer_fused_supported(self.d_inner, self.dt_rank, self.d_state))
+
+    # ------------------------------------------------- tensor parallelism
+
+    def channel_slices(self, rank: int, size: int) -> Dict[str, Tensor]:
+        """This mixer's parameters for tensor-parallel rank ``rank`` of
+        ``size``, by name: its d_inner / size channels of every
+        column-parallel parameter (in_proj's rows as [x_k; z_k], conv,
+        dt_proj, A_log, D) and of the row-parallel x_proj's and out_proj's
+        columns; out_proj's bias whole."""
+        di = self.d_inner
+        if di % size:
+            raise ValueError(f"d_inner {di} does not split over {size} tensor-parallel ranks")
+        c = di // size
+        rows = slice(rank * c, (rank + 1) * c)
+        out = {}
+        for name, p in self.named_parameters():
+            t = p.detach()
+            if name.startswith("in_proj."):
+                t = torch.cat([t[rows], t[di:][rows]])
+            elif name.startswith(("conv1d.", "dt_proj.")) or name in ("A_log", "D"):
+                t = t[rows]
+            elif name in ("x_proj.weight", "out_proj.weight"):
+                t = t[:, rows]
+            out[name] = t.clone()
+        return out
+
+    @staticmethod
+    def join_channel_slices(slices: Sequence[Dict[str, Tensor]]) -> Dict[str, Tensor]:
+        """The whole parameters from every rank's :meth:`channel_slices`, in
+        rank order: in_proj back to [x; z] (the JAX and reference order)."""
+        out = {}
+        for name in slices[0]:
+            parts = [s[name] for s in slices]
+            if name.startswith("in_proj."):
+                halves = [p.chunk(2) for p in parts]
+                out[name] = torch.cat([h[0] for h in halves] + [h[1] for h in halves])
+            elif name.startswith(("conv1d.", "dt_proj.")) or name in ("A_log", "D"):
+                out[name] = torch.cat(parts)
+            elif name in ("x_proj.weight", "out_proj.weight"):
+                out[name] = torch.cat(parts, dim=1)
+            else:
+                out[name] = parts[0]
+        return out
+
+    def shard_channels(self, group) -> None:
+        """Keep only this rank's channels (:meth:`channel_slices`) of
+        ``group``'s split, in place: new Parameters, so an optimizer built
+        before must be re-pointed (``parallel.init_train_state`` does). The
+        forward is then :func:`channel_parallel` on this rank's part, its
+        sums all-reduced over ``group`` and the input's gradient too; a
+        decode :meth:`step` all-reduces x_dbl and the output the same way.
+        States (the streaming contract's and the decode cache's) are the
+        rank's channels."""
+        import torch.distributed as dist
+
+        self.keep_channels(dist.get_rank(group), dist.get_world_size(group))
+        self.tp_group = group
+
+    def keep_channels(self, rank: int, size: int) -> "Mamba":
+        """Replace the parameters by :meth:`channel_slices` (new Parameters)
+        and return self. Alone (no group) the mixer is a rank's part for
+        :func:`tensor_parallel_shards`; its own forward gives that part's
+        share of the output, not the sum."""
+        for name, t in self.channel_slices(rank, size).items():
+            mod, _, leaf = name.rpartition(".")
+            owner = self.get_submodule(mod) if mod else self
+            setattr(owner, leaf, nn.Parameter(t, requires_grad=getattr(owner, leaf).requires_grad))
+        return self
 
     def allocate_state(
         self, batch_size: int, dtype: Optional[torch.dtype] = None, device=None
@@ -384,11 +559,12 @@ class Mamba(nn.Module):
         """Zero (conv_state, ssm_state) for streaming; dtype defaults to fp32."""
         dtype = torch.float32 if dtype is None else dtype
         device = self.A_log.device if device is None else device
+        channels = self.A_log.shape[0]  # d_inner, or a tensor-parallel rank's share
         conv_state = torch.zeros(
-            (batch_size, self.d_inner, self.d_conv), dtype=dtype, device=device
+            (batch_size, channels, self.d_conv), dtype=dtype, device=device
         )
         ssm_state = torch.zeros(
-            (batch_size, self.d_inner, self.d_state), dtype=dtype, device=device
+            (batch_size, channels, self.d_state), dtype=dtype, device=device
         )
         return conv_state, ssm_state
 

@@ -43,7 +43,12 @@ ssm_state), return_state=True`` reproduces full-sequence execution chunk
 by chunk; the bare ``ssm_state``/``return_ssm_state`` path restarts the conv
 from zeros each call and returns the advanced SSM state. The decode cache
 (``inference_params``) and :meth:`Mamba2.step` follow the Mamba-1 mixer's.
-``sp_axis`` (sequence parallelism) is not ported and raises.
+``sp_axis`` (a process group) makes the forward take this rank's time
+shard through ``parallel.sequence.sequence_parallel_mixer_m2`` (the conv
+halo, the chunked SSD and the segment combine), as the JAX package routes
+it. Under tensor parallelism a Mamba-2 Block's parameters are only stored
+sharded (``parallel.init_train_state``): they are gathered whole before
+its forward, so K12 and K13 see whole weights.
 """
 
 from __future__ import annotations
@@ -55,7 +60,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from videomamba_tpu_torch.models import initializers as init
-from videomamba_tpu_torch.models.mamba import InferenceCache, LayerState, _linear, skip_init
+from videomamba_tpu_torch.models.mamba import (
+    InferenceCache,
+    LayerState,
+    _linear,
+    check_sp_axis,
+    skip_init,
+)
 from videomamba_tpu_torch.ops import dispatch
 from videomamba_tpu_torch.ops.causal_conv1d import (
     causal_conv1d,
@@ -117,17 +128,14 @@ class Mamba2(nn.Module):
         use_fast_path: bool = True,
         layer_idx: Optional[int] = None,
         bimamba: bool = False,
-        sp_axis: Optional[str] = None,
+        sp_axis=None,
         device=None,
         dtype: Optional[torch.dtype] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         del bimamba  # accepted for create_block parity
-        if sp_axis is not None:
-            raise NotImplementedError(
-                "Mamba2 sp_axis: sequence parallelism is not ported (ROADMAP queue 1, "
-                "item 11)")
+        self.sp_axis = check_sp_axis(sp_axis)
         self.d_model = d_model
         self.d_state = d_state
         self.d_conv = d_conv
@@ -192,6 +200,18 @@ class Mamba2(nn.Module):
             raise ValueError("Pass either state or ssm_state, not both.")
         if return_ssm_state and ssm_state is None:
             raise ValueError("return_ssm_state requires ssm_state.")
+        if self.sp_axis is not None:
+            # hidden_states is this rank's time shard (JAX mamba2.py:213-232).
+            if inference_params is not None:
+                raise ValueError(
+                    "inference_params is not supported under sequence parallelism; "
+                    "decode on a single shard.")
+            from videomamba_tpu_torch.parallel.sequence import sequence_parallel_mixer_m2
+
+            return sequence_parallel_mixer_m2(
+                self, hidden_states, group=self.sp_axis, state=state,
+                return_state=return_state, ssm_state=ssm_state,
+                return_ssm_state=return_ssm_state)
         if inference_params is not None:
             if state is not None or ssm_state is not None:
                 raise ValueError("state is not supported with inference_params.")

@@ -99,9 +99,10 @@ def _host_mask(mask) -> Optional[np.ndarray]:
 def _checkpointed_block(layer: nn.Module, hidden: Tensor, residual, mask):
     """``layer`` under non-reentrant activation checkpointing, its parameters
     passed as explicit inputs: the recompute then sees the tensors this
-    forward saw, also under ``torch.func.functional_call`` (the cast
-    parameters of mixed-precision training), whose swap is undone before the
-    backward recomputes."""
+    forward saw, also where a swap of the parameters (a caller's
+    ``torch.func.functional_call``) is undone before the backward
+    recomputes. The mixed-precision cast of ``parallel.train_step`` runs
+    inside the Block's call, so the recompute repeats it."""
     names, values = zip(*layer.named_parameters())
 
     def run(h, r, m, *params):

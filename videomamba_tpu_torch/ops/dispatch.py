@@ -31,12 +31,23 @@ def fused_disabled_by_env() -> bool:
     }
 
 
+def _is_dtensor(t) -> bool:
+    """Whether ``t`` is a ``torch.distributed`` DTensor (checked by type
+    name, so no distributed module is imported here)."""
+    return any(c.__name__ == "DTensor" for c in type(t).__mro__)
+
+
 def runs_plain(t: torch.Tensor) -> bool:
     """True for a CPU tensor (plain version), False for CUDA (kernel).
 
     Raises for any other device: there is no kernel for it and no silent
-    substitute.
+    substitute. Raises for a ``DTensor`` too: a kernel takes a rank's
+    plain tensor (FSDP gathers a Block's parameters before its forward),
+    never a distributed one, and no wrapper converts one quietly.
     """
+    if _is_dtensor(t):
+        raise TypeError(
+            "a kernel wrapper was given a DTensor; pass the local or gathered plain tensor")
     if t.device.type == "cpu":
         return True
     if t.device.type == "cuda":

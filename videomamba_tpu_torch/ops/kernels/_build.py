@@ -21,6 +21,8 @@ from pathlib import Path
 
 import torch
 
+from videomamba_tpu_torch.ops import dispatch
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "videomamba_tpu_torch"
@@ -170,7 +172,7 @@ def check_operands(kernel: str, device: torch.device, operands: dict,
     """Raise unless each operand (name -> (tensor or None, shape)) is a
     tensor of that shape on ``device`` with a dtype its kernel takes
     (``dtypes``: name -> allowed dtypes; fp32 for a name not given), and
-    those named in ``contiguous`` are contiguous. A kernel call is not
+    those named in ``contiguous`` are contiguous. A ``DTensor`` raises. A kernel call is not
     recorded by autograd: the training route calls the kernels inside
     ``torch.autograd.Function`` forwards and backwards, where grad mode is
     off. So an operand that autograd would record (a direct call under grad
@@ -180,6 +182,8 @@ def check_operands(kernel: str, device: torch.device, operands: dict,
     for name, (t, shape) in operands.items():
         if t is None:
             continue
+        if dispatch._is_dtensor(t):
+            raise TypeError(f"{kernel} kernel: {name} is a DTensor; kernels take plain tensors")
         allowed = dtypes.get(name, FP32)
         if t.device != device or t.dtype not in allowed:
             names = " or ".join(_DTYPE_NAMES.get(d, str(d)) for d in allowed)

@@ -94,13 +94,15 @@ class DecodeSession:
     tokens one at a time; :meth:`step` returns the final-norm features.
 
     ``use_kernel=None`` takes the whole-stack decode kernel when it takes the
-    model (bias-free projections, RMS or LayerNorm, its width gate; any
-    batch size): K9 (ops/kernels/decode_step.py ``decode_stack``) for a
-    Mamba-1 model, K15 (``decode_stack_m2``: one B/C group, d_inner a
+    model (whole layers, bias-free projections, RMS or LayerNorm, its width
+    gate; any batch size): K9 (ops/kernels/decode_step.py ``decode_stack``)
+    for a Mamba-1 model, K15 (``decode_stack_m2``: one B/C group, d_inner a
     multiple of 128) for a Mamba-2 one. On the card the kernel, on the CPU
     its plain version, by the dispatch rule; the final norm goes through K2.
     A model outside that gate runs every layer through its mixer's ``step``
-    (plain torch), as the JAX package falls back to its XLA route. ``True``
+    (plain torch), as the JAX package falls back to its XLA route; so does a
+    model whose mixers hold tensor-parallel parts (``Mamba.shard_channels``),
+    whose steps all-reduce over their group. ``True``
     raises on such a model; ``False`` always takes the per-layer route. The
     layer weights are stacked once here; the states are the streaming
     contract's stacked on depth, (depth, B, d_inner, d_conv) and (depth, B,
@@ -173,15 +175,16 @@ class DecodeSession:
         else:
             widths = decode_stack_supported(mx.d_model, mx.d_inner, mx.dt_rank, mx.d_state)
         compatible = (
-            mx.in_proj.bias is None and mx.out_proj.bias is None
+            getattr(mx, "tp_group", None) is None  # the kernel holds whole layers
+            and mx.in_proj.bias is None and mx.out_proj.bias is None
             and self.norm_type in ("rms", "layer") and widths
         )
         if use_kernel and not compatible:
             raise ValueError(
                 "use_kernel=True but the decode kernel does not support this model "
-                "(needs bias-free projections, rms/layer norm, a schedule that fits "
-                "shared memory, and for Mamba-2 one B/C group and d_inner a multiple of "
-                "128)."
+                "(needs whole layers, not tensor-parallel parts, bias-free projections, "
+                "rms/layer norm, a schedule that fits shared memory, and for Mamba-2 one "
+                "B/C group and d_inner a multiple of 128)."
             )
         return compatible
 
