@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving, training, decode, masked-pretraining, data and distribution paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving, training, decode, masked-pretraining, data and distribution paths, its scripts and examples on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -238,7 +238,8 @@ C. the sharded train step: phase 11's Base B=4 step under
    (host and device ms, top kernels) with the unsharded one; the same for
    bf16 (one step: loss 1e-2, gradients 5e-2); then the fp32 steps with a
    fused AdamW. The process group is destroyed after.
-30. checkpoint files and determinism (last: it sets process-wide modes):
+30. checkpoint files and determinism (it sets process-wide modes and
+    restores them):
     ``save_torch_state_dict`` of phase 2's weights, ``load_checkpoint`` into
     a fresh Base model on the card, bit-equal parameters and phase 2's
     forward bit for bit; a seeded temporal embedding loaded with
@@ -246,6 +247,47 @@ C. the sharded train step: phase 11's Base B=4 step under
     1e-6) and a 16-frame clip through it; ``configure_determinism(0,
     deterministic=True)`` and the masked fp32 step twice: bit-identical
     loss and gradients; TF32 off and non-deterministic mode restored.
+D. the ops surface: ``selective_scan_bld`` at Base shapes with "chunked",
+   "pallas" and "kernel", each one K1 launch against "ref" (the sequential
+   plain version, 1e-5); the reference-layout ``selective_scan`` bit-equal
+   to it; a Base-width unfused ``Mamba`` (K1) with ``scan_chunk_size=32``
+   bit-equal to the default one.
+E. ``scripts/check_streaming_state_torch.py`` (``main``) at d_model 768, L
+   3136 (16 frames of Base tokens) split at 1568, ``--fast-path`` (K3 5,
+   K6 2) and ``--allow-tf32 off``: full against split at rtol / atol 1e-4,
+   finite non-zero gradients through the split; its max |diff| printed.
+F. ``scripts/convert_checkpoint_torch.py``: a seeded Base model written as
+   a reference ``.pt``, ``to-native`` then ``to-torch`` bit-equal to it; the
+   model the CLI loaded gives the source's features bit for bit (fp32,
+   (1, 3, 8, 224, 224)); ``--num-frames 16 --ckpt-num-frame 8`` against
+   ``load_checkpoint`` of the same file: parameters and a 16-frame forward
+   bit-equal.
+G. ``examples/streaming_serving_torch.py`` at the serving headline shape:
+   Base, 64-frame chunks of a 256-frame clip (L 12,544 a chunk), bf16 (K4
+   24, K2 1 a chunk), ``--mamba2`` (K14 24, K2 25) and ``--fp32`` (K2 25,
+   K3 24); the first chunk's x_vis against a full forward of those 64
+   frames (2e-2 bf16, 1e-4 fp32); the last layer on its kernels against
+   its plain version on the same inputs at chunk 1 and at chunk 2, from the
+   carried state (output, residual, conv window, SSM state; 1e-2 for K4
+   and K14 at bf16, 1e-5 for K3); the bf16 stream's pooled features against
+   the fp32 stream's (gated at 2e-2, printed beside BASELINE.md's 1e-3);
+   each chunk's host ms and the median of chunks 2-4 with its frames/s.
+H. ``examples/train_masked_pretrain_torch.py`` at Base width (depth 24, img
+   224, 8 frames, B=4, 5 steps) on a world-1 mesh (FSDP2 over a one-rank
+   NCCL group it starts and ends): finite losses falling from step 0 to
+   step 4, K2 25, K3 24, K6 24 a step; each step's host ms and the peak.
+I. ``examples/train_classifier_torch.py`` at Base width (depth 24, img 224,
+   8 frames, B=4, 2 epochs, 3 classes) under ``configure_determinism(0,
+   deterministic=True)``: synthesized shards, the native loader, FSDP2
+   steps, the train state saved each epoch (shards gathered), the one
+   before the last reloaded into the shards and the last epoch replayed:
+   resume parity exactly 0; eval accuracy each epoch, the loader's clips/s.
+J. ``utils.profiling``: ``trace`` around two Base fp32 forwards writes a
+   Chrome trace whose CUDA kernels hold K2's row kernel 50 times and K3's
+   output walk 48 times, as the counters; ``StepTimer``'s median within 10
+   % of CUDA-event time; ``device_memory_summary`` equal to
+   ``torch.cuda.memory_stats``' peak; ``MetricLogger.log_every`` prints a
+   memory column.
 
 The launch counters are zeroed just before each main path and read just
 after: phases 2-4 (fp32 serving), 6-7 (bf16 serving), 9 (fp32 training),
@@ -256,8 +298,8 @@ training, every route), 23 (K11's route), 25 (the layer steps and the
 conv route at widened gates), 26 (masked serving), 27 (masked training),
 28 (the step from files), 29 (the refiner), A (the sequence-parallel Block,
 m2 mixer and public mixer), B (the tensor-parallel mixer), C (the sharded
-steps) and 30 (the loaded models and the deterministic steps); the kernels
-line sums them. The single-card references of A-C run outside those
+steps), 30 (the loaded models and the deterministic steps) and each of D-J;
+the kernels line sums them. The single-card references of A-C run outside those
 windows. The total seconds
 of the run are printed before the kernels line.
 TF32 is off for matmuls and cuDNN throughout. Times are CUDA-event times per
@@ -2878,6 +2920,431 @@ def phase_sharded_train(device, sd0, depth, unsharded):
     return counts
 
 
+# ---------------------------------------------------------------- phases D-J
+
+CHUNK = 64  # the serving example's chunk (examples/streaming_serving.py:22-23)
+HEADLINE_FRAMES = 256  # four chunks of 64 frames: L 12,544 a chunk at Base
+BF16_FEATURE_TARGET = 1e-3  # BASELINE.md's bf16-vs-fp32 feature target
+
+
+def load_entry(relpath: str):
+    """A script or example of the checkout as a module (its main not run)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), relpath)
+    spec = importlib.util.spec_from_file_location(
+        "entry_" + relpath.replace("/", "_")[:-3], path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def build_dir() -> str:
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def restore_modes() -> None:
+    """chip_smoke's process-wide modes: non-deterministic, TF32 off."""
+    configure_determinism(0, deterministic=False, cudnn_benchmark=False, allow_tf32=False)
+
+
+def phase_ops_surface(device):
+    """Phase D: ``selective_scan_bld`` at Base shapes with "chunked",
+    "pallas" and "kernel" (each one K1 launch, against "ref", the
+    sequential plain version, at 1e-5), the reference-layout
+    ``selective_scan`` (bit-equal to the (B, L, D) call), and a Base-width
+    unfused ``Mamba`` (K1 route) with ``scan_chunk_size=32`` bit-equal to
+    one without it."""
+    from videomamba_tpu_torch.ops import selective_scan, selective_scan_bld
+
+    kw = kernel_inputs(BASE, device, seed=40)["selective_scan"]
+    args = dict(u=kw["u"], delta=kw["delta"], A=kw["A"], B=kw["B"], C=kw["C"], D=kw["D"],
+                z=kw["z"], delta_bias=kw["delta_bias"], delta_softplus=True,
+                initial_state=kw["h0"], return_last_state=True)
+    want_y, want_h = selective_scan_bld(**args, method="ref")
+    got = {}
+    for method in ("chunked", "pallas", "kernel"):
+        n0 = k1.selective_scan.launches
+        got[method] = selective_scan_bld(**args, method=method)
+        torch.cuda.synchronize()
+        n = k1.selective_scan.launches - n0
+        check(n == 1, f"selective_scan_bld(method={method!r}): {n} K1 launches, not 1")
+        check_close(f"selective_scan_bld {method} y vs ref", got[method][0], want_y, KERNEL_TOL)
+        check_close(f"selective_scan_bld {method} h vs ref", got[method][1], want_h, KERNEL_TOL)
+    ref_layout = {k: (v.transpose(1, 2) if k in ("u", "delta", "B", "C", "z") else v)
+                  for k, v in args.items()}
+    y_t, h_t = selective_scan(**ref_layout)
+    check(torch.equal(y_t.transpose(1, 2), got["chunked"][0])
+          and torch.equal(h_t, got["chunked"][1]),
+          "reference-layout selective_scan differs from selective_scan_bld")
+    print("reference-layout selective_scan (B, D, L): bit-equal to the (B, L, D) call")
+    x = randn((1, BASE["seqlen"], BASE["embed"]), torch.Generator().manual_seed(41), device)
+    outs = []
+    for extra in ({}, {"scan_chunk_size": 32}):
+        layer = Mamba(BASE["embed"], conv_bias=False, device=device,
+                      generator=torch.Generator().manual_seed(42), **extra).eval()
+        n0 = k1.selective_scan.launches
+        outs.append(layer(x))
+        torch.cuda.synchronize()
+        check(k1.selective_scan.launches - n0 == 1, f"Mamba({extra}): K1 not launched once")
+    check(torch.equal(outs[0], outs[1]), "Mamba(scan_chunk_size=32) differs from the default")
+    print("Mamba(768, conv_bias=False, scan_chunk_size=32): bit-equal to the default, "
+          "one K1 launch each")
+
+
+def phase_streaming_cli(device):
+    """Phase E: ``check_streaming_state_torch.main`` on a Base-width layer
+    over 16 frames of tokens (L 3136, split at 1568) on the fused mixer
+    (K3 forward, K6 backward), TF32 off as everywhere here."""
+    cli = load_entry("scripts/check_streaming_state_torch.py")
+    before = launches()
+    try:
+        max_diff = cli.main(["--d-model", str(BASE["embed"]), "--seqlen", "3136", "--split",
+                             "1568", "--fast-path", "--allow-tf32", "off"])
+    finally:
+        restore_modes()
+    torch.cuda.synchronize()
+    used = delta(launches(), before)
+    print(f"streaming check at d_model 768, L 3136 split at 1568: max |diff| {max_diff:.3e} "
+          f"(rtol / atol 1e-4); K3 {used['mixer_fused']}, K6 {used['mixer_bwd']} launches, "
+          f"K1 {used['selective_scan']}")
+    check(used["mixer_fused"] == 5 and used["mixer_bwd"] == 2,
+          f"streaming check: expected K3 5 (3 forward, 2 under autograd) and K6 2, got {used}")
+
+
+def base_cli_model(device, frames=8, seed=43):
+    """A seeded Base model of the checkpoint CLI's configuration (pool
+    'cls+avg', pool norm) with a nonzero temporal embedding."""
+    from videomamba_tpu_torch.models import PretrainVideoMamba
+
+    model = PretrainVideoMamba(img_size=IMG, patch_size=16, depth=24, embed_dim=BASE["embed"],
+                               num_frames=frames, device=device,
+                               generator=torch.Generator().manual_seed(seed)).eval()
+    with torch.no_grad():
+        model.temporal_pos_embedding.copy_(0.02 * torch.randn(
+            model.temporal_pos_embedding.shape, generator=torch.Generator().manual_seed(seed)))
+    return model
+
+
+def phase_checkpoint_cli(device):
+    """Phase F: a seeded Base model written as a reference ``.pt``,
+    converted ``to-native`` and back ``to-torch`` (bit-equal files); the
+    model the CLI loaded from the native file gives the source's features
+    bit for bit (fp32, (1, 3, 8, 224, 224)); the same file to a 16-frame
+    model (``--ckpt-num-frame 8``) against ``load_checkpoint``."""
+    cli = load_entry("scripts/convert_checkpoint_torch.py")
+    geom = ["--embed-dim", str(BASE["embed"]), "--depth", "24"]
+    clip = torch.randn((1, 3, 8, IMG, IMG), generator=torch.Generator().manual_seed(44)).to(device)
+    with tempfile.TemporaryDirectory(dir=build_dir()) as tmp:
+        ref, native, back = (os.path.join(tmp, f) for f in ("ref.pt", "native.pt", "back.pt"))
+        src = base_cli_model(device)
+        save_torch_state_dict(ref, src)
+        loaded = cli.main(["to-native", ref, native, *geom, "--num-frames", "8"]).eval()
+        cli.main(["to-torch", native, back, *geom, "--num-frames", "8"])
+        a, b = torch.load(ref, weights_only=True), torch.load(back, weights_only=True)
+        check(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+              "checkpoint CLI: to-native then to-torch is not bit-equal")
+        print(f"checkpoint CLI: {len(a)} tensors round-trip bit-equal "
+              f"({os.path.getsize(ref) / 2**20:.1f} MiB .pt)")
+        with torch.inference_mode():
+            got, want = loaded(clip), src(clip)
+            torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"checkpoint CLI: features differ (rel_err {rel_err(got[0], want[0]):.3e})")
+        print("checkpoint CLI: the native file's model gives the source's features bit for bit")
+        del loaded, src, got, want
+        long = cli.main(["to-native", ref, native, *geom, "--num-frames", "16",
+                         "--ckpt-num-frame", "8"]).eval()
+        fresh = base_cli_model(device, frames=16, seed=45)
+        load_checkpoint(ref, fresh, ckpt_num_frame=8, num_frames=16)
+        sd_long, sd_fresh = long.state_dict(), fresh.state_dict()
+        check(all(torch.equal(sd_long[k], sd_fresh[k]) for k in sd_fresh),
+              "checkpoint CLI at 16 frames: parameters differ from load_checkpoint's")
+        clip16 = torch.randn((1, 3, 16, IMG, IMG),
+                             generator=torch.Generator().manual_seed(46)).to(device)
+        with torch.inference_mode():
+            check(all(torch.equal(g, w) for g, w in zip(long(clip16), fresh(clip16))),
+                  "checkpoint CLI at 16 frames: features differ from load_checkpoint's")
+        print("checkpoint CLI 8 -> 16 frames: parameters and a 16-frame forward bit-equal "
+              "to load_checkpoint's")
+        del long, fresh
+    torch.cuda.empty_cache()
+
+
+def clone_tree(x):
+    """A copy of every tensor in nested tuples, lists and dicts."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(clone_tree(v) for v in x)
+    if isinstance(x, dict):
+        return {k: clone_tree(v) for k, v in x.items()}
+    return x
+
+
+def layer_vs_plain(tag, model, video, idx, tol):
+    """Layer ``idx`` of ``model`` on its kernels, in a session over the
+    first two chunks of ``video``: the first from a zero state (L 12,544 +
+    CLS), the second from the state the first left (L 12,544). Its inputs
+    and outputs are kept, then the same layer runs on the same inputs with
+    every wrapper on its plain version (no launch), and each output (hidden,
+    residual, conv window, SSM state) is held to it at ``tol``."""
+    layer, calls = model.layers[idx], []
+
+    def keep_inputs(module, args, kwargs):
+        calls.append([clone_tree(args), clone_tree(kwargs)])
+
+    def keep_outputs(module, args, kwargs, out):
+        calls[-1].append(clone_tree(out))
+
+    hooks = [layer.register_forward_pre_hook(keep_inputs, with_kwargs=True),
+             layer.register_forward_hook(keep_outputs, with_kwargs=True)]
+    session = StreamingSession(model, batch_size=video.shape[0], dtype=torch.float32)
+    try:
+        for t0 in (0, CHUNK):
+            session.process(video[:, :, t0:t0 + CHUNK])
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    del session
+    carried = calls[1][1]["state"]
+    check(all(bool(s.abs().max() > 0) for s in carried),
+          f"serving example {tag}: layer {idx} got a zero state at chunk 2")
+    names = ("hidden", "residual", "conv window", "SSM state")
+    for i, (args, kwargs, got) in enumerate(calls):
+        before = launches()
+        with all_plain(), torch.no_grad():
+            want = layer(*args, **kwargs)
+            torch.cuda.synchronize()
+        used = {k: v for k, v in delta(launches(), before).items() if v}
+        check(not used, f"serving example {tag}: the plain layer launched {used}")
+        got, want = (got[0], got[1], *got[2]), (want[0], want[1], *want[2])
+        for name, g, w in zip(names, got, want):
+            check_close(f"serving example {tag}: layer {idx} {name}, chunk {i + 1} "
+                        f"(L {args[0].shape[1]}) vs its plain version", g.float(), w.float(), tol)
+
+
+def phase_serving_example(device):
+    """Phase G: ``streaming_serving_torch.main`` at Base, 64-frame chunks
+    of a 256-frame clip (L 12,544 a chunk), bf16 (K4 24 and K2 1 a chunk),
+    ``--mamba2`` (K14 24, K2 25) and ``--fp32`` (K2 25, K3 24). The first
+    chunk's x_vis against a full forward of those 64 frames (2e-2 bf16,
+    1e-4 fp32); the last layer on its kernels against its plain version on
+    the same inputs, at chunk 1 and at chunk 2 from the carried state
+    (phases 6 and 17's 1e-2 for K4 and K14 at bf16, phase 2's 1e-5 for K3);
+    the bf16 stream's pooled features against the fp32 stream's, gated at
+    the 24-layer bf16 bar (2e-2) and printed beside BASELINE.md's 1e-3; each
+    chunk's host ms and the median of chunks 2-4.
+    Returns {tag: (median ms, frames/s)}."""
+    example = load_entry("examples/streaming_serving_torch.py")
+    argv = ["--chunk", str(CHUNK), "--frames", str(HEADLINE_FRAMES)]
+    runs = (("bf16", [], BF16_MODEL_TOL, BF16_TOL, {"block_fused": 24, "fused_add_norm": 1,
+                                                     "mixer_fused": 0}),
+            ("m2 bf16", ["--mamba2"], BF16_MODEL_TOL, BF16_TOL,
+             {"ssd_pmixer": 24, "fused_add_norm": 25}),
+            ("fp32", ["--fp32"], MODEL_TOL, KERNEL_TOL, {"fused_add_norm": 25, "mixer_fused": 24,
+                                                         "block_fused": 0}))
+    pools, times = {}, {}
+    chunks = HEADLINE_FRAMES // CHUNK
+    for tag, extra, tol, layer_tol, per_chunk in runs:
+        before = launches()
+        r = example.main(argv + extra)
+        torch.cuda.synchronize()
+        used = delta(launches(), before)
+        print(f"serving example {tag}: launches {used}")
+        for name, n in per_chunk.items():
+            check(used[name] == n * chunks,
+                  f"serving example {tag}: {name} {used[name]} launches, expected {n * chunks}")
+        tokens = r.first_vis.shape[1]
+        check(tokens == CHUNK * (IMG // 16) ** 2, f"serving example {tag}: {tokens} tokens")
+        with torch.no_grad():
+            full_vis, _ = r.model(r.video[:, :, :CHUNK])
+            torch.cuda.synchronize()
+        check_close(f"serving example {tag}: first chunk x_vis (L {tokens}) vs full forward",
+                    r.first_vis.float(), full_vis.float(), tol)
+        del full_vis
+        layer_vs_plain(tag, r.model, r.video, len(r.model.layers) - 1, layer_tol)
+        pools[tag] = r.pools
+        times[tag] = (r.median_ms, r.fps)
+        print(f"serving example {tag}: chunk host ms {[round(t, 3) for t in r.chunk_ms]}, "
+              f"median of chunks 2-{chunks} {r.median_ms:.3f} ms, {r.fps:.1f} frames/s")
+        del r
+        torch.cuda.empty_cache()
+    errs = [rel_err(a, b) for a, b in zip(pools["bf16"], pools["fp32"])]
+    print(f"serving example: bf16 vs fp32 pooled features per chunk "
+          f"{['%.3e' % e for e in errs]}; BASELINE.md target {BF16_FEATURE_TARGET:g} "
+          f"{'met' if max(errs) <= BF16_FEATURE_TARGET else 'not met'}, "
+          f"bar {BF16_MODEL_TOL:g}")
+    check(max(errs) <= BF16_MODEL_TOL,
+          f"serving example: bf16 vs fp32 pooled features {max(errs):.3e} > {BF16_MODEL_TOL:g}")
+    return times
+
+
+def phase_masked_example(device):
+    """Phase H: ``train_masked_pretrain_torch.main`` at Base width (depth
+    24, img 224, 8 frames, B=4, 5 steps) on a world-1 mesh (FSDP2 over a
+    one-rank NCCL group): finite losses, falling from step 0 to step 4;
+    each step's host ms from ``StepTimer`` and the peak memory."""
+    example = load_entry("examples/train_masked_pretrain_torch.py")
+    torch.cuda.reset_peak_memory_stats()
+    before = launches()
+    r = example.main(["--embed-dim", str(BASE["embed"]), "--depth", "24", "--img", str(IMG),
+                      "--frames", "8", "--batch", "4", "--steps", "5"])
+    torch.cuda.synchronize()
+    used = delta(launches(), before)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"masked example: launches {used}")
+    print(f"masked example: losses {['%.6f' % v for v in r.losses]}, step host ms "
+          f"{[round(1e3 * s, 3) for s in r.seconds]}, {peak:.2f} GiB peak, "
+          f"{r.n_visible} visible tokens")
+    check(all(np.isfinite(r.losses)), "masked example: non-finite loss")
+    check(r.losses[-1] < r.losses[0], f"masked example: loss did not fall ({r.losses})")
+    for name, n in (("fused_add_norm", 25), ("mixer_fused", 24), ("mixer_bwd", 24)):
+        check(used[name] == 5 * n, f"masked example: {name} {used[name]} launches, not {5 * n}")
+    check(not dist.is_initialized(), "masked example: left its process group")
+    torch.cuda.empty_cache()
+
+
+def phase_classifier_example(device):
+    """Phase I: ``train_classifier_torch.main`` at Base width (depth 24,
+    img 224, 8 frames, B=4, 2 epochs, 3 classes) under
+    ``configure_determinism(0, deterministic=True)``: the train state
+    (FSDP2 shards gathered) saved each epoch, the one before the last
+    reloaded and the last epoch replayed: parameters bit-equal; the eval
+    accuracy each epoch and the loader's clips/s."""
+    example = load_entry("examples/train_classifier_torch.py")
+    saved_tmp = tempfile.tempdir
+    with tempfile.TemporaryDirectory(dir=build_dir()) as tmp:
+        tempfile.tempdir = tmp  # the synthesized shards
+        try:
+            cfg = configure_determinism(0, deterministic=True)
+            print(f"classifier example under {cfg}")
+            before = launches()
+            r = example.main(["--embed-dim", str(BASE["embed"]), "--depth", "24", "--img",
+                             str(IMG), "--frames", "8", "--batch", "4", "--epochs", "2",
+                             "--classes", "3", "--ckpt-dir", os.path.join(tmp, "ckpt")])
+            torch.cuda.synchronize()
+            used = delta(launches(), before)
+        finally:
+            tempfile.tempdir = saved_tmp
+            restore_modes()
+    print(f"classifier example: launches {used}")
+    print(f"classifier example: eval accuracy by epoch {r.eval_acc}, last loss {r.loss:.4f}, "
+          f"loader {r.clips_per_s:.1f} clips/s, resume parity {r.resume_diff:.2e}")
+    check(np.isfinite(r.loss), "classifier example: non-finite loss")
+    check(r.resume_diff == 0.0, f"classifier example: resume parity {r.resume_diff:.3e}, not 0")
+    for name in ("fused_add_norm", "mixer_fused", "mixer_bwd"):
+        check(used[name] > 0, f"classifier example: {name} not launched")
+    check(not dist.is_initialized(), "classifier example: left its process group")
+    torch.cuda.empty_cache()
+
+
+def phase_profiling_utils(device):
+    """Phase J: ``profiling.trace`` around Base fp32 forwards, two of them
+    in ``annotate`` ranges (the Chrome trace's CUDA kernels launched inside
+    those ranges, matched to their launches by correlation id: K2's row
+    kernel 25 and K3's output walk 24 a forward, as the counters say); ``StepTimer``'s median against
+    CUDA-event time (within 10 %); ``device_memory_summary`` against
+    ``torch.cuda.memory_stats``; ``MetricLogger.log_every``'s memory
+    column."""
+    import logging
+
+    from videomamba_tpu_torch.utils.basic_utils import MetricLogger
+    from videomamba_tpu_torch.utils.profiling import (
+        StepTimer,
+        annotate,
+        device_memory_summary,
+        trace,
+    )
+
+    model = videomamba_base(pool_type="avg", device=device,
+                            generator=torch.Generator().manual_seed(47)).eval()
+    clip = torch.randn((1, 3, 8, IMG, IMG), generator=torch.Generator().manual_seed(48)).to(device)
+    with torch.inference_mode(), tempfile.TemporaryDirectory(dir=build_dir()) as tmp:
+        model(clip)
+        torch.cuda.synchronize()
+        with trace(tmp) as prof:
+            model(clip)  # a profiler may miss a window's first kernels: not counted
+            torch.cuda.synchronize()
+            before = launches()
+            for i in range(2):
+                with annotate(f"counted_forward_{i}"):
+                    model(clip)
+            torch.cuda.synchronize()
+            used = delta(launches(), before)
+        with open(prof.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") == "user_annotation"
+                 and e.get("name", "").startswith("counted_forward_")]
+        launched = {e["args"]["correlation"] for e in events
+                    if e.get("cat") == "cuda_runtime" and "Launch" in e.get("name", "")
+                    and any(lo <= e["ts"] <= hi for lo, hi in spans)}
+        kernels = [e["name"] for e in events
+                   if e.get("cat") == "kernel" and e["args"].get("correlation") in launched]
+        norms = sum("add_norm_kernel" in k for k in kernels)
+        walks = sum("split_output_kernel" in k for k in kernels)
+        print(f"profiling.trace: {os.path.getsize(prof.trace_path) / 2**20:.1f} MiB Chrome "
+              f"trace; in the two annotated forwards {len(launched)} kernel launches and "
+              f"{len(kernels)} CUDA kernels: add_norm_kernel {norms} "
+              f"(K2 counter {used['fused_add_norm']}), split_output_kernel {walks} "
+              f"(K3 counter {used['mixer_fused']})")
+        check(len(spans) == 2 and len(kernels) == len(launched),
+              "profiling.trace: the annotated forwards' launches and kernels do not match")
+        check(norms == used["fused_add_norm"] == 50 and walks == used["mixer_fused"] == 48,
+              "profiling.trace: the trace's K2 / K3 kernels do not match 25 / 24 a forward")
+
+        for _ in range(2):
+            model(clip)
+        timer = StepTimer()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        events_ms = []
+        for _ in range(5):
+            timer.reset_clock()
+            start.record()
+            out = model(clip)
+            stop.record()
+            timer.tick(out)
+            events_ms.append(start.elapsed_time(stop))
+        host, dev = timer.meter.median * 1e3, statistics.median(events_ms)
+        print(f"StepTimer median {host:.3f} ms, CUDA events {dev:.3f} ms "
+              f"({abs(host - dev) / dev:.1%} apart)")
+        check(abs(host - dev) <= 0.10 * dev, "StepTimer and CUDA-event times more than 10 % apart")
+
+    summary = device_memory_summary()
+    stats = torch.cuda.memory_stats()
+    peak = summary["cuda:0"]["peak_mb_in_use"] * 2**20
+    print(f"device_memory_summary: {summary['cuda:0']}")
+    check(peak == stats["allocated_bytes.all.peak"],
+          f"device_memory_summary peak {peak} != memory_stats {stats['allocated_bytes.all.peak']}")
+
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    log = logging.getLogger("videomamba_tpu_torch.utils.basic_utils")
+    keep, level = Keep(), log.level
+    log.addHandler(keep)
+    log.setLevel(logging.INFO)
+    try:
+        metrics = MetricLogger()
+        with torch.inference_mode():
+            for _ in metrics.log_every(range(3), log_freq=1, header="phase J"):
+                metrics.update(pool_norm=torch.linalg.vector_norm(model(clip)[1]))
+    finally:
+        log.removeHandler(keep)
+        log.setLevel(level)
+    print(f"MetricLogger.log_every: {lines[0]}")
+    check(all("max mem:" in line for line in lines[:-1]), "log_every printed no memory column")
+    del model
+    torch.cuda.empty_cache()
+
+
 def phase_seconds(phase, t0: float) -> float:
     """Print a phase's host seconds since ``t0``; returns the time now."""
     now = time.perf_counter()
@@ -3133,18 +3600,43 @@ def main() -> int:
         for name in names:
             check(used[name] > 0, f"{name} was not launched on the {label} path")
     zero_launches()
-    phase_files_and_determinism(device, sd0, full_vis, clip, depth)  # last: sets global modes
+    phase_files_and_determinism(device, sd0, full_vis, clip, depth)  # sets, then restores, modes
     files_det_counts = launches()
     for name in ("fused_add_norm", "mixer_fused", "mixer_bwd"):
         check(files_det_counts[name] > 0,
               f"{name} was not launched on the checkpoint and determinism path")
-    phase_seconds(30, t_new)
+    t_new = phase_seconds(30, t_new)
+
+    surface_counts = {}
+    for phase, fn, names, under_inference in (
+            ("D", phase_ops_surface, ("selective_scan",), True),
+            ("E", phase_streaming_cli, ("mixer_fused", "mixer_bwd"), False),
+            ("F", phase_checkpoint_cli, ("fused_add_norm", "mixer_fused"), False),
+            ("G", phase_serving_example, ("fused_add_norm", "block_fused", "ssd_pmixer",
+                                          "mixer_fused"), False),
+            ("H", phase_masked_example, ("fused_add_norm", "mixer_fused", "mixer_bwd"), False),
+            ("I", phase_classifier_example, ("fused_add_norm", "mixer_fused", "mixer_bwd"),
+             False),
+            ("J", phase_profiling_utils, ("fused_add_norm", "mixer_fused"), False)):
+        zero_launches()
+        with torch.inference_mode() if under_inference else contextlib.nullcontext():
+            result = fn(device)
+        surface_counts[phase] = launches()
+        print(f"phase {phase} launches: {surface_counts[phase]}")
+        for name in names:
+            check(surface_counts[phase][name] > 0, f"{name} was not launched in phase {phase}")
+        if phase == "G":
+            print("serving example, median host ms of chunks 2-4 and frames/s, 64-frame Base "
+                  "chunks: " + ", ".join(f"{tag} {ms:.3f} ms ({fps:.1f} frames/s)"
+                                         for tag, (ms, fps) in result.items()))
+        t_new = phase_seconds(phase, t_new)
 
     paths = (fp32_counts, bf16_counts, train32_counts, train16_counts, eval_counts,
              block_route_counts, decode_counts, conv_counts, m2_fp32_counts, m2_bf16_counts,
              m2_decode_counts, m2_train_counts, ssd_path_counts, gate_counts,
              masked_serving_counts, masked_train_counts, files_counts, refiner_counts,
-             sp_counts, tp_counts, sharded_counts, files_det_counts)
+             sp_counts, tp_counts, sharded_counts, files_det_counts,
+             *surface_counts.values())
     counts = {name: sum(c[name] for c in paths) for name in WRAPPERS}
 
     rows = [

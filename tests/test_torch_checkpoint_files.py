@@ -290,3 +290,23 @@ def test_build_videomamba_with_pretrained_matches_jax(tmp_path):
     assert isinstance(tm, TModel)
     assert_sd_equal(tm, jax_sd(jm))
     forwards_agree(jm, tm, 8, (8, 8))
+
+
+@pytest.mark.parametrize("num_frames", [8, 16])
+def test_load_state_dict_takes_the_jax_form(tmp_path, num_frames):
+    """``load_state_dict(path, model, ckpt_num_frame, num_frames)``, the JAX
+    and reference form, equals ``load_checkpoint`` bit for bit (at 16
+    frames through the temporal resample) and the JAX loader's values; the
+    ``(model, state_dict)`` form still loads."""
+    path = str(tmp_path / "sd.pt")
+    jckpt.save_torch_state_dict(path, jmodel(num_frames=8))
+    by_name, by_loader = tmodel(num_frames=num_frames), tmodel(num_frames=num_frames)
+    tckpt.load_state_dict(path, by_name, 8, num_frames)
+    tckpt.load_checkpoint(path, by_loader, 8, num_frames)
+    assert_sd_equal(by_name, {k: v.numpy() for k, v in by_loader.state_dict().items()})
+    jdst = jmodel(rng=2, num_frames=num_frames)
+    jckpt.load_state_dict(path, jdst, 8, num_frames)
+    assert_sd_equal(by_name, jax_sd(jdst))
+    again = tmodel(num_frames=num_frames)
+    tckpt.load_state_dict(again, by_name.state_dict())
+    assert_sd_equal(again, {k: v.numpy() for k, v in by_name.state_dict().items()})

@@ -103,6 +103,49 @@ def _one_step(sd, batch, mesh, m2=False, **ssm):
             "params": full, "opt_state_like_params": same, "shards": shards}
 
 
+def _resume(sd, batch, mesh, outdir, tag, m2=False):
+    """Two steps straight through on ``mesh`` against one step, a train
+    state saved (gathered whole), loaded into a fresh model and optimizer
+    on the same mesh, and the second step; and the same file loaded into
+    an unsharded model for the second step."""
+    from videomamba_tpu_torch.checkpoint import load_train_state, save_train_state
+    from videomamba_tpu_torch.parallel import full_state_dict, init_train_state, make_train_step
+
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    def fresh(placed=True):
+        model = _port_model(sd, m2)
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=0.05)
+        if placed:
+            init_train_state(model, opt, mesh=mesh)
+        return model, opt, make_train_step(model, opt)
+
+    model, opt, step = fresh()
+    step(tb)
+    path = os.path.join(outdir, f"state_{tag}.pt")
+    save_train_state(path, model, opt, 1)
+    after_one = full_state_dict(model)
+    step(tb)
+    straight = full_state_dict(model)
+    model2, opt2, step2 = fresh()
+    n = load_train_state(path, model2, opt2)
+    loaded = full_state_dict(model2)
+    step2(tb)
+    resumed = full_state_dict(model2)
+    model3, opt3, step3 = fresh(placed=False)
+    load_train_state(path, model3, opt3)
+    step3(tb)
+    saved = torch.load(path, weights_only=True)
+    return {
+        "step": n,
+        "file_is_whole": all(torch.equal(saved["params"][k], v) for k, v in after_one.items()),
+        "loaded_equal": all(torch.equal(loaded[k], v) for k, v in after_one.items()),
+        "resumed_equal": all(torch.equal(resumed[k], v) for k, v in straight.items()),
+        "unsharded": {k: p.detach().numpy() for k, p in model3.named_parameters()},
+        "straight": {k: v.numpy() for k, v in straight.items()},
+    }
+
+
 def _worker(rank, world, outdir):
     import torch.distributed as dist
 
@@ -123,10 +166,13 @@ def _worker(rank, world, outdir):
     tp_mesh = make_mesh(MESHES["dp1xfsdp2xtp2"], "cpu")
     res["no_fast_path"] = _one_step(inputs["m1"], batch, tp_mesh, use_fast_path=False)
     res["m2"] = _one_step(inputs["m2"], batch, tp_mesh, m2=True)
+    res["resume"] = {name: _resume(inputs["m1"], batch, make_mesh(MESHES[name], "cpu"), outdir,
+                                   name) for name in ("dp1xfsdp2xtp2", "dp2xfsdp2")}
+    res["resume"]["m2"] = _resume(inputs["m2"], batch, tp_mesh, outdir, "m2", m2=True)
     if rank:
         for v in res.values():
             if isinstance(v, dict):
-                v.pop("params")
+                v.pop("params", None)
     with open(os.path.join(outdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
     dist.barrier()
@@ -230,3 +276,23 @@ def test_fsdp_shards_lie_on_the_table_dims(results):
     assert m1["patch_embed.proj.weight"] == ([None, 0], (32, 3, 1, 8, 8))
     assert m2["layers.0.mixer.out_proj.weight"] == ([None, 1], (64, 32))
     assert m2["layers.0.mixer.in_proj.weight"] == ([None, 0], (73, 64))
+
+
+@pytest.mark.parametrize("case", ["dp1xfsdp2xtp2", "dp2xfsdp2", "m2"])
+def test_train_state_resumes_on_the_mesh(results, case):
+    """``save_train_state`` on a mesh writes the whole parameters (FSDP2
+    shards gathered, Mamba-1 tp channels joined; the Mamba-2 case stored
+    over fsdp x tp), ``load_train_state`` puts them and the optimizer's
+    states back into each rank's part: the resumed second step is bit-equal
+    to the straight one on every rank. The same file resumes an unsharded
+    model, at the sharded step's bars against one device (1e-5 / 1e-6;
+    Mamba-2 5e-3 / 1e-4)."""
+    _, ranks = results
+    rtol, atol = (5e-3, 1e-4) if case == "m2" else (1e-5, 1e-6)
+    for rank in ranks:
+        got = rank["resume"][case]
+        assert got["step"] == 1 and got["file_is_whole"] and got["loaded_equal"]
+        assert got["resumed_equal"]
+        for name, want in got["straight"].items():
+            np.testing.assert_allclose(got["unsharded"][name], want, rtol=rtol, atol=atol,
+                                       err_msg=name)

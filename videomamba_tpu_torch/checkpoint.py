@@ -13,7 +13,8 @@ for both mixers: Mamba-1's in_proj, conv1d, x_proj, dt_proj, A_log, D,
 out_proj and Mamba-2's in_proj, conv1d, dt_bias, A_log, D, norm, out_proj.
 ``refiner_params_from_jax`` does the same for a ``BiMambaRefinerBlock``.
 It reads NumPy only and never imports jax. ``load_state_dict`` loads a
-state_dict strictly: a missing or unexpected key raises. A bf16 tree (from
+state_dict strictly (a missing or unexpected key raises), or, given a path
+first, a checkpoint file as the JAX ``load_state_dict`` does. A bf16 tree (from
 ``cast_params_for_compute``) maps to fp32 tensors holding the same values,
 which load exactly into a model built at bf16.
 
@@ -32,13 +33,16 @@ and the reference loader's contract:
 * ``save_params`` / ``load_params`` and ``save_train_state`` /
   ``load_train_state`` are ``torch.save`` files of the state_dict, the
   optimizer's state and the step (the JAX package writes flax msgpack;
-  cross-framework files are the ``.pt`` state_dicts);
+  cross-framework files are the ``.pt`` state_dicts); a train state of
+  FSDP2 shards is gathered whole on save and cut back into each rank's
+  shards on load;
 * ``load_timm_npz`` maps the ViT subset of a timm ``.npz``.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import warnings
 from typing import Any, Dict, Mapping, Optional
 
@@ -134,14 +138,25 @@ def refiner_params_from_jax(tree: Mapping[str, Any], refiner=None) -> Dict[str, 
     return sd
 
 
-def load_state_dict(model: torch.nn.Module, state_dict: Mapping[str, Any]) -> None:
-    """Copy ``state_dict`` (tensors or NumPy arrays) into ``model`` strictly;
-    values are cast to each parameter's dtype and device."""
+def load_state_dict(target, source=None, ckpt_num_frame: Optional[int] = None,
+                    num_frames: Optional[int] = None) -> None:
+    """Load weights strictly, in either of two forms:
+
+    * ``load_state_dict(model, state_dict)``: copy ``state_dict`` (tensors or
+      NumPy arrays) into ``model``; values are cast to each parameter's
+      dtype and device; a missing or unexpected key raises;
+    * ``load_state_dict(pretrained_path, model, ckpt_num_frame, num_frames)``:
+      the JAX package's and the reference's form (JAX checkpoint.py:291), a
+      ``str`` or path first: :func:`load_checkpoint`.
+    """
+    if isinstance(target, (str, os.PathLike)):
+        load_checkpoint(target, source, ckpt_num_frame, num_frames)
+        return
     sd = {
         k: v if isinstance(v, Tensor) else torch.from_numpy(np.asarray(v))
-        for k, v in state_dict.items()
+        for k, v in source.items()
     }
-    model.load_state_dict(sd, strict=True)
+    target.load_state_dict(sd, strict=True)
 
 
 # --------------------------------------------------------------------- files
@@ -251,20 +266,108 @@ def load_params(path: str, model):
     return model
 
 
+def _put(dst: Tensor, whole: Tensor) -> None:
+    """Copy a tensor whole over the data ranks into ``dst`` in place: into
+    a ``DTensor``'s own shard (cut as FSDP2 cuts it, by its placements),
+    else all of it."""
+    if hasattr(dst, "device_mesh"):
+        from torch.distributed.tensor import distribute_tensor
+
+        whole = distribute_tensor(whole.to(device=dst.device, dtype=dst.dtype),
+                                  dst.device_mesh, dst.placements).to_local()
+        dst = dst.to_local()
+    dst.copy_(whole)
+
+
+def _param_names(model, optimizer) -> Dict[int, str]:
+    """The optimizer state's integer keys -> the model's parameter names."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {i: names[id(p)]
+            for i, p in enumerate(p for g in optimizer.param_groups for p in g["params"])}
+
+
+def _map_param_shaped(states, names, shapes, fn) -> None:
+    """In an optimizer's per-parameter states, replace each state key's
+    tensors shaped like their parameters (``shapes``: AdamW's moments,
+    SGD's momentum; not a step count) by ``fn`` of them, a {name: tensor}
+    map, one key at a time; every rank must call it alike."""
+    for key in sorted({k for st in states.values() for k in st}):
+        done = fn({names[i]: st[key] for i, st in states.items()
+                   if isinstance(st.get(key), Tensor) and st[key].shape == shapes[i]})
+        for i, st in states.items():
+            if names[i] in done:
+                st[key] = done[names[i]]
+
+
 def save_train_state(path: str, model, optimizer: torch.optim.Optimizer, step) -> None:
     """A training checkpoint: the model's state_dict, the optimizer's state
-    and the step counter, in one ``torch.save`` file."""
-    state = {"params": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-             "opt_state": optimizer.state_dict(), "step": int(step)}
-    torch.save(state, path)
+    and the step counter, in one ``torch.save`` file of whole CPU tensors
+    in the unsharded layout.
+
+    A model placed by ``parallel.init_train_state(..., mesh)`` holds FSDP2
+    shards (``DTensor``) and, at tp > 1, each Mamba-1 mixer's tp channels:
+    every rank must call this; the parameters and the optimizer states
+    shaped like them are gathered whole (``parallel.train_step.
+    full_tensors``), the main process writes the file and every rank waits
+    for it (JAX checkpoint.py:322-336: arrays gathered on save)."""
+    from videomamba_tpu_torch.parallel.train_step import full_tensors
+    from videomamba_tpu_torch.utils.distributed import (
+        is_dist_avail_and_initialized,
+        is_main_process,
+    )
+
+    def whole_cpu(tensors):
+        return {k: v.cpu() for k, v in full_tensors(model, tensors).items()}
+
+    params = whole_cpu(model.state_dict())
+    opt = optimizer.state_dict()
+    shapes = [p.shape for g in optimizer.param_groups for p in g["params"]]
+    states = {i: {k: v.detach().cpu() if isinstance(v, Tensor) and v.shape != shapes[i] else v
+                  for k, v in st.items()} for i, st in opt["state"].items()}
+    _map_param_shaped(states, _param_names(model, optimizer), shapes, whole_cpu)
+    if is_main_process():
+        torch.save({"params": params,
+                    "opt_state": {"state": states, "param_groups": opt["param_groups"]},
+                    "step": int(step)}, path)
+    if is_dist_avail_and_initialized():
+        import torch.distributed as dist
+
+        dist.barrier()
 
 
 def load_train_state(path: str, model, optimizer: torch.optim.Optimizer) -> int:
     """Restore a file of :func:`save_train_state` into ``model`` (strictly)
-    and ``optimizer``; returns the step."""
+    and ``optimizer``; returns the step. Into a model placed by
+    ``init_train_state(..., mesh)`` (every rank calls it) each rank copies
+    its own part of every parameter and of every optimizer state shaped
+    like its parameter: its tp channels (``parallel.train_step.
+    local_tensors``), then its FSDP2 shard (``_put``). The file's layout is
+    the unsharded one, so a run resumes on another mesh or none."""
+    from videomamba_tpu_torch.parallel.train_step import local_tensors
+
     state = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(state["params"], strict=True)
-    optimizer.load_state_dict(state["opt_state"])
+    own = model.state_dict(keep_vars=True)
+    missing, unexpected = own.keys() - state["params"].keys(), state["params"].keys() - own.keys()
+    if missing or unexpected:
+        raise RuntimeError(f"load_train_state: missing keys {sorted(missing)}, "
+                           f"unexpected keys {sorted(unexpected)}")
+    local = local_tensors(model, state["params"])
+    with torch.no_grad():
+        for k, dst in own.items():
+            _put(dst, local[k])
+
+    def placed(whole):
+        out = {}
+        for name, t in local_tensors(model, whole).items():
+            out[name] = torch.empty_like(own[name], requires_grad=False)
+            _put(out[name], t)
+        return out
+
+    names = _param_names(model, optimizer)
+    shapes = {i: state["params"][n].shape for i, n in names.items()}
+    opt_state = state["opt_state"]
+    _map_param_shaped(opt_state["state"], names, shapes, placed)
+    optimizer.load_state_dict(opt_state)
     return int(state["step"])
 
 

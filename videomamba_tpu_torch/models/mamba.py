@@ -209,7 +209,8 @@ def channel_parallel(mixers: Sequence["Mamba"], comm, hidden_states: Tensor,
             conv_out, x_dbl[..., :r] @ m.dt_proj.weight.t(), -torch.exp(m.A_log.float()),
             x_dbl[..., r:r + n], x_dbl[..., r + n:], D=m.D.float(), z=z,
             delta_bias=m.dt_proj.bias.float(), delta_softplus=True, initial_state=ssm_state,
-            return_last_state=need_state, method="kernel" if m.use_fast_path else "ref")
+            return_last_state=need_state, method="kernel" if m.use_fast_path else "ref",
+            chunk_size=m.scan_chunk_size)
         y, h_last = scan_out if need_state else (scan_out, None)
         outs.append(y @ m.out_proj.weight.t())
         h_lasts.append(h_last)
@@ -257,6 +258,8 @@ class Mamba(nn.Module):
     kernels (plain versions on CPU tensors); ``False``, or
     ``VIDEOMAMBA_DISABLE_FUSED`` in the environment, runs the plain path.
     ``bimamba`` is accepted for config parity; the mixer is unidirectional.
+    ``scan_chunk_size`` (JAX mamba.py:261) reaches ``selective_scan_bld`` as
+    its ``chunk_size``, which selects no kernel route here.
     Parameters are drawn from ``generator`` (default: seed 0).
     """
 
@@ -277,6 +280,7 @@ class Mamba(nn.Module):
         use_fast_path: bool = True,
         layer_idx: Optional[int] = None,
         bimamba: bool = True,
+        scan_chunk_size: int = 64,
         sp_axis=None,
         device=None,
         dtype: Optional[torch.dtype] = None,
@@ -297,6 +301,7 @@ class Mamba(nn.Module):
         self.dt_rank = math.ceil(d_model / 16) if dt_rank == "auto" else int(dt_rank)
         self.use_fast_path = use_fast_path and not dispatch.fused_disabled_by_env()
         self.layer_idx = layer_idx
+        self.scan_chunk_size = scan_chunk_size
         d_in, r, n = self.d_inner, self.dt_rank, d_state
 
         def lin(in_f, out_f, with_bias):
@@ -489,18 +494,26 @@ class Mamba(nn.Module):
 
     def channel_slices(self, rank: int, size: int) -> Dict[str, Tensor]:
         """This mixer's parameters for tensor-parallel rank ``rank`` of
-        ``size``, by name: its d_inner / size channels of every
-        column-parallel parameter (in_proj's rows as [x_k; z_k], conv,
-        dt_proj, A_log, D) and of the row-parallel x_proj's and out_proj's
-        columns; out_proj's bias whole."""
-        di = self.d_inner
+        ``size``, by name (:meth:`slice_channels` of its parameters)."""
+        return Mamba.slice_channels({n: p.detach() for n, p in self.named_parameters()},
+                                    self.d_inner, rank, size)
+
+    @staticmethod
+    def slice_channels(tensors: Dict[str, Tensor], d_inner: int, rank: int,
+                       size: int) -> Dict[str, Tensor]:
+        """Rank ``rank``'s part of a mixer's parameters (or of tensors
+        shaped like them, an optimizer's state), by parameter name: its
+        d_inner / size channels of every column-parallel parameter
+        (in_proj's rows as [x_k; z_k], conv, dt_proj, A_log, D) and of the
+        row-parallel x_proj's and out_proj's columns; out_proj's bias
+        whole. :meth:`join_channel_slices` inverts it."""
+        di = d_inner
         if di % size:
             raise ValueError(f"d_inner {di} does not split over {size} tensor-parallel ranks")
         c = di // size
         rows = slice(rank * c, (rank + 1) * c)
         out = {}
-        for name, p in self.named_parameters():
-            t = p.detach()
+        for name, t in tensors.items():
             if name.startswith("in_proj."):
                 t = torch.cat([t[rows], t[di:][rows]])
             elif name.startswith(("conv1d.", "dt_proj.")) or name in ("A_log", "D"):

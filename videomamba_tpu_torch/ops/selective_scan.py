@@ -2,8 +2,10 @@
 
 Port of videomamba_tpu/ops/selective_scan.py: ``selective_scan_ref`` is the
 sequential fp32 oracle (the plain version of K1), and
-``selective_scan_bld(method="kernel")`` routes through the hand-written K1
-kernel (ops/kernels/scan.py) — on a CPU tensor that is the same oracle.
+``selective_scan_bld`` with ``method`` "chunked" (the default, as in the
+JAX package), "pallas" or "kernel" routes through the hand-written K1 kernel
+(ops/kernels/scan.py) — on a CPU tensor that is the same oracle.
+:func:`selective_scan` is the reference-layout twin, (B, D, L) activations.
 State is always (B, D, N) fp32. When autograd records a kernel call it runs
 as :class:`SelectiveScanFn`, the counterpart of the JAX package's
 ``_pallas_fused_scan`` (selective_scan.py:371-407): K1 with checkpoints
@@ -21,6 +23,9 @@ import torch.nn.functional as F
 from videomamba_tpu_torch.ops.kernels import scan as _scan
 
 Tensor = torch.Tensor
+
+DEFAULT_CHUNK_SIZE = 64  # the JAX package's chunked-scan chunk (selective_scan.py:43)
+KERNEL_METHODS = ("chunked", "pallas", "kernel")  # every one runs K1
 
 
 class SelectiveScanFn(torch.autograd.Function):
@@ -99,7 +104,8 @@ def selective_scan_bld(
     delta_softplus: bool = False,
     initial_state: Optional[Tensor] = None,
     return_last_state: bool = False,
-    method: str = "ref",
+    method: str = "chunked",
+    chunk_size: int = DEFAULT_CHUNK_SIZE,
 ) -> Union[Tensor, Tuple[Tensor, Tensor]]:
     """Selective scan in (B, L, D) layout.
 
@@ -108,12 +114,23 @@ def selective_scan_bld(
             delta_bias: (D,); initial_state: (B, D, N) or None (zeros).
         delta_softplus: apply softplus to delta + delta_bias.
         return_last_state: also return the final (B, D, N) fp32 state.
-        method: "ref" (plain oracle) or "kernel" (K1; plain on a CPU tensor).
+        method: "chunked" (the default), "pallas" or "kernel" run K1 (its
+            plain version on a CPU tensor); "ref" the sequential oracle.
+            K1 takes every shape the JAX package's chunked and Pallas scans
+            take (any D, any N: ops/kernels/scan.py pads or slices the
+            state), so no method falls back to another; a CUDA operand K1
+            refuses (mixed dtypes, an unsupported device) raises.
+        chunk_size: accepted as the JAX function accepts it (a positive
+            int). It selects no route: K1 cuts time into chunks of its own
+            (``ops/kernels/scan.py walk_chunk``), and every method computes
+            the same recurrence.
 
     Returns:
         out (B, L, D) in u.dtype, or (out, last_state).
     """
-    if method == "kernel":
+    if int(chunk_size) < 1:
+        raise ValueError(f"chunk_size must be a positive int, got {chunk_size!r}")
+    if method in KERNEL_METHODS:
         fn = _kernel_fn
     elif method == "ref":
         fn = _scan.selective_scan_plain
@@ -121,6 +138,47 @@ def selective_scan_bld(
         raise ValueError(f"Unknown selective_scan method: {method!r}")
     return _run(fn, u, delta, A, B, C, D, z, delta_bias, delta_softplus,
                 initial_state, return_last_state)
+
+
+def selective_scan(
+    u: Tensor,
+    delta: Tensor,
+    A: Tensor,
+    B: Tensor,
+    C: Tensor,
+    D: Optional[Tensor] = None,
+    z: Optional[Tensor] = None,
+    delta_bias: Optional[Tensor] = None,
+    delta_softplus: bool = False,
+    initial_state: Optional[Tensor] = None,
+    return_last_state: bool = False,
+    method: str = "chunked",
+    chunk_size: int = DEFAULT_CHUNK_SIZE,
+) -> Union[Tensor, Tuple[Tensor, Tensor]]:
+    """Reference-layout selective scan: u, delta, z (B, D, L); B, C (B, N, L).
+
+    The layout twin of the reference's ``selective_scan_fn`` (JAX
+    selective_scan.py:535-576): copies the activations to (B, L, D) rows
+    (the layout K1 reads), runs :func:`selective_scan_bld` with the same
+    arguments and returns y as a (B, D, L) view. The last state is
+    (B, D, N) fp32 in both layouts.
+    """
+    if u.ndim != 3 or B.ndim != 3 or C.ndim != 3:
+        raise ValueError("u, B, C must be rank-3: (B, D, L) and (B, N, L).")
+
+    def rows(t):
+        return None if t is None else t.transpose(1, 2).contiguous()
+
+    out = selective_scan_bld(
+        rows(u), rows(delta), A, rows(B), rows(C), D=D, z=rows(z),
+        delta_bias=delta_bias, delta_softplus=delta_softplus,
+        initial_state=initial_state, return_last_state=return_last_state,
+        method=method, chunk_size=chunk_size,
+    )
+    if return_last_state:
+        y, h = out
+        return y.transpose(1, 2), h
+    return out.transpose(1, 2)
 
 
 def selective_state_update(

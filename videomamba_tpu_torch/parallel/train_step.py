@@ -307,24 +307,50 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
 
 def full_state_dict(model: nn.Module) -> Dict[str, Tensor]:
     """The whole parameters of a model placed by ``init_train_state``, by
-    name, on every rank: FSDP2's shards gathered, then each Mamba-1 mixer's
-    tp channels joined in the JAX order (``Mamba.join_channel_slices``).
-    Every rank must call it. A model with no mesh gives its parameters."""
+    name, on every rank (:func:`full_tensors` of its parameters). Every
+    rank must call it. A model with no mesh gives its parameters."""
+    return full_tensors(model, {n: p.detach() for n, p in model.named_parameters()})
+
+
+def _tp_mixers(model: nn.Module):
+    """(prefix, mixer) of every Mamba-1 mixer split over tensor-parallel
+    ranks, and the tp group; empty without tp."""
     plan: Optional[TrainMesh] = getattr(model, "train_mesh", None)
-    out = {}
-    for name, p in model.named_parameters():
-        t = p.detach()
-        out[name] = t.full_tensor() if hasattr(t, "full_tensor") else t.clone()
     if plan is None or mesh_lib.axis_size(plan.mesh, "tp") == 1:
+        return [], None
+    from videomamba_tpu_torch.models.mamba import Mamba
+
+    mixers = [(f"{name}.mixer.", block.mixer) for name, block in _blocks(model)
+              if isinstance(block.mixer, Mamba)]
+    return mixers, plan.mesh.get_group("tp")
+
+
+def _whole_copy(t: Tensor) -> Tensor:
+    """A copy of ``t``, whole: a ``DTensor``'s shards gathered. Over one
+    rank the gather hands back the shard itself, the live parameter's
+    storage, so that is copied."""
+    if not hasattr(t, "full_tensor"):
+        return t.detach().clone()
+    whole = t.detach().full_tensor()
+    if whole.untyped_storage().data_ptr() == t.to_local().untyped_storage().data_ptr():
+        whole = whole.clone()
+    return whole
+
+
+def full_tensors(model: nn.Module, tensors: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """Copies of ``tensors`` (by parameter name: the parameters, or an
+    optimizer's state shaped like them) whole on every rank: FSDP2's shards gathered,
+    then each Mamba-1 mixer's tp channels joined in the JAX order
+    (``Mamba.join_channel_slices``). Every rank must call it with the same
+    names."""
+    out = {name: _whole_copy(t) for name, t in tensors.items()}
+    mixers, tp_group = _tp_mixers(model)
+    if not mixers:
         return out
     from videomamba_tpu_torch.models.mamba import Mamba
 
-    tp_group = plan.mesh.get_group("tp")
     size = dist.get_world_size(tp_group)
-    for name, block in _blocks(model):
-        if not isinstance(block.mixer, Mamba):
-            continue
-        prefix = f"{name}.mixer."
+    for prefix, _ in mixers:
         local = {n[len(prefix):]: t for n, t in out.items() if n.startswith(prefix)}
         gathered = [dict() for _ in range(size)]
         for n, t in local.items():
@@ -333,5 +359,24 @@ def full_state_dict(model: nn.Module) -> Dict[str, Tensor]:
             for g, part in zip(gathered, parts):
                 g[n] = part
         for n, t in Mamba.join_channel_slices(gathered).items():
+            out[prefix + n] = t
+    return out
+
+
+def local_tensors(model: nn.Module, whole: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """The inverse of :func:`full_tensors`' tp join: each Mamba-1 mixer's
+    tensors cut to this rank's tp channels (``Mamba.slice_channels``), the
+    rest as given. The result is still whole over the data ranks (FSDP2's
+    placements cut it, ``checkpoint`` does)."""
+    mixers, tp_group = _tp_mixers(model)
+    out = dict(whole)
+    if not mixers:
+        return out
+    from videomamba_tpu_torch.models.mamba import Mamba
+
+    rank, size = dist.get_rank(tp_group), dist.get_world_size(tp_group)
+    for prefix, mixer in mixers:
+        part = {n[len(prefix):]: t for n, t in whole.items() if n.startswith(prefix)}
+        for n, t in Mamba.slice_channels(part, mixer.d_inner, rank, size).items():
             out[prefix + n] = t
     return out

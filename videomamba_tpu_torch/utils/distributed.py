@@ -173,6 +173,45 @@ def init_distributed_mode(args) -> None:
     setup_for_distributed(args.rank == 0)
 
 
+def init_run_group(device):
+    """The process group of a training script; returns a function that
+    ends what this call started.
+
+    A group that already exists is used as it is (the returned function
+    does nothing). Under torchrun or SLURM (RANK and WORLD_SIZE, or
+    SLURM_PROCID, in the environment) :func:`init_distributed_mode` starts
+    it. Otherwise the run is one process: a one-rank group over a file
+    rendezvous in a new temporary directory, NCCL on the card, gloo for a
+    CPU ``device``, so a mesh (``parallel.make_mesh``) and FSDP2 run at
+    world size 1 too.
+    """
+    import shutil
+    import tempfile
+    from types import SimpleNamespace
+
+    if is_dist_avail_and_initialized():
+        return lambda: None
+    device = torch.device(device)
+    if ("RANK" in os.environ and "WORLD_SIZE" in os.environ) or "SLURM_PROCID" in os.environ:
+        init_distributed_mode(SimpleNamespace(device=device.type, dist_url=None))
+        return dist.destroy_process_group
+    root = tempfile.mkdtemp(prefix="vmt_group_")
+    kw = {}
+    if device.type == "cuda":
+        index = torch.cuda.current_device() if device.index is None else device.index
+        torch.cuda.set_device(index)
+        kw["device_id"] = torch.device("cuda", index)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method="file://" + os.path.join(root, "rendezvous"),
+                            world_size=1, rank=0, **kw)
+
+    def close():
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+
+    return close
+
+
 # ------------------------------------------------------------- collectives
 
 class _GatherLayer(torch.autograd.Function):
