@@ -71,6 +71,7 @@ from videomamba_tpu_torch.streaming import (
     expected_state_shapes as contract_state_shapes,
     forward_return_semantics as get_forward_return_semantics,
 )
+from videomamba_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -92,7 +93,8 @@ def _host_mask(mask) -> Optional[np.ndarray]:
     if mask is None:
         return None
     if isinstance(mask, Tensor):
-        return mask.detach().cpu().numpy()
+        with annotate("vmt.sync.mask_to_host"):
+            return mask.detach().cpu().numpy()
     return np.asarray(mask)
 
 
@@ -413,7 +415,9 @@ class PretrainVideoMamba(nn.Module):
         if end <= pos_len:
             return pos_embed[:, offset:end].to(dtype)
         m = torch.from_numpy(linear_resample_matrix(pos_len, end)[offset:end])
-        pos = torch.einsum("ol,blc->boc", m.to(pos_embed.device), pos_embed.float())
+        with annotate("vmt.sync.temporal_resample"):
+            m = m.to(pos_embed.device)
+        pos = torch.einsum("ol,blc->boc", m, pos_embed.float())
         return pos.to(dtype)
 
     # --------------------------------------------------------------- masking
@@ -492,51 +496,55 @@ class PretrainVideoMamba(nn.Module):
         """Patchify -> pos-add -> (CLS) -> (visible-token gather) -> depth x
         Block -> final norm."""
         compute_dtype = self.patch_embed.proj.weight.dtype
-        tokens = self.patch_embed(x.to(compute_dtype))  # (B, T', HW, E)
-        bsz = tokens.shape[0]
-        tokens = tokens + spatial_pos.to(compute_dtype)[:, None]
-        tokens = tokens + temporal_pos.to(compute_dtype)[:, :, None]
-        tokens = tokens.reshape(bsz, -1, self.embed_dim)
-        if has_cls:
-            cls_tok = (self.cls_token + self.pos_embed[:, :1]).to(compute_dtype)
-            tokens = torch.cat([cls_tok.expand(bsz, 1, self.embed_dim), tokens], dim=1)
-        if visible_positions is not None:
-            index = torch.from_numpy(visible_positions).to(tokens.device)
-            tokens = torch.take_along_dim(tokens, index[:, :, None], dim=1)
+        with annotate("vmt.model.embed"):
+            tokens = self.patch_embed(x.to(compute_dtype))  # (B, T', HW, E)
+            bsz = tokens.shape[0]
+            tokens = tokens + spatial_pos.to(compute_dtype)[:, None]
+            tokens = tokens + temporal_pos.to(compute_dtype)[:, :, None]
+            tokens = tokens.reshape(bsz, -1, self.embed_dim)
+            if has_cls:
+                cls_tok = (self.cls_token + self.pos_embed[:, :1]).to(compute_dtype)
+                tokens = torch.cat([cls_tok.expand(bsz, 1, self.embed_dim), tokens], dim=1)
+            if visible_positions is not None:
+                with annotate("vmt.sync.visible_index"):
+                    index = torch.from_numpy(visible_positions).to(tokens.device)
+                tokens = torch.take_along_dim(tokens, index[:, :, None], dim=1)
 
-        hidden_states, residual = tokens, None
-        masks = self._drop_path_masks(bsz, generator, tokens.device)
-        new_states = [None] * self.depth if state is not None else None
-        for idx, layer in enumerate(self.layers):
-            layer_state = self._get_layer_state(state, idx)
-            mask = masks[idx]
-            if isinstance(layer_state, (list, tuple)) and len(layer_state) == 2:
-                hidden_states, residual, new_states[idx] = layer(
-                    hidden_states, residual=residual, state=tuple(layer_state),
-                    return_state=True, drop_path_mask=mask,
-                )
-            elif layer_state is not None:
-                hidden_states, residual, new_states[idx] = layer(
-                    hidden_states, residual=residual, ssm_state=layer_state,
-                    return_ssm_state=True, drop_path_mask=mask,
-                )
-            elif (self.use_checkpoint and idx < self.checkpoint_num
-                  and torch.is_grad_enabled()):
-                hidden_states, residual = _checkpointed_block(
-                    layer, hidden_states, residual, mask)
-            else:
-                hidden_states, residual = layer(
-                    hidden_states, residual=residual, drop_path_mask=mask
-                )
+        with annotate("vmt.model.blocks"):
+            hidden_states, residual = tokens, None
+            masks = self._drop_path_masks(bsz, generator, tokens.device)
+            new_states = [None] * self.depth if state is not None else None
+            for idx, layer in enumerate(self.layers):
+                layer_state = self._get_layer_state(state, idx)
+                mask = masks[idx]
+                if isinstance(layer_state, (list, tuple)) and len(layer_state) == 2:
+                    hidden_states, residual, new_states[idx] = layer(
+                        hidden_states, residual=residual, state=tuple(layer_state),
+                        return_state=True, drop_path_mask=mask,
+                    )
+                elif layer_state is not None:
+                    hidden_states, residual, new_states[idx] = layer(
+                        hidden_states, residual=residual, ssm_state=layer_state,
+                        return_ssm_state=True, drop_path_mask=mask,
+                    )
+                elif (self.use_checkpoint and idx < self.checkpoint_num
+                      and torch.is_grad_enabled()):
+                    hidden_states, residual = _checkpointed_block(
+                        layer, hidden_states, residual, mask)
+                else:
+                    hidden_states, residual = layer(
+                        hidden_states, residual=residual, drop_path_mask=mask
+                    )
 
-        if masks[-1] is not None:
-            hidden_states = drop_path(hidden_states, masks[-1], self.drop_path_rate)
-        hidden_states = fused_add_norm(
-            hidden_states, self.norm.weight, self.norm.bias, residual=residual,
-            prenorm=False, residual_in_fp32=self.residual_in_fp32,
-            eps=self.norm_epsilon, norm_type="rms" if self.rms_norm else "layer",
-            use_kernel=self.fused_add_norm,
-        )
+        with annotate("vmt.model.norm"):
+            if masks[-1] is not None:
+                hidden_states = drop_path(hidden_states, masks[-1], self.drop_path_rate)
+            hidden_states = fused_add_norm(
+                hidden_states, self.norm.weight, self.norm.bias, residual=residual,
+                prenorm=False, residual_in_fp32=self.residual_in_fp32,
+                eps=self.norm_epsilon, norm_type="rms" if self.rms_norm else "layer",
+                use_kernel=self.fused_add_norm,
+            )
         return hidden_states, new_states
 
     # ---------------------------------------------------------------- public
@@ -565,15 +573,17 @@ class PretrainVideoMamba(nn.Module):
         t_tokens = self._validate_temporal_length(x.shape[2])
         grid_h, grid_w = self._spatial_token_grid(x.shape[-2], x.shape[-1])
         compute_dtype = self.patch_embed.proj.weight.dtype
-        spatial_pos = self._get_spatial_pos_embedding(grid_h, grid_w, compute_dtype)
-        temporal_pos = self._get_temporal_pos_embedding(
-            t_tokens, temporal_pos_offset, compute_dtype
-        )
+        with annotate("vmt.model.positions"):
+            spatial_pos = self._get_spatial_pos_embedding(grid_h, grid_w, compute_dtype)
+            temporal_pos = self._get_temporal_pos_embedding(
+                t_tokens, temporal_pos_offset, compute_dtype
+            )
         has_cls = self._has_cls_token_for_forward(ssm_state, temporal_pos_offset)
         token_count = t_tokens * grid_h * grid_w + (1 if has_cls else 0)
-        _, visible_positions = self._visible_token_positions(
-            mask, x.shape[0], token_count, require_cls_visible=has_cls
-        )
+        with annotate("vmt.model.mask"):
+            _, visible_positions = self._visible_token_positions(
+                mask, x.shape[0], token_count, require_cls_visible=has_cls
+            )
         state_list, container, any_full = self._canonicalize_state(ssm_state)
 
         x_vis, new_states = self._encoder(
@@ -664,10 +674,11 @@ class PretrainVideoMamba(nn.Module):
                 "mask must keep at least one patch token visible when using "
                 f"pool_type='{self.pool_type}'."
             )
-        x_pool = self._pool(
-            cls_token, patch_tokens, mask, keep_temporal, temporal_tokens,
-            tokens_per_frame, has_cls, x.shape[0],
-        )
+        with annotate("vmt.model.pool"):
+            x_pool = self._pool(
+                cls_token, patch_tokens, mask, keep_temporal, temporal_tokens,
+                tokens_per_frame, has_cls, x.shape[0],
+            )
         if ssm_state is None:
             return patch_tokens, x_pool
         return patch_tokens, x_pool, next_state
@@ -755,11 +766,13 @@ class PretrainVideoMamba(nn.Module):
                 "token for each temporal slice."
             )
         device, dtype = patch_tokens.device, patch_tokens.dtype
-        one_hot = torch.nn.functional.one_hot(
-            torch.from_numpy(frame_indices).to(device), temporal_tokens
-        ).to(dtype)  # (B, Nvis, T')
+        with annotate("vmt.sync.pool_frames"):
+            frames = torch.from_numpy(frame_indices).to(device)
+        one_hot = torch.nn.functional.one_hot(frames, temporal_tokens).to(dtype)  # (B, Nvis, T')
         temporal_sum = torch.einsum("bvt,bvc->btc", one_hot, patch_tokens)
-        return temporal_sum / torch.from_numpy(counts).to(device=device, dtype=dtype)[:, :, None]
+        with annotate("vmt.sync.pool_counts"):
+            frame_counts = torch.from_numpy(counts).to(device=device, dtype=dtype)
+        return temporal_sum / frame_counts[:, :, None]
 
 
 def build_videomamba(config, add_pool_norm: bool = True, device=None,

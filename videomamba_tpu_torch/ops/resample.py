@@ -15,6 +15,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from videomamba_tpu_torch.utils.profiling import annotate
+
 Tensor = torch.Tensor
 
 _CUBIC_A = -0.75  # PyTorch bicubic coefficient
@@ -73,13 +75,16 @@ def cubic_resample_matrix(in_len: int, out_len: int) -> np.ndarray:
     return m.astype(np.float32)
 
 
-def _matrix(m: np.ndarray, like: Tensor) -> Tensor:
-    return torch.from_numpy(m).to(device=like.device)
+def _matrix(m: np.ndarray, like: Tensor, site: str) -> Tensor:
+    """``m`` on ``like``'s device: a copy from pageable host memory, which
+    waits for the card (the span ``vmt.sync.<site>``)."""
+    with annotate(f"vmt.sync.{site}"):
+        return torch.from_numpy(m).to(device=like.device)
 
 
 def resample_linear_1d(x: Tensor, out_len: int) -> Tensor:
     """Resample (..., L, C) along L; fp32 math, returns fp32."""
-    w = _matrix(linear_resample_matrix(x.shape[-2], out_len), x)
+    w = _matrix(linear_resample_matrix(x.shape[-2], out_len), x, "resample_1d")
     return torch.einsum("ol,...lc->...oc", w, x.float())
 
 
@@ -89,8 +94,8 @@ def resample_bicubic_2d(x: Tensor, out_hw: Tuple[int, int]) -> Tensor:
     Separable cubic interpolation, identical to PyTorch's bicubic.
     """
     out_h, out_w = out_hw
-    wh = _matrix(cubic_resample_matrix(x.shape[-3], out_h), x)
-    ww = _matrix(cubic_resample_matrix(x.shape[-2], out_w), x)
+    wh = _matrix(cubic_resample_matrix(x.shape[-3], out_h), x, "resample_2d")
+    ww = _matrix(cubic_resample_matrix(x.shape[-2], out_w), x, "resample_2d")
     x32 = torch.einsum("oh,...hwc->...owc", wh, x.float())
     return torch.einsum("pw,...owc->...opc", ww, x32)
 

@@ -47,6 +47,7 @@ from torch import nn
 from videomamba_tpu_torch.parallel import mesh as mesh_lib
 from videomamba_tpu_torch.utils.distributed import all_reduce_mean
 from videomamba_tpu_torch.utils.precision import keep_fp32
+from videomamba_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -115,11 +116,12 @@ def _cast_pre_hook(unit: nn.Module, args) -> None:
     if dtype is not None:
         from torch.nn.utils.stateless import _reparametrize_module
 
-        cast = {name: p.to(dtype) for name, p in unit.named_parameters()
-                if not name.startswith(unit._compute_cast_skip)
-                and p.dtype == torch.float32 and not keep_fp32(name)}
-        ctx = _reparametrize_module(unit, cast)
-        ctx.__enter__()
+        with annotate("vmt.train.cast"):
+            cast = {name: p.to(dtype) for name, p in unit.named_parameters()
+                    if not name.startswith(unit._compute_cast_skip)
+                    and p.dtype == torch.float32 and not keep_fp32(name)}
+            ctx = _reparametrize_module(unit, cast)
+            ctx.__enter__()
     unit._compute_cast_ctx.append(ctx)
 
 
@@ -277,30 +279,36 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             unit._compute_dtype = dtype
 
     def step(batch: Dict[str, Tensor], generator: Optional[torch.Generator] = None):
-        model.train()
-        if plan is not None:
-            size = len(batch["video"])
-            batch = _rows(batch, mesh_lib.batch_rows(plan.mesh, size), size)
-        batch = {k: v.to(device) if isinstance(v, Tensor) else v for k, v in batch.items()}
-        optimizer.zero_grad(set_to_none=True)
-        set_compute_dtype(compute_dtype)  # also for a recompute in the backward
-        try:
-            loss, metrics = loss_fn(batch, generator)
-            loss.backward()
-        finally:
-            set_compute_dtype(None)
-        metrics = dict(metrics)
-        if plan is None:
-            grads = [p.grad for p in model.parameters() if p.grad is not None]
-            metrics["grad_norm"] = global_norm(grads).detach()
-        else:
-            for k, v in metrics.items():
-                if isinstance(v, Tensor):
-                    v = all_reduce_mean(v, plan.mesh.get_group("dp"))
-                    metrics[k] = all_reduce_mean(v, plan.mesh.get_group("fsdp"))
-            metrics["grad_norm"] = sharded_global_norm(model, plan).detach()
-        optimizer.step()
-        return metrics
+        with annotate("vmt.train.step"):
+            model.train()
+            if plan is not None:
+                size = len(batch["video"])
+                batch = _rows(batch, mesh_lib.batch_rows(plan.mesh, size), size)
+            batch = {k: v.to(device) if isinstance(v, Tensor) else v for k, v in batch.items()}
+            optimizer.zero_grad(set_to_none=True)
+            set_compute_dtype(compute_dtype)  # also for a recompute in the backward
+            try:
+                with annotate("vmt.train.forward"):
+                    loss, metrics = loss_fn(batch, generator)
+                with annotate("vmt.train.backward"):
+                    loss.backward()
+            finally:
+                set_compute_dtype(None)
+            metrics = dict(metrics)
+            if plan is not None:
+                for k, v in metrics.items():
+                    if isinstance(v, Tensor):
+                        v = all_reduce_mean(v, plan.mesh.get_group("dp"))
+                        metrics[k] = all_reduce_mean(v, plan.mesh.get_group("fsdp"))
+            with annotate("vmt.train.grad_norm"):
+                if plan is None:
+                    grads = [p.grad for p in model.parameters() if p.grad is not None]
+                    metrics["grad_norm"] = global_norm(grads).detach()
+                else:
+                    metrics["grad_norm"] = sharded_global_norm(model, plan).detach()
+            with annotate("vmt.train.optimizer"):
+                optimizer.step()
+            return metrics
 
     return step
 

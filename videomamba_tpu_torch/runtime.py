@@ -15,6 +15,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from videomamba_tpu_torch.utils.profiling import annotate
+
 
 def resolve_device(device=None) -> torch.device:
     """The device to build on: ``device`` when given, else the CUDA card.
@@ -59,13 +61,14 @@ class StreamingSession:
     def process(self, chunk: torch.Tensor, mask=None, keep_temporal: bool = False):
         """Run one chunk; returns the model's forward outputs minus the state,
         which the session keeps."""
-        out = self.model(
-            chunk,
-            mask=mask,
-            keep_temporal=keep_temporal,
-            ssm_state=self.state,
-            temporal_pos_offset=self.offset,
-        )
+        with annotate("vmt.session.process"):
+            out = self.model(
+                chunk,
+                mask=mask,
+                keep_temporal=keep_temporal,
+                ssm_state=self.state,
+                temporal_pos_offset=self.offset,
+            )
         *outputs, self.state = out
         self.offset += chunk.shape[2] // self.model.patch_embed.tubelet_size
         return tuple(outputs) if len(outputs) > 1 else outputs[0]

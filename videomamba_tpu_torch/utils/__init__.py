@@ -14,5 +14,6 @@
   cosine schedule with warmup;
 - ``precision``: bf16 serving casts;
 - ``profiling``: ``trace`` (``torch.profiler``), ``StepTimer``,
-  ``device_memory_summary``, ``annotate``.
+  ``device_memory_summary``, ``annotate`` (the port's ``vmt.`` spans,
+  free without a profiler; the span names are in its docstring).
 """

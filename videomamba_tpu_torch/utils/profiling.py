@@ -8,7 +8,35 @@
   step's outputs live there.
 * :func:`device_memory_summary` — each visible card's memory counters in
   MB, under the JAX module's keys.
-* :func:`annotate` — a named range in the trace.
+* :func:`annotate` — a named range in the trace, free without a profiler.
+
+Tracing a serving session or a train step: run the calls under
+:func:`trace`, ``with trace("prof"): session.process(chunk)``, and open
+``prof.trace_path`` in Perfetto. The port marks its own phases with
+:func:`annotate` ranges, on the same timeline as the card's kernels and
+copies; each is a ``record_function`` range while a profiler records, and
+one shared do-nothing context (under a microsecond) otherwise, so they stay
+in the code at no cost. Names start with ``vmt.`` (never ``vmt_``, the prefix of
+the kernel library's C entries):
+
+* ``vmt.session.process``: one ``runtime.StreamingSession.process`` call;
+* ``vmt.train.step``: one step of ``parallel.make_train_step``, holding
+  ``vmt.train.forward`` (the loss function), ``vmt.train.backward``,
+  ``vmt.train.grad_norm`` and ``vmt.train.optimizer`` (``optimizer.step``);
+* ``vmt.train.cast``: one unit's cast of its parameters to the compute
+  dtype (each Block and the model: depth + 1 a forward; a checkpointed
+  recompute casts again, on autograd's thread);
+* ``vmt.model.mask`` (the host mask's checks and visible positions),
+  ``vmt.model.positions`` (spatial and temporal positions, with their
+  resampling), ``vmt.model.embed`` (patch embedding, positions, CLS and
+  the visible-token gather), ``vmt.model.blocks`` (the Blocks),
+  ``vmt.model.norm`` (the final norm) and ``vmt.model.pool`` (the pooling
+  head): ``PretrainVideoMamba``'s phases;
+* ``vmt.sync.<site>``: a statement that blocks the host until the card has
+  run what was queued before it (a copy from pageable host memory, a copy
+  to the host): ``mask_to_host``, ``visible_index``, ``temporal_resample``,
+  ``pool_frames``, ``pool_counts``, ``resample_1d``, ``resample_2d``. Their
+  count is the number of host syncs.
 """
 
 from __future__ import annotations
@@ -109,6 +137,13 @@ def device_memory_summary() -> Dict[str, Dict[str, float]]:
     return out
 
 
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """A named range in the profile: ``with annotate("block_7"): ...``"""
+    """A named range in the profile: ``with annotate("vmt.model.blocks"):
+    ...``. Without a profiler recording, the shared do-nothing context: no
+    ``record_function`` is made."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
     return torch.profiler.record_function(name)
