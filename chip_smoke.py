@@ -1175,7 +1175,8 @@ def print_parts(label, parts):
 
 # K14's product tile kernels: the first launch of one in a call is in_proj,
 # the second out_proj.
-PRODUCT_TILES = ("gemm_nt_kernel", "gemm_nt_bf16_kernel", "gemm_nt_wide_kernel")
+PRODUCT_TILES = ("gemm_nt_kernel", "gemm_nt_bf16_kernel", "gemm_nt_wide_kernel",
+                 "product_kernel")
 
 
 def pmixer_split(label, kw, iters: int = 10):

@@ -313,7 +313,8 @@ def launch_sequence(fn, iters: int = 10):
 
 # K14's own product tile kernels (any version of the port): the first launch
 # of one in a call is in_proj, the second out_proj.
-PRODUCT_TILES = ("gemm_nt_kernel", "gemm_nt_bf16_kernel", "gemm_nt_wide_kernel")
+PRODUCT_TILES = ("gemm_nt_kernel", "gemm_nt_bf16_kernel", "gemm_nt_wide_kernel",
+                 "product_kernel")
 
 
 def pmixer_split(seq) -> dict:

@@ -1926,6 +1926,106 @@ def test_ssd_pmixer_bwd_at_strides_tma_cannot(dev, dtype, odd):
     assert all(a is None or torch.equal(a, c) for a, c in zip(got, again))
 
 
+# ------------------------- the serving forward's bf16 projections on wgmma
+
+# (M, N, K, C's dtype): K4's in_proj (fp32 xz) and out_proj, K14's in_proj
+# (N = Di + CD) and out_proj at 4 streams of a 64-frame chunk (B L = 4 x
+# 12,545 rows), and one stream's rows (ragged against every tile height)
+# with each output dtype.
+SERVING_PRODUCTS = {
+    "k4_in_proj": (50180, 3072, 768, torch.float32),
+    "k4_out_proj": (50180, 768, 1536, torch.bfloat16),
+    "k14_in_proj": (50180, 3200, 768, torch.bfloat16),
+    "k14_out_proj": (50180, 768, 1536, torch.bfloat16),
+    "rows12545_fp32": (12545, 3200, 768, torch.float32),
+    "rows12545_bf16": (12545, 768, 1536, torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SERVING_PRODUCTS))
+def test_wgmma_nt_product_at_the_serving_shapes(dev, case):
+    """The bf16 NT product of the serving forward alone, activations against
+    weights scaled as the model's, C in fp32 or bf16: against the plain
+    version at the K14 product tests' bf16 bar, two calls bit-identical."""
+    from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14
+
+    m, n, k, out = SERVING_PRODUCTS[case]
+    a = randn(m, k, dev=dev, seed=60).to(torch.bfloat16)
+    b = randn(n, k, dev=dev, seed=61, scale=k ** -0.5).to(torch.bfloat16)
+    got = k14.projection_product("nt", a, b, out_dtype=out)
+    again = k14.projection_product("nt", a, b, out_dtype=out)
+    torch.cuda.synchronize()
+    assert got.dtype == out and torch.equal(got, again)
+    want = k14.projection_product_plain("nt", a, b, out_dtype=out)
+    assert rel_err(got, want) <= BWD_BF16_TOL
+
+
+@pytest.mark.parametrize("kind", ["block_fused", "ssd_pmixer"])
+def test_serving_forward_at_four_streams_from_a_carried_state(dev, kind):
+    """K4 (Base) and K14's forward (Base-m2) at the serving cells' shape, 4
+    streams of L 12,545, bf16, from a nonzero carried state (SSM state and
+    conv window): every output against the plain version at the bf16 bar
+    (1e-2), two calls bit-identical."""
+    from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14
+
+    b, L = 4, 12545
+    with torch.inference_mode():
+        if kind == "block_fused":
+            kw = _block_inputs(dev, torch.bfloat16, b=b, L=L, **{
+                k: v for k, v in BASE_WIDTHS.items() if k != "b"})
+            assert kw["h0"].abs().max() > 0 and kw["conv_state"].abs().max() > 0
+            _same_twice_and_plain(k4.block_fused, k4.block_fused_plain, kw, BF16_TOL)
+        else:
+            kw = _ssd_inputs(dev, torch.bfloat16, b, L, 24, 64, 1, 64, 128, e=768)
+            kw.update(kw.pop("cfg"))
+            del kw["zxbcdt"]
+            _same_twice_and_plain(k14.ssd_pmixer, k14.ssd_pmixer_plain, kw, BF16_TOL)
+
+
+def test_serving_forward_hands_in_and_out_proj_to_wgmma(dev):
+    """Under the profiler: a bf16 K4 call runs in_proj and out_proj on the
+    wgmma tile (hg::product_kernel) and only x_proj and dt_proj on the
+    mma.sync tile (gemm_nt_bf16_kernel); a bf16 K14 call runs no
+    gemm_nt_bf16_kernel. Each counts 2 wgmma_products; fp32 calls count 0."""
+    from torch.autograd import DeviceType
+
+    from videomamba_tpu_torch.ops.kernels import ssd_pmixer as k14
+
+    k4_kw = _block_inputs(dev, torch.bfloat16, b=1, L=300, **{
+        k: v for k, v in BASE_WIDTHS.items() if k != "b"})
+    m2_kw = _ssd_inputs(dev, torch.bfloat16, 1, 300, 24, 64, 1, 64, 128, e=768)
+    m2_kw.update(m2_kw.pop("cfg"))
+    del m2_kw["zxbcdt"]
+
+    def kernels(fn, kw):
+        with torch.inference_mode():
+            fn(**kw)
+            torch.cuda.synchronize()
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            before = fn.wgmma_products
+            with torch.profiler.profile(activities=acts) as prof:
+                fn(**kw)
+                torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        return ({tag: sum(tag in nm for nm in names)
+                 for tag in ("gemm_nt_bf16_kernel", "product_kernel")},
+                fn.wgmma_products - before)
+
+    assert kernels(k4.block_fused, k4_kw) == (
+        {"gemm_nt_bf16_kernel": 2, "product_kernel": 2}, 2)
+    assert kernels(k14.ssd_pmixer, m2_kw) == (
+        {"gemm_nt_bf16_kernel": 0, "product_kernel": 2}, 2)
+
+    def fp32(kw):
+        return {k: v.float() if torch.is_tensor(v) else v for k, v in kw.items()}
+
+    before = k4.block_fused.wgmma_products, k14.ssd_pmixer.wgmma_products
+    with torch.inference_mode():
+        k4.block_fused(**fp32(k4_kw))
+        k14.ssd_pmixer(**fp32(m2_kw))
+    assert (k4.block_fused.wgmma_products, k14.ssd_pmixer.wgmma_products) == before
+
+
 # The distribution slice's shapes: a Base clip of 16 frames (3136 tokens)
 # over 4 sequence-parallel ranks (784 a shard; the local scan from a zero
 # state, no D, gate or bias, the last state kept), and a Base mixer's

@@ -27,20 +27,29 @@
 // SiLU, x_proj, dt_proj (mixer_parts.cuh), the walk's three (chunk states,
 // the pass over chunks, the output walk: scan_walk_split.cuh), out_proj.
 // The four products are written here (the TPU kernel computes them in its
-// body): bf16 tensor-core tiles (mma.sync) on the bf16 path, fp32 FMA tiles
-// on the fp32 path.
+// body). At bf16, in_proj and out_proj run on hopper_gemm.cuh's persistent
+// TMA-fed wgmma tile (hg::product, NT, 256 x 128 tiles; in_proj writes xz in
+// fp32, the NT product's fp32 output), and the walk stores y in bf16: its
+// store rounds to nearest even (__float2bfloat16_rn), as the mma.sync
+// tile's load rounded the fp32 y before, so out_proj reads the same
+// values, now through TMA, which cannot convert. x_proj and dt_proj stay
+// on the 64 x 64 mma.sync tile (mixer_parts.cuh gemm_nt_bf16): x_proj's
+// N = R + 2N = 80 and dt_proj's K = R = 48 at Base, where a 128-wide,
+// 64-deep wgmma tile would leave most of its width or depth idle. At fp32
+// all four run on fp32 FMA tiles.
 //
-// What bounds it on the H100 (Base, batch 1, bf16): its operations, 0.0156
-// ms (11 GFLOP of bf16 products on the tensor cores, the walk's and conv's
-// fp32 arithmetic), beside 0.0065 ms for the 22 MB of its inputs and outputs.
-// The walk once set the time, a serial chain of L steps on ceil(Di / 128)
-// blocks (12 at Base); it now cuts time into chunks that pass a state from
-// one to the next (scan_walk_split.cuh), so its launches fill the card.
-// Then in_proj and out_proj (7.4 and 3.7 GFLOP at Base, L = 1569), which
-// single-stage tiles run well below the tensor-core peak.
+// What bounds it on the H100 (Base, bf16): its operations. At the serving
+// shape (4 streams of L 12,545, 50,180 rows; H100 SXM 700 W) the Block
+// takes about 4.1 ms: in_proj 0.42 ms (237 GFLOP, 0.24 ms at 989 TFLOP/s),
+// out_proj 0.18 (118 GFLOP, 0.12 ms), where the mma.sync tile took 1.83
+// and 1.02; the walk (chunk states, pass, output walk: 2.1 ms) and conv +
+// SiLU (0.7 ms) are now most of it. The walk cuts time into chunks that
+// pass a state from one to the next (scan_walk_split.cuh), so its launches
+// fill the card; it is a serial chain within a chunk.
 #include <type_traits>
 
 #include "add_norm.cuh"
+#include "hopper_gemm.cuh"
 #include "mixer_parts.cuh"
 #include "scan_walk_split.cuh"
 
@@ -55,7 +64,7 @@ cudaError_t products_and_walk(const void* normed, const void* in_w,
                               const void* out_w, const float* conv_state,
                               vmt::ScanArgs& walk, const vmt::SplitArgs& split,
                               float* xz, float* conv_out,
-                              float* x_dbl, float* delta, float* y, void* out,
+                              float* x_dbl, float* delta, void* y, void* out,
                               int batch, int L, int E, int Di, int W, int R,
                               int N, cudaStream_t s) {
   using T = typename std::conditional<kBf16, vmt::bf16, float>::type;
@@ -63,8 +72,8 @@ cudaError_t products_and_walk(const void* normed, const void* in_w,
   const int P = R + 2 * N;
   cudaError_t err;
   if constexpr (kBf16) {
-    err = vmt::gemm_nt_bf16<T, float>((const T*)normed, E, (const T*)in_w, E,
-                                      xz, 2 * Di, rows, 2 * Di, E, s);
+    err = vmt::hg::product<T>(vmt::hg::kNT, (const T*)normed, E, (const T*)in_w, E, xz, 2 * Di,
+                              rows, 2 * Di, E, nullptr, s, /*c_f32=*/true);
   } else {
     err = vmt::gemm_nt((const T*)normed, E, (const T*)in_w, E, xz, 2 * Di,
                        rows, 2 * Di, E, s);
@@ -106,14 +115,14 @@ cudaError_t products_and_walk(const void* normed, const void* in_w,
   walk.D = Di;
   walk.softplus = 1;
   walk.round_z = kBf16 ? 1 : 0;
-  err = vmt::launch_scan_walk_split<float, float, float, true>(walk, split, batch, N, s);
+  err = vmt::launch_scan_walk_split<float, float, T, true>(walk, split, batch, N, s);
   if (err != cudaSuccess) return err;
 
   if constexpr (kBf16) {
-    return vmt::gemm_nt_bf16<float, T>(y, Di, (const T*)out_w, Di, (T*)out, E,
-                                       rows, E, Di, s);
+    return vmt::hg::product<T>(vmt::hg::kNT, (const T*)y, Di, (const T*)out_w, Di, out, E, rows,
+                               E, Di, nullptr, s);
   } else {
-    return vmt::gemm_nt(y, Di, (const T*)out_w, Di, (T*)out, E, rows, E, Di, s);
+    return vmt::gemm_nt((const T*)y, Di, (const T*)out_w, Di, (T*)out, E, rows, E, Di, s);
   }
 }
 
@@ -125,8 +134,9 @@ cudaError_t products_and_walk(const void* normed, const void* in_w,
 // conv_w (Di, W), conv_b (Di,), x_proj_w (R + 2N, Di), dt_proj_w (Di, R) in
 // the weight dtype; dt_bias, Dskip (Di,), A (Di, N), h0 / h_last
 // (batch, Di, N), conv_state (batch, Di, W): fp32. All contiguous. Scratch:
-// normed (batch * L * E, weight dtype), xz (batch * L * 2Di), conv_out, delta
-// and y (batch * L * Di), x_dbl (batch * L * (R + 2N)), all fp32; the
+// normed and y (batch * L * E and batch * L * Di, the weight dtype), xz
+// (batch * L * 2Di), conv_out and delta (batch * L * Di), x_dbl
+// (batch * L * (R + 2N)), fp32; the
 // walk's walk_states (batch, nchunks - 1, Di, N) and walk_dtsum
 // (batch, nchunks - 1, Di), fp32, nchunks = ceil(L / walk_chunk), walk_chunk
 // a multiple of 16. ckpt: (batch, ceil(L / 16), Di, N) fp32, or null for
@@ -139,7 +149,7 @@ extern "C" int vmt_block_fused(
     const float* A, const float* Dskip, const float* h0,
     const float* conv_state, void* out, void* res_out, int res_out_bf16,
     float* h_last, float* ckpt, void* normed, float* xz, float* conv_out,
-    float* x_dbl, float* delta, float* y, float* walk_states, float* walk_dtsum,
+    float* x_dbl, float* delta, void* y, float* walk_states, float* walk_dtsum,
     int walk_chunk, int is_bf16, int batch, int L, int E, int Di, int W, int R,
     int N, float eps, int is_rms, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);

@@ -1,10 +1,15 @@
 // Matrix products on Hopper's tensor cores fed by TMA: the five projection
 // products of K14's backward (ssd_pmixer_bwd.cu), which the TPU kernel runs
 // in its body (videomamba_tpu/ops/pallas/ssd_block.py:655, 692, 696, 855,
-// 859). Three layouts, named by how A and B are stored:
+// 859), and, at bf16, the forward's in_proj and out_proj of K4
+// (block_fused.cu) and of K14 (ssd_pmixer.cu), which the TPU kernels also
+// run in their bodies (block_fused.py, ssd_block.py:286, 323). Three
+// layouts, named by how A and B are stored:
 //
 //   kNT: C = A B^T, A (M, K) and B (N, K), both contraction-contiguous
-//        (K-major): zx = hidden Win^T. C is written in the operands' dtype.
+//        (K-major): zx = hidden Win^T, K4's xz = normed Win^T and out =
+//        y Wout^T. C is written in the operands' dtype, or in fp32 where
+//        the caller asks (K4's xz, which its walk reads in fp32).
 //   kNN: C = A B, A (M, K) K-major, B (K, N) with N contiguous (MN-major):
 //        dgated = dout Wout, dhidden = dzx Win. C fp32.
 //   kTN: C = A^T B, A (K, M) and B (K, N), both MN-major: a weight gradient,
@@ -27,21 +32,37 @@
 // shared memory. The transpose that NN's B and both TN operands need
 // happens in that pass, where every value is read once.
 //
-// Design. One block computes a 128 x 128 tile of C: a producer warpgroup
-// and two consumer warpgroups, each taking 64 rows with wgmma m64n128 (64
-// fp32 sums a thread in registers). A k-tile is 128 bytes deep (64 bf16 or
-// 32 fp32 values), so each operand's tile is 128 shared-memory rows of 128
-// bytes (16 KB) in TMA's 128-byte swizzle: one box {64 or 32, 128} K-major
-// or two (bf16) or four (fp32) square boxes MN-major. The tiles go through a
-// ring of 4 stages filled by one TMA thread and released by the consumers
-// on mbarriers (128 KB). bf16 keeps one k-tile of wgmma in flight. fp32
-// adds two buffers of B's hi and lo tiles (64 KB), so B's split of k-tile
-// t overlaps the products of t - 1; its consumers hold 64 sums, 64 partial
-// sums and A's 32 split values in flight, so the producer hands them its
-// registers (setmaxnreg: 232 a consumer thread, 40 a producer thread).
-// 128 x 128 gives 325 blocks to zx at VideoMamba-Base-m2 (B L = 1569).
-// Shared memory bounds the fp32 path: each k-tile moves about 190 KB
-// through it (TMA's writes, B's split, wgmma's reads of B three times).
+// Design. One block computes 128 kMB x 128 tiles of C: a producer
+// warpgroup and two consumer warpgroups, each taking 64 kMB rows with kMB
+// wgmma m64n128 per k16 step (64 fp32 sums a thread per m64 block, in
+// registers). kMB is 2 for the bf16 NT products (the serving forward's
+// in_proj and out_proj, and zx): a 256 x 128 tile reads 48 KB a k-tile for
+// 4.2 MFLOP, where 128 x 128 reads 32 KB for 2.1, a quarter less traffic
+// from L2 a FLOP (at the serving shapes 10-15 % less time on the H100).
+// The other layouts and fp32 keep kMB 1.
+// A k-tile is 128 bytes deep (64 bf16 or 32 fp32 values), so each 128 rows
+// of an operand's tile are 128 shared-memory rows of 128 bytes (16 KB) in
+// TMA's 128-byte swizzle: one box {64 or 32, 128} K-major or two (bf16) or
+// four (fp32) square boxes MN-major. The tiles go through a ring of 4
+// stages filled by one TMA thread and released by the consumers on
+// mbarriers (192 KB at kMB 2, 128 KB at kMB 1). bf16 keeps one k-tile of
+// wgmma in flight. fp32 adds two buffers of B's hi and lo tiles (64 KB), so
+// B's split of k-tile t overlaps the products of t - 1; its consumers hold
+// 64 sums, 64 partial sums and A's 32 split values in flight, and bf16 at
+// kMB 2 holds 128 sums, so the producer hands them its registers
+// (setmaxnreg: 232 a consumer thread, 40 a producer thread). Shared memory bounds the fp32
+// path: each k-tile moves about 190 KB through it (TMA's writes, B's
+// split, wgmma's reads of B three times).
+//
+// Persistent walk. One block an SM walks C's tiles (and a kTN product's
+// contraction slices) in the order tile = blockIdx.x + i gridDim.x, N
+// fastest: the blocks in flight share a few row panels of A, and the
+// weight operand B (4.7 MB at Base's in_proj) stays in L2 whole. The ring's
+// stage and phase run on across tiles, so the producer loads the next
+// tile's first k-tiles while the consumers store this tile's sums, and a
+// launch pays for its prologue once an SM, not once a tile (K4's in_proj
+// at K = 768 has 12 k-tiles a tile, and its fp32 epilogue writes 128 KB a
+// 256 x 128 tile).
 //
 // Edges. TMA fills rows and columns past the ends with zeros and the
 // epilogue masks its stores, so ragged B L, widths and K take the same tiles.
@@ -56,10 +77,22 @@
 // kMaxSplits slices when a model of the waves and of the extra bytes says
 // it pays; the slices' fp32 tiles are summed in slice order by a second
 // launch. No floating-point atomics: repeated calls are bit-identical.
+//
+// What bounds each product on the H100: its operations. At the serving
+// cells' shape (4 streams of L 12,545: 50,180 rows, bf16, H100 SXM 700 W),
+// in time against the least time at 989 TFLOP/s (bytes at 3.35 TB/s):
+// K4's in_proj (N 3072, K 768, fp32 C) 0.423 ms against 0.239 (0.209),
+// K14's in_proj (N 3200) 0.406 against 0.249 (0.120), either out_proj (N
+// 768, K 1536) 0.182 against 0.120 (0.070): 57-66 % of the peak, where
+// cuBLAS takes 0.33, 0.35-0.38 and 0.17 ms. What is left is the traffic
+// from L2 into shared memory (48 KB a k-tile of 256 x 128) and the
+// epilogue, which no other warpgroup's products cover.
 #pragma once
 
 #include <cuda.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "add_norm.cuh"
 
@@ -68,21 +101,33 @@ namespace hg {
 
 enum Layout : int { kNT = 0, kNN = 1, kTN = 2 };
 
-constexpr int kTileM = 128, kTileN = 128;  // a block's tile of C
+constexpr int kTileN = 128;                // a block's tile of C: 128 kMB x 128
 constexpr int kRowBytes = 128;             // a shared-memory row: the swizzle span
-constexpr int kTileBytes = 128 * kRowBytes;
-constexpr int kConsumers = 256;            // two warpgroups, 64 rows of C each
+constexpr int kTileBytes = 128 * kRowBytes;  // 128 rows of an operand's k-tile
+constexpr int kConsumers = 256;            // two warpgroups, 64 kMB rows of C each
 constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
 constexpr int kMaxSplits = 4;               // contraction slices of a kTN product
+constexpr int kMaxDevices = 64;             // devices the host caches know
 
-template <typename T>
+// m64 blocks a consumer warpgroup takes: 2 for bf16 NT (A K-major), else 1.
+template <typename T, int kLayout>
+constexpr int m_blocks() {
+  return sizeof(T) == 2 && kLayout == kNT ? 2 : 1;
+}
+
+template <typename T, int kMB>
 struct Ring {
   static constexpr bool kBf16 = sizeof(T) == 2;
   static constexpr int kDepth = kRowBytes / (int)sizeof(T);  // k values a k-tile
+  static constexpr int kTileM = 128 * kMB;                   // rows of C a tile
+  static constexpr int kABytes = kMB * kTileBytes;           // A's k-tile
+  static constexpr int kStageBytes = kABytes + kTileBytes;   // and B's
   static constexpr int kStages = 4;
   static constexpr int kSplitBufs = kBf16 ? 0 : 2;  // fp32: B's hi and lo tiles
+  // Consumers need more than launch_bounds' 168 registers a thread.
+  static constexpr bool kMoreRegs = !kBf16 || kMB > 1;
   static constexpr int kSmem =
-      (2 * kStages + 2 * kSplitBufs) * kTileBytes + 16 * kStages + 1024;  // + alignment
+      kStages * kStageBytes + 2 * kSplitBufs * kTileBytes + 16 * kStages + 1024;  // + alignment
 };
 
 struct Operand {
@@ -93,12 +138,23 @@ struct Operand {
 
 struct Args {
   Operand a, b;
-  void* c;        // (M, N), rows of ldc: the operands' dtype (kNT) or fp32
+  void* c;        // (M, N), rows of ldc: fp32, or the operands' dtype (kNT)
   long long ldc;
-  float* part;    // gridDim.z > 1: gridDim.z slices of (M, N) fp32
+  float* part;    // splits > 1: splits slices of (M, N) fp32
   int M, N, K;
   int ktiles, per_split;
+  int tiles_m, tiles_n, splits;  // the walk: tiles_m tiles_n splits work items
 };
+
+// Work item i of the persistent walk: C's tile (m0, n0) of contraction
+// slice z, N fastest.
+__device__ __forceinline__ void work_item(const Args& a, int tile_m, int i, int& m0, int& n0,
+                                          int& z) {
+  const int n = i % a.tiles_n, r = i / a.tiles_n;
+  n0 = n * kTileN;
+  m0 = (r % a.tiles_m) * tile_m;
+  z = r / a.tiles_m;
+}
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -235,28 +291,30 @@ __device__ __forceinline__ void tile_coords(int row, int e, int mn0, int k0, int
   }
 }
 
-// TMA loads of one operand's k-tile (the map's box: {kDepth, 128} K-major,
-// {kDepth, kDepth} MN-major).
-template <int kDepth, bool kMN>
+// TMA loads of one operand's k-tile of 128 kBlocks rows (the map's box:
+// {kDepth, 128} K-major, {kDepth, kDepth} MN-major, where kBlocks is 1).
+template <int kDepth, bool kMN, int kBlocks>
 __device__ __forceinline__ void load_tile(const CUtensorMap* map, uint32_t dst, uint32_t bar,
                                           int mn0, int k0) {
   if constexpr (kMN) {
+    static_assert(kBlocks == 1, "MN-major tiles are 128 rows");
 #pragma unroll
     for (int j = 0; j < 128 / kDepth; ++j)
       tma_load(dst + j * kDepth * kRowBytes, map, bar, mn0 + j * kDepth, k0);
   } else {
-    tma_load(dst, map, bar, k0, mn0);
+#pragma unroll
+    for (int j = 0; j < kBlocks; ++j) tma_load(dst + j * kTileBytes, map, bar, k0, mn0 + 128 * j);
   }
 }
 
 // The staging variant's load of the same k-tile, by the 128 producer
 // threads, element by element (any address and row stride).
-template <typename T, bool kMN>
+template <typename T, bool kMN, int kBlocks>
 __device__ __forceinline__ void stage_tile(const Operand& op, uint8_t* dst, int mn0, int k0,
                                            int pt) {
-  constexpr int kDepth = Ring<T>::kDepth;
+  constexpr int kDepth = kRowBytes / (int)sizeof(T);
   const T* src = (const T*)op.ptr;
-  for (int i = pt; i < 128 * kDepth; i += 128) {
+  for (int i = pt; i < 128 * kBlocks * kDepth; i += 128) {
     const int row = i / kDepth, e = i % kDepth;
     int ci, co;
     tile_coords<kDepth, kMN>(row, e, mn0, k0, ci, co);
@@ -355,11 +413,47 @@ __device__ __forceinline__ void store_pair(TO* c, long long ldc, int M, int N, i
   if (col + 1 < N) p[1] = from_f32<TO>(v1);
 }
 
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // This warpgroup's 64 x 128 sums: wgmma's accumulator layout, d[4 j + q] at
 // row 16 warp + lane / 4 + 8 (q / 2), column 8 j + 2 (lane % 4) + q % 2.
+// Where the tile's 128 columns lie inside C and rows of C start on 16
+// bytes, neighbouring lanes swap halves of column blocks j and j + 1 (one
+// shuffle a value), so each lane stores 4 consecutive values and a warp's
+// store covers whole 32-byte sectors of 8 rows (bf16: one sector a row, not
+// two halves; fp32: two a row) with half the store instructions.
 template <typename TO>
 __device__ __forceinline__ void store_tile(const float (&d)[64], TO* c, long long ldc, int M,
                                            int N, int row0, int col0) {
+  const int lane = threadIdx.x & 31;
+  if (col0 - 2 * (lane & 3) + kTileN <= N && ldc % 4 == 0 && (uintptr_t)c % 16 == 0) {
+    const bool odd = lane & 1;  // odd lanes store block j + 1, even lanes block j
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      TO* const p = c + (long long)row * ldc + col0 + (odd ? 6 : 0);
+#pragma unroll
+      for (int j = 0; j < 16; j += 2) {
+        const float* a = &d[4 * j + 2 * h];        // block j: columns 2 (lane % 4) + {0, 1}
+        const float* b = &d[4 * (j + 1) + 2 * h];  // block j + 1
+        if constexpr (sizeof(TO) == 2) {
+          const uint32_t wa = pack_bf16x2(a[0], a[1]), wb = pack_bf16x2(b[0], b[1]);
+          const uint32_t r = __shfl_xor_sync(0xffffffffu, odd ? wa : wb, 1);
+          if (row < M) *(uint2*)(p + 8 * j) = odd ? make_uint2(r, wb) : make_uint2(wa, r);
+        } else {
+          const float r0 = __shfl_xor_sync(0xffffffffu, odd ? a[0] : b[0], 1);
+          const float r1 = __shfl_xor_sync(0xffffffffu, odd ? a[1] : b[1], 1);
+          if (row < M)
+            *(float4*)(p + 8 * j) =
+                odd ? make_float4(r0, r1, b[0], b[1]) : make_float4(a[0], a[1], r0, r1);
+        }
+      }
+    }
+    return;
+  }
   const bool vec = ldc % 2 == 0 && (uintptr_t)c % (2 * sizeof(TO)) == 0;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
@@ -370,27 +464,25 @@ __device__ __forceinline__ void store_tile(const float (&d)[64], TO* c, long lon
   }
 }
 
-template <typename T, int kLayout, bool kTma, typename TO>
+template <typename T, int kLayout, int kMB, bool kTma, typename TO>
 __global__ void __launch_bounds__(kThreads, 1)
     product_kernel(const __grid_constant__ CUtensorMap map_a,
                    const __grid_constant__ CUtensorMap map_b, const Args args) {
-  using R = Ring<T>;
+  using R = Ring<T, kMB>;
   constexpr int kDepth = R::kDepth, kStages = R::kStages;
   constexpr bool kAMN = kLayout == kTN, kBMN = kLayout != kNT;
+  static_assert(kMB == 1 || !kAMN, "an MN-major A takes 64 rows a warpgroup");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw0 = saddr(smem_raw);
   const uint32_t base = (raw0 + 1023) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - raw0);
-  // Stage s: A's tile at s 2 kTileBytes, B's after it; fp32: B's split
+  // Stage s: A's tile at s kStageBytes, B's after it; fp32: B's split
   // buffers; then the full and empty barriers of each stage.
-  const uint32_t split0 = base + 2 * kStages * kTileBytes;
+  const uint32_t split0 = base + kStages * R::kStageBytes;
   const uint32_t bars = split0 + 2 * R::kSplitBufs * kTileBytes;
   const auto full = [&](int s) { return bars + 8 * s; };
   const auto empty = [&](int s) { return bars + 8 * (kStages + s); };
-
-  const int m0 = blockIdx.x * kTileM, n0 = blockIdx.y * kTileN;
-  const int kt0 = blockIdx.z * args.per_split;
-  const int nkt = min(args.ktiles - kt0, args.per_split);  // >= 1 (the host's split)
+  const int items = args.tiles_m * args.tiles_n * args.splits;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -401,103 +493,138 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
+  // Both sides walk the same work items; `it` counts k-tiles over all of
+  // them, so a stage's phase runs on from one tile to the next.
   if (threadIdx.x >= kConsumers) {  // the producer: fill the ring
-    // fp32: hand registers to the consumers (168 a thread at launch; 40
-    // here, 232 there)
-    if constexpr (!R::kBf16) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    // hand registers to the consumers (168 a thread at launch; 40 here,
+    // 232 there)
+    if constexpr (R::kMoreRegs) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
     const int pt = threadIdx.x - kConsumers;
     if (!kTma || pt == 0) {
-      for (int t = 0; t < nkt; ++t) {
-        const int s = t % kStages;
-        bar_wait(empty(s), ((t / kStages) & 1) ^ 1);
-        const int k0 = (kt0 + t) * kDepth;
-        const uint32_t sa = base + 2 * s * kTileBytes, sb = sa + kTileBytes;
-        if constexpr (kTma) {
-          bar_expect(full(s), 2 * kTileBytes);
-          load_tile<kDepth, kAMN>(&map_a, sa, full(s), m0, k0);
-          load_tile<kDepth, kBMN>(&map_b, sb, full(s), n0, k0);
-        } else {
-          stage_tile<T, kAMN>(args.a, gbase + (sa - base), m0, k0, pt);
-          stage_tile<T, kBMN>(args.b, gbase + (sb - base), n0, k0, pt);
-          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-          bar_arrive(full(s));
+      int it = 0;
+      for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        int m0, n0, z;
+        work_item(args, R::kTileM, i, m0, n0, z);
+        const int kt0 = z * args.per_split;
+        const int nkt = min(args.ktiles - kt0, args.per_split);  // >= 1 (the host's split)
+        for (int t = 0; t < nkt; ++t, ++it) {
+          const int s = it % kStages;
+          bar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+          const int k0 = (kt0 + t) * kDepth;
+          const uint32_t sa = base + s * R::kStageBytes, sb = sa + R::kABytes;
+          if constexpr (kTma) {
+            bar_expect(full(s), R::kStageBytes);
+            load_tile<kDepth, kAMN, kMB>(&map_a, sa, full(s), m0, k0);
+            load_tile<kDepth, kBMN, 1>(&map_b, sb, full(s), n0, k0);
+          } else {
+            stage_tile<T, kAMN, kMB>(args.a, gbase + (sa - base), m0, k0, pt);
+            stage_tile<T, kBMN, 1>(args.b, gbase + (sb - base), n0, k0, pt);
+            asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+            bar_arrive(full(s));
+          }
         }
       }
     }
   } else {  // the consumers
-    if constexpr (!R::kBf16) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
-    const int wg = threadIdx.x / 128;  // rows [64 wg, 64 wg + 64) of the tile
+    if constexpr (R::kMoreRegs) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    const int wg = threadIdx.x / 128;  // rows [64 kMB wg, 64 kMB (wg + 1)) of the tile
     const int warp = (threadIdx.x & 127) >> 5, lane = threadIdx.x & 31;
     // bf16: the wgmma sums d run over all of K. fp32: d holds one k-tile's
     // products and is added into acc in fp32 after each k-tile, since the
     // tensor cores' own fp32 sums truncate (over K = 3200 they drift by 2e-5
     // of the largest element on the card, the fp32 bar).
-    float d[64], acc[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) d[i] = acc[i] = 0.f;
+    float d[kMB][64], acc[64];
     uint32_t a[4][2][4];  // fp32: A's split values of a k-tile, in flight
-    for (int t = 0; t < nkt; ++t) {
-      const int s = t % kStages;
-      bar_wait(full(s), (t / kStages) & 1);
-      const uint32_t sa = base + 2 * s * kTileBytes, sb = sa + kTileBytes;
-      if constexpr (R::kBf16) {
-        // A's 64 rows: K-major, rows 64 wg on; MN-major, the 64-wide block
-        // wg. A k16 step: 32 bytes along a K-major row, 16 rows of an
-        // MN-major tile.
-        wg_fence();
+    int it = 0;
+    for (int i = blockIdx.x; i < items; i += gridDim.x) {
+      int m0, n0, z;
+      work_item(args, R::kTileM, i, m0, n0, z);
+      const int kt0 = z * args.per_split;
+      const int nkt = min(args.ktiles - kt0, args.per_split);
 #pragma unroll
-        for (int kk = 0; kk < kDepth / 16; ++kk) {
-          const uint32_t pa = sa + wg * 64 * kRowBytes + (kAMN ? kk * 16 * kRowBytes : kk * 32);
-          const uint32_t pb = sb + (kBMN ? kk * 16 * kRowBytes : kk * 32);
-          mma_bf16<kAMN, kBMN>(d, desc(pa, kAMN ? 64 * kRowBytes : 16, 8 * kRowBytes),
-                               desc(pb, kBMN ? 64 * kRowBytes : 16, 8 * kRowBytes));
+      for (int j = 0; j < 64; ++j) {
+        acc[j] = 0.f;
+#pragma unroll
+        for (int mb = 0; mb < kMB; ++mb) d[mb][j] = 0.f;
+      }
+      for (int t = 0; t < nkt; ++t, ++it) {
+        const int s = it % kStages;
+        bar_wait(full(s), (it / kStages) & 1);
+        const uint32_t sa = base + s * R::kStageBytes, sb = sa + R::kABytes;
+        if constexpr (R::kBf16) {
+          // A's 64-row blocks: K-major, rows 64 (kMB wg + mb) on; MN-major,
+          // the 64-wide block wg. A k16 step: 32 bytes along a K-major row,
+          // 16 rows of an MN-major tile.
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < kDepth / 16; ++kk) {
+            const uint32_t pb = sb + (kBMN ? kk * 16 * kRowBytes : kk * 32);
+            const uint64_t db = desc(pb, kBMN ? 64 * kRowBytes : 16, 8 * kRowBytes);
+#pragma unroll
+            for (int mb = 0; mb < kMB; ++mb) {
+              const uint32_t pa = sa + (wg * kMB + mb) * 64 * kRowBytes +
+                                  (kAMN ? kk * 16 * kRowBytes : kk * 32);
+              mma_bf16<kAMN, kBMN>(d[mb], desc(pa, kAMN ? 64 * kRowBytes : 16, 8 * kRowBytes),
+                                   db);
+            }
+          }
+          wg_commit();
+          wg_wait<1>();  // k-tile it - 1's products are done: release its stage
+          if (t > 0) release(empty((it - 1) % kStages));
+        } else {
+          // B's split of k-tile it (while it - 1's products run), then A's
+          // into registers once it - 1's have released theirs.
+          const uint32_t sp = split0 + (it & 1) * 2 * kTileBytes;  // B hi, B lo
+          split_tile<kBMN>(gbase + (sb - base), gbase + (sp - base),
+                           gbase + (sp - base) + kTileBytes, threadIdx.x);
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          wg_wait<0>();  // this warpgroup's products of k-tile it - 1
+          fence_sums(d[0]);
+          fence_frags(a);
+#pragma unroll
+          for (int j = 0; j < 64; ++j) acc[j] += d[0][j];
+          split_frags<kAMN>(gbase + (sa - base), wg * 64 + warp * 16, a);
+          release(empty(s));
+          // Both warpgroups: B's split of it is written and it - 1's
+          // products, which read the other buffer, are done (the next split
+          // may reuse it).
+          asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < kDepth / 8; ++kk) {
+            const uint64_t bhi = desc(sp + kk * 32, 16, 8 * kRowBytes);
+            const uint64_t blo = desc(sp + kTileBytes + kk * 32, 16, 8 * kRowBytes);
+            mma_tf32(d[0], a[kk][0], bhi, kk > 0);
+            mma_tf32(d[0], a[kk][0], blo, 1);
+            mma_tf32(d[0], a[kk][1], bhi, 1);
+          }
+          wg_commit();
         }
-        wg_commit();
-        wg_wait<1>();  // k-tile t - 1's products are done: release its stage
-        if (t > 0) release(empty((t - 1) % kStages));
+      }
+      wg_wait<0>();
+#pragma unroll
+      for (int mb = 0; mb < kMB; ++mb) fence_sums(d[mb]);
+      if constexpr (R::kBf16) {
+        release(empty((it - 1) % kStages));  // the tile's last k-tile
       } else {
-        // B's split of k-tile t (while t - 1's products run), then A's into
-        // registers once t - 1's have released theirs.
-        const uint32_t sp = split0 + (t & 1) * 2 * kTileBytes;  // B hi, B lo
-        split_tile<kBMN>(gbase + (sb - base), gbase + (sp - base),
-                         gbase + (sp - base) + kTileBytes, threadIdx.x);
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        wg_wait<0>();  // this warpgroup's products of k-tile t - 1
-        fence_sums(d);
         fence_frags(a);
 #pragma unroll
-        for (int i = 0; i < 64; ++i) acc[i] += d[i];
-        split_frags<kAMN>(gbase + (sa - base), wg * 64 + warp * 16, a);
-        release(empty(s));
-        // Both warpgroups: B's split of t is written and t - 1's products,
-        // which read the other buffer, are done (the next split may reuse it).
-        asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
-        wg_fence();
-#pragma unroll
-        for (int kk = 0; kk < kDepth / 8; ++kk) {
-          const uint64_t bhi = desc(sp + kk * 32, 16, 8 * kRowBytes);
-          const uint64_t blo = desc(sp + kTileBytes + kk * 32, 16, 8 * kRowBytes);
-          mma_tf32(d, a[kk][0], bhi, kk > 0);
-          mma_tf32(d, a[kk][0], blo, 1);
-          mma_tf32(d, a[kk][1], bhi, 1);
-        }
-        wg_commit();
+        for (int j = 0; j < 64; ++j) d[0][j] += acc[j];
       }
-    }
-    wg_wait<0>();
-    fence_sums(d);
-    if constexpr (!R::kBf16) {
-      fence_frags(a);
-#pragma unroll
-      for (int i = 0; i < 64; ++i) d[i] += acc[i];
-    }
 
-    const int row0 = m0 + wg * 64 + warp * 16 + lane / 4, col0 = n0 + 2 * (lane & 3);
-    if (gridDim.z > 1) {
-      store_tile(d, args.part + (long long)blockIdx.z * args.M * args.N, args.N, args.M,
-                 args.N, row0, col0);
-    } else {
-      store_tile(d, (TO*)args.c, args.ldc, args.M, args.N, row0, col0);
+      // The stores are issued and left to drain while the next tile's
+      // products run.
+#pragma unroll
+      for (int mb = 0; mb < kMB; ++mb) {
+        const int row0 = m0 + (wg * kMB + mb) * 64 + warp * 16 + lane / 4;
+        const int col0 = n0 + 2 * (lane & 3);
+        if (args.splits > 1) {
+          store_tile(d[mb], args.part + (long long)z * args.M * args.N, args.N, args.M, args.N,
+                     row0, col0);
+        } else {
+          store_tile(d[mb], (TO*)args.c, args.ldc, args.M, args.N, row0, col0);
+        }
+      }
     }
   }
 }
@@ -545,7 +672,7 @@ inline bool tma_describes(const Operand& op) {
 
 template <typename T>
 inline cudaError_t make_map(CUtensorMap* map, const Operand& op, bool mn_major) {
-  constexpr int kDepth = Ring<T>::kDepth;
+  constexpr int kDepth = kRowBytes / (int)sizeof(T);
   const cuuint64_t dims[2] = {(cuuint64_t)op.inner, (cuuint64_t)op.outer};
   const cuuint64_t strides[1] = {(cuuint64_t)op.ld * sizeof(T)};
   const cuuint32_t box[2] = {(cuuint32_t)kDepth, (cuuint32_t)(mn_major ? kDepth : 128)};
@@ -553,23 +680,36 @@ inline cudaError_t make_map(CUtensorMap* map, const Operand& op, bool mn_major) 
   const EncodeTiled encode = encode_tiled();
   if (!encode) return cudaErrorNotSupported;
   const CUresult res = encode(
-      map, Ring<T>::kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
       2, const_cast<void*>(op.ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The current device and its SM count, read from the runtime once a device.
+inline cudaError_t device_sms(int& dev, int& sms) {
+  static std::atomic<int> known[kMaxDevices];
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if (dev < kMaxDevices && (sms = known[dev].load(std::memory_order_relaxed)) > 0)
+    return cudaSuccess;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if (dev < kMaxDevices) known[dev].store(sms, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
 // Contraction slices of a product: 1 but for kTN, whose slice count (at most
 // kMaxSplits, each slice at least one k-tile) has the least modelled time:
-// waves of blocks at one an SM times each block's k-tiles, plus the bytes of
-// the ordered sum. The model's rates are round figures for the card; the
-// choice depends on the shape and the SM count only, so repeats match.
+// waves of work items at one an SM times each item's k-tiles, plus the
+// bytes of the ordered sum. The model's rates are round figures for the
+// card; the choice depends on the shape and the SM count only, so repeats
+// match. (kTN tiles are 128 x 128.)
 inline int splits_for(int layout, bool bf16, int M, int N, int K, int sms) {
   if (layout != kTN) return 1;
   const int depth = bf16 ? 64 : 32;
-  const long long tiles =
-      (long long)((M + kTileM - 1) / kTileM) * ((N + kTileN - 1) / kTileN);
+  const long long tiles = (long long)((M + 127) / 128) * ((N + kTileN - 1) / kTileN);
   const int ktiles = (K + depth - 1) / depth;
   const double ktile_s = bf16 ? 0.4e-6 : 1.2e-6;  // one block's k-tile
   const double sum_s_per_byte = 1.0 / 2.5e12;
@@ -588,47 +728,65 @@ inline int splits_for(int layout, bool bf16, int M, int N, int K, int sms) {
   return best;
 }
 
-template <typename T, int kLayout, typename TO>
-inline cudaError_t launch(const Args& args, dim3 grid, bool tma, cudaStream_t st) {
+// One launch of the persistent walk: min(work items, SMs) blocks. The
+// kernels' shared-memory opt-in is made once a device.
+template <typename T, int kLayout, int kMB, typename TO>
+inline cudaError_t launch(Args args, int dev, int sms, bool tma, cudaStream_t st) {
+  using R = Ring<T, kMB>;
   CUtensorMap ma{}, mb{};
   cudaError_t err;
   if (tma) {
     if ((err = make_map<T>(&ma, args.a, kLayout == kTN)) != cudaSuccess) return err;
     if ((err = make_map<T>(&mb, args.b, kLayout != kNT)) != cudaSuccess) return err;
   }
-  const auto kernel = tma ? product_kernel<T, kLayout, true, TO> : product_kernel<T, kLayout, false, TO>;
-  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  Ring<T>::kSmem)) != cudaSuccess)
-    return err;
-  kernel<<<grid, kThreads, Ring<T>::kSmem, st>>>(ma, mb, args);
+  args.tiles_m = (args.M + R::kTileM - 1) / R::kTileM;
+  args.tiles_n = (args.N + kTileN - 1) / kTileN;
+  const auto kernel = tma ? product_kernel<T, kLayout, kMB, true, TO>
+                          : product_kernel<T, kLayout, kMB, false, TO>;
+  static std::atomic<unsigned long long> opted[2];  // a bit a device, by tma
+  const unsigned long long bit = dev < kMaxDevices ? 1ull << dev : 0;
+  if (!bit || !(opted[tma].load(std::memory_order_relaxed) & bit)) {
+    if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    R::kSmem)) != cudaSuccess)
+      return err;
+    opted[tma].fetch_or(bit, std::memory_order_relaxed);
+  }
+  const long long items = (long long)args.tiles_m * args.tiles_n * args.splits;
+  const unsigned grid = (unsigned)(items < sms ? items : sms);
+  kernel<<<grid, kThreads, R::kSmem, st>>>(ma, mb, args);
   return cudaGetLastError();
 }
 
 // C (M, N) with rows of ldc for `layout` (see the top of this file); A and B
-// stored with rows of lda and ldb, the operands' dtype T; C in T for kNT,
-// else fp32. part: kMaxSplits M N floats of scratch for kTN, null otherwise.
+// stored with rows of lda and ldb, the operands' dtype T; C fp32 for kNN and
+// kTN, and for kNT fp32 when c_f32, else T. part: kMaxSplits M N floats of
+// scratch for kTN, null otherwise.
 template <typename T>
 cudaError_t product(int layout, const T* A, long long lda, const T* B, long long ldb, void* C,
-                    long long ldc, int M, int N, int K, float* part, cudaStream_t st) {
+                    long long ldc, int M, int N, int K, float* part, cudaStream_t st,
+                    bool c_f32 = false) {
   if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
   if (layout == kTN && !part) return cudaErrorInvalidValue;
   Operand a{A, lda, layout == kTN ? M : K, layout == kTN ? K : M};
   Operand b{B, ldb, layout == kNT ? K : N, layout == kNT ? N : K};
   int dev = 0, sms = 132;
   cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  const int ktiles = (K + Ring<T>::kDepth - 1) / Ring<T>::kDepth;
-  const int splits = splits_for(layout, Ring<T>::kBf16, M, N, K, sms);
+  if ((err = device_sms(dev, sms)) != cudaSuccess) return err;
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int kDepth = kRowBytes / (int)sizeof(T);
+  const int ktiles = (K + kDepth - 1) / kDepth;
+  const int splits = splits_for(layout, kBf16, M, N, K, sms);
   const int per = (ktiles + splits - 1) / splits;
-  const Args args{a, b, C, ldc, part, M, N, K, ktiles, per};
-  const dim3 grid((M + kTileM - 1) / kTileM, (N + kTileN - 1) / kTileN, splits);
+  const Args args{a, b, C, ldc, part, M, N, K, ktiles, per, 0, 0, splits};
   const bool tma = tma_describes<T>(a) && tma_describes<T>(b);
+  constexpr int kMbNT = m_blocks<T, kNT>();
   switch (layout) {
-    case kNT: err = launch<T, kNT, T>(args, grid, tma, st); break;
-    case kNN: err = launch<T, kNN, float>(args, grid, tma, st); break;
-    case kTN: err = launch<T, kTN, float>(args, grid, tma, st); break;
+    case kNT:
+      err = c_f32 ? launch<T, kNT, kMbNT, float>(args, dev, sms, tma, st)
+                  : launch<T, kNT, kMbNT, T>(args, dev, sms, tma, st);
+      break;
+    case kNN: err = launch<T, kNN, 1, float>(args, dev, sms, tma, st); break;
+    case kTN: err = launch<T, kTN, 1, float>(args, dev, sms, tma, st); break;
     default: return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || splits == 1) return err;

@@ -17,18 +17,23 @@
 // products. A Hopper block has 227 KB of shared memory, so the span runs as
 // eight launches on one stream through scratch the caller allocates: the two
 // products, K12's six launches between them. At bf16 the products run on
-// K4's tensor-core tile (mixer_parts.cuh gemm_nt_bf16: mma.sync, fp32
-// accumulators). At fp32 they run on the wide FMA tile (gemm_nt_wide: a
-// 64 x 64 block tile of 128 threads, 8 x 4 outputs a thread as an outer
-// product from contraction-major shared tiles, K slices double-buffered
-// through registers; 1,250 and 300 blocks at Base, B = 1). It sums over k
-// in order, as gemm_nt does, so the fp32 results are gemm_nt's.
+// hopper_gemm.cuh's persistent TMA-fed wgmma tile (hg::product, NT, 256 x
+// 128 tiles, fp32 sums, C in bf16), the tile K14's backward uses. At fp32
+// they run on the wide FMA tile (gemm_nt_wide: a 64 x 64 block tile of 128
+// threads, 8 x 4 outputs a thread as an outer product from
+// contraction-major shared tiles, K slices double-buffered through
+// registers; 1,250 and 300 blocks at Base, B = 1). It sums over k in order,
+// as gemm_nt does, so the fp32 results are gemm_nt's.
 //
 // What bounds it on the H100: operations. At Base, B = 1, L = 1569 in_proj
 // is 7.7 GFLOP and out_proj 3.7, about 0.17 ms at fp32's 67 TFLOP/s and
-// 0.012 ms on bf16 tensor cores.
+// 0.012 ms on bf16 tensor cores. At the serving shape (4 streams of L
+// 12,545, bf16; H100 SXM 700 W) the layer takes about 5 ms: in_proj 0.41 ms (247 GFLOP, 0.25 ms at 989 TFLOP/s) and out_proj
+// 0.18 (118 GFLOP, 0.12 ms), where the mma.sync tile took 1.9 and 1.0 ms;
+// K12's state pass and chunk outputs are now most of the call.
 #include <type_traits>
 
+#include "hopper_gemm.cuh"
 #include "mixer_parts.cuh"
 #include "ssd_core.cuh"
 
@@ -43,8 +48,8 @@ cudaError_t pmixer(const void* hidden, const void* in_w, const void* out_w, void
   const int Di = a.H * a.P, ZX = Di + Di + 2 * a.G * a.N;  // z | x B C
   const int rows = a.B * a.L;
   if constexpr (kBf16) {
-    err = vmt::gemm_nt_bf16<T, T>((const T*)hidden, E, (const T*)in_w, E, (T*)zx, ZX, rows,
-                                  ZX, E, s);
+    err = vmt::hg::product<T>(vmt::hg::kNT, (const T*)hidden, E, (const T*)in_w, E, zx, ZX,
+                              rows, ZX, E, nullptr, s);
   } else {
     err = vmt::gemm_nt_wide((const T*)hidden, E, (const T*)in_w, E, (T*)zx, ZX, rows, ZX, E,
                             s);
@@ -55,8 +60,8 @@ cudaError_t pmixer(const void* hidden, const void* in_w, const void* out_w, void
   a.out = gated;
   if ((err = vmt::ssd_core<T>(a, s)) != cudaSuccess) return err;
   if constexpr (kBf16) {
-    return vmt::gemm_nt_bf16<T, T>((const T*)gated, Di, (const T*)out_w, Di, (T*)out, E,
-                                   rows, E, Di, s);
+    return vmt::hg::product<T>(vmt::hg::kNT, (const T*)gated, Di, (const T*)out_w, Di, out, E,
+                               rows, E, Di, nullptr, s);
   } else {
     return vmt::gemm_nt_wide((const T*)gated, Di, (const T*)out_w, Di, (T*)out, E, rows, E,
                              Di, s);

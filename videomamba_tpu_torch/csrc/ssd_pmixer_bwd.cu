@@ -108,21 +108,21 @@ extern "C" int vmt_ssd_pmixer_bwd(
                                            dhidden, dwin, dwout, part, E, a, st));
 }
 
-// One of K14's backward products alone (hopper_gemm.cuh), for checks and
-// timing: C (M, N), rows of ldc, for layout 0 (NT: A (M, K), B (N, K); C in
-// the operands' dtype), 1 (NN: A (M, K), B (K, N); C fp32) or 2 (TN: A (K,
-// M), B (K, N); C fp32, part hg::kMaxSplits M N floats). A and B fp32 or
+// One product of hopper_gemm.cuh alone, for checks and timing: C (M, N),
+// rows of ldc, for layout 0 (NT: A (M, K), B (N, K); C fp32 when c_f32, else
+// in the operands' dtype), 1 (NN: A (M, K), B (K, N); C fp32) or 2 (TN: A
+// (K, M), B (K, N); C fp32, part hg::kMaxSplits M N floats). A and B fp32 or
 // bf16 (is_bf16), rows of lda and ldb elements, unit stride along a row.
 extern "C" int vmt_projection_product(int layout, const void* A, long long lda, const void* B,
                                       long long ldb, void* C, long long ldc, int M, int N,
-                                      int K, float* part, int is_bf16, int device,
+                                      int K, float* part, int c_f32, int is_bf16, int device,
                                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = (cudaStream_t)stream;
   return (int)(is_bf16 ? vmt::hg::product<vmt::bf16>(layout, (const vmt::bf16*)A, lda,
                                                       (const vmt::bf16*)B, ldb, C, ldc, M, N,
-                                                      K, part, st)
+                                                      K, part, st, c_f32 != 0)
                        : vmt::hg::product<float>(layout, (const float*)A, lda,
                                                  (const float*)B, ldb, C, ldc, M, N, K, part,
                                                  st));

@@ -80,7 +80,7 @@ SIGNATURES = {
     "vmt_ssd_scan_bwd": (*(_P,) * 16, *(_I,) * 9, _P),
     "vmt_ssd_mixer_bwd": (_P, _LL, _P, _P, _LL, *(_P,) * 29, *(_I,) * 8, _F, _I, _I, _P),
     "vmt_ssd_pmixer_bwd": (*(_P,) * 12, _I, *(_P,) * 29, *(_I,) * 8, _F, _I, _I, _P),
-    "vmt_projection_product": (_I, _P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _P, _I, _I, _P),
+    "vmt_projection_product": (_I, _P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _P, _I, _I, _I, _P),
 }
 # Entry points that return a size instead of a CUDA error code.
 SIZE_QUERIES = {

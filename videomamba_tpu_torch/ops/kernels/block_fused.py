@@ -11,8 +11,13 @@ add + norm (K2's row kernel), in_proj, conv + SiLU, x_proj, dt_proj, the
 forward walk split over time chunks (csrc/scan_walk_split.cuh, K3's: chunk
 states, a pass over the chunks, the output walk), out_proj. The four
 products are computed inside the TPU kernel, so they are hand-written here
-too: bf16 tensor-core tiles (``mma.sync``, fp32 accumulate) at bf16, fp32
-FMA tiles at fp32.
+too. At bf16, in_proj (xz in fp32) and out_proj run on the persistent
+TMA-fed ``wgmma`` tile of csrc/hopper_gemm.cuh, and the walk stores y in
+bf16 for out_proj's TMA loads; x_proj and dt_proj (x_proj's N = R + 2
+N_state and dt_proj's K = R, too narrow for its tiles) stay on the
+``mma.sync`` tile of csrc/mixer_parts.cuh. At fp32 all four run on fp32
+FMA tiles. A CUDA bf16 call counts 2 in ``block_fused.wgmma_products``
+beside ``block_fused.launches``.
 
 Both the kernel and :func:`block_fused_plain` keep the TPU kernel's rounding
 points (block_fused.py:379-471): the sum and the norm in fp32; each
@@ -242,7 +247,9 @@ def block_fused(
     conv_out = torch.empty((rows, di), **f32)
     x_dbl = torch.empty((rows, r + 2 * n), **f32)
     delta = torch.empty((rows, di), **f32)
-    y = torch.empty((rows, di), **f32)
+    # bf16: the walk rounds y as it stores it, out_proj's operand for the
+    # wgmma tile's TMA loads
+    y = torch.empty((rows, di), dtype=wdt, device=dev)
     chunk, walk_states, walk_dtsum = walk_scratch(bsz, seqlen, di, n, dev)
     cstate = conv_state.float().contiguous()
     err = _build.library().vmt_block_fused(
@@ -260,7 +267,11 @@ def block_fused(
     )
     _build.check(err, "block_fused")
     block_fused.launches += 1
+    block_fused.wgmma_products += 2 * _build.is_bf16(hidden)
     return outs
 
 
 block_fused.launches = 0
+# in_proj and out_proj handed to the wgmma tile (csrc/hopper_gemm.cuh): 2 a
+# CUDA bf16 call; fp32 calls take the FMA tiles and CPU calls the plain version.
+block_fused.wgmma_products = 0

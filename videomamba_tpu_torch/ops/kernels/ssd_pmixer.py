@@ -13,15 +13,16 @@ runs the two products on its idle MXU slots. A Hopper block has 227 KB of
 shared memory, so csrc/ssd_pmixer.cu runs the span as launches on one
 stream: in_proj into a zx buffer in the input dtype, K12's six launches
 (csrc/ssd_mixer.cu) writing the gated rows in the input dtype, and
-out_proj. The products run on K4's bf16 ``mma.sync`` tile (fp32 sums) at
-bf16 and on the wide fp32 FMA tile at fp32 (csrc/mixer_parts.cuh
-``gemm_nt_wide``: a 64 x 64 block tile, an outer product from
-contraction-major shared tiles, K slices double-buffered through
-registers). The products are written by hand because the TPU kernel
-computes them in its body (ssd_block.py:285-286, 323-324). The dt
-columns' product ``hidden @ Win[-H:]^T`` and its softplus run outside the
-kernel in the JAX package too (ssd_block.py:1619) and stay
-``torch.matmul`` here.
+out_proj. At bf16 the products run on the persistent TMA-fed ``wgmma``
+tile of csrc/hopper_gemm.cuh (fp32 sums; counted 2 a CUDA call in
+``ssd_pmixer.wgmma_products`` beside ``ssd_pmixer.launches``), at fp32 on
+the wide FMA tile (csrc/mixer_parts.cuh ``gemm_nt_wide``: a 64 x 64 block
+tile, an outer product from contraction-major shared tiles, K slices
+double-buffered through registers). The products are written by hand
+because the TPU kernel computes them in its body (ssd_block.py:285-286,
+323-324). The dt columns' product ``hidden @ Win[-H:]^T`` and its
+softplus run outside the kernel in the JAX package too
+(ssd_block.py:1619) and stay ``torch.matmul`` here.
 
 What bounds it on the H100: operations. At VideoMamba-Base-m2, B = 1, L =
 1569 the two products are 7.7 and 3.7 GFLOP and the chunk walk 1.3: about
@@ -196,6 +197,7 @@ def ssd_pmixer_core(hidden: Tensor, dt_p: Tensor, A: Tensor, in_proj_w: Tensor,
         )
         _build.check(err, "ssd_pmixer")
         ssd_pmixer.launches += 1
+        ssd_pmixer.wgmma_products += 2 * _build.is_bf16(hidden)
     if checkpoints:
         return out, ops["h_last"], *walk_checkpoints(ops, bsz, seqlen, nheads, hdim, d_state)
     return out, ops["h_last"]
@@ -232,6 +234,9 @@ def ssd_pmixer(
 
 
 ssd_pmixer.launches = 0
+# in_proj and out_proj handed to the wgmma tile (csrc/hopper_gemm.cuh): 2 a
+# CUDA bf16 call; fp32 calls take the FMA tile and CPU calls the plain version.
+ssd_pmixer.wgmma_products = 0
 
 
 def ssd_pmixer_bwd_plain(hidden: Tensor, dt_p: Tensor, A: Tensor, in_proj_w: Tensor,
@@ -324,26 +329,40 @@ def _product_dims(layout: str, a: Tensor, b: Tensor) -> Tuple[int, int, int]:
     return m, n, k
 
 
-def projection_product_plain(layout: str, a: Tensor, b: Tensor) -> Tensor:
-    """One of K14's backward products in plain PyTorch: "nt" a (M, K) b (N,
-    K)^T in the operands' dtype, "nn" a (M, K) b (K, N) and "tn" a (K, M)^T b
-    (K, N) in fp32; fp32 sums."""
+def _product_out_dtype(layout: str, a: Tensor, out_dtype: Optional[torch.dtype]
+                       ) -> torch.dtype:
+    """C's dtype: "nt" the operands' dtype or fp32 (``out_dtype``), the
+    other layouts fp32."""
+    want = out_dtype or (a.dtype if layout == "nt" else torch.float32)
+    if want not in ((a.dtype, torch.float32) if layout == "nt" else (torch.float32,)):
+        raise ValueError(f"projection_product {layout}: no {want} output for {a.dtype} operands")
+    return want
+
+
+def projection_product_plain(layout: str, a: Tensor, b: Tensor,
+                             out_dtype: Optional[torch.dtype] = None) -> Tensor:
+    """One product of the wgmma tile in plain PyTorch: "nt" a (M, K) b (N,
+    K)^T in the operands' dtype or in fp32 (``out_dtype``), "nn" a (M, K) b
+    (K, N) and "tn" a (K, M)^T b (K, N) in fp32; fp32 sums."""
     _product_dims(layout, a, b)
+    want = _product_out_dtype(layout, a, out_dtype)
     x = a.float().t() if layout == "tn" else a.float()
     y = b.float().t() if layout == "nt" else b.float()
-    out = x @ y
-    return out.to(a.dtype) if layout == "nt" else out
+    return (x @ y).to(want)
 
 
-def projection_product(layout: str, a: Tensor, b: Tensor) -> Tensor:
-    """K14's backward product tile alone (csrc/hopper_gemm.cuh), the
-    contract of :func:`projection_product_plain`. On CUDA: a and b one dtype,
-    fp32 or bf16, rows of unit element stride and any row stride (a row
-    stride or address that is not a multiple of 16 bytes takes the tile's
-    staging variant instead of TMA)."""
+def projection_product(layout: str, a: Tensor, b: Tensor,
+                       out_dtype: Optional[torch.dtype] = None) -> Tensor:
+    """The wgmma product tile alone (csrc/hopper_gemm.cuh: K14's backward
+    products, K4's and K14's bf16 in_proj and out_proj), the contract of
+    :func:`projection_product_plain`. On CUDA: a and b one dtype, fp32 or
+    bf16, rows of unit element stride and any row stride (a row stride or
+    address that is not a multiple of 16 bytes takes the tile's staging
+    variant instead of TMA)."""
     if dispatch.runs_plain(a):
-        return projection_product_plain(layout, a, b)
+        return projection_product_plain(layout, a, b, out_dtype)
     m, n, k = _product_dims(layout, a, b)
+    want = _product_out_dtype(layout, a, out_dtype)
     wdt = _build.one_dtype(a)
     _build.check_operands("projection_product", a.device,
                           {"a": (a, tuple(a.shape)), "b": (b, tuple(b.shape))},
@@ -351,14 +370,13 @@ def projection_product(layout: str, a: Tensor, b: Tensor) -> Tensor:
     for name, t in (("a", a), ("b", b)):
         if t.stride(1) != 1 or t.stride(0) < t.shape[1]:
             raise ValueError(f"projection_product kernel: {name} needs rows of unit stride")
-    out = torch.empty((m, n), dtype=a.dtype if layout == "nt" else torch.float32,
-                      device=a.device)
+    out = torch.empty((m, n), dtype=want, device=a.device)
     part = (torch.empty(PRODUCT_SPLITS * m * n, dtype=torch.float32, device=a.device)
             if layout == "tn" else None)
     err = _build.library().vmt_projection_product(
         PRODUCT_LAYOUTS[layout], _build.ptr(a), a.stride(0), _build.ptr(b), b.stride(0),
-        _build.ptr(out), n, m, n, k, _build.ptr(part), _build.is_bf16(a), a.device.index,
-        _build.stream_of(a))
+        _build.ptr(out), n, m, n, k, _build.ptr(part), int(want == torch.float32),
+        _build.is_bf16(a), a.device.index, _build.stream_of(a))
     _build.check(err, "projection_product")
     projection_product.launches += 1
     return out
