@@ -160,7 +160,8 @@ def test_annotate_makes_no_range_without_a_profiler(monkeypatch):
 SPANS = {"vmt.session.process", "vmt.train.step", "vmt.train.forward", "vmt.train.backward",
          "vmt.train.grad_norm", "vmt.train.optimizer", "vmt.train.cast",
          "vmt.model.mask", "vmt.model.positions", "vmt.model.embed", "vmt.model.blocks",
-         "vmt.model.norm", "vmt.model.pool"} | {
+         "vmt.model.norm", "vmt.model.pool", "vmt.model.lm_head", "vmt.model.attention",
+         "vmt.model.mlp", "vmt.kernel.attention"} | {
     SYNC + site for site in ("mask_to_host", "visible_index", "temporal_resample",
                              "pool_frames", "pool_counts", "resample_1d", "resample_2d")}
 

@@ -29,6 +29,12 @@ and distribution over ``torch.distributed`` (``utils.distributed``: NCCL
 init and collectives; ``parallel``: the dp / fsdp / tp mesh, FSDP2 and
 tensor-parallel training, sequence-parallel mixers). The root exports
 every name of the JAX package's root.
+
+The port also serves a model the JAX package lacks: ``HybridMambaLM``
+(``granite_4_0_h_micro``, IBM Granite-4.0-H-Micro), a causal language
+model of Mamba-2 and grouped-query attention layers with an MLP in every
+Block, prefilled chunk by chunk through ``StreamingSession`` with a
+``KVCache`` for each attention layer beside the Mamba-2 states.
 """
 
 from videomamba_tpu_torch.determinism import (
@@ -42,6 +48,7 @@ from videomamba_tpu_torch.determinism import (
 from videomamba_tpu_torch.models import (
     BiMambaRefinerBlock,
     Block,
+    HybridMambaLM,
     InferenceCache,
     Mamba,
     Mamba2,
@@ -49,6 +56,7 @@ from videomamba_tpu_torch.models import (
     PretrainVideoMamba,
     build_videomamba,
     create_block,
+    granite_4_0_h_micro,
     videomamba_base,
     videomamba_base_m2,
     videomamba_middle,
@@ -65,6 +73,8 @@ from videomamba_tpu_torch.streaming import (
     STREAMING_CONTRACT_VERSION,
     ForwardReturnSemantics,
     LayerState,
+    KVCache,
+    KVStateShape,
     StateShape,
     StreamingState,
     allocate_state,
@@ -80,7 +90,10 @@ __all__ = [
     "DecodeSession",
     "DeterminismConfig",
     "ForwardReturnSemantics",
+    "HybridMambaLM",
     "InferenceCache",
+    "KVCache",
+    "KVStateShape",
     "LayerState",
     "Mamba",
     "Mamba2",
@@ -100,6 +113,7 @@ __all__ = [
     "expected_state_shapes",
     "forward_return_semantics",
     "get_rng_key",
+    "granite_4_0_h_micro",
     "model_forward_return_semantics",
     "next_rng_key",
     "selective_state_update",

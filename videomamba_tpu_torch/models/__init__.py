@@ -1,11 +1,16 @@
 """Models of the PyTorch port (VideoMamba on the Mamba-1 and Mamba-2 mixers,
-and the refiner)."""
+the refiner, and the hybrid Mamba-2 / attention language model)."""
 
+from videomamba_tpu_torch.models.attention import Attention
 from videomamba_tpu_torch.models.block import Block, create_block, drop_path
+from videomamba_tpu_torch.models.hybrid_lm import HybridMambaLM
 from videomamba_tpu_torch.models.mamba import InferenceCache, Mamba
 from videomamba_tpu_torch.models.mamba2 import Mamba2
+from videomamba_tpu_torch.models.mlp import GatedMLP
 from videomamba_tpu_torch.models.presets import (
+    GRANITE_4_0_H_MICRO,
     M2_SSM_CFG,
+    granite_4_0_h_micro,
     videomamba_base,
     videomamba_base_m2,
     videomamba_middle,
@@ -23,8 +28,12 @@ from videomamba_tpu_torch.models.videomamba import (
 )
 
 __all__ = [
+    "Attention",
     "BiMambaRefinerBlock",
     "Block",
+    "GRANITE_4_0_H_MICRO",
+    "GatedMLP",
+    "HybridMambaLM",
     "InferenceCache",
     "M2_SSM_CFG",
     "Mamba",
@@ -34,6 +43,7 @@ __all__ = [
     "build_videomamba",
     "create_block",
     "drop_path",
+    "granite_4_0_h_micro",
     "videomamba_base",
     "videomamba_base_m2",
     "videomamba_middle",

@@ -1,9 +1,17 @@
-"""Prenorm residual Block: Add -> Norm -> Mixer (PyTorch port).
+"""Prenorm residual Block: Add -> Norm -> Mixer [-> Add -> Norm -> MLP] (PyTorch port).
 
 Port of videomamba_tpu/models/block.py: the block adds the incoming hidden
 states (after stochastic depth in training) to the running residual,
 normalizes, runs the mixer, and returns the mixer output with the post-add
-residual. Two routes, chosen as the JAX package chooses them
+residual. A Block of a hybrid language model (``create_block(mlp_cfg=...)``,
+mamba_ssm 2's ``Block(mlp_cls=...)``) also carries a second sublayer: the
+mixer output is added to the residual and normalized again (``norm2``, K2
+where ``fused_add_norm``), and the Block returns the MLP's output with that
+residual; each sublayer's output is scaled by ``residual_multiplier``
+(Granite-4.0-H's 0.22) before it enters the residual, a multiply on the
+branch output (the published form; no weight is folded). The mixer is a
+``Mamba``, a ``Mamba2`` or an ``Attention`` (models/attention.py) layer.
+Two routes, chosen as the JAX package chooses them
 (block.py:274-280, 318-342):
 
 * whole block (K4, ops/kernels/block_fused.py) in eval mode when the Block
@@ -35,8 +43,10 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from videomamba_tpu_torch.models.attention import Attention
 from videomamba_tpu_torch.models.mamba import InferenceCache, LayerState, Mamba
 from videomamba_tpu_torch.models.mamba2 import Mamba2
+from videomamba_tpu_torch.models.mlp import GatedMLP
 from videomamba_tpu_torch.ops import dispatch
 from videomamba_tpu_torch.ops.causal_conv1d import causal_conv1d, conv_window
 from videomamba_tpu_torch.ops.kernels.block_bwd import block_bwd
@@ -156,12 +166,13 @@ class Norm(nn.Module):
 
 
 class Block(nn.Module):
-    """Add -> Norm -> Mamba with carried residual and streaming state."""
+    """Add -> Norm -> mixer, and with ``mlp`` Add -> Norm -> MLP, with
+    carried residual and streaming state."""
 
     def __init__(
         self,
         dim: int,
-        mixer: Mamba,
+        mixer: nn.Module,
         norm_type: str = "layer",
         norm_epsilon: float = 1e-5,
         fused_add_norm: bool = False,
@@ -169,6 +180,8 @@ class Block(nn.Module):
         drop_path_rate: float = 0.0,
         layer_idx: Optional[int] = None,
         device=None,
+        mlp: Optional[nn.Module] = None,
+        residual_multiplier: float = 1.0,
     ):
         super().__init__()
         if norm_type not in ("layer", "rms"):
@@ -176,6 +189,10 @@ class Block(nn.Module):
         self.dim = dim
         self.mixer = mixer
         self.norm = Norm(dim, bias=norm_type == "layer", device=device)
+        self.mlp = mlp
+        if mlp is not None:
+            self.norm2 = Norm(dim, bias=norm_type == "layer", device=device)
+        self.residual_multiplier = float(residual_multiplier)
         self.norm_type = norm_type
         self.norm_epsilon = norm_epsilon
         self.fused_add_norm = fused_add_norm
@@ -225,6 +242,8 @@ class Block(nn.Module):
         )
         if state is not None:
             mixer_out = self.mixer(normed, state=state, return_state=return_state)
+        elif ssm_state is None and inference_params is None:
+            mixer_out = self.mixer(normed)
         else:
             mixer_out = self.mixer(
                 normed, ssm_state=ssm_state, return_ssm_state=return_ssm_state,
@@ -232,8 +251,26 @@ class Block(nn.Module):
             )
         if (return_state and state is not None) or return_ssm_state:
             hidden, new_state = mixer_out
-            return hidden, new_residual, new_state
-        return mixer_out, new_residual
+            return (*self._second_sublayer(hidden, new_residual), new_state)
+        return self._second_sublayer(mixer_out, new_residual)
+
+    def _second_sublayer(self, mixer_out: Tensor, residual: Tensor):
+        """The mixer output scaled by ``residual_multiplier``, and with an MLP
+        the add + norm (K2 where ``fused_add_norm``) and the MLP's scaled
+        output: (hidden, residual) as the Block returns them."""
+        m = self.residual_multiplier
+        if m != 1.0:
+            mixer_out = mixer_out * m
+        if self.mlp is None:
+            return mixer_out, residual
+        normed, residual = fused_add_norm(
+            mixer_out, self.norm2.weight, self.norm2.bias, residual=residual,
+            prenorm=True, residual_in_fp32=self.residual_in_fp32,
+            eps=self.norm_epsilon, norm_type=self.norm_type,
+            use_kernel=self.fused_add_norm,
+        )
+        out = self.mlp(normed)
+        return (out * m if m != 1.0 else out), residual
 
     def _use_block_fused(self) -> bool:
         """The JAX package's whole-block gate (block.py:318-342): fused norm,
@@ -247,8 +284,10 @@ class Block(nn.Module):
         gate's scan-backend condition has no counterpart here: the port's
         fast path is its kernels.)"""
         mx = self.mixer
+        if self.mlp is not None or self.residual_multiplier != 1.0:
+            return False  # K4 is the Block with nothing after its mixer
         if not getattr(mx, "supports_block_fusion", True):
-            return False  # Mamba2: add + norm, then its own kernels (JAX block.py:321-322)
+            return False  # Mamba2, Attention: add + norm, then their own kernels
         if not (self.fused_add_norm and mx.use_fast_path):
             return False
         if mx.sp_axis is not None or mx.tp_group is not None:
@@ -360,22 +399,28 @@ def create_block(
     device=None,
     dtype: Optional[torch.dtype] = None,
     generator: Optional[torch.Generator] = None,
+    mlp_cfg: Optional[Dict[str, object]] = None,
+    residual_multiplier: float = 1.0,
 ) -> Block:
     """Block factory (videomamba_tpu/models/block.py:436-476). The inner
     mixer is unidirectional; ``ssm_cfg={"layer": "Mamba2", ...}`` selects the
-    SSD mixer (models/mamba2.py)."""
+    SSD mixer (models/mamba2.py), ``{"layer": "attention", "n_heads": ...,
+    "n_kv_heads": ..., "head_dim": ..., "scale": ...}`` the GQA mixer
+    (models/attention.py). ``mlp_cfg={"hidden_features": ...}`` adds the
+    gated MLP sublayer (models/mlp.py) with its own norm;
+    ``residual_multiplier`` scales both sublayers' outputs."""
     del bimamba
     ssm_cfg = dict(ssm_cfg or {})
     ssm_cfg.pop("bimamba", None)
     layer_kind = str(ssm_cfg.pop("layer", "Mamba"))
-    if layer_kind == "Mamba2":
-        mixer_cls = Mamba2
-    elif layer_kind == "Mamba":
-        mixer_cls = Mamba
-    else:
-        raise ValueError(f"unknown ssm_cfg layer {layer_kind!r}")
-    mixer = mixer_cls(d_model=d_model, layer_idx=layer_idx, device=device,
-                      dtype=dtype, generator=generator, **ssm_cfg)
+    mixers = {"Mamba": Mamba, "Mamba2": Mamba2, "attention": Attention}
+    if layer_kind not in mixers:
+        raise ValueError(f"unknown ssm_cfg layer {layer_kind!r}: create_block builds "
+                         f"{', '.join(repr(k) for k in mixers)}")
+    mixer = mixers[layer_kind](d_model=d_model, layer_idx=layer_idx, device=device,
+                               dtype=dtype, generator=generator, **ssm_cfg)
+    mlp = (GatedMLP(d_model, device=device, dtype=dtype, generator=generator, **mlp_cfg)
+           if mlp_cfg else None)
     return Block(
         dim=d_model,
         mixer=mixer,
@@ -386,4 +431,6 @@ def create_block(
         drop_path_rate=drop_path,
         layer_idx=layer_idx,
         device=device,
+        mlp=mlp,
+        residual_multiplier=residual_multiplier,
     )

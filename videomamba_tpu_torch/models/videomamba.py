@@ -313,6 +313,18 @@ class PretrainVideoMamba(nn.Module):
         ]
         return dict(enumerate(states)) if as_dict else states
 
+    def position_advance(self, chunk: Tensor) -> int:
+        """Temporal tokens a chunk (B, C, T, H, W) advances a stream: T over
+        the tubelet."""
+        return chunk.shape[2] // self.patch_embed.tubelet_size
+
+    def stream_forward(self, chunk: Tensor, state: StateCollection, offset: int, mask=None,
+                       keep_temporal: bool = False):
+        """One streaming chunk (``runtime.StreamingSession``): the forward's
+        outputs and the new state, at temporal offset ``offset``."""
+        return self(chunk, mask=mask, keep_temporal=keep_temporal, ssm_state=state,
+                    temporal_pos_offset=offset)
+
     def init_state(self, batch_size: int, dtype=None, device=None, as_dict: bool = False):
         """Backward-compatible alias for :meth:`allocate_state`."""
         return self.allocate_state(batch_size, dtype=dtype, device=device, as_dict=as_dict)

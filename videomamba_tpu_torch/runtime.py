@@ -15,6 +15,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from videomamba_tpu_torch.streaming import KVCache
 from videomamba_tpu_torch.utils.profiling import annotate
 
 
@@ -33,7 +34,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 class StreamingSession:
-    """Carries per-layer (conv_state, ssm_state) across chunk calls.
+    """Carries per-layer streaming state and the position across chunk calls.
 
     Example:
         session = StreamingSession(model, batch_size=4)
@@ -43,6 +44,13 @@ class StreamingSession:
     CLS appears in chunk 0 only, so pooled outputs need ``pool_type='avg'``
     from chunk 1 on. Reset rows with :meth:`reset` when their streams end.
     States are fp32 unless ``dtype`` says otherwise, at a bf16 model too.
+
+    Any model with ``allocate_state``, ``stream_forward`` and
+    ``position_advance`` streams: the video models (the state is each
+    layer's (conv_state, ssm_state), the position the temporal offset) and
+    the hybrid language model (``models/hybrid_lm.py``: token chunks (B, L),
+    a ``streaming.KVCache`` of ``max_len`` positions for each attention
+    layer beside the Mamba-2 layers' states, the position in tokens).
     """
 
     def __init__(
@@ -51,38 +59,39 @@ class StreamingSession:
         batch_size: int,
         dtype: Optional[torch.dtype] = None,
         device=None,
+        max_len: Optional[int] = None,
     ):
         self.model = model
         self.batch_size = batch_size
-        self.state = model.allocate_state(batch_size, dtype=dtype, device=device)
-        self.offset = 0  # temporal tokens (post-tubelet)
+        kwargs = {} if max_len is None else {"max_len": max_len}
+        self.state = model.allocate_state(batch_size, dtype=dtype, device=device, **kwargs)
+        self.offset = 0  # the model's positions: temporal tokens (post-tubelet), or tokens
 
     @torch.no_grad()
     def process(self, chunk: torch.Tensor, mask=None, keep_temporal: bool = False):
         """Run one chunk; returns the model's forward outputs minus the state,
         which the session keeps."""
         with annotate("vmt.session.process"):
-            out = self.model(
-                chunk,
-                mask=mask,
-                keep_temporal=keep_temporal,
-                ssm_state=self.state,
-                temporal_pos_offset=self.offset,
-            )
+            out = self.model.stream_forward(chunk, self.state, self.offset, mask=mask,
+                                            keep_temporal=keep_temporal)
         *outputs, self.state = out
-        self.offset += chunk.shape[2] // self.model.patch_embed.tubelet_size
+        self.offset += self.model.position_advance(chunk)
         return tuple(outputs) if len(outputs) > 1 else outputs[0]
 
     def reset(self, rows: Optional[List[int]] = None) -> None:
-        """Zero the carried state (all rows and the offset, or given rows).
-        Zeroes in place: the session owns its state tensors."""
+        """Empty the carried state: all rows and the offset (zero states, KV
+        caches emptied in place), or the given rows of a model without
+        attention layers (their states zeroed in place; a KV cache's rows
+        cannot be emptied apart, since its fill is one length for all rows)."""
         if rows is None:
-            conv, _ = self.state[0]
-            self.state = self.model.allocate_state(
-                self.batch_size, dtype=conv.dtype, device=conv.device
-            )
+            self.state = [entry.emptied() if isinstance(entry, KVCache)
+                          else tuple(torch.zeros_like(t) for t in entry)
+                          for entry in self.state]
             self.offset = 0
             return
+        if any(isinstance(entry, KVCache) for entry in self.state):
+            raise ValueError("reset(rows) on a model with attention layers: the rows share "
+                             "one KV cache length; reset() all rows instead")
         idx = torch.as_tensor(rows, dtype=torch.long)
         for conv, ssm in self.state:
             conv[idx.to(conv.device)] = 0
@@ -117,8 +126,15 @@ class DecodeSession:
 
     def __init__(self, model, batch_size: int, dtype: Optional[torch.dtype] = None,
                  use_kernel: Optional[bool] = None):
+        from videomamba_tpu_torch.models.mamba import Mamba
         from videomamba_tpu_torch.models.mamba2 import Mamba2
 
+        if any(not isinstance(layer.mixer, (Mamba, Mamba2)) or layer.mlp is not None
+               for layer in model.layers):
+            raise ValueError(
+                "DecodeSession decodes a stack of Mamba or Mamba-2 Blocks (a video model); "
+                "this model has attention or MLP sublayers, whose token decode is not "
+                "supported")
         self.model = model
         self.batch_size = batch_size
         block = model.layers[0]

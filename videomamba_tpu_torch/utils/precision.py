@@ -6,9 +6,10 @@ mixed-precision training, :func:`cast_params_for_compute` returns cast
 copies for ``torch.func.functional_call`` through a differentiable cast, so
 the fp32 master parameters receive fp32 gradients (JAX precision.py:38-55). Parameters that must stay fp32
 for numerical fidelity keep their dtype: ``A_log``, ``D``, ``dt_proj.bias``,
-every norm's weight and bias, and ``pool_norm``; everything else (products'
-weights, embeddings, conv taps and biases) is cast. The selective scan and
-the norms compute in fp32 whatever the storage dtype.
+every norm's weight and bias (a Block's ``norm2`` too), and ``pool_norm``;
+everything else (products' weights, embeddings, conv taps and biases) is
+cast. The selective scan and the norms compute in fp32 whatever the
+storage dtype.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from torch import nn
 
 _KEEP_FP32_SUFFIXES = ("A_log", "D", "dt_proj.bias")
-_KEEP_FP32_SEGMENTS = (".norm.", "pool_norm")
+_KEEP_FP32_SEGMENTS = (".norm.", ".norm2.", "pool_norm")
 
 
 def keep_fp32(name: str) -> bool:

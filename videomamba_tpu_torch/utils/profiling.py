@@ -31,7 +31,15 @@ the kernel library's C entries):
   resampling), ``vmt.model.embed`` (patch embedding, positions, CLS and
   the visible-token gather), ``vmt.model.blocks`` (the Blocks),
   ``vmt.model.norm`` (the final norm) and ``vmt.model.pool`` (the pooling
-  head): ``PretrainVideoMamba``'s phases;
+  head): ``PretrainVideoMamba``'s phases; ``HybridMambaLM`` has
+  ``vmt.model.embed`` (the token embedding), ``vmt.model.blocks``,
+  ``vmt.model.norm`` (the last position's final norm) and
+  ``vmt.model.lm_head`` (the tied head);
+* ``vmt.model.attention`` (one attention layer's mixer: its projections
+  and the attention) and ``vmt.model.mlp`` (one Block's MLP), inside
+  ``vmt.model.blocks``;
+* ``vmt.kernel.attention``: one call of the attention kernel
+  (``ops.kernels.attention``), which holds what that call launched;
 * ``vmt.sync.<site>``: a statement that blocks the host until the card has
   run what was queued before it (a copy from pageable host memory, a copy
   to the host): ``mask_to_host``, ``visible_index``, ``temporal_resample``,
