@@ -1379,7 +1379,24 @@ def _ssd_inputs(dev, dtype, b, L, h, p, g, n, q, e=128, w=4, norm=True, state=Tr
     )
 
 
+# The walk's pass over the chunks (csrc/ssd_mixer.cu launch 3) at the
+# benchmark cells' chunk counts and widths, each from a nonzero state:
+# 4 streams of Base-m2 at L 12,545 (99 chunks), Granite-4.0-H-Micro's
+# Mamba-2 layers at an 8,192-token chunk (P 64, N 128, 32 chunks of 256)
+# and a pretraining batch of 393 tokens (4 chunks); then its edges: one
+# chunk, one chunk past the 8 loads a thread keeps in flight, and one past
+# the 256 chunk-end decays a block stages at a time.
+SSD_PASS_CASES = {
+    "pass_stream64_bf16": (torch.bfloat16, 4, 12545, 24, 64, 1, 64, 128, 768, True, True),
+    "pass_doc128k_bf16": (torch.bfloat16, 4, 8192, 64, 64, 1, 128, 256, 2048, True, True),
+    "pass_pretrain_bf16": (torch.bfloat16, 64, 393, 24, 64, 1, 64, 128, 768, True, True),
+    "pass_one_chunk_fp32": (torch.float32, 2, 100, 8, 32, 1, 16, 128, 128, True, True),
+    "pass_nine_chunks_fp32": (torch.float32, 2, 261, 8, 32, 1, 16, 32, 128, True, True),
+    "pass_257_chunks_fp32": (torch.float32, 1, 4099, 4, 16, 1, 8, 16, 64, True, True),
+}
+
 SSD_CASES = {
+    **SSD_PASS_CASES,
     # name: (dtype, b, L, h, p, g, n, q, e, norm, state)
     "base_m2_fp32": (torch.float32, 1, 1569, 24, 64, 1, 64, 128, 768, True, True),
     "base_m2_bf16": (torch.bfloat16, 1, 1569, 24, 64, 1, 64, 128, 768, True, True),
@@ -1672,7 +1689,7 @@ def _ssd_bwd_setup(dev, case):
     from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12
     from videomamba_tpu_torch.ops.ssd import _prepare_dt
 
-    dtype, b, L, h, p, g, n, q, e, norm, state = SSD_BWD_CASES[case]
+    dtype, b, L, h, p, g, n, q, e, norm, state = SSD_CASES[case]
     kw = _ssd_inputs(dev, dtype, b, L, h, p, g, n, q, e=e, norm=norm, state=state)
     cfg = kw.pop("cfg")
     di, cd = h * p, h * p + 2 * g * n
@@ -1687,17 +1704,21 @@ def _ssd_bwd_setup(dev, case):
     return kw, cfg, dt_p, (gated, h_last, hins, yd), dout, dhlast, tol
 
 
-@pytest.mark.parametrize("case", sorted(SSD_BWD_CASES))
+@pytest.mark.parametrize("case", sorted(SSD_BWD_CASES) + sorted(SSD_PASS_CASES))
 def test_ssd_mixer_checkpoints_match_plain(dev, case):
     """K12's training forward: the output, h_last and its checkpoints (each
-    chunk's entry state, the pre-gate y) against the plain version's."""
+    chunk's entry state, the pre-gate y) against the plain version's; a
+    second call gives bit-identical results."""
     from videomamba_tpu_torch.ops.kernels import ssd_mixer as k12
 
     kw, cfg, dt_p, got, _, _, _ = _ssd_bwd_setup(dev, case)
-    want = k12.ssd_core_plain(kw["zxbcdt"], dt_p, kw["A"], kw["conv_weight"],
-                              kw["conv_bias"], kw["D"], kw["initial_state"], kw["conv_state"],
-                              kw["norm_weight"], 1e-5, cfg["chunk_size"], cfg["nheads"],
-                              cfg["hdim"], cfg["ngroups"], cfg["d_state"], checkpoints=True)
+    args = (kw["zxbcdt"], dt_p, kw["A"], kw["conv_weight"], kw["conv_bias"], kw["D"],
+            kw["initial_state"], kw["conv_state"], kw["norm_weight"], 1e-5, cfg["chunk_size"],
+            cfg["nheads"], cfg["hdim"], cfg["ngroups"], cfg["d_state"])
+    again = k12.ssd_mixer_core(*args, checkpoints=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want = k12.ssd_core_plain(*args, checkpoints=True)
     tol = TOL if got[0].dtype == torch.float32 else BF16_TOL
     _close(got, want, tol, ("gated", "h_last", "hins", "yd"))
 

@@ -24,9 +24,12 @@
 //   2. per (chunk, head, batch) block: the chunk's own state S_c =
 //      sum_k rnd(x_f w)_k^T B_k, one 64 x 64 (P, N) tile at a time, the
 //      chunk's rows staged 64 at a time;
-//   3. per (head, batch, 256 state elements) block: the short sequential
-//      pass over the chunks, h_c = exp(s_last) h_{c-1} + S_c, leaving each
-//      chunk's entry state in place of S_c, and h_last;
+//   3. per (512 state elements, head, batch) block: the sequential pass
+//      over the chunks, h_c = exp(s_last) h_{c-1} + S_c, leaving each
+//      chunk's entry state in place of S_c, and h_last. A thread owns a
+//      16-byte vector of the state and keeps 8 chunks' loads in flight
+//      ahead of the serial combine, the block's chunk-end decays in shared
+//      memory;
 //   4. per (causal 64 x 64 tile pair of a chunk, group, batch) block: C B^T,
 //      summed over 64-wide N tiles, into scratch (cb, fp32). It depends on
 //      the group only, so it is built once for the group's H / G heads;
@@ -52,7 +55,11 @@
 // What bounds it on the H100: operations, the (Q, Q) and (Q, P) tiles'
 // products (about 1.0 GFLOP at Base, B = 1: 0.015 ms at 67 TFLOP/s fp32,
 // far less on bf16 tensor cores), over the bytes of its inputs and outputs
-// (about 30 MB, 0.009 ms).
+// (about 30 MB, 0.009 ms). Launch 3 alone does no product and is bound by
+// bytes: it reads and writes hin once, 2 B nc H P N 4 bytes (311 MB at 4
+// streams of Base-m2 at L 12,545: 0.093 ms at 3.35 TB/s); with 8 chunks'
+// loads in flight a thread it takes 0.13 ms there on an H100 SXM at 700 W,
+// 72 % of that rate.
 #include "mixer_parts.cuh"
 #include "ssd_core.cuh"
 
@@ -115,24 +122,69 @@ __global__ void __launch_bounds__(kSsdThreads) ssd_chunk_state_kernel(vmt::SsdAr
   }
 }
 
-// Launch 3: the sequential pass over chunks, one thread per state element
-// of a (head, batch), grid (H, B, ceil(P N / kSsdThreads)): each chunk's
-// S_c is replaced by the state entering it; h_last is the state after all.
-__global__ void __launch_bounds__(kSsdThreads) ssd_state_pass_kernel(vmt::SsdArgs a, int nc) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int H = a.H, PN = a.P * a.N;
-  const long long Lp = (long long)nc * a.Q;
-  const int i = blockIdx.z * kSsdThreads + threadIdx.x;
-  if (i < PN) {
-    float st = a.h0[((long long)b * H + h) * PN + i];
-    for (int c = 0; c < nc; ++c) {
-      float* S = a.hin + (((long long)b * nc + c) * H + h) * PN + i;
-      const float dec = expf(a.s[((long long)b * Lp + (long long)c * a.Q + a.Q - 1) * H + h]);
-      const float sc = *S;
-      *S = st;
-      st = dec * st + sc;
+// Launch 3: the sequential pass over chunks, h_c = exp(s_last) h_{c-1} + S_c,
+// grid (ceil(P N / 4 / kPassThreads), H, B): a thread owns 4 state elements
+// (one 16-byte vector) of a (head, batch) and walks its chunks in order,
+// replacing each chunk's S_c by the state entering it; h_last is the state
+// after all. Only the combine is serial: the thread keeps kPassDepth chunks'
+// loads in flight ahead of it (a register ring, each load issued before the
+// stores of the chunks it runs ahead of), so the pass streams hin at the
+// card's byte rate instead of paying a round trip a chunk. The block's
+// chunk-end decays are staged in shared memory kPassDecays at a time, off
+// the dependent path. Each element sees the same decays and the same fma in
+// chunk order whatever the layout, so the entry states and h_last do not
+// depend on how the threads split the state.
+constexpr int kPassThreads = 128;
+constexpr int kPassDepth = 8;
+constexpr int kPassDecays = 256;  // a multiple of kPassDepth
+static_assert(kPassDecays % kPassDepth == 0, "a decay tile holds whole rounds of the ring");
+
+__global__ void __launch_bounds__(kPassThreads) ssd_state_pass_kernel(vmt::SsdArgs a, int nc) {
+  __shared__ float dec[kPassDecays];
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int H = a.H, PN = a.P * a.N;  // PN % 16 == 0 (ssd_check)
+  const int i = (blockIdx.x * kPassThreads + threadIdx.x) * 4;
+  const bool live = i < PN;
+  const long long step = (long long)H * PN;  // hin's stride from one chunk to the next
+  float* S = a.hin + ((long long)b * nc * H + h) * PN + i;
+  const float* s_last = a.s + ((long long)b * nc * a.Q + a.Q - 1) * H + h;
+  const long long s_step = (long long)a.Q * H;
+  const long long hi = ((long long)b * H + h) * PN + i;
+  float4 st = {}, ring[kPassDepth];
+  if (live) {
+    st = make_float4(a.h0[hi], a.h0[hi + 1], a.h0[hi + 2], a.h0[hi + 3]);
+#pragma unroll
+    for (int j = 0; j < kPassDepth; ++j)
+      if (j < nc) ring[j] = vmt::ld4(S + j * step);
+  }
+  for (int c0 = 0; c0 < nc; c0 += kPassDecays) {
+    const int cn = min(kPassDecays, nc - c0);
+    __syncthreads();  // the last tile's decays are read
+    for (int j = threadIdx.x; j < cn; j += kPassThreads) dec[j] = expf(s_last[(c0 + j) * s_step]);
+    __syncthreads();
+    if (!live) continue;
+    for (int c1 = 0; c1 < cn; c1 += kPassDepth) {
+#pragma unroll
+      for (int j = 0; j < kPassDepth; ++j) {  // chunk c0 + c1 + j sits in ring[j]
+        const int c = c0 + c1 + j;
+        if (c1 + j < cn) {
+          const float4 sc = ring[j];
+          if (c + kPassDepth < nc) ring[j] = vmt::ld4(S + (c + kPassDepth) * step);
+          *reinterpret_cast<float4*>(S + c * step) = st;
+          const float d = dec[c1 + j];
+          st.x = d * st.x + sc.x;
+          st.y = d * st.y + sc.y;
+          st.z = d * st.z + sc.z;
+          st.w = d * st.w + sc.w;
+        }
+      }
     }
-    a.h_last[((long long)b * H + h) * PN + i] = st;
+  }
+  if (live) {
+    a.h_last[hi] = st.x;
+    a.h_last[hi + 1] = st.y;
+    a.h_last[hi + 2] = st.z;
+    a.h_last[hi + 3] = st.w;
   }
 }
 
@@ -274,6 +326,14 @@ __global__ void __launch_bounds__(kGateWarps * 32) ssd_gate_kernel(vmt::SsdArgs 
   }
 }
 
+// Launch 3 over a.hin's nc chunk states (B, nc, H, P, N).
+cudaError_t ssd_state_pass(const vmt::SsdArgs& a, int nc, cudaStream_t s) {
+  if (reinterpret_cast<uintptr_t>(a.hin) % 16) return cudaErrorMisalignedAddress;
+  const unsigned pn_blocks = (unsigned)((a.P * a.N / 4 + kPassThreads - 1) / kPassThreads);
+  ssd_state_pass_kernel<<<dim3(pn_blocks, a.H, a.B), kPassThreads, 0, s>>>(a, nc);
+  return cudaGetLastError();
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -311,9 +371,7 @@ cudaError_t ssd_walk(const SsdArgs& a, cudaStream_t s) {
   const int nc = (a.L + a.Q - 1) / a.Q;
   ssd_chunk_state_kernel<T><<<dim3(nc, a.H, a.B), kSsdThreads, 0, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const unsigned pn_blocks = (unsigned)((a.P * a.N + kSsdThreads - 1) / kSsdThreads);
-  ssd_state_pass_kernel<<<dim3(a.H, a.B, pn_blocks), kSsdThreads, 0, s>>>(a, nc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = ssd_state_pass(a, nc, s)) != cudaSuccess) return err;
   if ((err = ssd_cb<T>(a.cy, a.cb, a.B, a.L, a.Q, a.H, a.P, a.G, a.N, s)) != cudaSuccess)
     return err;
   const size_t out_smem = ssd_out_smem_bytes<T>(a.Q);

@@ -13,8 +13,8 @@ VMEM scratch: on Hopper that is one block per batch row. csrc/ssd_mixer.cu
 splits the walk by state passing instead, six launches on the current
 stream: the conv (K3's ``conv_silu`` over the slab, left context from the
 window); per (chunk, head, batch) block the chunk's own state (x w)^T B; a
-short sequential pass per (head, batch) that turns those into each chunk's
-entry state and h_last; per (causal 64 x 64 tile pair, group, batch)
+sequential pass over the chunks that turns those into each chunk's entry
+state and h_last; per (causal 64 x 64 tile pair, group, batch)
 block C B^T, built once for the group's heads into a scratch the wrapper
 allocates (:func:`cb_scratch_elems`); per (64 rows of a chunk, 64 head-dim
 columns, head, batch) block the intra-chunk (C B^T * decay * dt) x over
@@ -31,6 +31,16 @@ about 1.0 GFLOP (0.015 ms at fp32's 67 TFLOP/s) against about 30 MB of
 inputs and outputs (0.009 ms). The chunk products are fp32 FMA at fp32 and
 bf16 ``mma.sync`` with fp32 sums at bf16 (csrc/ssd_core.cuh's slab
 product), on operands already rounded to the compute dtype.
+
+The pass over the chunks does no product: it is bound by bytes, reading
+and writing the chunk states once (2 B nc H P N 4 bytes, 311 MB for 4
+streams of Base-m2 at L 12,545). Only its combine h = e^(s_last) h + S_c
+is serial, so each thread owns a 16-byte vector of the state and keeps 8
+chunks' loads in flight ahead of it, with the block's chunk-end decays in
+shared memory: the pass streams the states near the card's byte rate
+instead of paying one memory round trip a chunk. Each element's chunks are
+combined in order with the same fma, so the entry states and h_last do not
+depend on how the threads split the state.
 
 Rounding (the merged arm, the JAX default, _merged_scan_fwd_core): the conv,
 its SiLU and x_f are fp32; x, B, C, the decay-weighted tile m = C B^T e^(s_q
